@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU (written for the H100).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+
+1. the card's name and power limit; build the CUDA kernels (one nvcc per
+   source, in parallel) and compile the Triton kernel;
+2. each kernel against its plain PyTorch version on CUDA tensors, at the
+   reference tests' shapes and at the shapes of the served path, with
+   times (CUDA events) of kernel, plain version, one library call for
+   the same function, and the least time the card could take;
+3. full-width NLLB-600M, int4 weights, int8 embedding, paged int8 KV:
+   deploy() serves 8 requests through the kernels, with every launch
+   counter set to 0 just before and read just after;
+4. one decode step of the served engine state through the "kernels" and
+   the "torch" route bundles: logits agree within the reference engine's
+   int8-KV bound;
+5. where one decode micro-step's time goes (torch.profiler);
+6. a launch-count line, the kernels' JSON line, the card line, and last
+   {"ok": true, "device": {...}}.
+
+It needs a CUDA device and the repository's ``src/repro_torch``; without
+either it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+BF16_FLOPS_PER_MS = 989e12 / 1e3
+F32_FLOPS_PER_MS = 67e12 / 1e3
+
+SEED = 0
+SLOTS, MAX_LEN, PAGE, HORIZON, GEN = 8, 128, 16, 16, 32
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, flops: float, flops_per_ms: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / flops_per_ms
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_qmm(torch, dev):
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qmm import qmm_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    worst = 0.0
+    cases = [(m, k, n, b) for (m, k, n, b) in
+             [(8, 128, 64, 32), (48, 256, 128, 64), (1, 64, 96, 16), (130, 512, 256, 128)]]
+    cases += [(m, k, n, 64) for (k, n) in [(1024, 1024), (1024, 8192), (8192, 1024)]
+              for m in (1, 8, 256)]
+    for fmt in ("int4", "fp4", "nf4", "int8", "fp8"):
+        for m, k, n, block in cases:
+            w = torch.randn((k, n), generator=g, device=dev) * 0.05
+            qt = QTensor.quantize(w, fmt, block, double_quant=(fmt == "nf4"))
+            x = torch.randn((m, k), generator=g, device=dev)
+            for x_dt, out_dt in ((torch.float32, torch.float32),
+                                 (torch.bfloat16, torch.bfloat16)):
+                xi = x.to(x_dt)
+                y = ops.qmm(xi, qt, compute_dtype=out_dt).float()
+                p = qmm_plain(xi, qt.data, qt.block_scales(), fmt, out_dtype=out_dt).float()
+                rel = float((y - p).norm() / (p.norm() + 1e-9))
+                # f32 out: same bf16 rounding points, only the f32 sum
+                # order differs (CPU test bound). bf16 out: the two f32
+                # sums round to bf16 independently, at most one bf16 ulp
+                # (2^-8 relative) apart element by element.
+                tol = 1e-5 if out_dt == torch.float32 else 4e-3
+                if not rel <= tol:
+                    raise AssertionError(f"qmm {fmt} M={m} K={k} N={n} {out_dt}: "
+                                         f"rel err {rel:.3g} > {tol}")
+                if out_dt == torch.float32 and k >= 1024:
+                    worst = max(worst, float((y - p).abs().max()))
+    log(f"[kernels] qmm: 5 formats x {len(cases)} shapes x (f32, bf16) agree with "
+        f"qmm_plain; max abs err at main-path shapes (f32 out) {worst:.3g}")
+
+    # one decode step's qmm work at M = slots: 6 layers x (self q,k,v,o +
+    # cross q,o at 1024x1024, ffn in 1024x8192, ffn out 8192x1024), every
+    # launch on its own int4 weight as in the model (78 MB > the 50 MB L2)
+    shapes = [(1024, 1024)] * 6 + [(1024, 8192), (8192, 1024)]
+    weights = []
+    for _ in range(6):
+        for k, n in shapes:
+            w = torch.randn((k, n), generator=g, device=dev) * 0.05
+            weights.append(QTensor.quantize(w, "int4", 64))
+    xs = {k: torch.randn((SLOTS, k), generator=g, device=dev).to(torch.bfloat16)
+          for k in (1024, 8192)}
+    dense = [qt.dequantize(torch.bfloat16) for qt in weights]
+    scales = [qt.block_scales() for qt in weights]
+
+    def run_kernel():
+        for qt in weights:
+            ops.qmm(xs[qt.shape[0]], qt, compute_dtype=torch.bfloat16)
+
+    def run_plain():
+        for qt, s in zip(weights, scales):
+            qmm_plain(xs[qt.shape[0]], qt.data, s, "int4", out_dtype=torch.bfloat16)
+
+    def run_library():
+        for qt, wd in zip(weights, dense):
+            torch.matmul(xs[qt.shape[0]], wd)
+
+    t_b = t_o = 0.0
+    for qt in weights:
+        k, n = qt.shape
+        nbytes = SLOTS * k * 2 + k * n // 2 + (k // 64) * n * 4 + SLOTS * n * 2
+        t_b += nbytes / HBM_BYTES_PER_MS
+        t_o += 2 * SLOTS * k * n / BF16_FLOPS_PER_MS
+    ms_k, ms_p, ms_l = cuda_ms(run_kernel), cuda_ms(run_plain, reps=5), cuda_ms(run_library)
+    return {"name": "qmm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/qmm.cu",
+            "replaces": "src/repro/kernels/qmm.py:85",
+            "max_abs_err": worst, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
+            "library_ms": ms_l,
+            "work": f"one decode step: 48 int4 launches at M={SLOTS} "
+                    "(36 of 1024x1024, 6 of 1024x8192, 6 of 8192x1024)"}
+
+
+def _pool(torch, g, dev, P, ps, Hkv, d, kind):
+    from repro_torch.models.transformer import _quantize_token_kv
+    k = torch.randn((P, ps, Hkv, d), generator=g, device=dev)
+    v = torch.randn((P, ps, Hkv, d), generator=g, device=dev)
+    if kind == "bf16":
+        return k.to(torch.bfloat16), None, v.to(torch.bfloat16), None
+    if kind == "int8":
+        kc, ks = _quantize_token_kv(k)
+        vc, vs = _quantize_token_kv(v)
+        return kc, ks, vc, vs
+    ks = k.abs().amax(-1).clamp_min(1e-6) / 448.0
+    vs = v.abs().amax(-1).clamp_min(1e-6) / 448.0
+    return ((k / ks[..., None]).to(torch.float8_e4m3fn), ks,
+            (v / vs[..., None]).to(torch.float8_e4m3fn), vs)
+
+
+def check_paged_attn(torch, dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attn import paged_attn_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst = 0.0
+
+    def case(B, H, Hkv, d, P, ps, maxp, lengths, kind, q_dt=torch.float32):
+        kc, ks, vc, vs = _pool(torch, g, dev, P, ps, Hkv, d, kind)
+        perm = 1 + torch.randperm(P - 1, generator=g, device=dev)
+        tables = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, d), generator=g, device=dev).to(q_dt)
+        out = ops.paged_decode_attention(q, kc, vc, tables, lens, k_scales=ks,
+                                         v_scales=vs, out_dtype=torch.float32)
+        ref = paged_attn_plain(q.reshape(B, Hkv, H // Hkv, d), kc, ks, vc, vs,
+                               tables, lens, d ** -0.5).reshape(B, H, d)
+        err = float((out - ref).abs().max())
+        if not err < 1e-5:
+            raise AssertionError(f"paged_attn {kind} B={B} H={H} Hkv={Hkv} d={d}: "
+                                 f"max abs err {err:.3g}")
+        return err
+
+    for kind in ("int8", "fp8", "bf16"):
+        for H, Hkv, d in [(8, 2, 64), (4, 1, 128), (16, 16, 64), (10, 2, 64)]:
+            case(2, H, Hkv, d, 17, 16, 4, [64, 33], kind)
+        case(4, 8, 2, 64, 33, 8, 4, [32, 1, 17, 29], kind)
+        case(3, 4, 2, 64, 9, 8, 2, [0, 5, 16], kind)
+        lens = torch.randint(1, 257, (SLOTS,), generator=g, device=dev).tolist()
+        worst = max(worst, case(SLOTS, 16, 16, 64, SLOTS * 16 + 1, 16, 16, lens,
+                                kind, torch.bfloat16))
+
+    # poisoned trash page: out-of-chain entries name page 0, whose
+    # contents must not change one output bit
+    kc, ks, vc, vs = _pool(torch, g, dev, 5, 8, 2, 64, "int8")
+    q = torch.randn((1, 4, 64), generator=g, device=dev)
+    tbl = torch.tensor([[1, 0, 0, 0]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([8], dtype=torch.int32, device=dev)
+    base = ops.paged_decode_attention(q, kc, vc, tbl, lens, k_scales=ks, v_scales=vs,
+                                      out_dtype=torch.float32)
+    kc[0], vc[0], ks[0], vs[0] = 127, -127, 1e3, 1e3
+    poisoned = ops.paged_decode_attention(q, kc, vc, tbl, lens, k_scales=ks,
+                                          v_scales=vs, out_dtype=torch.float32)
+    if not torch.equal(base, poisoned):
+        raise AssertionError("paged_attn: the poisoned trash page changed the output")
+    log(f"[kernels] paged_attn: int8/fp8/bf16 pages agree with paged_attn_plain "
+        f"(< 1e-5); trash page unobservable; max abs err at the served shape {worst:.3g}")
+
+    # the served shape: B=slots, Hkv=16, G=1, d=64, ps=16, int8 pages,
+    # ragged lengths up to 256; one decode step = 6 launches (one a layer)
+    B, H, d, ps, maxp = SLOTS, 16, 64, 16, 16
+    lens = torch.randint(1, 257, (B,), generator=g, device=dev)
+    pools = [_pool(torch, g, dev, B * maxp + 1, ps, H, d, "int8") for _ in range(6)]
+    tables = (1 + torch.arange(B * maxp, device=dev)).reshape(B, maxp).to(torch.int32)
+    q = torch.randn((B, H, d), generator=g, device=dev).to(torch.bfloat16)
+    lens32 = lens.to(torch.int32)
+
+    def run_kernel():
+        for kc, ks, vc, vs in pools:
+            ops.paged_decode_attention(q, kc, vc, tables, lens32, k_scales=ks,
+                                       v_scales=vs, out_dtype=torch.float32)
+
+    def run_plain():
+        for kc, ks, vc, vs in pools:
+            paged_attn_plain(q.reshape(B, H, 1, d), kc, ks, vc, vs, tables, lens32,
+                             d ** -0.5)
+
+    # library yardstick: SDPA on K/V already gathered dense (the gather
+    # and dequantization are left out of its time)
+    S = maxp * ps
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    dense = [(torch.randn((B, H, S, d), generator=g, device=dev).to(torch.bfloat16),
+              torch.randn((B, H, S, d), generator=g, device=dev).to(torch.bfloat16))
+             for _ in range(6)]
+    q4 = q[:, :, None, :]
+
+    def run_library():
+        for k, v in dense:
+            torch.nn.functional.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+
+    tokens = int(lens.sum())
+    nbytes = 6 * (B * H * d * 2 + tokens * H * (2 * d + 2 * 4) + B * maxp * 4
+                  + B * 4 + B * H * d * 4)
+    flops = 6 * 4 * tokens * H * d
+    t, by = bound_ms(nbytes, flops, F32_FLOPS_PER_MS)
+    return {"name": "paged_attn", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+            "replaces": "src/repro/kernels/paged_attn.py:105",
+            "max_abs_err": worst, "ms": cuda_ms(run_kernel),
+            "plain_ms": cuda_ms(run_plain, reps=5), "bound_ms": t, "bound_by": by,
+            "library_ms": cuda_ms(run_library),
+            "work": f"one decode step: 6 launches, B={B} Hkv=16 G=1 d=64 ps=16 "
+                    f"int8 pages, {tokens} cached tokens (lengths 1..256)"}
+
+
+def check_fasst(torch, dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fasst import MODES, fasst_act_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst = 0.0
+    for shape in ((37, 100), (SLOTS, 8192)):
+        x = torch.randn(shape, generator=g, device=dev) * 3
+        for mode in MODES:
+            for dt in (torch.float32, torch.bfloat16):
+                xi = x.to(dt)
+                y = ops.fasst(xi, mode).float()
+                p = fasst_act_plain(xi, mode).float()
+                err = (y - p).abs()
+                # f32: the CPU test bound. bf16 out: the two f32 results
+                # may round to adjacent bf16 values: one bf16 ulp, at most
+                # 2^-7 of the value, beside the CPU test's 2e-2.
+                tol = 1e-5 if dt == torch.float32 else torch.clamp(
+                    p.abs() * 2.0 ** -7, min=2e-2)
+                if not bool((err <= tol).all()):
+                    raise AssertionError(f"fasst {mode} {dt} {shape}: max abs err "
+                                         f"{float(err.max()):.3g}")
+                if dt == torch.bfloat16 and shape[1] == 8192 and mode == "relu":
+                    worst = float(err.max())
+    log("[kernels] fasst_act: 8 modes x (f32, bf16) agree with fasst_act_plain")
+
+    # one decode step: 6 FFN relu launches on (slots, 8192) bf16
+    xs = [torch.randn((SLOTS, 8192), generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(6)]
+    gelu_ms = cuda_ms(lambda: [torch.nn.functional.gelu(x, approximate="tanh") for x in xs])
+    log(f"[kernels] fasst_act library yardsticks: relu in the entry below; "
+        f"gelu(tanh) x6 {gelu_ms:.4f} ms")
+    nbytes = 6 * SLOTS * 8192 * 2 * 2
+    t, by = bound_ms(nbytes, 6 * SLOTS * 8192, F32_FLOPS_PER_MS)
+    return {"name": "fasst_act", "route": "triton",
+            "source": "src/repro_torch/kernels/fasst.py",
+            "replaces": "src/repro/kernels/fasst.py:63",
+            "max_abs_err": worst,
+            "ms": cuda_ms(lambda: [ops.fasst(x, "relu") for x in xs]),
+            "plain_ms": cuda_ms(lambda: [fasst_act_plain(x, "relu") for x in xs]),
+            "bound_ms": t, "bound_by": by,
+            "library_ms": cuda_ms(lambda: [torch.relu(x) for x in xs]),
+            "work": f"one decode step: 6 relu launches on ({SLOTS}, 8192) bf16"}
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 4: the served path
+# ---------------------------------------------------------------------------
+
+def _requests(rng, lang_codes, n):
+    names = sorted(lang_codes)
+    lens = rng.integers(32, 65, n)
+    return ([rng.integers(16, 256204, int(L)).astype(np.int32) for L in lens],
+            [names[i % len(names)] for i in range(n)])
+
+
+def serve(torch, card):
+    from repro_torch.data import LANG_CODES
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx
+    from repro_torch.serving import SamplingParams, deploy
+
+    t0 = time.perf_counter()
+    pipe = deploy("nllb600m", "int4", paged=True, page_size=PAGE, slots=SLOTS,
+                  max_len=MAX_LEN, horizon=HORIZON, init_seed=SEED,
+                  ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True))
+    torch.cuda.synchronize()
+    log(f"[serve] deployed nllb600m int4 (full width, random weights from seed "
+        f"{SEED}) in {time.perf_counter() - t0:.2f} s; ctx {pipe.ctx}")
+    eng = pipe.engine
+    rng = np.random.default_rng(SEED)
+    sp = SamplingParams(max_new_tokens=GEN)
+
+    # warm-up (first cuBLAS / allocator calls), not measured
+    srcs, langs = _requests(rng, LANG_CODES, 2)
+    pipe.generate([{"src_tokens": s[None], "tgt_in": np.array([[LANG_CODES[lg]]], np.int32)}
+                   for s, lg in zip(srcs, langs)], SamplingParams(max_new_tokens=4))
+
+    srcs, langs = _requests(rng, LANG_CODES, SLOTS)
+    prompts = [{"src_tokens": s[None], "tgt_in": np.array([[LANG_CODES[lg]]], np.int32)}
+               for s, lg in zip(srcs, langs)]
+    for name in ("decode_steps", "decode_syncs", "prefill_calls"):
+        setattr(eng, name, 0)
+    eng.prefill_s = eng.decode_s = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = pipe.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+
+    if len(outs) != SLOTS or any(o.finish_reason != "length" or len(o.token_ids) != GEN
+                                 for o in outs):
+        raise AssertionError(f"not every request retired on length: "
+                             f"{[(o.finish_reason, len(o.token_ids)) for o in outs]}")
+    if any(not 0 <= t < pipe.cfg.vocab_size for o in outs for t in o.token_ids):
+        raise AssertionError("a token outside the vocabulary")
+    eng.allocator.check()
+    if eng.allocator.pages_in_use:
+        raise AssertionError(f"{eng.allocator.pages_in_use} pages leaked")
+    steps = eng.decode_steps
+    # per decode step and layer: self q,k,v,o + cross q,o + ffn in,out
+    L = pipe.cfg.num_layers
+    per_step = {"qmm": 8 * L, "paged_attn": L, "fasst_act": L}
+    for name, n in per_step.items():
+        if launches[name] < n * steps or launches[name] == 0:
+            raise AssertionError(f"{name}: {launches[name]} launches < {n} x {steps} "
+                                 "decode steps")
+    tokens = sum(len(o.token_ids) for o in outs)
+    stats = {"requests": len(outs), "tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall, "decode_steps": steps,
+             "decode_syncs": eng.decode_syncs,
+             "decode_ms_per_step": 1e3 * eng.decode_s / max(steps, 1),
+             "prefill_calls": eng.prefill_calls,
+             "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches, "card": card}
+    log("[serve] " + json.dumps(stats))
+    log(f"[serve] first stream: {outs[0].token_ids[:12]} ...")
+    return pipe, launches, prompts
+
+
+def routes_agree(torch, pipe, prompts):
+    """One decode step of a live engine state through both bundles."""
+    from repro_torch.models import Ctx
+    from repro_torch.serving import SamplingParams
+    eng = pipe.engine
+    for p in prompts:
+        eng.submit(p, SamplingParams(max_new_tokens=GEN))
+    eng.step(horizon=4)
+    eng.step(horizon=4)
+    active = [s.id for s in eng.slots if s.active]
+    if not active:
+        raise AssertionError("no active slot to compare routes on")
+    kern = Ctx(compute_dtype=torch.bfloat16, matmul_impl="kernel",
+               paged_attn_impl="kernel", use_fasst_kernel=True)
+    plain = Ctx(compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        c1 = {k: v.clone() for k, v in eng.cache.items()}
+        c2 = {k: v.clone() for k, v in eng.cache.items()}
+        _, lk = pipe.model.decode_step(kern, pipe.params, eng.cur, c1)
+        _, lt = pipe.model.decode_step(plain, pipe.params, eng.cur, c2)
+    lk, lt = lk[active, -1], lt[active, -1]
+    if not (torch.isfinite(lk).all() and torch.isfinite(lt).all()):
+        raise AssertionError("non-finite logits")
+    err = float((lk - lt).abs().max())
+    # reference engine test bound for int8 KV: the kernel route quantizes
+    # the fresh token before attending, the gather route does not
+    if not err < 0.3:
+        raise AssertionError(f"kernel and torch routes differ by {err:.3g} >= 0.3")
+    # greedy argmax must agree wherever the top-2 margin exceeds twice the
+    # routes' largest logit difference (closer calls are ties at this
+    # precision, and random weights make some)
+    top2 = lt.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * err
+    same = lk.argmax(-1) == lt.argmax(-1)
+    if not bool(same[decided].all()):
+        raise AssertionError(f"argmax differs between routes on a slot with margin > "
+                             f"2 x {err:.3g}: margins {margin.tolist()}, same {same.tolist()}")
+    log(f"[routes] kernels vs torch bundle on {len(active)} live slots: max |logit "
+        f"diff| {err:.4g} (< 0.3); argmax equal on {int(same.sum())}/{len(active)} "
+        f"slots, required on the {int(decided.sum())} with top-2 margin > {2 * err:.3g}")
+    eng.run_until_drained()
+    eng.allocator.check()
+
+
+def profile_decode(torch, pipe, prompts):
+    """Where a decode micro-step's time goes: torch.profiler over one
+    4-step horizon of the served engine with 8 live slots."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import SamplingParams
+    eng = pipe.engine
+    for p in prompts:
+        eng.submit(p, SamplingParams(max_new_tokens=GEN))
+    eng.step(horizon=1)                       # admit all 8, one step
+    torch.cuda.synchronize()
+    K = 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step(horizon=K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run_until_drained()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and getattr(e, "self_device_time_total", 0) > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        log("[profile] the profiler recorded no device time: not measured")
+        return
+    log(f"[profile] {K} decode micro-steps, 8 live slots: host wall {wall_ms / K:.3f} ms "
+        f"per step, device busy {busy_ms / K:.3f} ms per step "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}), "
+        f"{sum(e.count for e in kernels) / K:.0f} kernel launches per step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / K:8.4f} ms/step "
+            f"x{e.count / K:5.1f}  {e.key[:100]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found next to this script; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    card = card_line()
+    log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import build, ops
+    t0 = time.perf_counter()
+    build.build()
+    t_nvcc = time.perf_counter() - t0
+    ops.fasst(torch.zeros(4, 8, device=dev), "relu")       # Triton JIT compile
+    ops.qmm(torch.zeros(1, 64, device=dev),                  # load + codebooks
+            QTensor.quantize(torch.zeros(64, 8, device=dev), "int4"),
+            compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    log(f"[build] nvcc (2 sources in parallel) {t_nvcc:.1f} s; with Triton "
+        f"compile and load {time.perf_counter() - t0:.1f} s")
+    for name, text in build.PTXAS_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas {name}] {line.strip()}")
+
+    entries = [check_qmm(torch, dev), check_paged_attn(torch, dev), check_fasst(torch, dev)]
+    for e in entries:
+        log(f"[time] {e['name']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+            f"library {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}) — {e['work']}")
+    torch.cuda.empty_cache()
+
+    pipe, launches, prompts = serve(torch, card)
+    routes_agree(torch, pipe, prompts)
+    profile_decode(torch, pipe, prompts)
+
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    log("kernels: " + ", ".join(f"{e['name']}={e['launches']}" for e in entries))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,88 @@
+"""Public, shape-safe wrappers around the kernels.
+
+A wrapper given CPU tensors computes the kernel's plain PyTorch version;
+given CUDA tensors it launches the hand-written kernel, or raises — no
+build or launch failure falls back. ``LAUNCHES`` counts the kernel
+launches of each wrapper (plain-version calls are not counted), so a run
+can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.formats import get_format
+from ..core.qtensor import QTensor
+from . import fasst as _fasst
+from . import paged_attn as _pa
+from . import qmm as _qmm
+
+__all__ = ["qmm", "fasst", "paged_decode_attention", "LAUNCHES",
+           "reset_launches"]
+
+LAUNCHES = {"qmm": 0, "paged_attn": 0, "fasst_act": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def qmm(x: torch.Tensor, w: QTensor, *, compute_dtype=torch.bfloat16):
+    """x @ dequant(w) through the fused dequant-matmul kernel.
+
+    Accepts x of shape (..., K); w is an unbatched (K, N) QTensor
+    quantized along q_axis=-2. The kernel masks ragged tile edges
+    itself, so rows and columns need no padding.
+    """
+    fmt = get_format(w.fmt)
+    K = w.data.shape[-2] * (2 if fmt.bits == 4 else 1)
+    N = w.data.shape[-1]
+    sub_block = K // w.scales_shape[-2]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K).to(compute_dtype)
+    scales = w.block_scales()
+    if x2.is_cuda:
+        y = _qmm.qmm_kernel_call(x2, w.data, scales, fmt_name=w.fmt,
+                                 sub_block=sub_block, out_dtype=compute_dtype)
+        LAUNCHES["qmm"] += 1
+    else:
+        y = _qmm.qmm_plain(x2, w.data, scales, w.fmt, out_dtype=compute_dtype)
+    return y.reshape(*lead, N)
+
+
+def fasst(x: torch.Tensor, mode: str, *, out_dtype=None):
+    """Reconfigurable NAF (paper's FASST): elementwise over any shape."""
+    if x.is_cuda:
+        y = _fasst.fasst_act_call(x, mode=mode, out_dtype=out_dtype)
+        LAUNCHES["fasst_act"] += 1
+        return y
+    return _fasst.fasst_act_plain(x, mode, out_dtype=out_dtype)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                           k_scales=None, v_scales=None,
+                           sm_scale: float | None = None,
+                           out_dtype=torch.bfloat16):
+    """GQA decode attention against a block-paged KV cache.
+
+    q (B, H, d); k/v pages (P, ps, Hkv, d) — int8 / fp8 codes with
+    (P, ps, Hkv) f32 scales, or bf16 with scales=None; block_tables
+    (B, maxp) page ids (out-of-chain entries name the trash page);
+    lengths (B,). Returns (B, H, d).
+    """
+    B, H, d = q.shape
+    Hkv = k_pages.shape[2]
+    G = H // Hkv
+    sm_scale = sm_scale if sm_scale is not None else d ** -0.5
+    qg = q.reshape(B, Hkv, G, d)
+    if q.is_cuda:
+        out = _pa.paged_attn_call(qg, k_pages, k_scales, v_pages, v_scales,
+                                  block_tables, lengths, sm_scale=sm_scale,
+                                  out_dtype=out_dtype)
+        LAUNCHES["paged_attn"] += 1
+    else:
+        out = _pa.paged_attn_plain(qg, k_pages, k_scales, v_pages, v_scales,
+                                   block_tables, lengths, sm_scale,
+                                   out_dtype=out_dtype)
+    return out.reshape(B, H, d)

@@ -1,0 +1,113 @@
+"""Flash-decode attention over a block-paged KV cache (int8, fp8 or bf16).
+
+vLLM-style paged attention for the serving engine: the KV cache lives in
+a shared pool of fixed-size pages, and each sequence owns a chain of
+pages named by its row of the block table. ``paged_attn_call`` launches
+the hand-written CUDA kernel (``csrc/paged_attn.cu``), which walks the
+chains in place; ``paged_attn_plain`` gathers the chains densely and
+computes the same function in plain PyTorch.
+
+Layouts (the pool's native layout — nothing is transposed):
+  q            (B, Hkv, G, d)     G = query heads per KV head
+  k_pages      (P, ps, Hkv, d)    int8 / float8_e4m3fn codes or bf16
+  k_scales     (P, ps, Hkv) f32   None on the bf16 path
+  block_tables (B, maxp) int32    out-of-chain entries name the trash page
+  lengths      (B,) int32         valid tokens per sequence (0 = idle)
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .paging import gather_pages
+
+__all__ = ["paged_attn_plain", "paged_attn_call"]
+
+_KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+_IO_DTYPES = (torch.float32, torch.bfloat16)
+_SMEM_LIMIT = 48 * 1024
+_lib = None
+
+
+def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
+                     lengths, sm_scale: float, out_dtype=torch.float32):
+    """Plain PyTorch version: gather the chains dense, masked softmax."""
+    k = gather_pages(k_pages, block_tables).to(torch.float32)  # (B, S, Hkv, d)
+    v = gather_pages(v_pages, block_tables).to(torch.float32)
+    if k_scales is not None:
+        k = k * gather_pages(k_scales, block_tables)[..., None]
+        v = v * gather_pages(v_scales, block_tables)[..., None]
+    scores = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32), k) * sm_scale
+    pos = torch.arange(k.shape[1], device=q.device)
+    mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
+    scores = torch.where(mask, scores, float("-inf"))
+    p = torch.where(mask, torch.softmax(scores, dim=-1), 0.0)
+    return torch.einsum("bhgs,bshd->bhgd", p, v).to(out_dtype)
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from .build import library
+        lib = library("paged_attn")
+        lib.paged_attn_launch.restype = ctypes.c_int
+        lib.paged_attn_launch.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        _lib = lib
+    return _lib
+
+
+def paged_attn_call(q, k_pages, k_scales, v_pages, v_scales, block_tables,
+                    lengths, *, sm_scale: float, out_dtype=torch.float32):
+    """Launch the CUDA kernel on CUDA tensors; raises on anything else."""
+    tensors = [q, k_pages, v_pages, block_tables, lengths]
+    quantized = k_scales is not None
+    if quantized:
+        tensors += [k_scales, v_scales]
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("paged_attn_call takes CUDA tensors only")
+    if k_pages.dtype not in _KV_KINDS or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"pages must be one of {list(_KV_KINDS)}, got "
+                         f"{k_pages.dtype}/{v_pages.dtype}")
+    if quantized != (k_pages.dtype != torch.bfloat16) or (v_scales is None) == quantized:
+        raise ValueError("int8/fp8 pages need k and v scales; bf16 pages take none")
+    if q.dtype not in _IO_DTYPES or out_dtype not in _IO_DTYPES:
+        raise ValueError(f"q and out must be f32 or bf16, got {q.dtype}, {out_dtype}")
+    B, Hkv, G, d = q.shape
+    P, ps = k_pages.shape[:2]
+    maxp = block_tables.shape[1]
+    if tuple(k_pages.shape) != (P, ps, Hkv, d) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
+    if quantized and (tuple(k_scales.shape) != (P, ps, Hkv)
+                      or v_scales.shape != k_scales.shape
+                      or k_scales.dtype != torch.float32
+                      or v_scales.dtype != torch.float32):
+        raise ValueError("scales must be f32 (P, ps, Hkv)")
+    if tuple(block_tables.shape) != (B, maxp) or tuple(lengths.shape) != (B,):
+        raise ValueError("block_tables must be (B, maxp) and lengths (B,)")
+    smem = 4 * (2 * G * d + G * ps + 3 * G)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"G={G}, d={d}, ps={ps} need {smem} B of shared memory "
+                         f"(> {_SMEM_LIMIT})")
+    q = q.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    ks = k_scales.contiguous() if quantized else None
+    vs = v_scales.contiguous() if quantized else None
+    out = torch.empty((B, Hkv, G, d), dtype=out_dtype, device=q.device)
+    if B == 0:
+        return out
+    err = _library().paged_attn_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
+        ks.data_ptr() if quantized else None, v_pages.data_ptr(),
+        vs.data_ptr() if quantized else None, tables.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
+        B, Hkv, G, d, ps, maxp, _KV_KINDS[k_pages.dtype], float(sm_scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
+    return out

@@ -1,0 +1,65 @@
+"""Unified model facade: one callable surface per architecture family.
+
+build_model(cfg, device) -> ModelAPI with
+  init(generator)                    -> params
+  init_cache(batch, max_len, kv)     -> dense prefill cache
+  init_paged_cache(slots, max_pages, num_pages, page_size, kv)
+                                     -> block-paged serving cache
+  prefill(ctx, params, cache, batch) -> (cache, logits)
+  decode_step(ctx, params, tok, c)   -> (cache, logits)   (paged caches)
+
+Batches are dicts: {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}.
+This slice ports the enc-dec family; the others raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from ..unported import later
+from . import encdec as ed
+
+__all__ = ["ModelAPI", "build_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: Any
+    init: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_paged_cache: Callable
+
+
+def build_model(cfg, device="cuda") -> ModelAPI:
+    if cfg.family != "encdec":
+        raise later(f"model family {cfg.family!r}", 4)
+
+    def init(generator):
+        return ed.encdec_init(generator, cfg)
+
+    def init_cache(batch_size, max_len, kv_dtype="bf16", enc_len=None):
+        return ed.encdec_init_cache(cfg, batch_size, max_len,
+                                    enc_len or cfg.enc_len, kv_dtype, device)
+
+    def prefill(ctx, params, cache, batch):
+        if "frames" in batch:
+            raise later("audio (frame) encoders", 4)
+        return ed.encdec_prefill(ctx, params, cfg, cache, batch["tgt_in"],
+                                 batch["src_tokens"], batch.get("lengths"))
+
+    def decode_step(ctx, params, tokens, cache):
+        if "block_tables" not in cache:
+            raise later("dense-cache decoding", 2)
+        return ed.encdec_paged_decode_step(ctx, params, cfg, tokens, cache)
+
+    def init_paged_cache(slots, max_pages, num_pages, page_size,
+                         kv_dtype="bf16", enc_len=None):
+        return ed.encdec_init_paged_cache(cfg, slots, max_pages, num_pages,
+                                          page_size, kv_dtype,
+                                          enc_len or cfg.enc_len, device)
+
+    return ModelAPI(cfg, init, init_cache, prefill, decode_step,
+                    init_paged_cache)

@@ -1,0 +1,283 @@
+"""Encoder-decoder transformer: NLLB-600M (the paper's model).
+
+Pre-norm residual encoder/decoder stacks with rotary self-attention,
+cross-attention from the decoder, ReLU FFNs and a tied embedding head.
+Layer parameters are stacked on a leading ``L`` axis, as in the
+reference; the stacks run as Python loops over per-layer slices.
+
+Serving caches are updated in place: prefill writes into the cache it is
+given, and a paged decode step writes the fresh token into its pages.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.qlinear import embed_lookup
+from ..core.qtensor import QTensor, maybe_dequantize
+from ..unported import later
+from .layers import Ctx, attn_apply, mlp, rms_norm
+from .transformer import _dense_kv, _quantize_token_kv, paged_attn, paged_view
+
+__all__ = ["encdec_init", "encdec_encode", "encdec_init_cache",
+           "encdec_init_paged_cache", "encdec_prefill",
+           "encdec_paged_decode_step"]
+
+
+def _check_family(cfg):
+    if cfg.moe is not None:
+        raise later(f"{cfg.name}: the MoE encoder-decoder", 4)
+
+
+def _normal(g, shape, scale):
+    return torch.randn(shape, generator=g, device=g.device,
+                       dtype=torch.float32) * scale
+
+
+def _attn_init(g, L, cfg):
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = d ** -0.5
+    return {"wq": _normal(g, (L, d, H * hd), s),
+            "wk": _normal(g, (L, d, Hkv * hd), s),
+            "wv": _normal(g, (L, d, Hkv * hd), s),
+            "wo": _normal(g, (L, H * hd, d), (H * hd) ** -0.5)}
+
+
+def _mlp_init(g, L, cfg):
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"w_in": _normal(g, (L, d, ff), d ** -0.5),
+            "w_out": _normal(g, (L, ff, d), ff ** -0.5)}
+
+
+def encdec_init(g: torch.Generator, cfg):
+    """Random parameters with the reference's shapes and scales, drawn
+    from ``g`` on its device."""
+    _check_family(cfg)
+    Le, Ld, d = cfg.enc_layers, cfg.num_layers, cfg.d_model
+
+    def ones(*shape):
+        return torch.ones(shape + (d,), dtype=torch.float32, device=g.device)
+
+    params = {
+        "embedding": _normal(g, (cfg.vocab_size, d), 0.02),
+        "encoder": {
+            "layers": {"attn": _attn_init(g, Le, cfg), "norm1_scale": ones(Le),
+                       "norm2_scale": ones(Le), "mlp": _mlp_init(g, Le, cfg)},
+            "norm_f_scale": ones()},
+        "decoder": {
+            "layers": {"attn": _attn_init(g, Ld, cfg),
+                       "cross": _attn_init(g, Ld, cfg),
+                       "norm1_scale": ones(Ld), "norm2_scale": ones(Ld),
+                       "norm3_scale": ones(Ld), "mlp": _mlp_init(g, Ld, cfg)},
+            "norm_f_scale": ones()},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal(g, (d, cfg.vocab_size), d ** -0.5)
+    return params
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.select(i)
+    return tree[i]
+
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def encdec_encode(ctx: Ctx, params, cfg, src_tokens):
+    """Bidirectional encoder over src_tokens (B, Se)."""
+    x = embed_lookup(params["embedding"], src_tokens, ctx.compute_dtype)
+    B, Se, _ = x.shape
+    positions = _positions(B, Se, x.device)
+    for i in range(cfg.enc_layers):
+        lp = _layer(params["encoder"]["layers"], i)
+        h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+        y, _ = attn_apply(ctx, lp["attn"], h, positions,
+                          num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                          head_dim=cfg.head_dim, causal=False,
+                          rope_theta=cfg.rope_theta)
+        x = x + y
+        h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+    return rms_norm(x, params["encoder"]["norm_f_scale"], cfg.norm_eps)
+
+
+def _dec_layer(ctx, cfg, lp, x, positions, enc_kv):
+    """enc_kv = (k, v, enc_positions) precomputed cross K/V."""
+    h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+    y, kv = attn_apply(ctx, lp["attn"], h, positions, num_heads=cfg.num_heads,
+                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                       causal=True, rope_theta=cfg.rope_theta)
+    x = x + y
+    h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
+    y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
+                      num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                      causal=False, kv_override=enc_kv, use_rope=False)
+    x = x + y
+    h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
+    return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act), kv
+
+
+def _cross_kv(ctx, lp, cfg, enc_out):
+    """Per-layer cross-attention K/V from the encoder output."""
+    B, Se, _ = enc_out.shape
+    k = ctx.dot(enc_out, lp["cross"]["wk"]).reshape(B, Se, cfg.num_kv_heads,
+                                                     cfg.head_dim)
+    v = ctx.dot(enc_out, lp["cross"]["wv"]).reshape(B, Se, cfg.num_kv_heads,
+                                                     cfg.head_dim)
+    return k, v
+
+
+def _head(ctx, params, cfg, x):
+    if cfg.tie_embeddings:
+        # a plain product with the dequantized embedding, outside any
+        # kernel (as in the reference)
+        w = maybe_dequantize(params["embedding"], ctx.compute_dtype)
+        logits = torch.matmul(x.to(ctx.compute_dtype), w.t())
+    else:
+        logits = ctx.dot(x, params["lm_head"])
+    return logits.to(torch.float32)
+
+
+_KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _kv_leaves(prefix: str, L, B, S, Hkv, hd, kv_dtype, device):
+    if kv_dtype == "int8":
+        return {f"{prefix}k_codes": torch.zeros((L, B, S, Hkv, hd), dtype=torch.int8, device=device),
+                f"{prefix}k_scales": torch.zeros((L, B, S, Hkv), device=device),
+                f"{prefix}v_codes": torch.zeros((L, B, S, Hkv, hd), dtype=torch.int8, device=device),
+                f"{prefix}v_scales": torch.zeros((L, B, S, Hkv), device=device)}
+    if kv_dtype not in _KV_DTYPES:
+        raise later(f"KV cache {kv_dtype!r}", 3)
+    dt = _KV_DTYPES[kv_dtype]
+    return {f"{prefix}k": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
+            f"{prefix}v": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device)}
+
+
+def encdec_init_cache(cfg, batch: int, max_len: int, enc_len: int,
+                      kv_dtype: str = "bf16", device="cuda"):
+    """Dense serving cache: self K/V at ``max_len``, cross K/V at ``enc_len``."""
+    L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    cache = {"pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+             "cross_len": torch.full((batch,), enc_len, dtype=torch.int32, device=device)}
+    cache.update(_kv_leaves("cross_", L, batch, enc_len, Hkv, hd, kv_dtype, device))
+    cache.update(_kv_leaves("", L, batch, max_len, Hkv, hd, kv_dtype, device))
+    return cache
+
+
+def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens,
+                   lengths=None):
+    """Encode the source, run the decoder prompt, fill self + cross caches."""
+    enc_out = encdec_encode(ctx, params, cfg, src_tokens)
+    B, Sd = tgt_tokens.shape
+    Se = enc_out.shape[1]
+    dev = enc_out.device
+    x = embed_lookup(params["embedding"], tgt_tokens, ctx.compute_dtype)
+    positions = _positions(B, Sd, dev)
+    enc_pos = _positions(B, Se, dev)
+    ks, vs, cks, cvs = [], [], [], []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["decoder"]["layers"], i)
+        ck, cv = _cross_kv(ctx, lp, cfg, enc_out)
+        x, (k, v) = _dec_layer(ctx, cfg, lp, x, positions, (ck, cv, enc_pos))
+        ks.append(k), vs.append(v), cks.append(ck), cvs.append(cv)
+    ks, vs, cks, cvs = (torch.stack(t) for t in (ks, vs, cks, cvs))
+    x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
+    logits = _head(ctx, params, cfg, x)
+
+    lens = lengths if lengths is not None else torch.full(
+        (B,), Sd, dtype=torch.int32, device=dev)
+    new = dict(cache)
+    if "k_codes" in cache:
+        for name, t in (("k", ks), ("v", vs)):
+            codes, scales = _quantize_token_kv(t)
+            new[f"{name}_codes"][:, :, :Sd] = codes
+            new[f"{name}_scales"][:, :, :Sd] = scales
+        for name, t in (("k", cks), ("v", cvs)):
+            new[f"cross_{name}_codes"], new[f"cross_{name}_scales"] = \
+                _quantize_token_kv(t)
+    else:
+        new["cross_k"] = cks.to(cache["cross_k"].dtype)
+        new["cross_v"] = cvs.to(cache["cross_v"].dtype)
+        new["k"][:, :, :Sd] = ks.to(cache["k"].dtype)
+        new["v"][:, :, :Sd] = vs.to(cache["v"].dtype)
+    new["pos"][:, :Sd] = torch.where(positions < lens[:, None], positions, -1)
+    new["len"] = lens.to(torch.int32)
+    new["cross_len"] = torch.full((B,), Se, dtype=torch.int32, device=dev)
+    return new, logits
+
+
+def encdec_init_paged_cache(cfg, slots: int, max_pages: int, num_pages: int,
+                            page_size: int, kv_dtype: str = "bf16",
+                            enc_len: int = 0, device="cuda"):
+    """Paged enc-dec serving cache: block-paged decoder self-attention KV
+    in a shared pool; the cross-attention cache stays per-slot dense at
+    ``enc_len`` capacity, masked per slot by ``cross_len``."""
+    from ..serving.paged_cache import TRASH_PAGE, init_paged_kv
+    L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    enc_len = enc_len or cfg.enc_len
+    cache = init_paged_kv(L, num_pages, page_size, Hkv, hd, kv_dtype, device)
+    cache.update(_kv_leaves("cross_", L, slots, enc_len, Hkv, hd, kv_dtype, device))
+    cache["cross_len"] = torch.zeros((slots,), dtype=torch.int32, device=device)
+    cache["block_tables"] = torch.full((slots, max_pages), TRASH_PAGE,
+                                       dtype=torch.int32, device=device)
+    cache["len"] = torch.zeros((slots,), dtype=torch.int32, device=device)
+    cache["active"] = torch.zeros((slots,), dtype=torch.int32, device=device)
+    return cache
+
+
+def _enc_positions(cache, B: int, Se: int, device):
+    """Cross-attention key positions, -1 beyond each slot's source."""
+    enc_pos = _positions(B, Se, device)
+    return torch.where(enc_pos < cache["cross_len"][:, None], enc_pos, -1)
+
+
+def encdec_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
+    """One decoder token (tokens (B, 1)): paged self-attention + per-slot
+    dense cross-attention. Returns (cache, logits (B, 1, V))."""
+    tables, active = cache["block_tables"], cache["active"]
+    B = tokens.shape[0]
+    positions = cache["len"][:, None]
+    view_pos, pid, off = paged_view(cache)
+    x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
+    quant = "k_codes" in cache
+    Se = (cache["cross_k_codes"] if quant else cache["cross_k"]).shape[2]
+    enc_pos = _enc_positions(cache, B, Se, x.device)
+    use_kernel = ctx.paged_attn_impl == "kernel"
+    lengths_now = torch.where(active > 0, cache["len"] + 1, 0)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["decoder"]["layers"], i)
+        if quant:
+            leaves = (cache["k_codes"][i], cache["k_scales"][i],
+                      cache["v_codes"][i], cache["v_scales"][i])
+            ck = _dense_kv(cache["cross_k_codes"][i], cache["cross_k_scales"][i])
+            cv = _dense_kv(cache["cross_v_codes"][i], cache["cross_v_scales"][i])
+        else:
+            leaves = (cache["k"][i], cache["v"][i])
+            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+        h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+        y, _ = paged_attn(ctx, lp["attn"], h, positions, leaves, view_pos, pid,
+                          off, lengths_now, tables, use_kernel=use_kernel,
+                          num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                          head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+        x = x + y
+        h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
+        y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
+                          num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                          causal=False, kv_override=(ck, cv, enc_pos),
+                          use_rope=False)
+        x = x + y
+        h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+    x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
+    logits = _head(ctx, params, cfg, x)
+    new = dict(cache)
+    new["len"] = torch.where(active > 0, cache["len"] + 1, cache["len"])
+    return new, logits

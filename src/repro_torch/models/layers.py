@@ -1,0 +1,196 @@
+"""Shared neural layers (functional, quantization-aware).
+
+Every matmul routes through core.qlinear.qmatmul, so any layer deploys at
+any weight format. Activations come from the FASST NAF datapath
+(kernels.fasst._naf), shared by the kernel's plain version and the model.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any
+
+import torch
+
+from ..core.qlinear import qmatmul
+from ..kernels.fasst import _naf
+from ..unported import later
+
+__all__ = ["Ctx", "rms_norm", "rope", "linear", "mlp", "attn_apply",
+           "decode_attn_apply"]
+
+_MATMUL_IMPLS = ("torch", "kernel")
+_PAGED_ATTN_IMPLS = ("gather", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """Per-call execution context threaded through model code.
+
+    matmul_impl:     "torch" dequantizes next to a torch matmul; "kernel"
+                     routes 4-bit weights through the qmm kernel.
+    paged_attn_impl: "gather" materializes each chain densely; "kernel"
+                     runs the paged-attention kernel (write-then-attend).
+    use_fasst_kernel: route the FFN activation through the FASST kernel.
+    """
+    compute_dtype: Any = torch.bfloat16
+    act_fmt: str = "bf16"
+    attn_act_fmt: str = "bf16"
+    matmul_impl: str = "torch"
+    paged_attn_impl: str = "gather"
+    use_fasst_kernel: bool = False
+
+    def __post_init__(self):
+        if self.act_fmt != "bf16" or self.attn_act_fmt != "bf16":
+            raise later(f"act_fmt={self.act_fmt!r}, "
+                        f"attn_act_fmt={self.attn_act_fmt!r}", 3)
+        if self.matmul_impl not in _MATMUL_IMPLS:
+            raise ValueError(f"matmul_impl must be one of {_MATMUL_IMPLS}, "
+                             f"got {self.matmul_impl!r}")
+        if self.paged_attn_impl not in _PAGED_ATTN_IMPLS:
+            raise ValueError(f"paged_attn_impl must be one of "
+                             f"{_PAGED_ATTN_IMPLS}, got {self.paged_attn_impl!r}")
+
+    def dot(self, x, w):
+        return qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
+                       impl=self.matmul_impl)
+
+    def attn_dot(self, subscripts, a, b):
+        """QK / PV attention einsum with f32 accumulation."""
+        return torch.einsum(subscripts, a.to(torch.float32), b.to(torch.float32))
+
+    def naf(self, x, mode):
+        if self.use_fasst_kernel:
+            from ..kernels import ops as kops
+            return kops.fasst(x, mode)
+        return _naf(x.to(torch.float32), mode).to(x.dtype)
+
+
+def rms_norm(x, scale, eps=1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    return torch.exp(-torch.arange(0, half, dtype=torch.float32)
+                     * (log_theta / half)).to(device)
+
+
+def rope(x, positions, theta: float = 1e4):
+    """x (..., S, H, hd), positions (..., S) -> rotated x (pairs convention)."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(half, theta, x.device)
+    ang = positions.to(torch.float32)[..., None] * freqs     # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].to(torch.float32), x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def linear(ctx: Ctx, x, w, b=None):
+    y = ctx.dot(x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+PLAIN_ACTS = {"squared_relu": "squared_relu", "gelu": "gelu", "relu": "relu",
+              "silu": "silu"}
+
+
+def mlp(ctx: Ctx, params, x, act: str):
+    """Two-layer FFN (the GLU variants come with the LM families)."""
+    if act not in PLAIN_ACTS:
+        raise later(f"FFN activation {act!r}", 4)
+    h = ctx.naf(ctx.dot(x, params["w_in"]), PLAIN_ACTS[act])
+    return ctx.dot(h, params["w_out"])
+
+
+def _mask(pos_q, pos_k, causal: bool):
+    """Attention mask (..., Sq, Sk). pos_k < 0 marks invalid cache slots."""
+    pq = pos_q[..., :, None]
+    pk = pos_k[..., None, :]
+    m = pk >= 0
+    if causal:
+        m = m & (pk <= pq)
+    return m
+
+
+def _sdpa(ctx: Ctx, q, k, v, mask, sm_scale):
+    """q (B,Sq,Hkv,G,hd), k/v (B,Sk,Hkv,hd), mask (B,Sq,Sk) -> (B,Sq,Hkv,G,hd)."""
+    scores = ctx.attn_dot("bqhgd,bkhd->bhgqk", q, k.to(q.dtype)) * sm_scale
+    scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return ctx.attn_dot("bhgqk,bkhd->bqhgd", p, v).to(v.dtype)
+
+
+def attn_apply(ctx: Ctx, params, x, positions, *, num_heads, num_kv_heads,
+               head_dim, causal=True, rope_theta=1e4, kv_override=None,
+               use_rope=True):
+    """Self- (or cross-, via kv_override) attention block body."""
+    B, S, _ = x.shape
+    H, Hkv = num_heads, num_kv_heads
+    q = linear(ctx, x, params["wq"], params.get("bias_q")).reshape(B, S, H, head_dim)
+    if kv_override is None:
+        k = linear(ctx, x, params["wk"], params.get("bias_k")).reshape(
+            B, S, Hkv, head_dim)
+        v = linear(ctx, x, params["wv"], params.get("bias_v")).reshape(
+            B, S, Hkv, head_dim)
+        pos_k = positions
+    else:
+        k, v, pos_k = kv_override          # precomputed (cross-attn / cache)
+    if use_rope:
+        q = rope(q, positions, rope_theta)
+        if kv_override is None:
+            k = rope(k, pos_k, rope_theta)
+    qg = q.reshape(B, S, Hkv, H // Hkv, head_dim)
+    mask = _mask(positions, pos_k, causal)
+    if mask.ndim == 2:
+        mask = mask[None]
+    mask = mask.expand((B,) + tuple(mask.shape[-2:]))
+    out = _sdpa(ctx, qg, k, v, mask, head_dim ** -0.5).reshape(B, S, H, head_dim)
+    y = ctx.dot(out.reshape(B, S, H * head_dim), params["wo"])
+    return y, (k, v)
+
+
+def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
+                      cache_positions, *, num_heads, num_kv_heads, head_dim,
+                      rope_theta=1e4):
+    """One-token decode against a dense (dequantized) KV view.
+
+    x (B, 1, d); cache_k/v (B, Smax, Hkv, hd); cache_positions (B, Smax)
+    with -1 = empty. The fresh token joins through a two-part softmax
+    combine. Returns (y, new_k_token, new_v_token).
+    """
+    B = x.shape[0]
+    H, Hkv = num_heads, num_kv_heads
+    q = linear(ctx, x, params["wq"], params.get("bias_q")).reshape(B, 1, H, head_dim)
+    k_new = linear(ctx, x, params["wk"], params.get("bias_k")).reshape(
+        B, 1, Hkv, head_dim)
+    v_new = linear(ctx, x, params["wv"], params.get("bias_v")).reshape(
+        B, 1, Hkv, head_dim)
+    q = rope(q, positions, rope_theta)
+    k_new = rope(k_new, positions, rope_theta)
+
+    qg = q.reshape(B, 1, Hkv, H // Hkv, head_dim)
+    sm_scale = head_dim ** -0.5
+    cd = qg.dtype
+    s_cache = ctx.attn_dot("bqhgd,bkhd->bhgqk", qg, cache_k.to(cd)) * sm_scale
+    mask = _mask(positions, cache_positions, causal=True)      # (B,1,S)
+    s_cache = torch.where(mask[:, None, None, :, :], s_cache, -1e30)
+    s_new = ctx.attn_dot("bqhgd,bqhd->bhgq", qg, k_new.to(cd))[..., None] * sm_scale
+    m = torch.maximum(s_cache.amax(dim=-1, keepdim=True), s_new)
+    e_cache = torch.exp(s_cache - m)                        # (B,Hkv,G,1,S)
+    e_new = torch.exp(s_new - m)                            # (B,Hkv,G,1,1)
+    denom = e_cache.sum(dim=-1, keepdim=True) + e_new
+    out = ctx.attn_dot("bhgqk,bkhd->bqhgd", e_cache.to(cd), cache_v.to(cd))
+    out = out + e_new.permute(0, 3, 1, 2, 4) * v_new[:, :, :, None, :].to(torch.float32)
+    out = out / denom.permute(0, 3, 1, 2, 4)
+    y = ctx.dot(out.to(cd).reshape(B, 1, H * head_dim), params["wo"])
+    return y, k_new, v_new
+

@@ -1,0 +1,164 @@
+"""One-call deployment: config -> model -> quantize -> engine.
+
+    pipe = deploy("nllb600m", "int4", paged=True)          # on the card
+    outs = pipe.translate(src_tokens, "ita",
+                          SamplingParams(max_new_tokens=8, eos_id=2))
+
+``deploy`` runs on the CUDA device unless the caller passes ``device``
+(the tests pass ``device="cpu"``); without a card it raises. Kernel
+routes come in named bundles, as in the reference: ``"kernels"`` (the
+default: the qmm kernel for 4-bit matmuls, the paged-attention kernel
+for decoder self-attention) and ``"torch"`` (dequantize + torch matmul,
+gathered chains). ``matmul_impl`` / ``paged_attn_impl`` override single
+routes. The FASST activation kernel is the ``Ctx.use_fasst_kernel`` knob.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Sequence, Union
+
+import torch
+
+from ..configs import get_config, reduce_config
+from ..core import QuantSpec, quantize_tree, resolve_spec
+from ..data import LANG_CODES
+from ..models import Ctx, build_model
+from ..unported import later
+from .engine import ServeEngine
+from .params import RequestOutput, SamplingParams
+
+__all__ = ["deploy", "TranslationPipeline", "impl_routes", "DEFAULT_IMPL"]
+
+_IMPL_ROUTES = {
+    "torch": {"matmul_impl": "torch", "paged_attn_impl": "gather"},
+    "kernels": {"matmul_impl": "kernel", "paged_attn_impl": "kernel"},
+}
+DEFAULT_IMPL = "kernels"
+
+
+def impl_routes(impl: str) -> dict:
+    """deploy() kwargs for the named kernel-route bundle."""
+    if impl not in _IMPL_ROUTES:
+        raise KeyError(f"unknown impl bundle {impl!r}; have {sorted(_IMPL_ROUTES)}")
+    return dict(_IMPL_ROUTES[impl])
+
+
+@dataclasses.dataclass
+class TranslationPipeline:
+    """A deployed model + scheduler-owned engine behind two calls."""
+
+    cfg: Any
+    model: Any
+    params: Any
+    engine: ServeEngine
+    ctx: Ctx
+
+    def generate(self, prompts: Sequence[Any],
+                 params: Optional[SamplingParams] = None) -> List[RequestOutput]:
+        """Serve a list of B=1 batch dicts (or Requests); outputs come
+        back in input order."""
+        ids = [self.engine.submit(p, params) for p in prompts]
+        by_id = {o.request_id: o for o in self.engine.run_until_drained()}
+        return [by_id[i] for i in ids]
+
+    def translate(self, src_tokens, tgt_lang: Union[str, int],
+                  params: Optional[SamplingParams] = None) -> List[RequestOutput]:
+        """Many-to-many NMT: one output per source row. ``tgt_lang`` is a
+        name from ``data.LANG_CODES`` or a raw code-token id; the decoder
+        is prompted with that code token."""
+        code = LANG_CODES[tgt_lang] if isinstance(tgt_lang, str) else tgt_lang
+        src = torch.as_tensor(src_tokens, dtype=torch.int32)
+        src = src[None] if src.ndim == 1 else src
+        prompts = [{"src_tokens": src[i:i + 1],
+                    "tgt_in": torch.full((1, 1), code, dtype=torch.int32)}
+                   for i in range(src.shape[0])]
+        return self.generate(prompts, params)
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "deploy() runs on the CUDA device and none is available; "
+                "pass device='cpu' to run the plain PyTorch versions of the "
+                "kernels on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
+           slots: int = 4, max_len: int = 64, smoke: bool = False,
+           params: Any = None, ctx: Optional[Ctx] = None,
+           kv_dtype: Optional[str] = None, init_seed: int = 0,
+           paged: bool = False, page_size: int = 8,
+           num_pages: Optional[int] = None, max_src_len: Optional[int] = None,
+           horizon: int = 1, matmul_impl: Optional[str] = None,
+           paged_attn_impl: Optional[str] = None, calib_batches=None,
+           draft_spec=None, draft_lookahead: int = 4, overlap: bool = False,
+           sla=None, max_pending: Optional[int] = None, preempt_limit: int = 3,
+           faults=None, trace=None, mesh=None, device=None
+           ) -> TranslationPipeline:
+    """Build a ready-to-serve TranslationPipeline in one call.
+
+    arch_or_cfg: registry name or a ModelConfig.
+    policy:      a QuantSpec, an alias ("int4", "fp4", "nf4", ...) or a
+                 grammar string; the KV dtype follows the spec unless
+                 ``kv_dtype`` overrides.
+    smoke:       reduce the config to CPU-testable size and compute in
+                 f32 (when no ``ctx`` is given).
+    params:      a parameter tree (e.g. from ``repro_torch.convert``) on
+                 ``device``, quantized here per ``policy``; default: a
+                 fresh random init seeded by ``init_seed``.
+    paged:       must be True in this slice (block-paged KV cache with
+                 batched prefill admission and whole-budget page
+                 reservation; ``num_pages`` defaults to slots x pages of
+                 ``max_len``).
+    horizon:     decode micro-steps fused per host sync.
+    matmul_impl / paged_attn_impl: override single routes of the default
+                 "kernels" bundle; they replace the routes of an
+                 explicit ``ctx``.
+    preempt_limit: accepted for signature parity; whole-budget page
+                 reservation never preempts.
+    device:      None = "cuda" (raises without a card).
+    """
+    unported = {"draft_spec": draft_spec, "sla": sla, "faults": faults,
+                "trace": trace, "max_pending": max_pending,
+                "calib_batches": calib_batches}
+    for name, value in unported.items():
+        if value is not None:
+            raise later(f"deploy({name}=...)", 2)
+    if mesh is not None:
+        raise later("deploy(mesh=...)", 5)
+    if overlap:
+        raise later("overlapped rounds (overlap=True)", 2)
+    if not paged:
+        raise later("the dense-cache engine (paged=False)", 2)
+    spec = resolve_spec(policy)
+    if spec.quantizes_act or spec.quantizes_attn:
+        raise later(f"act-quantizing spec {spec}", 3)
+    kv = kv_dtype or spec.kv
+    if kv == "fp8":
+        raise later("fp8 KV caches", 3)
+    dev = _device(device)
+    cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
+    if smoke:
+        cfg = reduce_config(cfg)
+    model = build_model(cfg, dev)
+    if ctx is None:
+        ctx = Ctx(compute_dtype=torch.float32 if smoke else torch.bfloat16)
+    routes = impl_routes(DEFAULT_IMPL)
+    if matmul_impl is not None:
+        routes["matmul_impl"] = matmul_impl
+    if paged_attn_impl is not None:
+        routes["paged_attn_impl"] = paged_attn_impl
+    ctx = dataclasses.replace(ctx, **routes)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(init_seed))
+    if spec.weights != "f32":
+        params = quantize_tree(params, spec.policy())
+    engine = ServeEngine(model, params, slots=slots, max_len=max_len,
+                         kv_dtype=kv, ctx=ctx, page_size=page_size,
+                         num_pages=num_pages, max_src_len=max_src_len,
+                         horizon=horizon, device=dev)
+    return TranslationPipeline(cfg, model, params, engine, ctx)

@@ -1,0 +1,22 @@
+"""The one place that names what a later port slice brings.
+
+A route of the reference that this package does not run yet raises
+``NotImplementedError`` through :func:`later`, naming the slice (see
+ROADMAP.md, queue 1); nothing runs another route in its place.
+"""
+
+SLICES = {
+    2: "serving features: dense KV caches, sampled decoding, on-demand "
+       "paging and preemption, overlapped rounds, SLA admission, deadlines "
+       "and fault injection, tracing, speculative decoding",
+    3: "quantization routes: act-quantizing specs (w8a8, a8, afp8, x<fmt>), "
+       "fp8 KV caches, activation calibration, QLoRA",
+    4: "the other model families (decoder-only LMs, MoE, SSM, hybrid, audio)",
+    5: "scale-out: tensor-parallel meshes and replica routing",
+}
+
+
+def later(what: str, slice_no: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with port slice {slice_no} "
+        f"({SLICES[slice_no]}; ROADMAP.md queue 1)")

@@ -1,0 +1,143 @@
+"""Serving parity at smoke size: the port's deploy() -> paged engine
+streams the same greedy tokens as the JAX engine (Pallas kernel routes,
+interpret mode) on the same weights, token for token, for the 4-bit
+specs at horizon 1 and 16, with mixed source lengths and mid-stream
+admission; plus EOS retirement, page reclaim and the unported routes."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from test_torch_bridge import jax_to_torch  # noqa: E402
+
+from repro.configs import REGISTRY, reduce_config  # noqa: E402
+from repro.models import build_model as j_build_model  # noqa: E402
+from repro.serving import SamplingParams as JSamplingParams  # noqa: E402
+from repro.serving import deploy as j_deploy  # noqa: E402
+from repro.serving import impl_routes as j_impl_routes  # noqa: E402
+from repro_torch.serving import SamplingParams, deploy, impl_routes  # noqa: E402
+
+SPECS = ["int4", "fp4", "nf4"]
+SRC_LENS = [5, 9, 12, 5, 7]
+CODES = [8, 1, 7, 9, 2]
+GEN = 8
+KW = dict(smoke=True, paged=True, page_size=4, slots=3, max_len=16)
+
+
+def _prompts():
+    rng = np.random.default_rng(0)
+    return [{"src_tokens": rng.integers(16, 256, (1, n)).astype(np.int32),
+             "tgt_in": np.full((1, 1), c, np.int32)}
+            for n, c in zip(SRC_LENS, CODES)]
+
+
+@pytest.fixture(scope="module")
+def raw_params():
+    return j_build_model(reduce_config(REGISTRY["nllb600m"])).init(
+        jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def reference(raw_params):
+    """JAX engine streams per spec, computed once (horizon 16; the JAX
+    invariant makes every horizon identical)."""
+    out = {}
+    for spec in SPECS:
+        pipe = j_deploy("nllb600m", spec, params=raw_params, horizon=16, **KW,
+                        **j_impl_routes("pallas"))
+        outs = pipe.generate([{k: jax.numpy.asarray(v) for k, v in p.items()}
+                              for p in _prompts()],
+                             JSamplingParams(max_new_tokens=GEN))
+        out[spec] = [list(o.token_ids) for o in outs]
+    pipe = j_deploy("nllb600m", "int4", params=raw_params, horizon=16, **KW,
+                    **j_impl_routes("xla"))
+    outs = pipe.generate([{k: jax.numpy.asarray(v) for k, v in p.items()}
+                          for p in _prompts()], JSamplingParams(max_new_tokens=GEN))
+    out["int4-xla"] = [list(o.token_ids) for o in outs]
+    return out
+
+
+@pytest.fixture(scope="module")
+def torch_params(raw_params):
+    return jax_to_torch(raw_params)
+
+
+def _serve_mid_stream(pipe, sp):
+    """Two requests first, one horizon, then the rest join mid-stream."""
+    prompts = _prompts()
+    eng = pipe.engine
+    ids = [eng.submit(p, sp) for p in prompts[:2]]
+    outs = eng.step()
+    ids += [eng.submit(p, sp) for p in prompts[2:]]
+    outs += eng.run_until_drained()
+    by_id = {o.request_id: o for o in outs}
+    return [by_id[i] for i in ids]
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("horizon", [1, 16])
+def test_streams_equal_jax_engine(spec, horizon, reference, torch_params):
+    pipe = deploy("nllb600m", spec, params=torch_params, horizon=horizon,
+                  device="cpu", **KW)
+    outs = _serve_mid_stream(pipe, SamplingParams(max_new_tokens=GEN))
+    assert [o.token_ids for o in outs] == reference[spec]
+    assert all(o.finish_reason == "length" for o in outs)
+    pipe.engine.allocator.check()
+    assert pipe.engine.allocator.pages_in_use == 0
+    if horizon == 16:
+        assert pipe.engine.decode_syncs < pipe.engine.decode_steps
+
+
+@pytest.mark.parametrize("horizon", [1, 16])
+def test_torch_bundle_equals_jax_xla_bundle(horizon, reference, torch_params):
+    """The "torch" bundle (dequantize + matmul, gathered chains) is the
+    counterpart of the reference's "xla" bundle, token for token."""
+    pipe = deploy("nllb600m", "int4", params=torch_params, horizon=horizon,
+                  device="cpu", **KW, **impl_routes("torch"))
+    outs = _serve_mid_stream(pipe, SamplingParams(max_new_tokens=GEN))
+    assert [o.token_ids for o in outs] == reference["int4-xla"]
+    pipe.engine.allocator.check()
+
+
+@pytest.mark.parametrize("horizon", [1, 16])
+def test_eos_retirement(horizon, reference, torch_params):
+    stream = reference["int4"][1]
+    eos = stream[2]
+    cut = stream.index(eos) + 1
+    pipe = deploy("nllb600m", "int4", params=torch_params, horizon=horizon,
+                  device="cpu", **KW)
+    outs = pipe.generate([_prompts()[1]],
+                         SamplingParams(max_new_tokens=GEN, eos_id=eos))
+    assert outs[0].finish_reason == "eos"
+    assert outs[0].token_ids == stream[:cut]
+    pipe.engine.allocator.check()
+    assert pipe.engine.allocator.pages_in_use == 0
+
+
+def test_translate_surface(torch_params):
+    pipe = deploy("nllb600m", "int4", params=torch_params, device="cpu", **KW)
+    outs = pipe.translate(np.arange(20, 30).reshape(2, 5), "ita",
+                          SamplingParams(max_new_tokens=3))
+    assert [len(o.token_ids) for o in outs] == [3, 3]
+    assert [o.request_id for o in outs] == [0, 1]
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(policy="w8a8"), dict(policy="fp8e2e"), dict(policy="w4a8kv8"),
+    dict(policy="w16x8"), dict(policy="fp8"), dict(kv_dtype="fp8"),
+    dict(paged=False), dict(draft_spec="wfp4"), dict(sla=object()),
+    dict(faults=object()), dict(trace=object()), dict(mesh=object()),
+    dict(overlap=True)])
+def test_unported_routes_raise(kwargs):
+    kw = dict(KW, **kwargs)
+    policy = kw.pop("policy", "int4")
+    with pytest.raises(NotImplementedError, match="port slice"):
+        deploy("nllb600m", policy, device="cpu", **kw)
+
+
+def test_sampled_decoding_raises(torch_params):
+    pipe = deploy("nllb600m", "int4", params=torch_params, device="cpu", **KW)
+    with pytest.raises(NotImplementedError, match="port slice"):
+        pipe.generate(_prompts()[:1], SamplingParams(temperature=0.7))
