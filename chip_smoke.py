@@ -6,19 +6,30 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card's name and power limit; build the CUDA kernels (one nvcc per
-   source, in parallel) and compile the Triton kernel;
-2. each kernel against its plain PyTorch version on CUDA tensors, at the
-   reference tests' shapes and at the shapes of the served path, with
-   times (CUDA events) of kernel, plain version, one library call for
-   the same function, and the least time the card could take;
+   source, in parallel) and compile the Triton kernels;
+2. each of the five kernels against its plain PyTorch version on CUDA
+   tensors, at the reference tests' shapes and at the shapes of the
+   served path, with times (CUDA events) of kernel, plain version, one
+   library call for the same function, and the least time the card
+   could take;
 3. full-width NLLB-600M, int4 weights, int8 embedding, paged int8 KV:
-   deploy() serves 8 requests through the kernels, with every launch
-   counter set to 0 just before and read just after;
+   deploy(paged=True) serves 8 requests through the kernels, with every
+   launch counter set to 0 just before and read just after ([serve]);
 4. one decode step of the served engine state through the "kernels" and
    the "torch" route bundles: logits agree within the reference engine's
-   int8-KV bound;
+   int8-KV bound ([routes]);
 5. where one decode micro-step's time goes (torch.profiler);
-6. a launch-count line, the kernels' JSON line, the card line, and last
+6. deploy() with its defaults (the dense int8 KV engine) serves the same
+   8 requests on the same weights ([serve-dense]), profiled as in 5,
+   greedy and sampled; its greedy streams equal the paged engine's, or
+   part only at a near tie ([dense-vs-paged]);
+7. seeded temperature / top-p requests on both engines: in the
+   vocabulary, repeatable, and dense equal to paged up to near ties
+   ([sampled]);
+8. the ops API path of the dense decode attention and the row softmax,
+   driven on the dense engine's live caches and logits, with the launch
+   counters set to 0 just before and read just after ([api]);
+9. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -159,14 +170,14 @@ def check_qmm(torch, dev):
 
 
 def _pool(torch, g, dev, P, ps, Hkv, d, kind):
-    from repro_torch.models.transformer import _quantize_token_kv
+    from repro_torch.kernels import ops
     k = torch.randn((P, ps, Hkv, d), generator=g, device=dev)
     v = torch.randn((P, ps, Hkv, d), generator=g, device=dev)
     if kind == "bf16":
         return k.to(torch.bfloat16), None, v.to(torch.bfloat16), None
     if kind == "int8":
-        kc, ks = _quantize_token_kv(k)
-        vc, vs = _quantize_token_kv(v)
+        kc, ks = ops.quantize_kv(k)
+        vc, vs = ops.quantize_kv(v)
         return kc, ks, vc, vs
     ks = k.abs().amax(-1).clamp_min(1e-6) / 448.0
     vs = v.abs().amax(-1).clamp_min(1e-6) / 448.0
@@ -314,6 +325,170 @@ def check_fasst(torch, dev):
             "work": f"one decode step: 6 relu launches on ({SLOTS}, 8192) bf16"}
 
 
+def _int8_cache(torch, g, dev, B, S, Hkv, d):
+    from repro_torch.kernels import ops
+    kc, ks = ops.quantize_kv(torch.randn((B, S, Hkv, d), generator=g, device=dev))
+    vc, vs = ops.quantize_kv(torch.randn((B, S, Hkv, d), generator=g, device=dev))
+    return kc, ks, vc, vs
+
+
+def check_decode_attn(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attn import decode_attn_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def case(B, H, Hkv, d, S, lengths, q_dt=torch.float32):
+        kc, ks, vc, vs = _int8_cache(torch, g, dev, B, S, Hkv, d)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, d), generator=g, device=dev).to(q_dt)
+        out = ops.decode_attention(q, kc, ks, vc, vs, lens, out_dtype=torch.float32)
+        ref = decode_attn_plain(q.reshape(B, Hkv, H // Hkv, d), kc, ks, vc, vs, lens,
+                                d ** -0.5).reshape(B, H, d)
+        err = float((out - ref).abs().max())
+        if not err < 1e-5:
+            raise AssertionError(f"decode_attn B={B} H={H} Hkv={Hkv} d={d} S={S}: "
+                                 f"max abs err {err:.3g}")
+        if not bool((out[lens == 0] == 0).all()):
+            raise AssertionError("decode_attn: a zero-length row is not exactly zero")
+        return err
+
+    for H, Hkv, d in [(8, 2, 64), (4, 1, 128), (16, 16, 64), (10, 2, 64)]:
+        case(2, H, Hkv, d, 256, [256, 100])
+    case(4, 8, 2, 64, 384, [384, 1, 17, 200])
+    case(3, 4, 2, 64, 32, [0, 5, 32])
+    # the served dense engine: self caches S = max_len, cross caches
+    # S = cfg.enc_len (the engine's cross capacity) holding sources of 32
+    # to 64 tokens; also S = 64, a cross cache cut to the longest source
+    enc_len = get_config("nllb600m").enc_len
+    self_lens = torch.randint(1, MAX_LEN + 1, (SLOTS,), generator=g, device=dev)
+    cross_lens = torch.randint(32, 65, (SLOTS,), generator=g, device=dev)
+    worst = max(case(SLOTS, 16, 16, 64, S, lens.tolist(), torch.bfloat16)
+                for S, lens in ((MAX_LEN, self_lens), (enc_len, cross_lens),
+                                (64, cross_lens)))
+    log(f"[kernels] decode_attn: GQA (8,2,64) (4,1,128) (16,16,64) (10,2,64), ragged "
+        f"S=384, a zero-length row and the served shapes (self S={MAX_LEN}, cross "
+        f"S={enc_len} and 64) agree with decode_attn_plain (< 1e-5); max abs err at "
+        f"the served shapes {worst:.3g}")
+
+    # one decode step of the dense engine: per layer a self-attention read
+    # (S = max_len) and a cross-attention read (S = enc_len, 32 to 64 valid
+    # tokens), B = slots, H = Hkv = 16, d = 64, int8 caches, bf16 q, f32 out
+    B, H, d = SLOTS, 16, 64
+    reads = []
+    for _ in range(6):
+        for S, lens in ((MAX_LEN, self_lens), (enc_len, cross_lens)):
+            kc, ks, vc, vs = _int8_cache(torch, g, dev, B, S, H, d)
+            reads.append((S, lens.to(torch.int32), kc, ks, vc, vs))
+    q = torch.randn((B, H, d), generator=g, device=dev).to(torch.bfloat16)
+    q4 = q[:, :, None, :]
+
+    def run_kernel():
+        for _, lens, kc, ks, vc, vs in reads:
+            ops.decode_attention(q, kc, ks, vc, vs, lens, out_dtype=torch.float32)
+
+    def run_plain():
+        for _, lens, kc, ks, vc, vs in reads:
+            decode_attn_plain(q.reshape(B, H, 1, d), kc, ks, vc, vs, lens, d ** -0.5)
+
+    # library yardstick: SDPA on K/V dequantized to bf16 beforehand (the
+    # dequantization is left out of its time)
+    dense = []
+    for S, lens, kc, ks, vc, vs in reads:
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        dense.append(((kc.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2),
+                      (vc.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2),
+                      mask))
+
+    def run_library():
+        for k, v, mask in dense:
+            torch.nn.functional.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+
+    tokens = 6 * int(self_lens.sum() + cross_lens.sum())
+    nbytes = (12 * (B * H * d * 2 + B * 4 + B * H * d * 4)
+              + tokens * H * (2 * d + 2 * 4))
+    t, by = bound_ms(nbytes, 4 * tokens * H * d, F32_FLOPS_PER_MS)
+    return {"name": "decode_attn", "route": "cuda", "path": "ops API",
+            "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+            "replaces": "src/repro/kernels/decode_attn.py:77",
+            "max_abs_err": worst, "ms": cuda_ms(run_kernel),
+            "plain_ms": cuda_ms(run_plain, reps=5), "bound_ms": t, "bound_by": by,
+            "library_ms": cuda_ms(run_library),
+            "work": f"one dense decode step: 12 launches (6 self reads at S={MAX_LEN}, "
+                    f"6 cross reads at S={enc_len}), B={B} H=Hkv=16 d=64 int8 caches, "
+                    f"{tokens} valid cached tokens read (plain and SDPA read all S)"}
+
+
+# probabilities on a vocabulary-wide row are mostly far below any useful
+# absolute tolerance (the mean is 1/V), so each entry is also held to a
+# bound relative to itself
+SOFTMAX_RTOL, SOFTMAX_FLOOR = 1e-5, 1e-12
+
+
+def softmax_err(y, p):
+    """(max |y - p|, max |y - p| / (SOFTMAX_RTOL |p| + SOFTMAX_FLOOR)):
+    the second is <= 1 when every entry holds the relative bound."""
+    d = (y.float() - p.float()).abs()
+    return (float(d.max()),
+            float((d / (SOFTMAX_RTOL * p.float().abs() + SOFTMAX_FLOOR)).max()))
+
+
+def check_fasst_softmax(torch, dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fasst import fasst_softmax_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst = (0.0, 0.0)
+    vocab = (SLOTS, 256204)
+    for shape in ((8, 64), (33, 100), (1, 128), (128, 128), vocab):
+        x = torch.randn(shape, generator=g, device=dev) * 5
+        for valid in (-1, shape[1] // 3, shape[1] + 7):
+            y = ops.fasst_softmax(x, scale=0.7, valid_cols=valid)
+            p = fasst_softmax_plain(x, scale=0.7, valid_cols=valid)
+            err, rel = softmax_err(y, p)
+            vc = shape[1] if valid < 0 else min(valid, shape[1])
+            if not (err <= 1e-6 and rel <= 1.0) or not bool((y[:, vc:] == 0).all()):
+                raise AssertionError(f"fasst_softmax {shape} valid_cols={valid}: max abs "
+                                     f"err {err:.3g}, relative-bound share {rel:.3g}, "
+                                     f"masked columns zero {bool((y[:, vc:] == 0).all())}")
+            if shape == vocab and valid == -1:
+                worst = (err, rel)
+        yb = ops.fasst_softmax(x, scale=0.7, out_dtype=torch.bfloat16).float()
+        pb = fasst_softmax_plain(x, scale=0.7, out_dtype=torch.bfloat16).float()
+        # the two f32 results may round to adjacent bf16 values: one ulp
+        if not bool(((yb - pb).abs() <= pb.abs() * 2.0 ** -7).all()):
+            raise AssertionError(f"fasst_softmax {shape} bf16: more than one ulp apart")
+    log(f"[kernels] fasst_softmax: (8,64) (33,100) (1,128) (128,128) {vocab}, full, "
+        f"masked and clamped valid_cols, agree with fasst_softmax_plain (<= 1e-6 abs "
+        f"and {SOFTMAX_RTOL:g} * |p| + {SOFTMAX_FLOOR:g} per entry in f32, masked "
+        f"columns exactly 0, one ulp in bf16); on the vocabulary rows max abs err "
+        f"{worst[0]:.3g}, largest |y - p| / ({SOFTMAX_RTOL:g} |p| + {SOFTMAX_FLOOR:g}) "
+        f"{worst[1]:.3g}")
+
+    # the sampler's shape: a temperature softmax over the vocabulary for
+    # every slot, f32 logits in, f32 probabilities out
+    x = torch.randn(vocab, generator=g, device=dev) * 5
+    xs = x * 0.7
+    small = torch.randn((128, 128), generator=g, device=dev)
+    small_ms = (cuda_ms(lambda: ops.fasst_softmax(small)),
+                cuda_ms(lambda: torch.softmax(small, dim=-1)))
+    log(f"[kernels] fasst_softmax at (128, 128) f32: kernel {small_ms[0]:.4f} ms, "
+        f"torch.softmax {small_ms[1]:.4f} ms")
+    nbytes = 2 * x.numel() * 4
+    t, by = bound_ms(nbytes, 4 * x.numel(), F32_FLOPS_PER_MS)
+    return {"name": "fasst_softmax", "route": "triton", "path": "ops API",
+            "source": "src/repro_torch/kernels/fasst.py",
+            "replaces": "src/repro/kernels/fasst.py:95",
+            "max_abs_err": worst[0],
+            "ms": cuda_ms(lambda: ops.fasst_softmax(x, scale=0.7)),
+            "plain_ms": cuda_ms(lambda: fasst_softmax_plain(x, scale=0.7)),
+            "bound_ms": t, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.softmax(xs, dim=-1)),
+            "work": f"one launch on {vocab} f32 logits, scale 0.7 (torch.softmax "
+                    "timed on logits scaled beforehand)"}
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the served path
 # ---------------------------------------------------------------------------
@@ -325,20 +500,27 @@ def _requests(rng, lang_codes, n):
             [names[i % len(names)] for i in range(n)])
 
 
-def serve(torch, card):
+def serve(torch, card, *, paged: bool, params=None):
+    """Serve 8 full-width requests through deploy(): the paged engine
+    ([serve]) or deploy()'s default dense engine ([serve-dense])."""
     from repro_torch.data import LANG_CODES
     from repro_torch.kernels import ops
     from repro_torch.models import Ctx
     from repro_torch.serving import SamplingParams, deploy
 
+    tag = "serve" if paged else "serve-dense"
+    layout = dict(paged=True, page_size=PAGE) if paged else {}
     t0 = time.perf_counter()
-    pipe = deploy("nllb600m", "int4", paged=True, page_size=PAGE, slots=SLOTS,
-                  max_len=MAX_LEN, horizon=HORIZON, init_seed=SEED,
-                  ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True))
+    pipe = deploy("nllb600m", "int4", slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON,
+                  init_seed=SEED, params=params,
+                  ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True), **layout)
     torch.cuda.synchronize()
-    log(f"[serve] deployed nllb600m int4 (full width, random weights from seed "
-        f"{SEED}) in {time.perf_counter() - t0:.2f} s; ctx {pipe.ctx}")
+    log(f"[{tag}] deployed nllb600m int4 (full width, random weights from seed "
+        f"{SEED}), {'paged' if paged else 'dense'} int8 KV, in "
+        f"{time.perf_counter() - t0:.2f} s; ctx {pipe.ctx}")
     eng = pipe.engine
+    if eng.paged != paged:
+        raise AssertionError(f"deploy built a {'paged' if eng.paged else 'dense'} engine")
     rng = np.random.default_rng(SEED)
     sp = SamplingParams(max_new_tokens=GEN)
 
@@ -366,15 +548,21 @@ def serve(torch, card):
                                  for o in outs):
         raise AssertionError(f"not every request retired on length: "
                              f"{[(o.finish_reason, len(o.token_ids)) for o in outs]}")
-    if any(not 0 <= t < pipe.cfg.vocab_size for o in outs for t in o.token_ids):
-        raise AssertionError("a token outside the vocabulary")
-    eng.allocator.check()
-    if eng.allocator.pages_in_use:
-        raise AssertionError(f"{eng.allocator.pages_in_use} pages leaked")
+    _check_vocab(pipe, outs)
+    if paged:
+        eng.allocator.check()
+        if eng.allocator.pages_in_use:
+            raise AssertionError(f"{eng.allocator.pages_in_use} pages leaked")
     steps = eng.decode_steps
-    # per decode step and layer: self q,k,v,o + cross q,o + ffn in,out
+    # per decode step and layer: self q,k,v,o + cross q,o + ffn in,out;
+    # the dense engine reads its self-attention cache in torch, as the
+    # reference does through XLA
     L = pipe.cfg.num_layers
-    per_step = {"qmm": 8 * L, "paged_attn": L, "fasst_act": L}
+    per_step = {"qmm": 8 * L, "fasst_act": L}
+    if paged:
+        per_step["paged_attn"] = L
+    elif launches["paged_attn"]:
+        raise AssertionError("the dense engine launched the paged-attention kernel")
     for name, n in per_step.items():
         if launches[name] < n * steps or launches[name] == 0:
             raise AssertionError(f"{name}: {launches[name]} launches < {n} x {steps} "
@@ -388,9 +576,14 @@ def serve(torch, card):
              "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches, "card": card}
-    log("[serve] " + json.dumps(stats))
-    log(f"[serve] first stream: {outs[0].token_ids[:12]} ...")
-    return pipe, launches, prompts
+    log(f"[{tag}] " + json.dumps(stats))
+    log(f"[{tag}] first stream: {outs[0].token_ids[:12]} ...")
+    return pipe, launches, prompts, outs
+
+
+def _check_vocab(pipe, outs):
+    if any(not 0 <= t < pipe.cfg.vocab_size for o in outs for t in o.token_ids):
+        raise AssertionError("a token outside the vocabulary")
 
 
 def routes_agree(torch, pipe, prompts):
@@ -438,14 +631,16 @@ def routes_agree(torch, pipe, prompts):
     eng.allocator.check()
 
 
-def profile_decode(torch, pipe, prompts):
+def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
     """Where a decode micro-step's time goes: torch.profiler over one
-    4-step horizon of the served engine with 8 live slots."""
+    4-step horizon of the served engine with 8 live slots, greedy or
+    sampled (temperature 0.7, top-p 0.9)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import SamplingParams
     eng = pipe.engine
-    for p in prompts:
-        eng.submit(p, SamplingParams(max_new_tokens=GEN))
+    for i, p in enumerate(prompts):
+        knobs = dict(temperature=0.7, top_p=0.9, seed=100 + i) if sampled else {}
+        eng.submit(p, SamplingParams(max_new_tokens=GEN, **knobs))
     eng.step(horizon=1)                       # admit all 8, one step
     torch.cuda.synchronize()
     K = 4
@@ -460,15 +655,251 @@ def profile_decode(torch, pipe, prompts):
                and getattr(e, "self_device_time_total", 0) > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
         return
-    log(f"[profile] {K} decode micro-steps, 8 live slots: host wall {wall_ms / K:.3f} ms "
+    log(f"[{tag}] {K} decode micro-steps, 8 live slots: host wall {wall_ms / K:.3f} ms "
         f"per step, device busy {busy_ms / K:.3f} ms per step "
         f"(idle share {1 - busy_ms / wall_ms:.3f}), "
         f"{sum(e.count for e in kernels) / K:.0f} kernel launches per step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / K:8.4f} ms/step "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3 / K:8.4f} ms/step "
             f"x{e.count / K:5.1f}  {e.key[:100]}")
+
+
+def _fresh_engine(pipe, paged: bool):
+    """An idle engine of the given layout on ``pipe``'s model and weights."""
+    from repro_torch.serving import ServeEngine
+    return ServeEngine(pipe.model, pipe.params, slots=SLOTS, max_len=MAX_LEN,
+                       kv_dtype=pipe.engine.kv_dtype, ctx=pipe.ctx, paged=paged,
+                       page_size=PAGE, horizon=HORIZON, device=pipe.engine.device)
+
+
+def _filter_slack(torch, lg, sp, t):
+    """How far token ``t`` lies inside (> 0) or outside (< 0) the
+    request's filters on one engine's logits ``lg`` (V,): its scaled
+    logit above the k-th largest when top-k is on, else the top-p mass
+    left before it (top_p minus the probability mass ranked above it)."""
+    z = lg / sp.temperature
+    if sp.top_k > 0:
+        kth = z.topk(min(sp.top_k, z.numel())).values[-1]
+        if sp.top_p >= 1.0:
+            return "top-k", float(z[t] - kth)
+        z = torch.where(z < kth, -1e30, z)
+    p = torch.softmax(z, dim=-1)
+    return "top-p", sp.top_p - float(p[p > p[t]].sum())
+
+
+def _sampled_parting(torch, prng, lp, fp, fd, sp, j, a, b, err):
+    """Why a sampled slot parts at token ``j`` (paged drew ``a``, dense
+    ``b``): replays both draws from the engines' filtered logits ``fp``,
+    ``fd`` and the request's key, and checks that the parting is a near
+    tie of the logit differences ``err``. Returns a description of the
+    tie."""
+    g = prng.gumbel(prng.fold_in(prng.prng_key(sp.seed, lp.device), j), lp.shape)
+    if int(torch.argmax(fp + g)) != a or int(torch.argmax(fd + g)) != b:
+        raise AssertionError(f"the replayed draws ({int(torch.argmax(fp + g))}, "
+                             f"{int(torch.argmax(fd + g))}) are not the engines' ({a}, {b})")
+    kept = {(e, t): bool(f[t] > -1e29) for e, f in (("p", fp), ("d", fd)) for t in (a, b)}
+    moved = [t for t in (a, b) if kept["p", t] != kept["d", t]]
+    if not moved:
+        # both tokens pass both filters: the scores differ by the logits
+        margin = float((fp + g)[a] - (fp + g)[b])
+        bound = 2 * err / sp.temperature
+        what = f"Gumbel-max margin {margin:.4g} <= {bound:.4g}"
+    else:
+        # one token passes one engine's filter only: it sits on the
+        # filter's edge; the logits move a scaled logit by err / T and
+        # the probability mass by a factor of at most exp(2 err / T)
+        kind, slack = _filter_slack(torch, lp, sp, moved[0])
+        margin = abs(slack)
+        bound = (2 * err / sp.temperature if kind == "top-k"
+                 else float(np.expm1(2 * err / sp.temperature)))
+        what = f"token {moved[0]} on the {kind} edge, slack {margin:.4g} <= {bound:.4g}"
+    if not margin <= bound:
+        raise AssertionError(f"not a near tie: {what.replace('<=', '>')}")
+    return what
+
+
+def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_streams):
+    """Where a dense and a paged stream part, show that the step was a
+    near tie. Both layouts replay the common prefix teacher-forced in
+    fresh engines of the same slots. At a greedy slot's parting step the
+    top-2 margin of the paged engine's logits must be at most twice the
+    engines' largest logit difference at that step. A sampled slot's
+    draws are replayed from its key: either both tokens pass both
+    engines' filters and their Gumbel-max margin is at most twice the
+    difference over the temperature, or one sits on the top-k / top-p
+    edge within what that difference can move. Returns the parting
+    steps."""
+    from repro_torch import random as prng
+    from repro_torch.serving.sampler import filter_logits
+
+    part = {}
+    for i, (a, b) in enumerate(zip(paged_streams, dense_streams)):
+        j = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]), None)
+        if j is None and len(a) != len(b):
+            raise AssertionError(f"[{tag}] request {i}: streams of {len(a)} and "
+                                 f"{len(b)} tokens share every token")
+        if j == 0:
+            raise AssertionError(f"[{tag}] request {i}: the prefill tokens differ")
+        if j is not None:
+            part[i] = j
+    steps = max(list(part.values()) + [3])
+    engines = [_fresh_engine(pipe, paged) for paged in (True, False)]
+    with torch.no_grad():
+        for eng in engines:
+            for p, sp in zip(prompts, sps):
+                eng.submit(p, sp)
+            eng._admit_pending()
+            if [s.request.id for s in eng.slots] != list(range(len(prompts))):
+                raise AssertionError(f"[{tag}] admission placed requests out of order")
+        dev = engines[0].device
+        forced = torch.tensor([t[:steps] for t in paged_streams], dtype=torch.int32,
+                              device=dev)
+        knobs = [torch.tensor([getattr(sp, k) for sp in sps], dtype=dt, device=dev)
+                 for k, dt in (("temperature", torch.float32), ("top_k", torch.int64),
+                               ("top_p", torch.float32))]
+        for j in range(1, steps + 1):
+            lgs = []
+            for eng in engines:
+                eng.cache, lg = eng.model.decode_step(eng.ctx, eng.params,
+                                                      forced[:, j - 1:j], eng.cache)
+                lgs.append(lg[:, -1].float())
+            lp, ld = lgs
+            err = float((lp - ld).abs().max())
+            parting = [i for i, pj in part.items() if pj == j]
+            if any(not sps[i].greedy for i in parting):
+                # filter the whole batch, as the engines' sampler does
+                fp, fd = (filter_logits(lg, *knobs) for lg in (lp, ld))
+            for i in parting:
+                sp, a, b = sps[i], paged_streams[i][j], dense_streams[i][j]
+                where = f"[{tag}] request {i} parts at token {j} ({a} vs {b})"
+                # the routes' int8-KV bound of [routes] holds here too
+                if not err < 0.3:
+                    raise AssertionError(f"{where}: the engines' logits differ by "
+                                         f"{err:.3g} >= 0.3")
+                if sp.greedy:
+                    top2 = lp[i].topk(2).values
+                    margin = float(top2[0] - top2[1])
+                    if not margin <= 2 * err:
+                        raise AssertionError(
+                            f"{where} with top-2 margin {margin:.4g} > {2 * err:.4g} "
+                            "(2 x the engines' largest logit difference): not a near tie")
+                    what = f"top-2 margin {margin:.4g} <= {2 * err:.4g}"
+                else:
+                    try:
+                        what = _sampled_parting(torch, prng, lp[i], fp[i], fd[i], sp, j,
+                                                a, b, err)
+                    except AssertionError as e:
+                        raise AssertionError(f"{where}: {e}") from None
+                log(f"{where}: near tie, {what}")
+    return part
+
+
+def dense_vs_paged(torch, pipe, prompts, paged_outs, dense_outs):
+    from repro_torch.serving import SamplingParams
+    sps = [SamplingParams(max_new_tokens=GEN)] * len(prompts)
+    paged_streams = [o.token_ids for o in paged_outs]
+    dense_streams = [o.token_ids for o in dense_outs]
+    part = near_tie_partings(torch, "dense-vs-paged", pipe, prompts, sps,
+                             paged_streams, dense_streams)
+    same = sum(a == b for a, b in zip(paged_streams, dense_streams))
+    log(f"[dense-vs-paged] greedy streams on the same weights: {same}/{len(prompts)} "
+        f"token-identical; {len(part)} part, each at a near tie")
+
+
+def sampled(torch, pipe_p, pipe_d, prompts):
+    from repro_torch.serving import SamplingParams
+    sps = [SamplingParams(temperature=0.7, top_p=0.9, seed=100 + i, max_new_tokens=GEN)
+           for i in range(len(prompts))]
+
+    def run(pipe):
+        eng = pipe.engine
+        eng.decode_steps, eng.decode_s = 0, 0.0
+        ids = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
+        by_id = {o.request_id: o for o in eng.run_until_drained()}
+        outs = [by_id[i] for i in ids]
+        if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+            raise AssertionError("[sampled] not every request retired on length")
+        _check_vocab(pipe, outs)
+        return [o.token_ids for o in outs], 1e3 * eng.decode_s / eng.decode_steps
+
+    streams, ms = {}, {}
+    for name, pipe in (("paged", pipe_p), ("dense", pipe_d)):
+        (first, ms[name]), (again, _) = run(pipe), run(pipe)
+        if first != again:
+            raise AssertionError(f"[sampled] two runs of the {name} engine differ")
+        streams[name] = first
+    part = near_tie_partings(torch, "sampled", pipe_p, prompts, sps, streams["paged"],
+                             streams["dense"])
+    same = sum(a == b for a, b in zip(streams["paged"], streams["dense"]))
+    distinct = len({tuple(t) for t in streams["paged"]})
+    log(f"[sampled] temperature 0.7, top-p 0.9, seeds 100..{99 + len(prompts)}: both "
+        f"engines repeat their streams exactly; dense vs paged {same}/{len(prompts)} "
+        f"token-identical, {len(part)} part at a near tie; {distinct} distinct streams; "
+        f"decode ms per micro-step paged {ms['paged']:.3f}, dense {ms['dense']:.3f}; "
+        f"first stream {streams['paged'][0][:12]} ...")
+
+
+def api_path(torch, pipe):
+    """The ops API path of the two kernels that no serving path launches:
+    ``ops.decode_attention`` on every layer's self and cross int8 caches
+    of the dense engine with 8 live slots, and ``ops.fasst_softmax`` as
+    the sampler's temperature softmax over the engine's next-token
+    logits. Counters are set to 0 just before and read just after."""
+    from repro_torch.data import LANG_CODES
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attn import decode_attn_plain
+    from repro_torch.kernels.fasst import fasst_softmax_plain
+    from repro_torch.serving import SamplingParams
+
+    eng = pipe.engine
+    srcs, langs = _requests(np.random.default_rng(SEED + 5), LANG_CODES, SLOTS)
+    prompts = [{"src_tokens": s[None], "tgt_in": np.array([[LANG_CODES[lg]]], np.int32)}
+               for s, lg in zip(srcs, langs)]
+    for p in prompts:
+        eng.submit(p, SamplingParams(max_new_tokens=GEN))
+    eng.step(horizon=4)
+    if not all(s.active for s in eng.slots):
+        raise AssertionError("[api] not every slot is live")
+    cfg, c = pipe.cfg, eng.cache
+    B, H, d = SLOTS, cfg.num_heads, cfg.head_dim
+    g = torch.Generator(device=eng.device).manual_seed(SEED + 5)
+    qs = [torch.randn((B, H, d), generator=g, device=eng.device).to(torch.bfloat16)
+          for _ in range(2 * cfg.num_layers)]
+    with torch.no_grad():
+        _, logits = pipe.model.decode_step(pipe.ctx, pipe.params, eng.cur,
+                                           {k: v.clone() for k, v in c.items()})
+    reads = []
+    for i in range(cfg.num_layers):
+        reads.append((c["k_codes"][i], c["k_scales"][i], c["v_codes"][i],
+                      c["v_scales"][i], c["len"]))
+        reads.append((c["cross_k_codes"][i], c["cross_k_scales"][i],
+                      c["cross_v_codes"][i], c["cross_v_scales"][i], c["cross_len"]))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    outs = [ops.decode_attention(q, *r, out_dtype=torch.float32) for q, r in zip(qs, reads)]
+    probs = ops.fasst_softmax(logits[:, -1], scale=1 / 0.7)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    for name, n in (("decode_attn", 2 * cfg.num_layers), ("fasst_softmax", 1)):
+        if launches[name] != n:
+            raise AssertionError(f"[api] {name}: {launches[name]} launches, expected {n}")
+    err = max(float((o - decode_attn_plain(q.reshape(B, H, 1, d), *r, d ** -0.5)
+                     .reshape(B, H, d)).abs().max()) for o, q, r in zip(outs, qs, reads))
+    p_err, p_rel = softmax_err(probs, fasst_softmax_plain(logits[:, -1], scale=1 / 0.7))
+    if not (err < 1e-5 and p_err <= 1e-6 and p_rel <= 1.0
+            and bool(torch.isfinite(probs).all())):
+        raise AssertionError(f"[api] decode_attn err {err:.3g}, fasst_softmax err "
+                             f"{p_err:.3g} (relative-bound share {p_rel:.3g})")
+    log(f"[api] on the dense engine's live caches (len {c['len'].tolist()}, cross_len "
+        f"{c['cross_len'].tolist()}): decode_attn={launches['decode_attn']} launches, "
+        f"max abs err {err:.3g} vs decode_attn_plain; fasst_softmax={launches['fasst_softmax']} "
+        f"launch on {tuple(logits[:, -1].shape)} logits, max abs err {p_err:.3g}, "
+        f"largest |y - p| / ({SOFTMAX_RTOL:g} |p| + {SOFTMAX_FLOOR:g}) {p_rel:.3g} vs "
+        f"fasst_softmax_plain")
+    eng.run_until_drained()
+    return launches
 
 
 def main() -> int:
@@ -493,34 +924,44 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build()
     t_nvcc = time.perf_counter() - t0
-    ops.fasst(torch.zeros(4, 8, device=dev), "relu")       # Triton JIT compile
+    ops.fasst(torch.zeros(4, 8, device=dev), "relu")       # Triton JIT compiles
+    ops.fasst_softmax(torch.zeros(4, 8, device=dev))
     ops.qmm(torch.zeros(1, 64, device=dev),                  # load + codebooks
             QTensor.quantize(torch.zeros(64, 8, device=dev), "int4"),
             compute_dtype=torch.float32)
     torch.cuda.synchronize()
-    log(f"[build] nvcc (2 sources in parallel) {t_nvcc:.1f} s; with Triton "
-        f"compile and load {time.perf_counter() - t0:.1f} s")
+    log(f"[build] nvcc ({len(build.SOURCES)} sources in parallel) {t_nvcc:.1f} s; with "
+        f"Triton compile and load {time.perf_counter() - t0:.1f} s")
     for name, text in build.PTXAS_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
 
-    entries = [check_qmm(torch, dev), check_paged_attn(torch, dev), check_fasst(torch, dev)]
+    entries = [check_qmm(torch, dev), check_paged_attn(torch, dev), check_fasst(torch, dev),
+               check_decode_attn(torch, dev), check_fasst_softmax(torch, dev)]
     for e in entries:
         log(f"[time] {e['name']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
             f"library {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}) — {e['work']}")
     torch.cuda.empty_cache()
 
-    pipe, launches, prompts = serve(torch, card)
+    pipe, launches, prompts, paged_outs = serve(torch, card, paged=True)
     routes_agree(torch, pipe, prompts)
     profile_decode(torch, pipe, prompts)
+    pipe_d, _, _, dense_outs = serve(torch, card, paged=False, params=pipe.params)
+    profile_decode(torch, pipe_d, prompts, "profile-dense")
+    profile_decode(torch, pipe_d, prompts, "profile-dense-sampled", sampled=True)
+    dense_vs_paged(torch, pipe, prompts, paged_outs, dense_outs)
+    sampled(torch, pipe, pipe_d, prompts)
+    api_launches = api_path(torch, pipe_d)
 
     for e in entries:
-        e["launches"] = launches[e["name"]]
-    log("kernels: " + ", ".join(f"{e['name']}={e['launches']}" for e in entries))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+        served = e.setdefault("path", "served") == "served"
+        e["launches"] = (launches if served else api_launches)[e["name"]]
+    log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
+                                for e in entries))
+    keys = ("name", "route", "path", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

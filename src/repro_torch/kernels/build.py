@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 __all__ = ["SOURCES", "build", "library", "build_dir"]
 
-SOURCES = ("qmm", "paged_attn")
+SOURCES = ("qmm", "paged_attn", "decode_attn")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # what ptxas reported for each kernel built by this process (registers,

@@ -13,14 +13,17 @@ import torch
 
 from ..core.formats import get_format
 from ..core.qtensor import QTensor
+from . import decode_attn as _da
 from . import fasst as _fasst
 from . import paged_attn as _pa
 from . import qmm as _qmm
 
-__all__ = ["qmm", "fasst", "paged_decode_attention", "LAUNCHES",
+__all__ = ["qmm", "fasst", "fasst_softmax", "decode_attention",
+           "paged_decode_attention", "quantize_kv", "LAUNCHES",
            "reset_launches"]
 
-LAUNCHES = {"qmm": 0, "paged_attn": 0, "fasst_act": 0}
+LAUNCHES = {"qmm": 0, "paged_attn": 0, "fasst_act": 0, "decode_attn": 0,
+            "fasst_softmax": 0}
 
 
 def reset_launches() -> None:
@@ -58,6 +61,50 @@ def fasst(x: torch.Tensor, mode: str, *, out_dtype=None):
         LAUNCHES["fasst_act"] += 1
         return y
     return _fasst.fasst_act_plain(x, mode, out_dtype=out_dtype)
+
+
+def fasst_softmax(x: torch.Tensor, *, scale: float = 1.0, valid_cols: int = -1,
+                  out_dtype=None):
+    """Fused row softmax over the last axis of any shape: x * scale,
+    columns at or past ``valid_cols`` masked to exactly 0 (``< 0`` means
+    all, ``> C`` clamps to C), f32 inside, one cast to ``out_dtype``."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if x2.is_cuda:
+        y = _fasst.fasst_softmax_call(x2, scale=scale, valid_cols=valid_cols,
+                                      out_dtype=out_dtype)
+        LAUNCHES["fasst_softmax"] += 1
+    else:
+        y = _fasst.fasst_softmax_plain(x2, scale=scale, valid_cols=valid_cols,
+                                       out_dtype=out_dtype)
+    return y.reshape(shape)
+
+
+def quantize_kv(kv: torch.Tensor):
+    """Per-(token, head) int8 quantization of a (..., d) KV tensor:
+    codes int8 and f32 scales (..., ), as the dense and paged caches hold."""
+    return _da.quantize_token_kv(kv)
+
+
+def decode_attention(q, k_codes, k_scales, v_codes, v_scales, lengths, *,
+                     sm_scale: float | None = None, out_dtype=torch.bfloat16):
+    """GQA decode attention against a dense int8 KV cache.
+
+    q (B, H, d); k/v codes (B, S, Hkv, d) int8; scales (B, S, Hkv) f32;
+    lengths (B,) valid tokens per row. Returns (B, H, d).
+    """
+    B, H, d = q.shape
+    Hkv = k_codes.shape[2]
+    sm_scale = sm_scale if sm_scale is not None else d ** -0.5
+    qg = q.reshape(B, Hkv, H // Hkv, d)
+    if q.is_cuda:
+        out = _da.decode_attn_call(qg, k_codes, k_scales, v_codes, v_scales,
+                                   lengths, sm_scale=sm_scale, out_dtype=out_dtype)
+        LAUNCHES["decode_attn"] += 1
+    else:
+        out = _da.decode_attn_plain(qg, k_codes, k_scales, v_codes, v_scales,
+                                    lengths, sm_scale, out_dtype=out_dtype)
+    return out.reshape(B, H, d)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths, *,

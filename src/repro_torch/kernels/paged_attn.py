@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from .decode_attn import decode_attn_plain
 from .paging import gather_pages
 
 __all__ = ["paged_attn_plain", "paged_attn_call"]
@@ -33,18 +34,12 @@ _lib = None
 
 def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
                      lengths, sm_scale: float, out_dtype=torch.float32):
-    """Plain PyTorch version: gather the chains dense, masked softmax."""
-    k = gather_pages(k_pages, block_tables).to(torch.float32)  # (B, S, Hkv, d)
-    v = gather_pages(v_pages, block_tables).to(torch.float32)
-    if k_scales is not None:
-        k = k * gather_pages(k_scales, block_tables)[..., None]
-        v = v * gather_pages(v_scales, block_tables)[..., None]
-    scores = torch.einsum("bhgd,bshd->bhgs", q.to(torch.float32), k) * sm_scale
-    pos = torch.arange(k.shape[1], device=q.device)
-    mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
-    scores = torch.where(mask, scores, float("-inf"))
-    p = torch.where(mask, torch.softmax(scores, dim=-1), 0.0)
-    return torch.einsum("bhgs,bshd->bhgd", p, v).to(out_dtype)
+    """Plain PyTorch version: gather the chains dense (B, S, Hkv, d), then
+    the dense decode attention's plain version."""
+    def dense(t):
+        return None if t is None else gather_pages(t, block_tables)
+    return decode_attn_plain(q, dense(k_pages), dense(k_scales), dense(v_pages),
+                             dense(v_scales), lengths, sm_scale, out_dtype)
 
 
 def _library():

@@ -6,7 +6,7 @@ build_model(cfg, device) -> ModelAPI with
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
                                      -> block-paged serving cache
   prefill(ctx, params, cache, batch) -> (cache, logits)
-  decode_step(ctx, params, tok, c)   -> (cache, logits)   (paged caches)
+  decode_step(ctx, params, tok, c)   -> (cache, logits)   (dense or paged)
 
 Batches are dicts: {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}.
 This slice ports the enc-dec family; the others raise.
@@ -51,9 +51,7 @@ def build_model(cfg, device="cuda") -> ModelAPI:
                                  batch["src_tokens"], batch.get("lengths"))
 
     def decode_step(ctx, params, tokens, cache):
-        if "block_tables" not in cache:
-            raise later("dense-cache decoding", 2)
-        return ed.encdec_paged_decode_step(ctx, params, cfg, tokens, cache)
+        return ed.encdec_decode_step(ctx, params, cfg, tokens, cache)
 
     def init_paged_cache(slots, max_pages, num_pages, page_size,
                          kv_dtype="bf16", enc_len=None):

@@ -6,7 +6,8 @@ Layer parameters are stacked on a leading ``L`` axis, as in the
 reference; the stacks run as Python loops over per-layer slices.
 
 Serving caches are updated in place: prefill writes into the cache it is
-given, and a paged decode step writes the fresh token into its pages.
+given, and a decode step writes the fresh token into its dense row or
+its page.
 """
 
 from __future__ import annotations
@@ -16,11 +17,13 @@ import torch
 from ..core.qlinear import embed_lookup
 from ..core.qtensor import QTensor, maybe_dequantize
 from ..unported import later
-from .layers import Ctx, attn_apply, mlp, rms_norm
-from .transformer import _dense_kv, _quantize_token_kv, paged_attn, paged_view
+from .layers import Ctx, attn_apply, decode_attn_apply, mlp, rms_norm
+from .transformer import (_commit_decode_position, _dense_kv,
+                          _quantize_token_kv, _scatter_tokens, paged_attn,
+                          paged_view)
 
 __all__ = ["encdec_init", "encdec_encode", "encdec_init_cache",
-           "encdec_init_paged_cache", "encdec_prefill",
+           "encdec_init_paged_cache", "encdec_prefill", "encdec_decode_step",
            "encdec_paged_decode_step"]
 
 
@@ -237,6 +240,63 @@ def _enc_positions(cache, B: int, Se: int, device):
     """Cross-attention key positions, -1 beyond each slot's source."""
     enc_pos = _positions(B, Se, device)
     return torch.where(enc_pos < cache["cross_len"][:, None], enc_pos, -1)
+
+
+def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
+    """One decoder token (tokens (B, 1)) against dense self + cross
+    caches. Returns (cache, logits (B, 1, V)).
+
+    A cache carrying ``block_tables`` routes to the paged step. A dense
+    cache may carry an optional ``active`` (B,) mask (the engine's
+    horizon loop injects it): inactive slots decode into masked positions
+    (``pos`` stays -1) and their ``len`` freezes. The fresh token's K/V
+    is written into the cache in place (quantized on int8 caches)."""
+    if "block_tables" in cache:
+        return encdec_paged_decode_step(ctx, params, cfg, tokens, cache)
+    quant = "k_codes" in cache
+    if "k_scales" in cache and not quant:
+        raise later("fp8 KV caches", 3)
+    B = tokens.shape[0]
+    positions = cache["len"][:, None]
+    x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
+    Se = (cache["cross_k_codes"] if quant else cache["cross_k"]).shape[2]
+    enc_pos = _enc_positions(cache, B, Se, x.device)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["decoder"]["layers"], i)
+        if quant:
+            kc, ksc = cache["k_codes"][i], cache["k_scales"][i]
+            vc, vsc = cache["v_codes"][i], cache["v_scales"][i]
+            k_dense, v_dense = _dense_kv(kc, ksc), _dense_kv(vc, vsc)
+            ck = _dense_kv(cache["cross_k_codes"][i], cache["cross_k_scales"][i])
+            cv = _dense_kv(cache["cross_v_codes"][i], cache["cross_v_scales"][i])
+        else:
+            k_dense, v_dense = cache["k"][i], cache["v"][i]
+            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+        h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+        y, k_new, v_new = decode_attn_apply(
+            ctx, lp["attn"], h, positions, k_dense, v_dense, cache["pos"],
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+        x = x + y
+        h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
+        y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
+                          num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                          causal=False, kv_override=(ck, cv, enc_pos),
+                          use_rope=False)
+        x = x + y
+        h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+        if quant:
+            nkc, nks = _quantize_token_kv(k_new)
+            nvc, nvs = _quantize_token_kv(v_new)
+            for leaf, new in ((kc, nkc), (ksc, nks), (vc, nvc), (vsc, nvs)):
+                _scatter_tokens(leaf, new, cache["len"])
+        else:
+            _scatter_tokens(k_dense, k_new, cache["len"])
+            _scatter_tokens(v_dense, v_new, cache["len"])
+    x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
+    logits = _head(ctx, params, cfg, x)
+    return _commit_decode_position(dict(cache), cache, positions), logits
 
 
 def encdec_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.decode_attn import quantize_token_kv as _quantize_token_kv
 from ..kernels.paging import gather_pages, scatter_token
 from .layers import decode_attn_apply, linear, rope
 
@@ -116,14 +117,6 @@ def _paged_attn_kernel_apply(ctx, ap, x, positions, leaves, pid, off,
                                           out_dtype=torch.float32)
     y = ctx.dot(out.to(x.dtype).reshape(B, 1, H * hd), ap["wo"])
     return y, leaves
-
-
-def _quantize_token_kv(t):
-    """(..., hd) -> int8 codes + per-(token, head) f32 scales."""
-    absmax = t.to(torch.float32).abs().amax(dim=-1)
-    scales = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
-    codes = torch.clamp(torch.round(t / scales[..., None]), -127, 127).to(torch.int8)
-    return codes, scales
 
 
 def _dense_kv(codes, scales):

@@ -1,5 +1,6 @@
 """Serving: deploy() -> TranslationPipeline -> SamplingParams / Request /
-RequestOutput, scheduled by the queue-owning paged ServeEngine."""
+RequestOutput, scheduled by the queue-owning ServeEngine over a dense
+(default) or block-paged KV cache."""
 
 from .engine import ServeEngine
 from .paged_cache import PageAllocator, pages_needed

@@ -1,22 +1,30 @@
-"""Scheduler-owned serving engine: continuous batching over a block-paged
-KV cache with horizon-fused greedy decode.
+"""Scheduler-owned serving engine: continuous batching with
+horizon-fused decode, over a dense or a block-paged KV cache.
 
     rid  = engine.submit(inputs, SamplingParams(...))   # enqueue
     outs = engine.step()       # admit + one fused decode horizon
     outs = engine.run_until_drained()                   # serve everything
 
-Admission batches same-shaped queued requests into one prefill (prompts
-right-padded to a power-of-two bucket), scatters the prompt K/V into page
-chains reserved for the request's whole budget, and samples each first
-token. A decode horizon then runs ``K`` decode + greedy micro-steps on the
+Admission prefills each queued request (prompt right-padded to its
+power-of-two bucket, true length in ``lengths``) and samples its first
+token from the logits at ``length - 1``. The dense engine (the default)
+prefills one request at a time into a one-slot cache and splices it into
+a free slot of the ``(slots, max_len)`` batch cache. The paged engine
+(``paged=True``) batches same-shaped requests into one prefill and
+scatters the prompt K/V into page chains reserved for the request's
+whole budget.
+
+A decode horizon then runs ``K`` decode + sample micro-steps on the
 device with per-slot ``alive`` / remaining-budget masks — a slot that
 emits its ``eos_id`` or exhausts ``max_new_tokens`` keeps decoding into
-the trash page, frozen — and brings the ``(K, slots)`` token block to the
-host with ONE sync. The host walk retires slots on EOS or length and
-reclaims their pages; queued requests fill freed slots at the next
-horizon boundary. ``K`` is clamped to the power-of-two bucket of the
-largest remaining budget. Slots never attend to each other, so the token
-streams do not depend on the horizon or on admission timing.
+masked positions (the trash page when paged), frozen — and brings the
+``(K, slots)`` token block to the host with ONE sync. The host walk
+retires slots on EOS or length (reclaiming their pages when paged);
+queued requests fill freed slots at the next horizon boundary. ``K`` is
+clamped to the power-of-two bucket of the largest remaining budget.
+Slots never attend to each other and each request draws its sampling
+noise from its own seeded stream, so the token streams depend neither on
+the horizon, nor on admission timing, nor on the cache layout.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import random as prng
 from ..unported import later
 from .paged_cache import TRASH_PAGE, PageAllocator, paged_insert, pages_needed
 from .params import GREEDY, Request, RequestOutput, RequestStats, SamplingParams
@@ -46,11 +55,11 @@ class _Slot:
 
 
 class ServeEngine:
-    """Fixed-slot continuous-batching engine over a paged KV cache."""
+    """Fixed-slot continuous-batching engine over a dense or paged KV cache."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
-                 kv_dtype: str = "bf16", ctx=None, page_size: int = 8,
-                 num_pages: Optional[int] = None,
+                 kv_dtype: str = "bf16", ctx=None, paged: bool = False,
+                 page_size: int = 8, num_pages: Optional[int] = None,
                  max_src_len: Optional[int] = None, horizon: int = 1,
                  device="cuda"):
         if horizon < 1:
@@ -66,16 +75,29 @@ class ServeEngine:
         self.n_slots = slots
         self.horizon = int(horizon)
         self.enc_cap = int(max_src_len or model.cfg.enc_len)
+        self.paged = bool(paged)
         self.page_size = int(page_size)
-        self.max_pages = pages_needed(max_len, self.page_size)
-        usable = num_pages if num_pages is not None else slots * self.max_pages
-        self.allocator = PageAllocator(usable + 1, reserved=1)
-        self.cache = model.init_paged_cache(slots, self.max_pages, usable + 1,
-                                            self.page_size, kv_dtype,
-                                            enc_len=self.enc_cap)
+        self.allocator: Optional[PageAllocator] = None
+        if self.paged:
+            self.max_pages = pages_needed(max_len, self.page_size)
+            usable = num_pages if num_pages is not None else slots * self.max_pages
+            self.allocator = PageAllocator(usable + 1, reserved=1)
+            self.cache = model.init_paged_cache(slots, self.max_pages, usable + 1,
+                                                self.page_size, kv_dtype,
+                                                enc_len=self.enc_cap)
+        else:
+            self.cache = model.init_cache(slots, max_len, kv_dtype,
+                                          enc_len=self.enc_cap)
         self._chains: Dict[int, list] = {}
         self.slots = [_Slot(i) for i in range(slots)]
-        self.cur = torch.zeros((slots, 1), dtype=torch.int32, device=self.device)
+        dev = self.device
+        self.cur = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        # per-slot sampling state, read by every decode micro-step
+        self._temps = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._top_ks = torch.zeros((slots,), dtype=torch.int64, device=dev)
+        self._top_ps = torch.ones((slots,), dtype=torch.float32, device=dev)
+        self._keys = torch.zeros((slots, 2), dtype=torch.int64, device=dev)
+        self._offsets = torch.zeros((slots,), dtype=torch.int64, device=dev)
         self._queue: collections.deque = collections.deque()
         self._finished: List[RequestOutput] = []
         self._next_id = 0
@@ -99,8 +121,6 @@ class ServeEngine:
         elif params is not None:
             request = dataclasses.replace(request, params=params)
         sp = request.params
-        if not sp.greedy:
-            raise later("sampled decoding (temperature > 0)", 2)
         if sp.deadline_ms is not None:
             raise later("request deadlines", 2)
         inputs = {}
@@ -114,11 +134,12 @@ class ServeEngine:
                 f"request needs prompt_len + max_new_tokens = {prompt_len} + "
                 f"{sp.max_new_tokens} = {budget} cache positions but the "
                 f"engine was built with max_len={self.max_len}")
-        need = pages_needed(budget, self.page_size)
-        usable = self.allocator.capacity - self.allocator.reserved
-        if need > usable:
-            raise ValueError(f"request needs {need} KV pages but the pool "
-                             f"holds only {usable}")
+        if self.paged:
+            need = pages_needed(budget, self.page_size)
+            usable = self.allocator.capacity - self.allocator.reserved
+            if need > usable:
+                raise ValueError(f"request needs {need} KV pages but the pool "
+                                 f"holds only {usable}")
         se = int(inputs["src_tokens"].shape[1])
         if se > self.enc_cap:
             raise ValueError(f"source length {se} exceeds the engine's "
@@ -179,16 +200,38 @@ class ServeEngine:
                     eos[s.id] = sp.eos_id
         return (torch.from_numpy(a).to(self.device) for a in (alive, rem, eos))
 
+    @staticmethod
+    def _all_greedy(requests) -> bool:
+        """Whether none of ``requests`` samples: the sampler then takes
+        the argmax alone."""
+        return all(r.params.greedy for r in requests)
+
+    def _first_tokens(self, logits, requests, slots):
+        """Token 0 of newly admitted ``requests`` in ``slots``: each draws
+        fold 0 of its key."""
+        return sample_tokens(logits, self._temps[slots], self._top_ks[slots],
+                             self._top_ps[slots], self._keys[slots],
+                             torch.zeros_like(slots),
+                             all_greedy=self._all_greedy(requests))
+
     @torch.no_grad()
     def _run_horizon(self, K: int) -> np.ndarray:
-        """K decode + greedy micro-steps on the device; one host sync."""
+        """K decode + sample micro-steps on the device; one host sync."""
         t0 = time.perf_counter()
         alive, rem, eos = self._scan_masks()
+        greedy = self._all_greedy(s.request for s in self.slots if s.active)
         cache, cur, toks = self.cache, self.cur, []
         for _ in range(K):
-            cache["active"] = alive
+            # dense caches take the mask for the step only; paged caches
+            # keep it
+            cache = dict(cache, active=alive)
             cache, logits = self.model.decode_step(self.ctx, self.params, cur, cache)
-            tok = sample_tokens_scan(logits[:, -1], alive)
+            if not self.paged:
+                del cache["active"]
+            tok = sample_tokens_scan(logits[:, -1], self._temps, self._top_ks,
+                                     self._top_ps, self._keys, self._offsets, alive,
+                                     all_greedy=greedy)
+            self._offsets = self._offsets + 1
             rem = rem - alive
             done = ((alive > 0) & (eos >= 0) & (tok == eos)) | (rem <= 0) \
                 | (tok == ERR_TOKEN)
@@ -228,11 +271,93 @@ class ServeEngine:
         self._finished.append(RequestOutput(rid, s.request.inputs, list(s.tokens),
                                             reason, st, slot=s.id))
         s.active, s.request, s.tokens = False, None, []
-        # reclaim the chain and park the slot on the trash page
-        self.allocator.free_chain(self._chains.pop(rid))
-        self.cache["block_tables"][s.id] = TRASH_PAGE
-        self.cache["active"][s.id] = 0
-        self.cache["len"][s.id] = 0
+        if self.paged:
+            # reclaim the chain and park the slot on the trash page
+            self.allocator.free_chain(self._chains.pop(rid))
+            self.cache["block_tables"][s.id] = TRASH_PAGE
+            self.cache["active"][s.id] = 0
+            self.cache["len"][s.id] = 0
+
+    # -- admission ----------------------------------------------------------------
+
+    def _admit_pending(self) -> None:
+        if not self.paged:
+            while self._queue and not all(s.active for s in self.slots):
+                self._admit(self._queue.popleft())
+            return
+        while self._queue:
+            group = self._take_group()
+            if not group:
+                break
+            self._admit_group(group)
+
+    def _set_sampling(self, slot_ids, requests) -> None:
+        """Load the requests' sampling knobs and base keys into their
+        slots (token 0 draws fold 0, so offsets start at 1)."""
+        dev = self.device
+        sps = [r.params for r in requests]
+        self._temps[slot_ids] = torch.tensor([sp.temperature for sp in sps],
+                                             dtype=torch.float32, device=dev)
+        self._top_ks[slot_ids] = torch.tensor([sp.top_k for sp in sps],
+                                              dtype=torch.int64, device=dev)
+        self._top_ps[slot_ids] = torch.tensor([sp.top_p for sp in sps],
+                                              dtype=torch.float32, device=dev)
+        self._keys[slot_ids] = torch.stack([prng.prng_key(sp.seed, dev) for sp in sps])
+        self._offsets[slot_ids] = 1
+
+    def _go_live(self, requests, slot_ids, first, now) -> None:
+        for r, sid in zip(requests, slot_ids):
+            s = self.slots[sid]
+            s.request, s.tokens, s.active = r, [], True
+            self._stats[r.id].first_token_s = now
+        for sid, tok in zip(slot_ids, first):
+            self._emit(self.slots[sid], tok)
+
+    # -- dense admission ----------------------------------------------------------
+
+    @torch.no_grad()
+    def _admit(self, request: Request) -> None:
+        """Prefill one request into a one-slot cache, sample its first
+        token, and splice the cache into the first free slot."""
+        t0 = time.perf_counter()
+        sid = next(s.id for s in self.slots if not s.active)
+        dev = self.device
+        true_len = request.inputs["tgt_in"].shape[1]
+        tgt = torch.nn.functional.pad(request.inputs["tgt_in"],
+                                      (0, self._bucket(true_len) - true_len))
+        src = request.inputs["src_tokens"]
+        one = self.model.init_cache(1, self.max_len, self.kv_dtype,
+                                    enc_len=src.shape[1])
+        one, logits = self.model.prefill(
+            self.ctx, self.params, one,
+            {"tgt_in": tgt.to(dev), "src_tokens": src.to(dev),
+             "lengths": torch.tensor([true_len], dtype=torch.int32, device=dev)})
+        slot = torch.tensor([sid], dtype=torch.int64, device=dev)
+        self._set_sampling(slot, [request])
+        first = self._first_tokens(logits[:, true_len - 1], [request], slot)
+        self._splice(one, sid)
+        self.cur[sid, 0] = first[0]
+        first = first.cpu().tolist()
+        now = time.perf_counter()
+        self.prefill_calls += 1
+        self.prefill_s += now - t0
+        self._go_live([request], [sid], first, now)
+
+    def _splice(self, one, sid: int) -> None:
+        """Write a one-slot cache into batch slot ``sid``, in place. The
+        cross-attention leaves are zero-padded from the request's source
+        length to the engine's capacity (``cross_len`` masks the rest);
+        ``pos`` / ``len`` / ``cross_len`` carry the batch axis first, the
+        layer-stacked K/V leaves second."""
+        for key, c in self.cache.items():
+            o = one[key].to(c.dtype)
+            if key in ("pos", "len", "cross_len"):
+                c[sid] = o[0]
+            elif key.startswith("cross_"):
+                c[:, sid] = 0
+                c[:, sid, :o.shape[2]] = o[:, 0]
+            else:
+                c[:, sid] = o[:, 0]
 
     # -- paged admission --------------------------------------------------------
 
@@ -244,13 +369,6 @@ class ServeEngine:
     def _shape_key(self, request: Request):
         return (self._bucket(request.inputs["tgt_in"].shape[1]),
                 tuple(request.inputs["src_tokens"].shape[1:]))
-
-    def _admit_pending(self) -> None:
-        while self._queue:
-            group = self._take_group()
-            if not group:
-                break
-            self._admit_group(group)
 
     def _take_group(self) -> List[Request]:
         """Pop the next batched-prefill group off the queue: same-shaped
@@ -304,18 +422,14 @@ class ServeEngine:
             self.ctx, self.params, mini,
             {"tgt_in": tgt.to(dev), "src_tokens": src.to(dev),
              "lengths": lengths_d})
-        first = sample_tokens(logits[torch.arange(n, device=dev),
-                                     lengths_d.long() - 1])
         slot_ids = torch.tensor(free, dtype=torch.int64, device=dev)
+        self._set_sampling(slot_ids, group)
+        first = self._first_tokens(
+            logits[torch.arange(n, device=dev), lengths_d.long() - 1], group, slot_ids)
         paged_insert(self.cache, mini, slot_ids, rows.to(dev), lengths_d)
         self.cur[slot_ids, 0] = first
         first = first.cpu().tolist()
         now = time.perf_counter()
         self.prefill_calls += 1
         self.prefill_s += now - t0
-        for r, sid in zip(group, free):
-            s = self.slots[sid]
-            s.request, s.tokens, s.active = r, [], True
-            self._stats[r.id].first_token_s = now
-        for r, sid, tok in zip(group, free, first):
-            self._emit(self.slots[sid], tok)
+        self._go_live(group, free, first, now)

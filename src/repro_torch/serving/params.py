@@ -5,7 +5,8 @@ Every inference call is a ``Request`` carrying its own frozen
 reason (``eos``, ``length`` or ``error`` — the last when the model gave a
 slot non-finite logits) and timing stats.
 
-  * ``temperature == 0.0`` -> greedy argmax (the only mode of this slice).
+  * ``temperature == 0.0`` -> greedy argmax; ``> 0`` samples after the
+    ``top_k`` / ``top_p`` filters from the request's own ``seed`` stream.
   * ``eos_id``             -> generation stops the step this token is
     emitted (it is included in the output); ``None`` disables EOS stopping.
 """

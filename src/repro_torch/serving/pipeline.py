@@ -1,8 +1,11 @@
 """One-call deployment: config -> model -> quantize -> engine.
 
-    pipe = deploy("nllb600m", "int4", paged=True)          # on the card
+    pipe = deploy("nllb600m", "int4")        # dense KV cache, on the card
     outs = pipe.translate(src_tokens, "ita",
                           SamplingParams(max_new_tokens=8, eos_id=2))
+    pipe = deploy("nllb600m", "int4", paged=True)       # block-paged KV
+    outs = pipe.translate(src_tokens, "ita",
+                          SamplingParams(temperature=0.7, top_p=0.9, seed=1))
 
 ``deploy`` runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``device="cpu"``); without a card it raises. Kernel
@@ -110,10 +113,11 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     params:      a parameter tree (e.g. from ``repro_torch.convert``) on
                  ``device``, quantized here per ``policy``; default: a
                  fresh random init seeded by ``init_seed``.
-    paged:       must be True in this slice (block-paged KV cache with
+    paged:       False (default): a dense ``(slots, max_len)`` KV cache with
+                 per-request admission. True: a block-paged KV cache with
                  batched prefill admission and whole-budget page
-                 reservation; ``num_pages`` defaults to slots x pages of
-                 ``max_len``).
+                 reservation (``num_pages`` defaults to slots x pages of
+                 ``max_len``). Both give the same token streams.
     horizon:     decode micro-steps fused per host sync.
     matmul_impl / paged_attn_impl: override single routes of the default
                  "kernels" bundle; they replace the routes of an
@@ -132,8 +136,6 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
         raise later("deploy(mesh=...)", 5)
     if overlap:
         raise later("overlapped rounds (overlap=True)", 2)
-    if not paged:
-        raise later("the dense-cache engine (paged=False)", 2)
     spec = resolve_spec(policy)
     if spec.quantizes_act or spec.quantizes_attn:
         raise later(f"act-quantizing spec {spec}", 3)
@@ -158,7 +160,7 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     if spec.weights != "f32":
         params = quantize_tree(params, spec.policy())
     engine = ServeEngine(model, params, slots=slots, max_len=max_len,
-                         kv_dtype=kv, ctx=ctx, page_size=page_size,
+                         kv_dtype=kv, ctx=ctx, paged=paged, page_size=page_size,
                          num_pages=num_pages, max_src_len=max_src_len,
                          horizon=horizon, device=dev)
     return TranslationPipeline(cfg, model, params, engine, ctx)

@@ -47,6 +47,14 @@ def test_deploy_without_device_needs_cuda(monkeypatch):
         deploy("nllb600m", "int4", smoke=True, paged=True)
 
 
+def test_default_deploy_without_device_needs_cuda(monkeypatch):
+    """deploy() with its defaults (the dense engine) runs on the card too."""
+    from repro_torch.serving import deploy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deploy("nllb600m", "int4", smoke=True)
+
+
 def test_kernel_calls_refuse_cpu_tensors():
     """The launchers never take the plain route themselves."""
     from repro_torch.kernels.fasst import fasst_act_call

@@ -1,7 +1,7 @@
 """Model parity at smoke size (f32 compute, int4 weights, int8 KV): the
-port's encoder, prefill and paged decode steps against the JAX package's
-on the same converted parameters, with the kernel routes on in both
-(the port's wrappers run their plain versions on CPU tensors).
+port's encoder, prefill, and dense and paged decode steps against the
+JAX package's on the same converted parameters, with the kernel routes
+on in both (the port's wrappers run their plain versions on CPU tensors).
 
 Tolerance 1e-4: both sides sum f32 products in different orders; the
 bf16 rounding inside qmm is identical."""
@@ -72,13 +72,14 @@ def test_encoder_output(params):
     _close(t.numpy(), j)
 
 
-def _prefill_both(params, src, tgt, lengths):
+def _prefill_both(params, src, tgt, lengths, kv="int8", max_len=None):
     jp, tp = params
     B, Sd = tgt.shape
-    jc = jed.encdec_init_cache(JCFG, B, Sd, src.shape[1], "int8")
+    max_len = max_len or Sd
+    jc = jed.encdec_init_cache(JCFG, B, max_len, src.shape[1], kv)
     jc, jl = jed.encdec_prefill(JCTX, jp, JCFG, jc, jnp.asarray(tgt),
                                 jnp.asarray(src), lengths=jnp.asarray(lengths))
-    tc = ted.encdec_init_cache(CFG, B, Sd, src.shape[1], "int8", device="cpu")
+    tc = ted.encdec_init_cache(CFG, B, max_len, src.shape[1], kv, device="cpu")
     tc, tl = ted.encdec_prefill(CTX, tp, CFG, tc, torch.from_numpy(tgt),
                                 torch.from_numpy(src),
                                 torch.tensor(lengths, dtype=torch.int32))
@@ -126,6 +127,30 @@ def test_three_paged_decode_steps(params):
         _close(tlog.numpy(), jlog)
         np.testing.assert_array_equal(tcache["len"].numpy(), np.asarray(jcache["len"]))
         tok = np.argmax(np.asarray(jlog)[:, -1], -1).astype(np.int32)[:, None]
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_three_dense_decode_steps(params, kv):
+    """Prefill into a dense cache with room to grow, then three dense
+    decode steps fed the same tokens on both sides; the second and third
+    carry an ``active`` mask with slot 1 frozen."""
+    jp, tp = params
+    src, tgt = _inputs(seed=3)
+    jc, jl, tc, tl = _prefill_both(params, src, tgt, [2, 1], kv, max_len=6)
+    tok = np.argmax(np.asarray(jl)[[0, 1], [1, 0]], -1).astype(np.int32)[:, None]
+    for step in range(3):
+        if step:
+            jc = dict(jc, active=jnp.asarray([1, 0], jnp.int32))
+            tc = dict(tc, active=torch.tensor([1, 0], dtype=torch.int32))
+        jc, jlog = jed.encdec_decode_step(JCTX, jp, JCFG, jnp.asarray(tok), jc)
+        tc, tlog = ted.encdec_decode_step(CTX, tp, CFG, torch.from_numpy(tok), tc)
+        _close(tlog.numpy(), jlog)
+        for key in ("pos", "len") + (("k_codes", "v_codes") if kv == "int8" else ()):
+            np.testing.assert_array_equal(tc[key].numpy(), np.asarray(jc[key]), key)
+        for key in ("k_scales", "v_scales") if kv == "int8" else ("k", "v"):
+            _close(tc[key].float().numpy(), np.asarray(jc[key]).astype(np.float32))
+        tok = np.argmax(np.asarray(jlog)[:, -1], -1).astype(np.int32)[:, None]
+    assert np.asarray(jc["len"]).tolist() == [5, 2]
 
 
 def test_gather_route_tracks_kernel_route(params):

@@ -1,8 +1,12 @@
-"""Serving parity at smoke size: the port's deploy() -> paged engine
-streams the same greedy tokens as the JAX engine (Pallas kernel routes,
-interpret mode) on the same weights, token for token, for the 4-bit
-specs at horizon 1 and 16, with mixed source lengths and mid-stream
-admission; plus EOS retirement, page reclaim and the unported routes."""
+"""Serving parity at smoke size: the port's deploy() -> paged and dense
+engines stream the same greedy tokens as the JAX engines of the same
+layout (Pallas kernel routes, interpret mode) on the same weights, token
+for token, for the 4-bit specs at horizon 1 and 16, with mixed source
+lengths and mid-stream admission; dense streams equal paged streams;
+seeded temperature / top-k / top-p requests stream the JAX engines'
+tokens too; plus EOS retirement, page reclaim and the unported routes.
+Each JAX engine is built once and serves the greedy and the sampled
+requests."""
 
 import numpy as np
 import pytest
@@ -10,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 from test_torch_bridge import jax_to_torch  # noqa: E402
 
 from repro.configs import REGISTRY, reduce_config  # noqa: E402
@@ -24,6 +29,13 @@ SRC_LENS = [5, 9, 12, 5, 7]
 CODES = [8, 1, 7, 9, 2]
 GEN = 8
 KW = dict(smoke=True, paged=True, page_size=4, slots=3, max_len=16)
+DENSE_KW = dict(KW, paged=False)
+# three seeded nucleus requests, one top-k request, one greedy request
+SAMPLED = [dict(temperature=0.7, top_p=0.9, seed=11),
+           dict(temperature=0.7, top_p=0.9, seed=12),
+           dict(temperature=1.0, top_k=5, seed=14),
+           dict(temperature=0.7, top_p=0.9, seed=13),
+           dict()]
 
 
 def _prompts():
@@ -41,19 +53,23 @@ def raw_params():
 
 @pytest.fixture(scope="module")
 def reference(raw_params):
-    """JAX engine streams per spec, computed once (horizon 16; the JAX
-    invariant makes every horizon identical)."""
+    """JAX engine streams per spec and cache layout, computed once
+    (horizon 16; the JAX invariant makes every horizon identical)."""
     out = {}
     for spec in SPECS:
-        pipe = j_deploy("nllb600m", spec, params=raw_params, horizon=16, **KW,
-                        **j_impl_routes("pallas"))
-        outs = pipe.generate([{k: jax.numpy.asarray(v) for k, v in p.items()}
-                              for p in _prompts()],
-                             JSamplingParams(max_new_tokens=GEN))
-        out[spec] = [list(o.token_ids) for o in outs]
+        for name, kw in ((spec, KW), (f"dense-{spec}", DENSE_KW)):
+            pipe = j_deploy("nllb600m", spec, params=raw_params, horizon=16, **kw,
+                            **j_impl_routes("pallas"))
+            outs = pipe.generate([{k: jnp.asarray(v) for k, v in p.items()}
+                                  for p in _prompts()],
+                                 JSamplingParams(max_new_tokens=GEN))
+            out[name] = [list(o.token_ids) for o in outs]
+            if spec == "int4":
+                outs = _serve_mid_stream(pipe, _sampled(JSamplingParams), jnp.asarray)
+                out[f"sampled-{name}"] = [list(o.token_ids) for o in outs]
     pipe = j_deploy("nllb600m", "int4", params=raw_params, horizon=16, **KW,
                     **j_impl_routes("xla"))
-    outs = pipe.generate([{k: jax.numpy.asarray(v) for k, v in p.items()}
+    outs = pipe.generate([{k: jnp.asarray(v) for k, v in p.items()}
                           for p in _prompts()], JSamplingParams(max_new_tokens=GEN))
     out["int4-xla"] = [list(o.token_ids) for o in outs]
     return out
@@ -64,13 +80,19 @@ def torch_params(raw_params):
     return jax_to_torch(raw_params)
 
 
-def _serve_mid_stream(pipe, sp):
-    """Two requests first, one horizon, then the rest join mid-stream."""
-    prompts = _prompts()
+def _sampled(sp_cls):
+    return [sp_cls(max_new_tokens=GEN, **kw) for kw in SAMPLED]
+
+
+def _serve_mid_stream(pipe, sps, convert=lambda v: v):
+    """Two requests first, one horizon, then the rest join mid-stream.
+    ``sps`` is one SamplingParams for all, or one per prompt."""
+    prompts = [{k: convert(v) for k, v in p.items()} for p in _prompts()]
+    sps = sps if isinstance(sps, list) else [sps] * len(prompts)
     eng = pipe.engine
-    ids = [eng.submit(p, sp) for p in prompts[:2]]
+    ids = [eng.submit(p, sp) for p, sp in zip(prompts[:2], sps)]
     outs = eng.step()
-    ids += [eng.submit(p, sp) for p in prompts[2:]]
+    ids += [eng.submit(p, sp) for p, sp in zip(prompts[2:], sps[2:])]
     outs += eng.run_until_drained()
     by_id = {o.request_id: o for o in outs}
     return [by_id[i] for i in ids]
@@ -88,6 +110,38 @@ def test_streams_equal_jax_engine(spec, horizon, reference, torch_params):
     assert pipe.engine.allocator.pages_in_use == 0
     if horizon == 16:
         assert pipe.engine.decode_syncs < pipe.engine.decode_steps
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("horizon", [1, 16])
+def test_dense_streams_equal_jax_dense_engine(spec, horizon, reference,
+                                              torch_params):
+    """deploy() without ``paged`` builds the dense engine: its streams
+    equal the JAX dense engine's and the paged engines' streams."""
+    pipe = deploy("nllb600m", spec, params=torch_params, horizon=horizon,
+                  device="cpu", **{k: v for k, v in KW.items() if k != "paged"})
+    assert not pipe.engine.paged and pipe.engine.allocator is None
+    assert "block_tables" not in pipe.engine.cache
+    outs = _serve_mid_stream(pipe, SamplingParams(max_new_tokens=GEN))
+    assert [o.token_ids for o in outs] == reference[f"dense-{spec}"]
+    assert [o.token_ids for o in outs] == reference[spec]
+    assert all(o.finish_reason == "length" for o in outs)
+    assert "active" not in pipe.engine.cache
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("horizon", [1, 16])
+def test_sampled_streams_equal_jax_engine(paged, horizon, reference, torch_params):
+    """Seeded sampled requests, mixed with a greedy one, stream the JAX
+    engine's tokens, dense and paged; dense equals paged."""
+    pipe = deploy("nllb600m", "int4", params=torch_params, horizon=horizon,
+                  device="cpu", **dict(KW, paged=paged))
+    got = [o.token_ids for o in _serve_mid_stream(pipe, _sampled(SamplingParams))]
+    assert got == reference["sampled-int4" if paged else "sampled-dense-int4"]
+    assert got == reference["sampled-dense-int4" if paged else "sampled-int4"]
+    assert all(len(t) == GEN for t in got)
+    # the seeds matter: the nucleus requests on equal settings part ways
+    assert len({tuple(got[i]) for i in (0, 1, 3)}) > 1
 
 
 @pytest.mark.parametrize("horizon", [1, 16])
@@ -127,7 +181,7 @@ def test_translate_surface(torch_params):
 @pytest.mark.parametrize("kwargs", [
     dict(policy="w8a8"), dict(policy="fp8e2e"), dict(policy="w4a8kv8"),
     dict(policy="w16x8"), dict(policy="fp8"), dict(kv_dtype="fp8"),
-    dict(paged=False), dict(draft_spec="wfp4"), dict(sla=object()),
+    dict(max_pending=4), dict(draft_spec="wfp4"), dict(sla=object()),
     dict(faults=object()), dict(trace=object()), dict(mesh=object()),
     dict(overlap=True)])
 def test_unported_routes_raise(kwargs):
@@ -138,6 +192,13 @@ def test_unported_routes_raise(kwargs):
 
 
 def test_sampled_decoding_raises(torch_params):
+    """Sampled decoding is ported (tests/test_torch_sampling.py); a
+    sampled request with a deadline still raises, since deadlines come
+    with a later slice."""
     pipe = deploy("nllb600m", "int4", params=torch_params, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="port slice"):
-        pipe.generate(_prompts()[:1], SamplingParams(temperature=0.7))
+        pipe.generate(_prompts()[:1], SamplingParams(temperature=0.7,
+                                                     deadline_ms=1e3))
+    outs = pipe.generate(_prompts()[:1], SamplingParams(temperature=0.7,
+                                                        max_new_tokens=3))
+    assert len(outs[0].token_ids) == 3
