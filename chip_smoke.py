@@ -39,6 +39,7 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -82,6 +83,101 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 10):
+    """Device time of one ``fn()`` alone: the self device time of every
+    kernel that ``torch.profiler`` records over ``reps`` calls, per call
+    (host gaps between launches left out). None where the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
+
+
+def times(kernel, plain, library, plain_reps: int = 5) -> dict:
+    """CUDA-event times of the kernel, its plain version and the library
+    call (host gaps inside the window included), and the device-only
+    times of the kernel and the library call."""
+    return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, reps=plain_reps),
+            "library_ms": cuda_ms(library), "device_ms": device_ms(kernel),
+            "library_device_ms": device_ms(library)}
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def _short(fn: str) -> str:
+    """A demangled kernel name without namespaces and parameter list."""
+    return fn.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+
+
+def _demangle(names):
+    tool = shutil.which("c++filt")
+    if not (tool and names):
+        return {n: n for n in names}
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60)
+    out = res.stdout.splitlines() if res.returncode == 0 else names
+    return {n: _short(d) for n, d in zip(names, out)}
+
+
+def ptxas_lines(text: str):
+    """(kernel, what ptxas said) for every kernel in ``nvcc -Xptxas -v``
+    output: registers, barriers and shared memory, and spills where
+    there are any, one line per kernel instance."""
+    fn, said = "?", {}
+    for line in text.splitlines():
+        line = line.strip()
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ", 1)[1].strip()
+        elif "Compiling entry function '" in line:
+            fn = line.split("'")[1]
+        elif "registers" in line:
+            said.setdefault(fn, []).insert(0, line.removeprefix("ptxas info    : "))
+        elif "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+            said.setdefault(fn, []).append(line)
+    names = _demangle(sorted(said))
+    return sorted((names[f], "; ".join(v)) for f, v in said.items())
+
+
+def log_sass(name: str, lib: Path) -> None:
+    """Where cuobjdump exists, how many tensor-core instructions (HMMA /
+    HGMMA) the SASS of each kernel instance in ``lib`` holds."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log(f"[sass {name}] cuobjdump not found: not checked")
+        return
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode != 0:
+        log(f"[sass {name}] cuobjdump failed ({res.returncode}): {res.stderr[-300:]}")
+        return
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    names = _demangle(sorted(counts))
+    for regime in ("Prefill", "Decode"):
+        ns = sorted(n for f, n in counts.items() if regime in f)
+        log(f"[sass {name}] {regime.lower()} rows: {len(ns)} kernel instances, "
+            f"HMMA/HGMMA instructions per instance {min(ns, default=0)}..{max(ns, default=0)}"
+            f" (e.g. {next((names[f] for f in counts if regime in f), '-')})")
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"[sass {name}] a kernel instance has no tensor-core "
+                             f"instruction: {counts}")
+
+
 def bound_ms(nbytes: float, flops: float, flops_per_ms: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_MS, flops / flops_per_ms
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -91,26 +187,48 @@ def bound_ms(nbytes: float, flops: float, flops_per_ms: float):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the CPU tests' shapes; then every regime and edge: M on both sides of
+# the decode/prefill switch and of the 16-row tile, N not a multiple of
+# any tile (96 under one 128-column tile, 1000, and 1001, odd, whose rows
+# are not 16-byte aligned), K split unevenly (1344 = 21 slabs, 1008 with
+# a ragged last slab) and sub_block 16 / 32 / 64 / 128, and an odd
+# sub_block (45: a pair of k straddles two scale rows) on rows that are not
+# 16-byte aligned; then the served (K, N) shapes at decode and prefill rows
+QMM_SERVED_KN = ((1024, 1024), (1024, 8192), (8192, 1024))
+QMM_CASES = ([(8, 128, 64, 32), (48, 256, 128, 64), (1, 64, 96, 16), (130, 512, 256, 128)]
+             + [(m, k, n, b) for m in (1, 8, 15, 16, 17, 64, 130, 512)
+                for k, n, b in ((1344, 1000, 64), (1008, 96, 16), (960, 1001, 32),
+                                (1536, 1000, 128))]
+             + [(m, 90, 40, 45) for m in (8, 130)]
+             + [(m, k, n, 64) for k, n in QMM_SERVED_KN for m in (1, 8, 64, 512)])
+
+
 def check_qmm(torch, dev):
     from repro_torch.core.qtensor import QTensor
     from repro_torch.kernels import ops
-    from repro_torch.kernels.qmm import qmm_plain
+    from repro_torch.kernels.qmm import qmm_plain, qmm_plan
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
-    cases = [(m, k, n, b) for (m, k, n, b) in
-             [(8, 128, 64, 32), (48, 256, 128, 64), (1, 64, 96, 16), (130, 512, 256, 128)]]
-    cases += [(m, k, n, 64) for (k, n) in [(1024, 1024), (1024, 8192), (8192, 1024)]
-              for m in (1, 8, 256)]
+    regimes = set()
     for fmt in ("int4", "fp4", "nf4", "int8", "fp8"):
-        for m, k, n, block in cases:
+        for m, k, n, block in QMM_CASES:
             w = torch.randn((k, n), generator=g, device=dev) * 0.05
             qt = QTensor.quantize(w, fmt, block, double_quant=(fmt == "nf4"))
             x = torch.randn((m, k), generator=g, device=dev)
+            plan = qmm_plan(m, n, k, block, fmt)
+            regimes.add((plan.regime, plan.splits > 1))
             for x_dt, out_dt in ((torch.float32, torch.float32),
                                  (torch.bfloat16, torch.bfloat16)):
                 xi = x.to(x_dt)
-                y = ops.qmm(xi, qt, compute_dtype=out_dt).float()
+                y = ops.qmm(xi, qt, compute_dtype=out_dt)
+                again = ops.qmm(xi, qt, compute_dtype=out_dt)
+                where = f"qmm {fmt} M={m} K={k} N={n} sub_block={block} {out_dt} ({plan})"
+                # the split-K partials are summed in split order by the
+                # tile's last block: reruns are bit-identical
+                if not torch.equal(y, again):
+                    raise AssertionError(f"{where}: two launches differ")
+                y = y.float()
                 p = qmm_plain(xi, qt.data, qt.block_scales(), fmt, out_dtype=out_dt).float()
                 rel = float((y - p).norm() / (p.norm() + 1e-9))
                 # f32 out: same bf16 rounding points, only the f32 sum
@@ -118,13 +236,17 @@ def check_qmm(torch, dev):
                 # sums round to bf16 independently, at most one bf16 ulp
                 # (2^-8 relative) apart element by element.
                 tol = 1e-5 if out_dt == torch.float32 else 4e-3
-                if not rel <= tol:
-                    raise AssertionError(f"qmm {fmt} M={m} K={k} N={n} {out_dt}: "
-                                         f"rel err {rel:.3g} > {tol}")
-                if out_dt == torch.float32 and k >= 1024:
+                if not (rel <= tol and bool(torch.isfinite(y).all())):
+                    raise AssertionError(f"{where}: rel err {rel:.3g} > {tol}")
+                if out_dt == torch.float32 and (k, n) in QMM_SERVED_KN:
                     worst = max(worst, float((y - p).abs().max()))
-    log(f"[kernels] qmm: 5 formats x {len(cases)} shapes x (f32, bf16) agree with "
-        f"qmm_plain; max abs err at main-path shapes (f32 out) {worst:.3g}")
+    if regimes != {("decode", True), ("decode", False), ("prefill", True),
+                   ("prefill", False)}:
+        raise AssertionError(f"qmm cases cover only {sorted(regimes)}")
+    log(f"[kernels] qmm: 5 formats x {len(QMM_CASES)} shapes x (f32, bf16) agree with "
+        f"qmm_plain (norm-relative 1e-5 f32, 4e-3 bf16), decode and prefill rows, one "
+        f"and several K splits; every case launched twice, bit-identical; max abs err "
+        f"at the served shapes (f32 out) {worst:.3g}")
 
     # one decode step's qmm work at M = slots: 6 layers x (self q,k,v,o +
     # cross q,o at 1024x1024, ffn in 1024x8192, ffn out 8192x1024), every
@@ -135,38 +257,52 @@ def check_qmm(torch, dev):
         for k, n in shapes:
             w = torch.randn((k, n), generator=g, device=dev) * 0.05
             weights.append(QTensor.quantize(w, "int4", 64))
-    xs = {k: torch.randn((SLOTS, k), generator=g, device=dev).to(torch.bfloat16)
-          for k in (1024, 8192)}
-    dense = [qt.dequantize(torch.bfloat16) for qt in weights]
-    scales = [qt.block_scales() for qt in weights]
 
-    def run_kernel():
-        for qt in weights:
-            ops.qmm(xs[qt.shape[0]], qt, compute_dtype=torch.bfloat16)
+    def window(ws, m):
+        """kernel, plain and library calls over the int4 weights ``ws`` at
+        M = m bf16 rows, and the bound of that work"""
+        xs = {k: torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+              for k in (1024, 8192)}
+        dense = [qt.dequantize(torch.bfloat16) for qt in ws]
+        scales = [qt.block_scales() for qt in ws]
 
-    def run_plain():
-        for qt, s in zip(weights, scales):
-            qmm_plain(xs[qt.shape[0]], qt.data, s, "int4", out_dtype=torch.bfloat16)
+        def run_kernel():
+            for qt in ws:
+                ops.qmm(xs[qt.shape[0]], qt, compute_dtype=torch.bfloat16)
 
-    def run_library():
-        for qt, wd in zip(weights, dense):
-            torch.matmul(xs[qt.shape[0]], wd)
+        def run_plain():
+            for qt, s in zip(ws, scales):
+                qmm_plain(xs[qt.shape[0]], qt.data, s, "int4", out_dtype=torch.bfloat16)
 
-    t_b = t_o = 0.0
-    for qt in weights:
-        k, n = qt.shape
-        nbytes = SLOTS * k * 2 + k * n // 2 + (k // 64) * n * 4 + SLOTS * n * 2
-        t_b += nbytes / HBM_BYTES_PER_MS
-        t_o += 2 * SLOTS * k * n / BF16_FLOPS_PER_MS
-    ms_k, ms_p, ms_l = cuda_ms(run_kernel), cuda_ms(run_plain, reps=5), cuda_ms(run_library)
-    return {"name": "qmm", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/qmm.cu",
-            "replaces": "src/repro/kernels/qmm.py:85",
-            "max_abs_err": worst, "ms": ms_k, "plain_ms": ms_p,
-            "bound_ms": max(t_b, t_o), "bound_by": "bytes" if t_b >= t_o else "operations",
-            "library_ms": ms_l,
-            "work": f"one decode step: 48 int4 launches at M={SLOTS} "
-                    "(36 of 1024x1024, 6 of 1024x8192, 6 of 8192x1024)"}
+        def run_library():
+            for qt, wd in zip(ws, dense):
+                torch.matmul(xs[qt.shape[0]], wd)
+
+        nbytes = flops = 0
+        for qt in ws:
+            k, n = qt.shape
+            nbytes += m * k * 2 + k * n // 2 + (k // 64) * n * 4 + m * n * 2
+            flops += 2 * m * k * n
+        return (run_kernel, run_plain, run_library), bound_ms(nbytes, flops, BF16_FLOPS_PER_MS)
+
+    fns, (t, by) = window(weights, SLOTS)
+    entry = {"name": "qmm", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/qmm.cu",
+             "replaces": "src/repro/kernels/qmm.py:85",
+             "max_abs_err": worst, **times(*fns), "bound_ms": t, "bound_by": by}
+    # prefill rows: one launch on each served (K, N) shape, at the dense
+    # engine's 64-row admission and a batched 512-row one
+    firsts = [weights[0], weights[6], weights[7]]
+    for m in (64, 512):
+        fns, (t, by) = window(firsts, m)
+        for key, val in times(*fns).items():
+            entry.setdefault(f"prefill_{key}", {})[f"M={m}"] = val
+        entry.setdefault("prefill_bound_ms", {})[f"M={m}"] = t
+        entry.setdefault("prefill_bound_by", {})[f"M={m}"] = by
+    entry["work"] = (f"one decode step: 48 int4 launches at M={SLOTS} (36 of 1024x1024, "
+                     "6 of 1024x8192, 6 of 8192x1024); prefill: one int4 launch on each "
+                     "of 1024x1024, 1024x8192, 8192x1024 at M=64 and at M=512")
+    return entry
 
 
 def _pool(torch, g, dev, P, ps, Hkv, d, kind):
@@ -273,9 +409,8 @@ def check_paged_attn(torch, dev):
     return {"name": "paged_attn", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
             "replaces": "src/repro/kernels/paged_attn.py:105",
-            "max_abs_err": worst, "ms": cuda_ms(run_kernel),
-            "plain_ms": cuda_ms(run_plain, reps=5), "bound_ms": t, "bound_by": by,
-            "library_ms": cuda_ms(run_library),
+            "max_abs_err": worst, **times(run_kernel, run_plain, run_library),
+            "bound_ms": t, "bound_by": by,
             "work": f"one decode step: 6 launches, B={B} Hkv=16 G=1 d=64 ps=16 "
                     f"int8 pages, {tokens} cached tokens (lengths 1..256)"}
 
@@ -318,10 +453,10 @@ def check_fasst(torch, dev):
             "source": "src/repro_torch/kernels/fasst.py",
             "replaces": "src/repro/kernels/fasst.py:63",
             "max_abs_err": worst,
-            "ms": cuda_ms(lambda: [ops.fasst(x, "relu") for x in xs]),
-            "plain_ms": cuda_ms(lambda: [fasst_act_plain(x, "relu") for x in xs]),
+            **times(lambda: [ops.fasst(x, "relu") for x in xs],
+                    lambda: [fasst_act_plain(x, "relu") for x in xs],
+                    lambda: [torch.relu(x) for x in xs], plain_reps=20),
             "bound_ms": t, "bound_by": by,
-            "library_ms": cuda_ms(lambda: [torch.relu(x) for x in xs]),
             "work": f"one decode step: 6 relu launches on ({SLOTS}, 8192) bf16"}
 
 
@@ -412,9 +547,8 @@ def check_decode_attn(torch, dev):
     return {"name": "decode_attn", "route": "cuda", "path": "ops API",
             "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
             "replaces": "src/repro/kernels/decode_attn.py:77",
-            "max_abs_err": worst, "ms": cuda_ms(run_kernel),
-            "plain_ms": cuda_ms(run_plain, reps=5), "bound_ms": t, "bound_by": by,
-            "library_ms": cuda_ms(run_library),
+            "max_abs_err": worst, **times(run_kernel, run_plain, run_library),
+            "bound_ms": t, "bound_by": by,
             "work": f"one dense decode step: 12 launches (6 self reads at S={MAX_LEN}, "
                     f"6 cross reads at S={enc_len}), B={B} H=Hkv=16 d=64 int8 caches, "
                     f"{tokens} valid cached tokens read (plain and SDPA read all S)"}
@@ -481,10 +615,10 @@ def check_fasst_softmax(torch, dev):
             "source": "src/repro_torch/kernels/fasst.py",
             "replaces": "src/repro/kernels/fasst.py:95",
             "max_abs_err": worst[0],
-            "ms": cuda_ms(lambda: ops.fasst_softmax(x, scale=0.7)),
-            "plain_ms": cuda_ms(lambda: fasst_softmax_plain(x, scale=0.7)),
+            **times(lambda: ops.fasst_softmax(x, scale=0.7),
+                    lambda: fasst_softmax_plain(x, scale=0.7),
+                    lambda: torch.softmax(xs, dim=-1), plain_reps=20),
             "bound_ms": t, "bound_by": by,
-            "library_ms": cuda_ms(lambda: torch.softmax(xs, dim=-1)),
             "work": f"one launch on {vocab} f32 logits, scale 0.7 (torch.softmax "
                     "timed on logits scaled beforehand)"}
 
@@ -933,16 +1067,24 @@ def main() -> int:
     log(f"[build] nvcc ({len(build.SOURCES)} sources in parallel) {t_nvcc:.1f} s; with "
         f"Triton compile and load {time.perf_counter() - t0:.1f} s")
     for name, text in build.PTXAS_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas {name}] {line.strip()}")
+        for fn, line in ptxas_lines(text):
+            log(f"[ptxas {name}] {fn}: {line}")
+    log_sass("qmm", build.library_path("qmm"))
 
     entries = [check_qmm(torch, dev), check_paged_attn(torch, dev), check_fasst(torch, dev),
                check_decode_attn(torch, dev), check_fasst_softmax(torch, dev)]
     for e in entries:
         log(f"[time] {e['name']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
             f"library {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}) — {e['work']}")
+            f"({e['bound_by']}); device only: kernel {fmt_ms(e['device_ms'])}, library "
+            f"{fmt_ms(e['library_device_ms'])} — {e['work']}")
+    q = entries[0]
+    for m in q["prefill_ms"]:
+        log(f"[time] qmm prefill {m}: kernel {q['prefill_ms'][m]:.4f} ms, plain "
+            f"{q['prefill_plain_ms'][m]:.4f} ms, library {q['prefill_library_ms'][m]:.4f} "
+            f"ms, bound {q['prefill_bound_ms'][m]:.4f} ms ({q['prefill_bound_by'][m]}); "
+            f"device only: kernel {fmt_ms(q['prefill_device_ms'][m])}, library "
+            f"{fmt_ms(q['prefill_library_device_ms'][m])}")
     torch.cuda.empty_cache()
 
     pipe, launches, prompts, paged_outs = serve(torch, card, paged=True)
@@ -961,8 +1103,11 @@ def main() -> int:
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
                                 for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+            "library_device_ms", "work")
+    print(json.dumps({"kernels": [{k: v for k, v in e.items()
+                                   if k in keys or k.startswith("prefill_")}
+                                  for e in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "build", "library", "build_dir"]
+__all__ = ["SOURCES", "build", "library", "library_path", "build_dir"]
 
 SOURCES = ("qmm", "paged_attn", "decode_attn")
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -69,6 +69,11 @@ def build(names: Iterable[str] = SOURCES) -> None:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
+    return _target(name)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -42,8 +42,11 @@ def qmm(x: torch.Tensor, w: QTensor, *, compute_dtype=torch.bfloat16):
     K = w.data.shape[-2] * (2 if fmt.bits == 4 else 1)
     N = w.data.shape[-1]
     sub_block = K // w.scales_shape[-2]
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, K).to(compute_dtype)
+    # every call of a decode step comes through here: no view or cast
+    # that is not needed
+    x2 = x if x.dim() == 2 else x.reshape(-1, K)
+    if x2.dtype != compute_dtype:
+        x2 = x2.to(compute_dtype)
     scales = w.block_scales()
     if x2.is_cuda:
         y = _qmm.qmm_kernel_call(x2, w.data, scales, fmt_name=w.fmt,
@@ -51,7 +54,7 @@ def qmm(x: torch.Tensor, w: QTensor, *, compute_dtype=torch.bfloat16):
         LAUNCHES["qmm"] += 1
     else:
         y = _qmm.qmm_plain(x2, w.data, scales, w.fmt, out_dtype=compute_dtype)
-    return y.reshape(*lead, N)
+    return y if x.dim() == 2 else y.reshape(*x.shape[:-1], N)
 
 
 def fasst(x: torch.Tensor, mode: str, *, out_dtype=None):
