@@ -323,25 +323,38 @@ def _pool(torch, g, dev, P, ps, Hkv, d, kind):
 
 def check_paged_attn(torch, dev):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attn import paged_attn_plain
+    from repro_torch.kernels.paged_attn import paged_attn_plain, paged_attn_plan
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst = 0.0
+    plans = {}
 
-    def case(B, H, Hkv, d, P, ps, maxp, lengths, kind, q_dt=torch.float32):
+    def call(q, kc, ks, vc, vs, tables, lens):
+        return ops.paged_decode_attention(q, kc, vc, tables, lens, k_scales=ks,
+                                          v_scales=vs, out_dtype=torch.float32)
+
+    def case(B, H, Hkv, d, P, ps, maxp, lengths, kind, q_dt=torch.float32, name=None):
         kc, ks, vc, vs = _pool(torch, g, dev, P, ps, Hkv, d, kind)
         perm = 1 + torch.randperm(P - 1, generator=g, device=dev)
         tables = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         q = torch.randn((B, H, d), generator=g, device=dev).to(q_dt)
-        out = ops.paged_decode_attention(q, kc, vc, tables, lens, k_scales=ks,
-                                         v_scales=vs, out_dtype=torch.float32)
+        out = call(q, kc, ks, vc, vs, tables, lens)
+        where = f"paged_attn {kind} B={B} H={H} Hkv={Hkv} d={d} ps={ps} lengths {lengths}"
+        # the splits are merged in split order by the last block of each
+        # (row, kv head): reruns are bit-identical
+        if not torch.equal(out, call(q, kc, ks, vc, vs, tables, lens)):
+            raise AssertionError(f"{where}: two launches differ")
         ref = paged_attn_plain(q.reshape(B, Hkv, H // Hkv, d), kc, ks, vc, vs,
                                tables, lens, d ** -0.5).reshape(B, H, d)
         err = float((out - ref).abs().max())
         if not err < 1e-5:
-            raise AssertionError(f"paged_attn {kind} B={B} H={H} Hkv={Hkv} d={d}: "
-                                 f"max abs err {err:.3g}")
+            raise AssertionError(f"{where}: max abs err {err:.3g}")
+        if not bool((out[lens == 0] == 0).all()):
+            raise AssertionError(f"{where}: a zero-length row is not exactly zero")
+        if name and kind == "int8":
+            plan = paged_attn_plan(B, Hkv, H // Hkv, d, ps, maxp, kv_bytes=kc.element_size())
+            plans[name] = f"{plan.splits} splits x {plan.tokens_per_split} tokens"
         return err
 
     for kind in ("int8", "fp8", "bf16"):
@@ -351,23 +364,25 @@ def check_paged_attn(torch, dev):
         case(3, 4, 2, 64, 9, 8, 2, [0, 5, 16], kind)
         lens = torch.randint(1, 257, (SLOTS,), generator=g, device=dev).tolist()
         worst = max(worst, case(SLOTS, 16, 16, 64, SLOTS * 16 + 1, 16, 16, lens,
-                                kind, torch.bfloat16))
+                                kind, torch.bfloat16, name="served"))
 
-    # poisoned trash page: out-of-chain entries name page 0, whose
-    # contents must not change one output bit
+    # poisoned trash page: out-of-chain entries name page 0, and the slots
+    # of the last live page past the length hold garbage too; neither may
+    # change one output bit, with the chain split over several blocks
     kc, ks, vc, vs = _pool(torch, g, dev, 5, 8, 2, 64, "int8")
     q = torch.randn((1, 4, 64), generator=g, device=dev)
-    tbl = torch.tensor([[1, 0, 0, 0]], dtype=torch.int32, device=dev)
-    lens = torch.tensor([8], dtype=torch.int32, device=dev)
-    base = ops.paged_decode_attention(q, kc, vc, tbl, lens, k_scales=ks, v_scales=vs,
-                                      out_dtype=torch.float32)
+    tbl = torch.tensor([[1, 2, 3, 0, 0, 0]], dtype=torch.int32, device=dev)
+    lens = torch.tensor([20], dtype=torch.int32, device=dev)
+    plan = paged_attn_plan(1, 2, 2, 64, 8, 6)
+    if plan.splits < 2:
+        raise AssertionError(f"paged_attn: the trash-page case is not split ({plan})")
+    base = call(q, kc, ks, vc, vs, tbl, lens)
     kc[0], vc[0], ks[0], vs[0] = 127, -127, 1e3, 1e3
-    poisoned = ops.paged_decode_attention(q, kc, vc, tbl, lens, k_scales=ks,
-                                          v_scales=vs, out_dtype=torch.float32)
+    kc[3, 4:], vc[3, 4:], ks[3, 4:], vs[3, 4:] = -127, 127, 1e3, 1e3
+    poisoned = call(q, kc, ks, vc, vs, tbl, lens)
     if not torch.equal(base, poisoned):
         raise AssertionError("paged_attn: the poisoned trash page changed the output")
-    log(f"[kernels] paged_attn: int8/fp8/bf16 pages agree with paged_attn_plain "
-        f"(< 1e-5); trash page unobservable; max abs err at the served shape {worst:.3g}")
+    plans["trash page"] = f"{plan.splits} splits x {plan.tokens_per_split} tokens"
 
     # the served shape: B=slots, Hkv=16, G=1, d=64, ps=16, int8 pages,
     # ragged lengths up to 256; one decode step = 6 launches (one a layer)
@@ -401,18 +416,34 @@ def check_paged_attn(torch, dev):
         for k, v in dense:
             torch.nn.functional.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
 
+    # the split plan's edges, drawn after the timed inputs (so that those
+    # stay the ones earlier runs timed): one long row over many splits;
+    # lengths on both sides of a page and of a split, an idle row and a
+    # full chain
+    for kind in ("int8", "fp8", "bf16"):
+        case(1, 8, 2, 64, 65, 16, 64, [1000], kind, name="long row")
+        case(5, 16, 16, 64, 81, 16, 16, [0, 1, 16, 17, 256], kind, name="edges")
+    log(f"[kernels] paged_attn: int8/fp8/bf16 pages agree with paged_attn_plain "
+        f"(< 1e-5), a long row (length 1000), lengths 0/1/16/17/256, zero-length rows "
+        f"exactly 0, every case launched twice and bit-identical; trash page and the "
+        f"slots past the length unobservable; plans (int8): "
+        + "; ".join(f"{k} {v}" for k, v in plans.items())
+        + f"; max abs err at the served shape {worst:.3g}")
+
     tokens = int(lens.sum())
     nbytes = 6 * (B * H * d * 2 + tokens * H * (2 * d + 2 * 4) + B * maxp * 4
                   + B * 4 + B * H * d * 4)
     flops = 6 * 4 * tokens * H * d
     t, by = bound_ms(nbytes, flops, F32_FLOPS_PER_MS)
+    plan = paged_attn_plan(B, H, 1, d, ps, maxp)
     return {"name": "paged_attn", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
             "replaces": "src/repro/kernels/paged_attn.py:105",
             "max_abs_err": worst, **times(run_kernel, run_plain, run_library),
             "bound_ms": t, "bound_by": by,
             "work": f"one decode step: 6 launches, B={B} Hkv=16 G=1 d=64 ps=16 "
-                    f"int8 pages, {tokens} cached tokens (lengths 1..256)"}
+                    f"int8 pages, {tokens} cached tokens (lengths 1..256); grid "
+                    f"{plan.grid}, {plan.tokens_per_split} tokens a split"}
 
 
 def check_fasst(torch, dev):
@@ -570,47 +601,67 @@ def softmax_err(y, p):
 
 def check_fasst_softmax(torch, dev):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fasst import fasst_softmax_plain
+    from repro_torch.kernels.fasst import fasst_softmax_plain, softmax_plan
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     worst = (0.0, 0.0)
     vocab = (SLOTS, 256204)
-    for shape in ((8, 64), (33, 100), (1, 128), (128, 128), vocab):
+
+    def check(shape):
+        nonlocal worst
         x = torch.randn(shape, generator=g, device=dev) * 5
-        for valid in (-1, shape[1] // 3, shape[1] + 7):
+        for valid in (-1, shape[1] // 3, shape[1] + 7, 1):
             y = ops.fasst_softmax(x, scale=0.7, valid_cols=valid)
+            where = f"fasst_softmax {shape} valid_cols={valid} ({softmax_plan(*shape)})"
+            # the segments' partials are merged in segment order: reruns
+            # are bit-identical
+            if not torch.equal(y, ops.fasst_softmax(x, scale=0.7, valid_cols=valid)):
+                raise AssertionError(f"{where}: two calls differ")
             p = fasst_softmax_plain(x, scale=0.7, valid_cols=valid)
             err, rel = softmax_err(y, p)
             vc = shape[1] if valid < 0 else min(valid, shape[1])
             if not (err <= 1e-6 and rel <= 1.0) or not bool((y[:, vc:] == 0).all()):
-                raise AssertionError(f"fasst_softmax {shape} valid_cols={valid}: max abs "
-                                     f"err {err:.3g}, relative-bound share {rel:.3g}, "
-                                     f"masked columns zero {bool((y[:, vc:] == 0).all())}")
+                raise AssertionError(f"{where}: max abs err {err:.3g}, relative-bound share "
+                                     f"{rel:.3g}, masked columns zero "
+                                     f"{bool((y[:, vc:] == 0).all())}")
             if shape == vocab and valid == -1:
                 worst = (err, rel)
-        yb = ops.fasst_softmax(x, scale=0.7, out_dtype=torch.bfloat16).float()
+        yb = ops.fasst_softmax(x, scale=0.7, out_dtype=torch.bfloat16)
+        if not torch.equal(yb, ops.fasst_softmax(x, scale=0.7, out_dtype=torch.bfloat16)):
+            raise AssertionError(f"fasst_softmax {shape} bf16: two calls differ")
         pb = fasst_softmax_plain(x, scale=0.7, out_dtype=torch.bfloat16).float()
         # the two f32 results may round to adjacent bf16 values: one ulp
-        if not bool(((yb - pb).abs() <= pb.abs() * 2.0 ** -7).all()):
+        if not bool(((yb.float() - pb).abs() <= pb.abs() * 2.0 ** -7).all()):
             raise AssertionError(f"fasst_softmax {shape} bf16: more than one ulp apart")
-    log(f"[kernels] fasst_softmax: (8,64) (33,100) (1,128) (128,128) {vocab}, full, "
-        f"masked and clamped valid_cols, agree with fasst_softmax_plain (<= 1e-6 abs "
-        f"and {SOFTMAX_RTOL:g} * |p| + {SOFTMAX_FLOOR:g} per entry in f32, masked "
-        f"columns exactly 0, one ulp in bf16); on the vocabulary rows max abs err "
-        f"{worst[0]:.3g}, largest |y - p| / ({SOFTMAX_RTOL:g} |p| + {SOFTMAX_FLOOR:g}) "
-        f"{worst[1]:.3g}")
 
+    shapes = ((8, 64), (33, 100), (1, 128), (128, 128), vocab)
+    for shape in shapes:
+        check(shape)
     # the sampler's shape: a temperature softmax over the vocabulary for
     # every slot, f32 logits in, f32 probabilities out
     x = torch.randn(vocab, generator=g, device=dev) * 5
     xs = x * 0.7
     small = torch.randn((128, 128), generator=g, device=dev)
+    # a single vocabulary row (the most segments), drawn after the timed
+    # inputs (so that those stay the ones earlier runs timed)
+    shapes += ((1, 256204),)
+    check(shapes[-1])
+    plans = "; ".join(f"{s} {p.nseg} segment{'s' * (p.nseg > 1)} x {p.seg} columns"
+                      for s, p in ((s, softmax_plan(*s)) for s in shapes))
+    log(f"[kernels] fasst_softmax: {', '.join(map(str, shapes))}, full, masked, clamped "
+        f"and valid_cols=1, agree with fasst_softmax_plain (<= 1e-6 abs "
+        f"and {SOFTMAX_RTOL:g} * |p| + {SOFTMAX_FLOOR:g} per entry in f32, masked "
+        f"columns exactly 0, one ulp in bf16), every case called twice and "
+        f"bit-identical; plans: {plans}; on the vocabulary rows max abs err "
+        f"{worst[0]:.3g}, largest |y - p| / ({SOFTMAX_RTOL:g} |p| + {SOFTMAX_FLOOR:g}) "
+        f"{worst[1]:.3g}")
     small_ms = (cuda_ms(lambda: ops.fasst_softmax(small)),
                 cuda_ms(lambda: torch.softmax(small, dim=-1)))
     log(f"[kernels] fasst_softmax at (128, 128) f32: kernel {small_ms[0]:.4f} ms, "
         f"torch.softmax {small_ms[1]:.4f} ms")
     nbytes = 2 * x.numel() * 4
     t, by = bound_ms(nbytes, 4 * x.numel(), F32_FLOPS_PER_MS)
+    plan = softmax_plan(*vocab)
     return {"name": "fasst_softmax", "route": "triton", "path": "ops API",
             "source": "src/repro_torch/kernels/fasst.py",
             "replaces": "src/repro/kernels/fasst.py:95",
@@ -619,8 +670,9 @@ def check_fasst_softmax(torch, dev):
                     lambda: fasst_softmax_plain(x, scale=0.7),
                     lambda: torch.softmax(xs, dim=-1), plain_reps=20),
             "bound_ms": t, "bound_by": by,
-            "work": f"one launch on {vocab} f32 logits, scale 0.7 (torch.softmax "
-                    "timed on logits scaled beforehand)"}
+            "work": f"one call on {vocab} f32 logits, scale 0.7: {plan.nseg} segments "
+                    f"of {plan.seg} columns a row, {2 if plan.nseg > 1 else 1} launch(es) "
+                    "(torch.softmax timed on logits scaled beforehand)"}
 
 
 # ---------------------------------------------------------------------------
@@ -765,6 +817,11 @@ def routes_agree(torch, pipe, prompts):
     eng.allocator.check()
 
 
+PORT_KERNELS = ("qmm_kernel", "paged_attn_kernel", "decode_attn_kernel", "fasst_act_kernel",
+                "fasst_softmax_kernel", "softmax_partials_kernel",
+                "softmax_normalize_kernel")
+
+
 def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
     """Where a decode micro-step's time goes: torch.profiler over one
     4-step horizon of the served engine with 8 live slots, greedy or
@@ -798,6 +855,15 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3 / K:8.4f} ms/step "
             f"x{e.count / K:5.1f}  {e.key[:100]}")
+    # the port's own kernels, wherever they rank
+    ours = {}
+    for e in kernels:
+        name = next((n for n in PORT_KERNELS if n in e.key), None)
+        if name:
+            ms, n = ours.get(name, (0.0, 0))
+            ours[name] = (ms + e.self_device_time_total / 1e3 / K, n + e.count / K)
+    log(f"[{tag}] the port's kernels: " + ", ".join(
+        f"{name} x{n:g} {ms:.4f} ms/step" for name, (ms, n) in sorted(ours.items())))
 
 
 def _fresh_engine(pipe, paged: bool):

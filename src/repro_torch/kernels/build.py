@@ -18,11 +18,14 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "build", "library", "library_path", "build_dir"]
+__all__ = ["SOURCES", "build", "library", "library_path", "build_dir", "sm_count",
+           "H100_SMS"]
 
 SOURCES = ("qmm", "paged_attn", "decode_attn")
+H100_SMS = 132              # the card the launch plans are written for
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SMS: Dict[int, int] = {}
 # what ptxas reported for each kernel built by this process (registers,
 # shared memory, spills)
 PTXAS_LOG: Dict[str, str] = {}
@@ -82,3 +85,13 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         _LIBS[name] = ctypes.CDLL(str(_target(name)))
     return _LIBS[name]
+
+
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device, read once per device
+    (the launch plans spread their blocks over them)."""
+    if device_index not in _SMS:
+        import torch
+        _SMS[device_index] = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    return _SMS[device_index]

@@ -2,9 +2,11 @@
 
 A wrapper given CPU tensors computes the kernel's plain PyTorch version;
 given CUDA tensors it launches the hand-written kernel, or raises — no
-build or launch failure falls back. ``LAUNCHES`` counts the kernel
-launches of each wrapper (plain-version calls are not counted), so a run
-can show that its path went through the kernels.
+build or launch failure falls back. ``LAUNCHES`` counts, per wrapper, the
+calls that reach a kernel (plain-version calls are not counted), so a run
+can show that its path went through the kernels. A call is one launch,
+except a split row softmax (``fasst.softmax_plan`` with ``nseg > 1``),
+which is two.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 vLLM-style paged attention for the serving engine: the KV cache lives in
 a shared pool of fixed-size pages, and each sequence owns a chain of
 pages named by its row of the block table. ``paged_attn_call`` launches
-the hand-written CUDA kernel (``csrc/paged_attn.cu``), which walks the
-chains in place; ``paged_attn_plain`` gathers the chains densely and
-computes the same function in plain PyTorch.
+the hand-written CUDA kernel (``csrc/paged_attn.cu``), which splits each
+chain over blocks and reads the pages in place; ``paged_attn_plain``
+gathers the chains densely and computes the same function in plain
+PyTorch.
 
 Layouts (the pool's native layout — nothing is transposed):
   q            (B, Hkv, G, d)     G = query heads per KV head
@@ -13,23 +14,91 @@ Layouts (the pool's native layout — nothing is transposed):
   k_scales     (P, ps, Hkv) f32   None on the bf16 path
   block_tables (B, maxp) int32    out-of-chain entries name the trash page
   lengths      (B,) int32         valid tokens per sequence (0 = idle)
+
+``paged_attn_plan`` picks the kernel's split of the chain from shapes
+alone (never from ``lengths``, which would cost a host sync per layer).
+It is pure Python, so the CPU tests hold its invariants.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from .build import H100_SMS, sm_count
 from .decode_attn import decode_attn_plain
 from .paging import gather_pages
 
-__all__ = ["paged_attn_plain", "paged_attn_call"]
+__all__ = ["paged_attn_plain", "paged_attn_call", "paged_attn_plan", "PagedAttnPlan"]
 
 _KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 _IO_DTYPES = (torch.float32, torch.bfloat16)
-_SMEM_LIMIT = 48 * 1024
 _lib = None
+# per (device index, stream): the split workspace and the int32 counters
+# of each (row, kv head), made at first use and grown as needed (see _scratch)
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+# csrc/paged_attn.cu's configuration
+THREADS = 128
+SMEM_LIMIT = 48 * 1024
+TARGET_TOKENS = 64          # tokens of one split, where the chain and shared memory allow
+
+
+class PagedAttnPlan(NamedTuple):
+    pages_per_split: int
+    tokens_per_split: int
+    splits: int                 # split z takes the chain's pages [z * pps, (z + 1) * pps)
+    grid: Tuple[int, int, int]  # (B, Hkv, splits)
+    workspace_elems: int        # f32 partials, B * Hkv * splits * G * (d + 2) (0 if one split)
+    counters: int               # int32 per (row, kv head) (0 if one split)
+    smem_bytes: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _smem_bytes(T: int, G: int, d: int, kv_bytes: int, pps: int) -> int:
+    """Shared memory of one block (csrc/paged_attn.cu::make_layout)."""
+    cols4 = G * d // 4
+    slices = 1 if cols4 >= THREADS else THREADS // cols4
+    row = d * kv_bytes + 16
+    parts = [T * row, T * row, 4 * T, 4 * T, 4 * G * d, 4 * G * T, 4 * slices * G * d,
+             4 * G, 4 * G, 4 * pps, 4]
+    return sum(_align16(n) for n in parts)
+
+
+@functools.lru_cache(maxsize=None)
+def paged_attn_plan(B: int, Hkv: int, G: int, d: int, ps: int, maxp: int,
+                    sms: int = H100_SMS, kv_bytes: int = 1) -> PagedAttnPlan:
+    """The kernel's split of each chain, from shapes only.
+
+    A split is a whole number of pages, at most ``TARGET_TOKENS`` tokens
+    (one page if a page is longer) and as many as shared memory holds for
+    its K, V and scales, so that one batch of copies brings all of them.
+    Below that, splits are made shorter until ``B * Hkv * splits`` reaches
+    two blocks per SM, where ``maxp`` allows.
+    """
+    if d * kv_bytes % 16:
+        raise ValueError(f"d={d} x {kv_bytes} B is not a whole number of 16-byte copies")
+    most = max(1, TARGET_TOKENS // ps)
+    while most > 1 and _smem_bytes(most * ps, G, d, kv_bytes, most) > SMEM_LIMIT:
+        most -= 1
+    if _smem_bytes(ps, G, d, kv_bytes, 1) > SMEM_LIMIT:
+        raise ValueError(f"G={G}, d={d}, ps={ps} need {_smem_bytes(ps, G, d, kv_bytes, 1)} "
+                         f"B of shared memory for one page (> {SMEM_LIMIT})")
+    want = math.ceil(2 * sms / max(1, B * Hkv))
+    pps = max(1, min(most, maxp // want))
+    splits = max(1, math.ceil(maxp / pps))
+    one = splits == 1
+    return PagedAttnPlan(pps, pps * ps, splits, (B, Hkv, splits),
+                         0 if one else B * Hkv * splits * G * (d + 2),
+                         0 if one else B * Hkv,
+                         _smem_bytes(pps * ps, G, d, kv_bytes, pps))
 
 
 def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
@@ -50,9 +119,14 @@ def _library():
         lib.paged_attn_launch.restype = ctypes.c_int
         lib.paged_attn_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 3)
         _lib = lib
     return _lib
+
+
+def _int32(t):
+    return t if t.dtype == torch.int32 and t.is_contiguous() else t.to(torch.int32).contiguous()
 
 
 def paged_attn_call(q, k_pages, k_scales, v_pages, v_scales, block_tables,
@@ -83,26 +157,47 @@ def paged_attn_call(q, k_pages, k_scales, v_pages, v_scales, block_tables,
         raise ValueError("scales must be f32 (P, ps, Hkv)")
     if tuple(block_tables.shape) != (B, maxp) or tuple(lengths.shape) != (B,):
         raise ValueError("block_tables must be (B, maxp) and lengths (B,)")
-    smem = 4 * (2 * G * d + G * ps + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"G={G}, d={d}, ps={ps} need {smem} B of shared memory "
-                         f"(> {_SMEM_LIMIT})")
+    dev = q.device
+    plan = paged_attn_plan(B, Hkv, G, d, ps, maxp, sm_count(dev.index),
+                           kv_bytes=k_pages.element_size())
     q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
-    tables = block_tables.to(torch.int32).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("pages must start on a 16-byte boundary (16-byte copies)")
+    tables, lens = _int32(block_tables), _int32(lengths)
     ks = k_scales.contiguous() if quantized else None
     vs = v_scales.contiguous() if quantized else None
-    out = torch.empty((B, Hkv, G, d), dtype=out_dtype, device=q.device)
+    out = torch.empty((B, Hkv, G, d), dtype=out_dtype, device=dev)
     if B == 0:
         return out
+    # the current stream's handle in one call (torch.cuda.current_stream
+    # builds a Stream object first, several µs of host time a launch)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ws = counters = None
+    if plan.splits > 1:
+        ws, counters = _scratch(dev.index, stream, plan.workspace_elems, plan.counters)
     err = _library().paged_attn_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         ks.data_ptr() if quantized else None, v_pages.data_ptr(),
         vs.data_ptr() if quantized else None, tables.data_ptr(),
         lens.data_ptr(), out.data_ptr(), int(out_dtype == torch.bfloat16),
         B, Hkv, G, d, ps, maxp, _KV_KINDS[k_pages.dtype], float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        plan.pages_per_split, plan.splits, ws, counters, stream)
     if err != 0:
         raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
     return out
+
+
+def _scratch(dev: int, stream: int, ws_elems: int, counters: int):
+    """Pointers to the split workspace (at least ``ws_elems`` f32) and the
+    counters (at least ``counters`` int32, all 0) of one stream, made with
+    ``torch.empty`` / ``torch.zeros`` at first use and grown as needed.
+    Launches on one stream run in order, and each leaves every counter at
+    0, so they share both."""
+    ws, cnt = _SCRATCH.get((dev, stream), (None, None))
+    if ws is None or ws.numel() < ws_elems:
+        ws = torch.empty(max(ws_elems, 1 << 16), dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32, device=dev)
+    _SCRATCH[(dev, stream)] = ws, cnt
+    return ws.data_ptr(), cnt.data_ptr()

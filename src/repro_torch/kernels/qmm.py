@@ -29,6 +29,7 @@ import torch
 
 from ..core.formats import FORMATS
 from ..core.quantize import dequantize_blockwise
+from .build import H100_SMS, sm_count
 
 __all__ = ["qmm_plain", "qmm_kernel_call", "qmm_plan", "QmmPlan", "FMT_IDS"]
 
@@ -38,7 +39,6 @@ _lib = None
 # per (device index, stream): the split-K workspace and int32 tile counters,
 # made at first use and grown as needed (see _scratch)
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-_SMS: Dict[int, int] = {}
 # per thread: launch shapes -> (plan, packed launch arguments, their address)
 _ARGS = threading.local()
 
@@ -48,7 +48,6 @@ REGIME_IDS = {"decode": 0, "prefill": 1}
 DECODE_MAX_M = 16
 PREFILL_MAX_SPLITS = 8
 BK = 64
-H100_SMS = 132
 
 
 class QmmPlan(NamedTuple):
@@ -179,9 +178,7 @@ def _launch_args(dev: int, M, N, K, sub_block, fmt_name, x_bf16, out_bf16):
     key = (dev, M, N, K, sub_block, fmt_name, x_bf16, out_bf16)
     hit = _ARGS.__dict__.get(key)
     if hit is None:
-        if dev not in _SMS:
-            _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = qmm_plan(M, N, K, sub_block, fmt_name, _SMS[dev])
+        plan = qmm_plan(M, N, K, sub_block, fmt_name, sm_count(dev))
         args = (ctypes.c_int64 * 19)(
             0, int(x_bf16), 0, 0, 0, int(out_bf16), M, N, K, sub_block, FMT_IDS[fmt_name],
             REGIME_IDS[plan.regime], plan.grid[0], plan.grid[1], plan.splits,
