@@ -11,14 +11,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tensors, at the reference tests' shapes and at the shapes of the
    served path, with times (CUDA events) of kernel, plain version, one
    library call for the same function, and the least time the card
-   could take;
+   could take; and qmm with the FASST activation in its epilogue
+   (``qmm_naf``, the served FFN-in route at decode rows) against the
+   plain versions and against qmm then FASST;
 3. full-width NLLB-600M, int4 weights, int8 embedding, paged int8 KV:
    deploy(paged=True) serves 8 requests through the kernels, with every
    launch counter set to 0 just before and read just after ([serve]);
+   decode rows carry the FFN activation in qmm's epilogue, the encoder's
+   prefill rows take qmm, then the FASST kernel;
 4. one decode step of the served engine state through the "kernels" and
    the "torch" route bundles: logits agree within the reference engine's
    int8-KV bound ([routes]);
-5. where one decode micro-step's time goes (torch.profiler);
+5. where one decode micro-step's time goes (torch.profiler), and its
+   launches (exactly one qmm_naf per layer, no FASST launch);
 6. deploy() with its defaults (the dense int8 KV engine) serves the same
    8 requests on the same weights ([serve-dense]), profiled as in 5,
    greedy and sampled; its greedy streams equal the paged engine's, or
@@ -26,9 +31,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. seeded temperature / top-p requests on both engines: in the
    vocabulary, repeatable, and dense equal to paged up to near ties
    ([sampled]);
-8. the ops API path of the dense decode attention and the row softmax,
-   driven on the dense engine's live caches and logits, with the launch
-   counters set to 0 just before and read just after ([api]);
+8. the ops API path of the dense decode attention, the row softmax and
+   the standalone FASST activation, driven on the dense engine's live
+   caches, logits and FFN weights, with the launch counters set to 0
+   just before and read just after ([api]);
 9. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -203,6 +209,14 @@ QMM_CASES = ([(8, 128, 64, 32), (48, 256, 128, 64), (1, 64, 96, 16), (130, 512, 
              + [(m, k, n, 64) for k, n in QMM_SERVED_KN for m in (1, 8, 64, 512)])
 
 
+def qmm_tol(torch, dt):
+    """qmm's norm-relative bound against qmm_plain. f32 out: same bf16
+    rounding points, only the f32 sum order differs (CPU test bound). bf16
+    out: the two f32 sums round to bf16 independently, at most one bf16
+    ulp (2^-8 relative) apart element by element."""
+    return 1e-5 if dt == torch.float32 else 4e-3
+
+
 def check_qmm(torch, dev):
     from repro_torch.core.qtensor import QTensor
     from repro_torch.kernels import ops
@@ -231,11 +245,7 @@ def check_qmm(torch, dev):
                 y = y.float()
                 p = qmm_plain(xi, qt.data, qt.block_scales(), fmt, out_dtype=out_dt).float()
                 rel = float((y - p).norm() / (p.norm() + 1e-9))
-                # f32 out: same bf16 rounding points, only the f32 sum
-                # order differs (CPU test bound). bf16 out: the two f32
-                # sums round to bf16 independently, at most one bf16 ulp
-                # (2^-8 relative) apart element by element.
-                tol = 1e-5 if out_dt == torch.float32 else 4e-3
+                tol = qmm_tol(torch, out_dt)
                 if not (rel <= tol and bool(torch.isfinite(y).all())):
                     raise AssertionError(f"{where}: rel err {rel:.3g} > {tol}")
                 if out_dt == torch.float32 and (k, n) in QMM_SERVED_KN:
@@ -302,6 +312,154 @@ def check_qmm(torch, dev):
     entry["work"] = (f"one decode step: 48 int4 launches at M={SLOTS} (36 of 1024x1024, "
                      "6 of 1024x8192, 6 of 8192x1024); prefill: one int4 launch on each "
                      "of 1024x1024, 1024x8192, 8192x1024 at M=64 and at M=512")
+    return entry
+
+
+def fasst_tol(torch, p, dt):
+    """The FASST activation's bound against its plain version: 1e-5 abs
+    in f32 (the CPU test bound); in bf16 one bf16 ulp (the two f32 results
+    may round to adjacent bf16 values), at most 2^-7 of the value, beside
+    the CPU test's 2e-2."""
+    return 1e-5 if dt == torch.float32 else torch.clamp(p.abs() * 2.0 ** -7, min=2e-2)
+
+
+# how far each NAF can move a change of its input, the largest |naf'|:
+# |naf(a) - naf(b)| <= NAF_LIP * |a - b| (squared_relu: (|a| + |b|) |a - b|)
+NAF_LIP = {"relu": 1.0, "sigmoid": 0.25, "tanh": 1.0, "gelu": 1.13, "silu": 1.1,
+           "selu": 1.76, "identity": 1.0}
+
+
+def naf_vs_plain(torch, fused, y, q, mode, dt, where):
+    """Hold the kernel's fused output against the plain versions on the same
+    inputs, fasst_act_plain(q, mode): ``y`` is the kernel's qmm output (NAF
+    identity), ``q`` qmm_plain's. y must be within qmm's bound of q; then
+    each fused value within qmm's error |y - q|, as far as the NAF can move
+    it, plus the FASST bound. Returns the largest abs error."""
+    from repro_torch.kernels.fasst import fasst_act_plain
+    y32, q32 = y.float(), q.float()
+    rel = float((y32 - q32).norm() / (q32.norm() + 1e-9))
+    if not rel <= qmm_tol(torch, dt):
+        raise AssertionError(f"{where}: qmm rel err {rel:.3g} > {qmm_tol(torch, dt)} "
+                             "against qmm_plain")
+    p = fasst_act_plain(q, mode).float()
+    lip = y32.abs() + q32.abs() if mode == "squared_relu" else NAF_LIP[mode]
+    err = (fused.float() - p).abs()
+    if not bool((err <= lip * (y32 - q32).abs() + fasst_tol(torch, p, dt)).all()):
+        raise AssertionError(f"{where}: max abs err {float(err.max()):.3g} against "
+                             "fasst_act_plain(qmm_plain)")
+    return float(err.max())
+
+
+# the FFN-in shape of the served model, the decode and prefill rows, and
+# an odd N (rows not 16-byte aligned: the element-by-element epilogue)
+# at one and several K splits
+QMM_NAF_CASES = ([(m, 1024, 8192, 64) for m in (8, 64, 512)]
+                 + [(m, 960, 1001, 32) for m in (8, 130)])
+
+
+def check_qmm_naf(torch, dev, card):
+    """The FASST activation in qmm's epilogue: ops.qmm(x, w, naf=m) against
+    the plain versions, fasst_act_plain(qmm_plain(x, w), m), and bit for
+    bit or within the FASST bound against ops.fasst(ops.qmm(x, w), m),
+    every mode; then one decode step's 6 FFN-in launches fused against 6
+    qmm + 6 FASST launches."""
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fasst import MODES, fasst_act_plain
+    from repro_torch.kernels.qmm import qmm_plain, qmm_plan
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    exact = ("relu", "identity", "squared_relu")
+    worst = worst_plain = 0.0
+    for fmt in ("int4", "fp4"):
+        for m, k, n, block in QMM_NAF_CASES:
+            w = torch.randn((k, n), generator=g, device=dev) * 0.05
+            qt = QTensor.quantize(w, fmt, block)
+            x = torch.randn((m, k), generator=g, device=dev)
+            plan = qmm_plan(m, n, k, block, fmt)
+            for dt in (torch.float32, torch.bfloat16):
+                xi = x.to(dt)
+                y = ops.qmm(xi, qt, compute_dtype=dt)
+                q = qmm_plain(xi, qt.data, qt.block_scales(), fmt, out_dtype=dt)
+                for mode in MODES:
+                    where = (f"qmm naf={mode} {fmt} M={m} K={k} N={n} {dt} "
+                             f"({plan.regime}, {plan.splits} splits)")
+                    fused = ops.qmm(xi, qt, compute_dtype=dt, naf=mode)
+                    if not torch.equal(fused, ops.qmm(xi, qt, compute_dtype=dt, naf=mode)):
+                        raise AssertionError(f"{where}: two launches differ")
+                    e = naf_vs_plain(torch, fused, y, q, mode, dt, where)
+                    if dt == torch.float32:
+                        worst_plain = max(worst_plain, e)
+                    p = ops.fasst(y, mode)
+                    if mode == "identity" and not torch.equal(fused, y):
+                        raise AssertionError(f"{where}: not qmm's output bit for bit")
+                    if mode in exact:
+                        if not torch.equal(fused, p):
+                            raise AssertionError(f"{where}: not ops.fasst(ops.qmm) bit "
+                                                 "for bit")
+                        continue
+                    err = (fused.float() - p.float()).abs()
+                    if not bool((err <= fasst_tol(torch, p.float(), dt)).all()):
+                        raise AssertionError(f"{where}: max abs err {float(err.max()):.3g} "
+                                             "against ops.fasst(ops.qmm)")
+                    if (k, n) == (1024, 8192) and dt == torch.float32:
+                        worst = max(worst, float(err.max()))
+    log(f"[kernels] qmm_naf: 8 modes x int4/fp4 x M={sorted({c[0] for c in QMM_NAF_CASES})} "
+        f"(1024x8192 and 960x1001, one and several K splits) x f32/bf16: "
+        f"every mode within fasst_act_plain(qmm_plain) (qmm's bound, carried through the "
+        f"NAF, plus the FASST bound; max abs err f32 {worst_plain:.3g}); "
+        f"{'/'.join(exact)} equal ops.fasst(ops.qmm) bit for bit (identity also plain "
+        f"qmm), the others within the FASST bound (1e-5 f32, one bf16 ulp); every case "
+        f"launched twice, bit-identical; max abs err of the inexact modes against "
+        f"ops.fasst(ops.qmm) at 1024x8192 f32 {worst:.3g}")
+
+    # one decode step's FFN-in work: 6 int4 1024x8192 launches at M = slots
+    # with relu, each on its own weight (the model's 6 decoder layers)
+    ws = [QTensor.quantize(torch.randn((1024, 8192), generator=g, device=dev) * 0.05,
+                           "int4", 64) for _ in range(6)]
+    xs = [torch.randn((SLOTS, 1024), generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(6)]
+    scales = [qt.block_scales() for qt in ws]
+    bf = torch.bfloat16
+
+    def fused():
+        for x, qt in zip(xs, ws):
+            ops.qmm(x, qt, compute_dtype=bf, naf="relu")
+
+    def unfused():
+        for x, qt in zip(xs, ws):
+            ops.fasst(ops.qmm(x, qt, compute_dtype=bf), "relu")
+
+    def plain():
+        for x, qt, sc in zip(xs, ws, scales):
+            fasst_act_plain(qmm_plain(x, qt.data, sc, "int4", out_dtype=bf), "relu")
+
+    # an encoder prefill's FFN-in launch: 512 rows on the first weight
+    x512 = torch.randn((512, 1024), generator=g, device=dev).to(bf)
+    prefill = {"fused": lambda: ops.qmm(x512, ws[0], compute_dtype=bf, naf="relu"),
+               "unfused": lambda: ops.fasst(ops.qmm(x512, ws[0], compute_dtype=bf), "relu"),
+               "qmm": lambda: ops.qmm(x512, ws[0], compute_dtype=bf)}
+    prefill = {k: device_ms(fn) for k, fn in prefill.items()}
+    nbytes = 6 * (SLOTS * 1024 * 2 + 1024 * 8192 // 2 + 16 * 8192 * 4 + SLOTS * 8192 * 2)
+    t, by = bound_ms(nbytes, 6 * 2 * SLOTS * 1024 * 8192, BF16_FLOPS_PER_MS)
+    entry = {"name": "qmm_naf", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/qmm.cu",
+             "replaces": "src/repro/kernels/fasst.py:63",
+             "max_abs_err": worst_plain, "ms": cuda_ms(fused), "plain_ms": cuda_ms(plain, reps=5),
+             "library_ms": None, "device_ms": device_ms(fused), "library_device_ms": None,
+             "unfused_ms": cuda_ms(unfused), "unfused_device_ms": device_ms(unfused),
+             "prefill_device_ms": {"M=512": prefill["fused"]},
+             "prefill_unfused_device_ms": {"M=512": prefill["unfused"]},
+             "prefill_qmm_device_ms": {"M=512": prefill["qmm"]},
+             "bound_ms": t, "bound_by": by,
+             "work": f"one decode step's FFN in: 6 int4 1024x8192 launches at M={SLOTS}, bf16, "
+                     "relu in the epilogue (unfused: 6 qmm + 6 fasst_act launches; no one "
+                     "PyTorch call computes relu(x @ W))"}
+    log(f"[time] qmm_naf x6 fused {entry['ms']:.4f} ms (device {fmt_ms(entry['device_ms'])}), "
+        f"qmm + fasst_act x6 {entry['unfused_ms']:.4f} ms (device "
+        f"{fmt_ms(entry['unfused_device_ms'])}); one prefill launch at M=512: fused device "
+        f"{fmt_ms(prefill['fused'])}, qmm + fasst_act {fmt_ms(prefill['unfused'])}, qmm "
+        f"alone {fmt_ms(prefill['qmm'])}; on {card}")
     return entry
 
 
@@ -452,7 +610,7 @@ def check_fasst(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     worst = 0.0
-    for shape in ((37, 100), (SLOTS, 8192)):
+    for shape in ((37, 100), (SLOTS, 8192), (64, 8192)):
         x = torch.randn(shape, generator=g, device=dev) * 3
         for mode in MODES:
             for dt in (torch.float32, torch.bfloat16):
@@ -460,19 +618,16 @@ def check_fasst(torch, dev):
                 y = ops.fasst(xi, mode).float()
                 p = fasst_act_plain(xi, mode).float()
                 err = (y - p).abs()
-                # f32: the CPU test bound. bf16 out: the two f32 results
-                # may round to adjacent bf16 values: one bf16 ulp, at most
-                # 2^-7 of the value, beside the CPU test's 2e-2.
-                tol = 1e-5 if dt == torch.float32 else torch.clamp(
-                    p.abs() * 2.0 ** -7, min=2e-2)
-                if not bool((err <= tol).all()):
+                if not bool((err <= fasst_tol(torch, p, dt)).all()):
                     raise AssertionError(f"fasst {mode} {dt} {shape}: max abs err "
                                          f"{float(err.max()):.3g}")
                 if dt == torch.bfloat16 and shape[1] == 8192 and mode == "relu":
                     worst = float(err.max())
     log("[kernels] fasst_act: 8 modes x (f32, bf16) agree with fasst_act_plain")
 
-    # one decode step: 6 FFN relu launches on (slots, 8192) bf16
+    # one decode step's worth: 6 relu launches on (slots, 8192) bf16 (the
+    # served decode step fuses them into qmm; the served prefill rows and
+    # other callers of ops.fasst launch this kernel)
     xs = [torch.randn((SLOTS, 8192), generator=g, device=dev).to(torch.bfloat16)
           for _ in range(6)]
     gelu_ms = cuda_ms(lambda: [torch.nn.functional.gelu(x, approximate="tanh") for x in xs])
@@ -488,7 +643,7 @@ def check_fasst(torch, dev):
                     lambda: [fasst_act_plain(x, "relu") for x in xs],
                     lambda: [torch.relu(x) for x in xs], plain_reps=20),
             "bound_ms": t, "bound_by": by,
-            "work": f"one decode step: 6 relu launches on ({SLOTS}, 8192) bf16"}
+            "work": f"6 relu launches on ({SLOTS}, 8192) bf16 (one unfused decode step)"}
 
 
 def _int8_cache(torch, g, dev, B, S, Hkv, d):
@@ -501,23 +656,44 @@ def _int8_cache(torch, g, dev, B, S, Hkv, d):
 def check_decode_attn(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attn import decode_attn_plain
+    from repro_torch.kernels.decode_attn import decode_attn_plain, decode_attn_plan
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
 
-    def case(B, H, Hkv, d, S, lengths, q_dt=torch.float32):
+    def call(q, kc, ks, vc, vs, lens, out_dt):
+        return ops.decode_attention(q, kc, ks, vc, vs, lens, out_dtype=out_dt)
+
+    def case(B, H, Hkv, d, S, lengths, q_dt=torch.float32, poison=False):
         kc, ks, vc, vs = _int8_cache(torch, g, dev, B, S, Hkv, d)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         q = torch.randn((B, H, d), generator=g, device=dev).to(q_dt)
-        out = ops.decode_attention(q, kc, ks, vc, vs, lens, out_dtype=torch.float32)
+        where = (f"decode_attn B={B} H={H} Hkv={Hkv} d={d} S={S} {q_dt} lengths {lengths} "
+                 f"({decode_attn_plan(B, Hkv, H // Hkv, d, S)})")
+        out = call(q, kc, ks, vc, vs, lens, torch.float32)
+        # the splits are merged in split order by the last block of each
+        # (row, kv head): reruns are bit-identical
+        if not torch.equal(out, call(q, kc, ks, vc, vs, lens, torch.float32)):
+            raise AssertionError(f"{where}: two launches differ")
         ref = decode_attn_plain(q.reshape(B, Hkv, H // Hkv, d), kc, ks, vc, vs, lens,
                                 d ** -0.5).reshape(B, H, d)
         err = float((out - ref).abs().max())
         if not err < 1e-5:
-            raise AssertionError(f"decode_attn B={B} H={H} Hkv={Hkv} d={d} S={S}: "
-                                 f"max abs err {err:.3g}")
+            raise AssertionError(f"{where}: max abs err {err:.3g}")
         if not bool((out[lens == 0] == 0).all()):
-            raise AssertionError("decode_attn: a zero-length row is not exactly zero")
+            raise AssertionError(f"{where}: a zero-length row is not exactly zero")
+        if poison:
+            # codes 127 and NaN scales past each length: the kernel never
+            # reads them, so not one output bit may move, in either output
+            # type (kernel against kernel: the plain version reads them)
+            clean_bf16 = call(q, kc, ks, vc, vs, lens, torch.bfloat16)
+            for b, n in enumerate(lengths):
+                kc[b, n:], vc[b, n:] = 127, 127
+                ks[b, n:], vs[b, n:] = float("nan"), float("nan")
+            if not (torch.equal(out, call(q, kc, ks, vc, vs, lens, torch.float32))
+                    and torch.equal(clean_bf16, call(q, kc, ks, vc, vs, lens,
+                                                     torch.bfloat16))):
+                raise AssertionError(f"{where}: the poisoned region past the lengths "
+                                     "changed the output")
         return err
 
     for H, Hkv, d in [(8, 2, 64), (4, 1, 128), (16, 16, 64), (10, 2, 64)]:
@@ -533,10 +709,8 @@ def check_decode_attn(torch, dev):
     worst = max(case(SLOTS, 16, 16, 64, S, lens.tolist(), torch.bfloat16)
                 for S, lens in ((MAX_LEN, self_lens), (enc_len, cross_lens),
                                 (64, cross_lens)))
-    log(f"[kernels] decode_attn: GQA (8,2,64) (4,1,128) (16,16,64) (10,2,64), ragged "
-        f"S=384, a zero-length row and the served shapes (self S={MAX_LEN}, cross "
-        f"S={enc_len} and 64) agree with decode_attn_plain (< 1e-5); max abs err at "
-        f"the served shapes {worst:.3g}")
+    served_plans = {f"self S={MAX_LEN}": decode_attn_plan(SLOTS, 16, 1, 64, MAX_LEN),
+                    f"cross S={enc_len}": decode_attn_plan(SLOTS, 16, 1, 64, enc_len)}
 
     # one decode step of the dense engine: per layer a self-attention read
     # (S = max_len) and a cross-attention read (S = enc_len, 32 to 64 valid
@@ -549,6 +723,34 @@ def check_decode_attn(torch, dev):
             reads.append((S, lens.to(torch.int32), kc, ks, vc, vs))
     q = torch.randn((B, H, d), generator=g, device=dev).to(torch.bfloat16)
     q4 = q[:, :, None, :]
+
+    # the split plan's edges, drawn after the timed inputs (so that those
+    # stay the ones earlier runs timed): at an S that is not a multiple of
+    # the plan's T, lengths 0, 1, T-1, T, T+1 and S, for G = 1, 5 and 4
+    # (d = 64, 64, 128), q in f32 and bf16, with the region past each
+    # length poisoned
+    plans = dict(served_plans)
+    B_e, S_e = 6, 200
+    for H_e, Hkv_e, d_e in ((16, 16, 64), (10, 2, 64), (4, 1, 128)):
+        plan = decode_attn_plan(B_e, Hkv_e, H_e // Hkv_e, d_e, S_e)
+        T = plan.tokens_per_split
+        if S_e % T == 0 or plan.splits < 2:
+            raise AssertionError(f"decode_attn: the edge case does not split unevenly ({plan})")
+        for q_dt in (torch.float32, torch.bfloat16):
+            case(B_e, H_e, Hkv_e, d_e, S_e, [0, 1, T - 1, T, T + 1, S_e], q_dt, poison=True)
+        plans[f"edges G={H_e // Hkv_e} d={d_e} S={S_e}"] = plan
+    # the largest group the one-block-per-row kernel took at d = 128 (46 KB
+    # of shared memory a block at 16 tokens a split)
+    case(2, 38, 1, 128, 100, [100, 37], torch.bfloat16, poison=True)
+    plans["G=38 d=128 S=100"] = decode_attn_plan(2, 1, 38, 128, 100)
+    log(f"[kernels] decode_attn: GQA (8,2,64) (4,1,128) (16,16,64) (10,2,64), ragged "
+        f"S=384, a zero-length row, the served shapes (self S={MAX_LEN}, cross "
+        f"S={enc_len} and 64) and the plan's edges (lengths 0/1/T-1/T/T+1/S at S={S_e}, "
+        f"G=1/5/4, q f32/bf16; G=38 at d=128; the region past each length poisoned with code 127 and "
+        f"NaN scales, unobservable) agree with decode_attn_plain (< 1e-5), zero-length "
+        f"rows exactly 0, every case launched twice and bit-identical; plans: "
+        + "; ".join(f"{k} grid {p.grid}, T={p.tokens_per_split}" for k, p in plans.items())
+        + f"; max abs err at the served shapes {worst:.3g}")
 
     def run_kernel():
         for _, lens, kc, ks, vc, vs in reads:
@@ -582,7 +784,9 @@ def check_decode_attn(torch, dev):
             "bound_ms": t, "bound_by": by,
             "work": f"one dense decode step: 12 launches (6 self reads at S={MAX_LEN}, "
                     f"6 cross reads at S={enc_len}), B={B} H=Hkv=16 d=64 int8 caches, "
-                    f"{tokens} valid cached tokens read (plain and SDPA read all S)"}
+                    f"{tokens} valid cached tokens read (plain and SDPA read all S); grids "
+                    + ", ".join(f"{k} {p.grid} T={p.tokens_per_split}"
+                                for k, p in served_plans.items())}
 
 
 # probabilities on a vocabulary-wide row are mostly far below any useful
@@ -740,11 +944,16 @@ def serve(torch, card, *, paged: bool, params=None):
         if eng.allocator.pages_in_use:
             raise AssertionError(f"{eng.allocator.pages_in_use} pages leaked")
     steps = eng.decode_steps
-    # per decode step and layer: self q,k,v,o + cross q,o + ffn in,out;
-    # the dense engine reads its self-attention cache in torch, as the
-    # reference does through XLA
+    # per decode step and layer: self q,k,v,o + cross q,o + ffn in,out,
+    # the ffn-in launch with the FASST activation in its epilogue (decode
+    # rows; profile_decode holds a decode step to exactly L of these and no
+    # FASST launch); the encoder's prefill rows (32-64 source tokens) take
+    # qmm, then the FASST kernel. The dense engine reads its self-attention
+    # cache in torch, as the reference does through XLA
     L = pipe.cfg.num_layers
-    per_step = {"qmm": 8 * L, "fasst_act": L}
+    per_step = {"qmm": 8 * L, "qmm_naf": L}
+    if not launches["fasst_act"]:
+        raise AssertionError("fasst_act: no launch on the served prefill rows")
     if paged:
         per_step["paged_attn"] = L
     elif launches["paged_attn"]:
@@ -827,6 +1036,7 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
     4-step horizon of the served engine with 8 live slots, greedy or
     sampled (temperature 0.7, top-p 0.9)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.serving import SamplingParams
     eng = pipe.engine
     for i, p in enumerate(prompts):
@@ -835,12 +1045,22 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
     eng.step(horizon=1)                       # admit all 8, one step
     torch.cuda.synchronize()
     K = 4
+    steps0 = eng.decode_steps
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.step(horizon=K)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches, steps = dict(ops.LAUNCHES), eng.decode_steps - steps0
     eng.run_until_drained()
+    # a decode step: the FFN activation in the epilogue of each layer's
+    # FFN-in qmm, no FASST launch of its own
+    L = pipe.cfg.num_layers
+    if not (steps and launches["qmm_naf"] == L * steps and not launches["fasst_act"]
+            and launches["qmm"] >= 8 * L * steps):
+        raise AssertionError(f"[{tag}] {steps} decode steps launched {launches}; a step "
+                             f"launches qmm >= {8 * L}, qmm_naf {L}, fasst_act 0")
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and getattr(e, "self_device_time_total", 0) > 0]
@@ -851,7 +1071,9 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
     log(f"[{tag}] {K} decode micro-steps, 8 live slots: host wall {wall_ms / K:.3f} ms "
         f"per step, device busy {busy_ms / K:.3f} ms per step "
         f"(idle share {1 - busy_ms / wall_ms:.3f}), "
-        f"{sum(e.count for e in kernels) / K:.0f} kernel launches per step")
+        f"{sum(e.count for e in kernels) / K:.0f} kernel launches per step; wrapper "
+        f"launches per step qmm {launches['qmm'] / steps:g}, qmm_naf "
+        f"{launches['qmm_naf'] / steps:g}, fasst_act {launches['fasst_act'] / steps:g}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3 / K:8.4f} ms/step "
             f"x{e.count / K:5.1f}  {e.key[:100]}")
@@ -1042,15 +1264,23 @@ def sampled(torch, pipe_p, pipe_d, prompts):
 
 
 def api_path(torch, pipe):
-    """The ops API path of the two kernels that no serving path launches:
+    """The ops API path of the two kernels that no serving path launches
+    and of the FASST activation, which the served path launches only at
+    prefill rows:
     ``ops.decode_attention`` on every layer's self and cross int8 caches
-    of the dense engine with 8 live slots, and ``ops.fasst_softmax`` as
-    the sampler's temperature softmax over the engine's next-token
-    logits. Counters are set to 0 just before and read just after."""
+    of the dense engine with 8 live slots, ``ops.fasst_softmax`` as the
+    sampler's temperature softmax over the engine's next-token logits,
+    and ``ops.fasst`` as the FFN activation of every decoder layer's
+    FFN-in product (random bf16 rows on the served weights), held bit for
+    bit against the served route's qmm epilogue, and both against the
+    plain versions. Counters are set to 0 just before and read just
+    after."""
     from repro_torch.data import LANG_CODES
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attn import decode_attn_plain
     from repro_torch.kernels.fasst import fasst_softmax_plain
+    from repro_torch.kernels.qmm import qmm_plain
+    from repro_torch.models.layers import PLAIN_ACTS
     from repro_torch.serving import SamplingParams
 
     eng = pipe.engine
@@ -1067,6 +1297,10 @@ def api_path(torch, pipe):
     g = torch.Generator(device=eng.device).manual_seed(SEED + 5)
     qs = [torch.randn((B, H, d), generator=g, device=eng.device).to(torch.bfloat16)
           for _ in range(2 * cfg.num_layers)]
+    w_in = pipe.params["decoder"]["layers"]["mlp"]["w_in"]
+    ffn = [(torch.randn((B, cfg.d_model), generator=g, device=eng.device)
+            .to(torch.bfloat16), w_in.select(i)) for i in range(cfg.num_layers)]
+    mode = PLAIN_ACTS[cfg.mlp_act]
     with torch.no_grad():
         _, logits = pipe.model.decode_step(pipe.ctx, pipe.params, eng.cur,
                                            {k: v.clone() for k, v in c.items()})
@@ -1080,11 +1314,21 @@ def api_path(torch, pipe):
     ops.reset_launches()
     outs = [ops.decode_attention(q, *r, out_dtype=torch.float32) for q, r in zip(qs, reads)]
     probs = ops.fasst_softmax(logits[:, -1], scale=1 / 0.7)
+    hs = [(x, w, ops.fasst(ops.qmm(x, w), mode)) for x, w in ffn]
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    for name, n in (("decode_attn", 2 * cfg.num_layers), ("fasst_softmax", 1)):
+    for name, n in (("decode_attn", 2 * cfg.num_layers), ("fasst_softmax", 1),
+                    ("fasst_act", cfg.num_layers)):
         if launches[name] != n:
             raise AssertionError(f"[api] {name}: {launches[name]} launches, expected {n}")
+    if not all(torch.equal(h, ops.qmm(x, w, naf=mode)) for x, w, h in hs):
+        raise AssertionError(f"[api] ops.fasst(ops.qmm(x, w_in), {mode!r}) is not the "
+                             "fused qmm epilogue's output bit for bit")
+    bf = torch.bfloat16
+    h_err = max(naf_vs_plain(torch, h, ops.qmm(x, w),
+                             qmm_plain(x, w.data, w.block_scales(), w.fmt, out_dtype=bf),
+                             mode, bf, f"[api] FFN-in {mode} of layer {i}")
+                for i, (x, w, h) in enumerate(hs))
     err = max(float((o - decode_attn_plain(q.reshape(B, H, 1, d), *r, d ** -0.5)
                      .reshape(B, H, d)).abs().max()) for o, q, r in zip(outs, qs, reads))
     p_err, p_rel = softmax_err(probs, fasst_softmax_plain(logits[:, -1], scale=1 / 0.7))
@@ -1097,7 +1341,10 @@ def api_path(torch, pipe):
         f"max abs err {err:.3g} vs decode_attn_plain; fasst_softmax={launches['fasst_softmax']} "
         f"launch on {tuple(logits[:, -1].shape)} logits, max abs err {p_err:.3g}, "
         f"largest |y - p| / ({SOFTMAX_RTOL:g} |p| + {SOFTMAX_FLOOR:g}) {p_rel:.3g} vs "
-        f"fasst_softmax_plain")
+        f"fasst_softmax_plain; fasst_act={launches['fasst_act']} {mode} launches on the "
+        f"decoder's FFN-in products ({B}, {cfg.d_ff}), equal to qmm's fused epilogue bit "
+        f"for bit, both within the bound of fasst_act_plain(qmm_plain) (max abs err "
+        f"{h_err:.3g})")
     eng.run_until_drained()
     return launches
 
@@ -1137,20 +1384,21 @@ def main() -> int:
             log(f"[ptxas {name}] {fn}: {line}")
     log_sass("qmm", build.library_path("qmm"))
 
-    entries = [check_qmm(torch, dev), check_paged_attn(torch, dev), check_fasst(torch, dev),
+    entries = [check_qmm(torch, dev), check_qmm_naf(torch, dev, card),
+               check_paged_attn(torch, dev), check_fasst(torch, dev),
                check_decode_attn(torch, dev), check_fasst_softmax(torch, dev)]
     for e in entries:
         log(f"[time] {e['name']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
-            f"library {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"library {fmt_ms(e['library_ms'])}, bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}); device only: kernel {fmt_ms(e['device_ms'])}, library "
-            f"{fmt_ms(e['library_device_ms'])} — {e['work']}")
+            f"{fmt_ms(e['library_device_ms'])} — {e['work']}; on {card}")
     q = entries[0]
     for m in q["prefill_ms"]:
         log(f"[time] qmm prefill {m}: kernel {q['prefill_ms'][m]:.4f} ms, plain "
             f"{q['prefill_plain_ms'][m]:.4f} ms, library {q['prefill_library_ms'][m]:.4f} "
             f"ms, bound {q['prefill_bound_ms'][m]:.4f} ms ({q['prefill_bound_by'][m]}); "
             f"device only: kernel {fmt_ms(q['prefill_device_ms'][m])}, library "
-            f"{fmt_ms(q['prefill_library_device_ms'][m])}")
+            f"{fmt_ms(q['prefill_library_device_ms'][m])}; on {card}")
     torch.cuda.empty_cache()
 
     pipe, launches, prompts, paged_outs = serve(torch, card, paged=True)
@@ -1170,7 +1418,7 @@ def main() -> int:
                                 for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-            "library_device_ms", "work")
+            "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k in keys or k.startswith("prefill_")}
                                   for e in entries]}))

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/repro_torch/``
-at the repository root. The library name carries a hash of its source,
-so an edited kernel is rebuilt and a built one is reused. Builds of
+at the repository root. The library name carries a hash of its source
+and of the ``csrc/`` headers it includes (``#include "..."``, followed
+through the headers), so an edited kernel or header rebuilds the
+libraries that use it, and a built one is reused. Builds of
 several sources run in parallel (one ``nvcc`` process each). A failed
 build raises with the compiler's output; nothing falls back.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +29,7 @@ H100_SMS = 132              # the card the launch plans are written for
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SMS: Dict[int, int] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 # what ptxas reported for each kernel built by this process (registers,
 # shared memory, spills)
 PTXAS_LOG: Dict[str, str] = {}
@@ -43,8 +47,17 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return build_dir() / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    todo, seen = [f"{name}.cu"], set()
+    while todo:                       # the source, then the headers it names
+        file = todo.pop(0)
+        if file in seen:
+            continue
+        seen.add(file)
+        text = (_CSRC / file).read_bytes()
+        h.update(file.encode() + b"\0" + text)
+        todo += [m.decode() for m in _INCLUDE.findall(text)]
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> None:

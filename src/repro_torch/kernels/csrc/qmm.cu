@@ -60,7 +60,18 @@
 //   block) sums them in split order, 16 bytes a load with several splits
 //   in flight, casts once and stores. The order is fixed, so reruns are
 //   bit-identical; nothing is added atomically into the output, and one
-//   launch does the whole call.
+//   launch does the whole call;
+// * the FASST activation (paper Figs. 7-8) may ride in the epilogue: with
+//   a NAF mode other than identity, each output value is rounded to the
+//   output type, taken back to f32, put through naf() and stored, where
+//   the final output is stored (the one-split store and the last block's
+//   split sum; never the f32 partials). That is the unfused path's
+//   qmm -> output type -> NAF in f32 -> output type, with no launch and
+//   no pass over the output of its own. The mode is a runtime argument,
+//   the same for the whole launch. An identity launch runs an instance
+//   compiled without the NAF, any other mode one compiled with it
+//   (WithNaf<C>): with one instance for both, the test of the mode cost
+//   identity launches 1-2 % (PERF.md).
 //
 // Measured on the H100 (PERF.md): both regimes spend most of each slab
 // issuing its instructions (index arithmetic, dequantization, mma.sync at
@@ -90,12 +101,17 @@ enum Vec { VEC_X = 1, VEC_CODES = 2, VEC_SCALES = 4 };
 
 // BM x BN output tile, WM x WN warps. Decode keeps 4 stages: with more,
 // every block asks for its whole K range at once and the first slab
-// lands last.
+// lands last. NAF: the epilogue applies a NAF mode other than identity.
 struct DecodeCfg {   // M <= 16: one 16-row M-tile, 4 warps side by side
   static constexpr int BM = 16, BN = 64, WM = 1, WN = 4, MAX_STAGES = 4;
+  static constexpr bool NAF = false;
 };
 struct PrefillCfg {  // 128 x 128 tiles, 8 warps side by side (128 x 16 each)
   static constexpr int BM = 128, BN = 128, WM = 1, WN = 8, MAX_STAGES = 6;
+  static constexpr bool NAF = false;
+};
+template <class C> struct WithNaf : C {
+  static constexpr bool NAF = true;
 };
 template <class C> constexpr int kThreads = C::WM * C::WN * 32;
 
@@ -149,6 +165,47 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The FASST NAF datapath, f32 in and out, with the formulas of the Triton
+// activation kernel (kernels/fasst.py); the modes in kernels/fasst.py::MODES
+// order. Not inlined: one copy serves every output value of a kernel
+// instance (inlined at each unrolled store of the 40 instances, it
+// multiplied their code and their build time).
+enum Naf { RELU = 0, SIGMOID = 1, TANH = 2, GELU = 3, SILU = 4, SQUARED_RELU = 5,
+           SELU = 6, IDENTITY = 7 };
+
+__device__ __noinline__ float naf(float x, int mode) {
+  switch (mode) {
+    case RELU: return fmaxf(x, 0.f);
+    case SIGMOID: return 1.f / (1.f + expf(-x));
+    case TANH: return 2.f / (1.f + expf(-2.f * x)) - 1.f;   // 2 sigmoid(2x) - 1
+    case GELU: {                                              // tanh approximation
+      const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+      return 0.5f * x * (2.f / (1.f + expf(-2.f * u)));
+    }
+    case SILU: return x / (1.f + expf(-x));
+    case SQUARED_RELU: {
+      const float r = fmaxf(x, 0.f);
+      return r * r;
+    }
+    case SELU:
+      return 1.0507009873554805f * (x > 0.f ? x : 1.6732632423543772f * (expf(x) - 1.f));
+    default: return x;
+  }
+}
+
+// v as the output type holds it, back in f32
+__device__ __forceinline__ float rounded(float v, float*) { return v; }
+__device__ __forceinline__ float rounded(float v, __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// the NAF of an output value: rounded to the output type first, as the
+// unfused path stores it before its activation reads it
+template <typename T>
+__device__ __forceinline__ float naf_out(float v, int mode, T* out) {
+  return naf(rounded(v, out), mode);
 }
 
 template <typename T> __device__ __forceinline__ T zero();
@@ -243,7 +300,7 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
            const float* __restrict__ scales, OT* __restrict__ out,
            float* __restrict__ ws, int* __restrict__ counters,
            int M, int N, int K, int sub_block, int sb_shift, int k_per_split,
-           int splits, int stages, int srows, int vec) {
+           int splits, int stages, int srows, int vec, int naf_mode) {
   using L = Layout<FMT, XT, C>;
   constexpr int BM = C::BM, BN = C::BN, THREADS = kThreads<C>;
   constexpr int PACK = L::PACK, CROWS = L::CROWS, CST = L::CST, XST = L::XST;
@@ -491,8 +548,15 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
 #pragma unroll
         for (int j = 0; j < NI; ++j) v[e * NI + j] = acc[a][j][2 * hf + e];
       const int n = n0 + wn0 + 2 * NI * t;
-      if (splits == 1) store_run<2 * NI>(out + (size_t)m * N, n, N, v);
-      else store_run<2 * NI>(part_z + (size_t)m * N, n, N, v);
+      if (splits == 1) {
+        if constexpr (C::NAF) {
+#pragma unroll
+          for (int i = 0; i < 2 * NI; ++i) v[i] = naf_out(v[i], naf_mode, out);
+        }
+        store_run<2 * NI>(out + (size_t)m * N, n, N, v);
+      } else {
+        store_run<2 * NI>(part_z + (size_t)m * N, n, N, v);   // raw f32 partials
+      }
     }
   if (splits == 1) return;
 
@@ -542,6 +606,12 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
 #pragma unroll
     for (int j = 0; j < GPT; ++j) {
       const int gi = tid + j * THREADS, r = gi / G, c = (gi % G) * 4;
+      if constexpr (C::NAF) {
+        sum[j].x = naf_out(sum[j].x, naf_mode, out);
+        sum[j].y = naf_out(sum[j].y, naf_mode, out);
+        sum[j].z = naf_out(sum[j].z, naf_mode, out);
+        sum[j].w = naf_out(sum[j].w, naf_mode, out);
+      }
       if (gi < BM * G && r < live && c < cols)
         store4(out + (size_t)(m0 + r) * N + n0 + c, sum[j].x, sum[j].y, sum[j].z, sum[j].w);
     }
@@ -553,6 +623,7 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
       const size_t off = (size_t)(m0 + r) * N + n0 + c;
       float s = 0.f;
       for (int zz = 0; zz < splits; ++zz) s += __ldcg(ws + zz * MN + off);
+      if constexpr (C::NAF) s = naf_out(s, naf_mode, out);
       store1(out + off, s);
     }
   }
@@ -561,9 +632,11 @@ qmm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
 template <int FMT, typename XT, typename OT, class C>
 int launch(const void* x, const void* codes, const float* scales, void* out,
            float* ws, int* counters, int M, int N, int K, int sub_block,
-           int grid_x, int grid_y, int splits, int k_per_split, cudaStream_t stream) {
+           int grid_x, int grid_y, int splits, int k_per_split, int naf_mode,
+           cudaStream_t stream) {
   using L = Layout<FMT, XT, C>;
   if (grid_x != (N + C::BN - 1) / C::BN || grid_y != (M + C::BM - 1) / C::BM ||
+      naf_mode < RELU || naf_mode > IDENTITY || C::NAF != (naf_mode != IDENTITY) ||
       splits < 1 || k_per_split < 1 || (long long)splits * k_per_split < K ||
       (long long)(splits - 1) * k_per_split >= K ||
       (splits > 1 && (k_per_split % BK != 0 || k_per_split % sub_block != 0 ||
@@ -598,35 +671,37 @@ int launch(const void* x, const void* codes, const float* scales, void* out,
       static_cast<const XT*>(x), static_cast<const uint8_t*>(codes), scales,
       static_cast<OT*>(out), ws, counters, M, N, K, sub_block,
       (sub_block & (sub_block - 1)) == 0 ? __builtin_ctz(sub_block) : -1, k_per_split,
-      splits, stages, srows, vec);
+      splits, stages, srows, vec, naf_mode);
   return (int)cudaGetLastError();
 }
 
 template <int FMT, class C>
 int launch_io(const void* x, int x_bf16, const void* codes, const float* scales,
               void* out, int out_bf16, float* ws, int* counters, int M, int N, int K,
-              int sub_block, int gx, int gy, int splits, int kps, cudaStream_t s) {
+              int sub_block, int gx, int gy, int splits, int kps, int naf_mode,
+              cudaStream_t s) {
   using BF = __nv_bfloat16;
   if (x_bf16 && out_bf16)
-    return launch<FMT, BF, BF, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, s);
+    return launch<FMT, BF, BF, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, naf_mode, s);
   if (x_bf16)
-    return launch<FMT, BF, float, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, s);
+    return launch<FMT, BF, float, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, naf_mode, s);
   if (out_bf16)
-    return launch<FMT, float, BF, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, s);
-  return launch<FMT, float, float, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, s);
+    return launch<FMT, float, BF, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, naf_mode, s);
+  return launch<FMT, float, float, C>(x, codes, scales, out, ws, counters, M, N, K, sub_block, gx, gy, splits, kps, naf_mode, s);
 }
 
 template <int FMT>
 int launch_regime(int regime, const void* x, int x_bf16, const void* codes,
                   const float* scales, void* out, int out_bf16, float* ws,
                   int* counters, int M, int N, int K, int sub_block, int gx,
-                  int gy, int splits, int kps, cudaStream_t s) {
-  if (regime == DECODE)
-    return launch_io<FMT, DecodeCfg>(x, x_bf16, codes, scales, out, out_bf16, ws, counters,
-                                     M, N, K, sub_block, gx, gy, splits, kps, s);
-  if (regime == PREFILL)
-    return launch_io<FMT, PrefillCfg>(x, x_bf16, codes, scales, out, out_bf16, ws, counters,
-                                      M, N, K, sub_block, gx, gy, splits, kps, s);
+                  int gy, int splits, int kps, int naf_mode, cudaStream_t s) {
+#define QMM_CFG(C) \
+  launch_io<FMT, C>(x, x_bf16, codes, scales, out, out_bf16, ws, counters, M, N, K, \
+                    sub_block, gx, gy, splits, kps, naf_mode, s)
+  const bool with_naf = naf_mode != IDENTITY;
+  if (regime == DECODE) return with_naf ? QMM_CFG(WithNaf<DecodeCfg>) : QMM_CFG(DecodeCfg);
+  if (regime == PREFILL) return with_naf ? QMM_CFG(WithNaf<PrefillCfg>) : QMM_CFG(PrefillCfg);
+#undef QMM_CFG
   return (int)cudaErrorInvalidValue;
 }
 
@@ -641,18 +716,19 @@ extern "C" int qmm_set_codebooks(const float* host_tables) {
 // that kernels/qmm.py::qmm_plan made for these shapes. When splits > 1,
 // workspace holds splits * M * N floats and counters grid_x * grid_y
 // ints that are 0 (each launch leaves them 0); both are unused otherwise.
+// naf is the NAF mode of the epilogue (enum Naf; IDENTITY for none).
 // Returns the CUDA error of the launch (0 = launched).
 extern "C" int qmm_launch(const void* x, int x_bf16, const void* codes,
                           const float* scales, void* out, int out_bf16, int M,
                           int N, int K, int sub_block, int fmt, int regime,
                           int grid_x, int grid_y, int splits, int k_per_split,
-                          float* workspace, int* counters, void* stream) {
+                          float* workspace, int* counters, void* stream, int naf) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define QMM_CASE(F)                                                                   \
   case F:                                                                             \
     return launch_regime<F>(regime, x, x_bf16, codes, scales, out, out_bf16, workspace, \
                             counters, M, N, K, sub_block, grid_x, grid_y, splits,      \
-                            k_per_split, s);
+                            k_per_split, naf, s);
   switch (fmt) {
     QMM_CASE(INT4)
     QMM_CASE(FP4)
@@ -664,15 +740,15 @@ extern "C" int qmm_launch(const void* x, int x_bf16, const void* codes,
 #undef QMM_CASE
 }
 
-// qmm_launch with its 19 arguments in one array of 64-bit integers, in
+// qmm_launch with its 20 arguments in one array of 64-bit integers, in
 // the same order (pointers and the stream as addresses): the wrapper keeps
 // one such array per plan and rewrites only the pointers, so a call
-// crosses ctypes with one argument instead of 19.
+// crosses ctypes with one argument instead of 20.
 extern "C" int qmm_launch_packed(const long long* a) {
   return qmm_launch(reinterpret_cast<const void*>(a[0]), (int)a[1],
                     reinterpret_cast<const void*>(a[2]), reinterpret_cast<const float*>(a[3]),
                     reinterpret_cast<void*>(a[4]), (int)a[5], (int)a[6], (int)a[7], (int)a[8],
                     (int)a[9], (int)a[10], (int)a[11], (int)a[12], (int)a[13], (int)a[14],
                     (int)a[15], reinterpret_cast<float*>(a[16]), reinterpret_cast<int*>(a[17]),
-                    reinterpret_cast<void*>(a[18]));
+                    reinterpret_cast<void*>(a[18]), (int)a[19]);
 }

@@ -3,7 +3,8 @@
 The dense serving cache holds per layer int8 codes ``(B, S, Hkv, d)``
 with one f32 scale per (token, head) ``(B, S, Hkv)``, and per-row valid
 lengths. ``decode_attn_call`` launches the hand-written CUDA kernel
-(``csrc/decode_attn.cu``), which reads that layout in place;
+(``csrc/decode_attn.cu``), which splits each row over blocks and reads
+that layout in place;
 ``decode_attn_plain`` computes the same function in plain PyTorch (the
 counterpart of the JAX package's ``kernels/ref.py::decode_attn_ref``,
 which takes the cache transposed to ``(B, Hkv, S, d)``).
@@ -13,21 +14,69 @@ Layouts (the cache's native layout — nothing is transposed or padded):
   k_codes  (B, S, Hkv, d)   int8        k_scales (B, S, Hkv) f32
   v_codes  (B, S, Hkv, d)   int8        v_scales (B, S, Hkv) f32
   lengths  (B,) int32       valid tokens per row (0 = idle)
+
+``decode_attn_plan`` picks the kernel's split of each row from shapes
+alone (never from ``lengths``, which would cost a host sync per call).
+It is pure Python, so the CPU tests hold its invariants.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
-__all__ = ["quantize_token_kv", "decode_attn_plain", "decode_attn_call"]
+from .build import H100_SMS, sm_count
+from .split_attn import SMEM_LIMIT, TARGET_TOKENS, int32, scratch, smem_bytes
+
+__all__ = ["quantize_token_kv", "decode_attn_plain", "decode_attn_call",
+           "decode_attn_plan", "DecodeAttnPlan"]
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
-_TILE = 64                      # tokens per shared-memory tile (decode_attn.cu)
-_SMEM_LIMIT = 48 * 1024
+MIN_TOKENS = 16             # tokens of the shortest split a plan makes (shared memory allowing)
 _lib = None
+
+
+class DecodeAttnPlan(NamedTuple):
+    tokens_per_split: int       # T: split z takes the row's tokens [z * T, (z + 1) * T)
+    splits: int
+    grid: Tuple[int, int, int]  # (B, Hkv, splits)
+    workspace_elems: int        # f32 partials, B * Hkv * splits * G * (d + 2) (0 if one split)
+    counters: int               # int32 per (row, kv head) (0 if one split)
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def decode_attn_plan(B: int, Hkv: int, G: int, d: int, S: int,
+                     sms: int = H100_SMS) -> DecodeAttnPlan:
+    """The kernel's split of each row, from shapes only.
+
+    A split is at most ``TARGET_TOKENS`` tokens and as many as shared
+    memory holds for its K, V and scales, so that one batch of copies
+    brings all of them. Below that, splits are made shorter until
+    ``B * Hkv * splits`` reaches two blocks per SM, where ``S`` allows,
+    but not below ``MIN_TOKENS``: the last block of a row merges every
+    live split's partials alone. S need not be a multiple of the split.
+    """
+    if d % 16:
+        raise ValueError(f"d={d} is not a whole number of 16-byte copies")
+    if smem_bytes(1, G, d, 1) > SMEM_LIMIT:
+        raise ValueError(f"G={G}, d={d} need {smem_bytes(1, G, d, 1)} B of shared "
+                         f"memory for one token (> {SMEM_LIMIT})")
+    most = TARGET_TOKENS
+    while most > 1 and smem_bytes(most, G, d, 1) > SMEM_LIMIT:
+        most -= 1
+    want = math.ceil(2 * sms / max(1, B * Hkv))
+    T = min(most, max(MIN_TOKENS, S // want))
+    splits = max(1, math.ceil(S / T))
+    one = splits == 1
+    return DecodeAttnPlan(T, splits, (B, Hkv, splits),
+                          0 if one else B * Hkv * splits * G * (d + 2),
+                          0 if one else B * Hkv, smem_bytes(T, G, d, 1))
 
 
 def quantize_token_kv(t):
@@ -68,7 +117,8 @@ def _library():
         lib.decode_attn_launch.restype = ctypes.c_int
         lib.decode_attn_launch.argtypes = (
             [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 3)
         _lib = lib
     return _lib
 
@@ -95,21 +145,28 @@ def decode_attn_call(q, k_codes, k_scales, v_codes, v_scales, lengths, *,
         raise ValueError("scales must be (B, S, Hkv)")
     if tuple(lengths.shape) != (B,):
         raise ValueError("lengths must be (B,)")
-    smem = 4 * (2 * G * d + G * _TILE + 3 * G)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"G={G}, d={d} need {smem} B of shared memory (> {_SMEM_LIMIT})")
+    dev = q.device
+    plan = decode_attn_plan(B, Hkv, G, d, S, sm_count(dev.index))
     q = q.contiguous()
     kc, vc = k_codes.contiguous(), v_codes.contiguous()
     ks, vs = k_scales.contiguous(), v_scales.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty((B, Hkv, G, d), dtype=out_dtype, device=q.device)
+    lens = int32(lengths)
+    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
+        raise ValueError("codes must start on a 16-byte boundary (16-byte copies)")
+    out = torch.empty((B, Hkv, G, d), dtype=out_dtype, device=dev)
     if B == 0 or Hkv == 0:
         return out
+    # the current stream's handle in one call (torch.cuda.current_stream
+    # builds a Stream object first, several µs of host time a launch)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ws = counters = None
+    if plan.splits > 1:
+        ws, counters = scratch(dev.index, stream, plan.workspace_elems, plan.counters)
     err = _library().decode_attn_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), kc.data_ptr(), ks.data_ptr(),
         vc.data_ptr(), vs.data_ptr(), lens.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), B, S, Hkv, G, d, float(sm_scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        plan.tokens_per_split, plan.splits, ws, counters, stream)
     if err != 0:
         raise RuntimeError(f"decode attention launch failed: CUDA error {err}")
     return out

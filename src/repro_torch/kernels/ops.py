@@ -6,7 +6,8 @@ build or launch failure falls back. ``LAUNCHES`` counts, per wrapper, the
 calls that reach a kernel (plain-version calls are not counted), so a run
 can show that its path went through the kernels. A call is one launch,
 except a split row softmax (``fasst.softmax_plan`` with ``nseg > 1``),
-which is two.
+which is two. ``qmm_naf`` counts the qmm launches that carry a FASST
+activation in their epilogue; they count under ``qmm`` too.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ __all__ = ["qmm", "fasst", "fasst_softmax", "decode_attention",
            "paged_decode_attention", "quantize_kv", "LAUNCHES",
            "reset_launches"]
 
-LAUNCHES = {"qmm": 0, "paged_attn": 0, "fasst_act": 0, "decode_attn": 0,
-            "fasst_softmax": 0}
+LAUNCHES = {"qmm": 0, "qmm_naf": 0, "paged_attn": 0, "fasst_act": 0,
+            "decode_attn": 0, "fasst_softmax": 0}
 
 
 def reset_launches() -> None:
@@ -33,8 +34,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def qmm(x: torch.Tensor, w: QTensor, *, compute_dtype=torch.bfloat16):
-    """x @ dequant(w) through the fused dequant-matmul kernel.
+def qmm(x: torch.Tensor, w: QTensor, *, compute_dtype=torch.bfloat16,
+        naf: str | None = None):
+    """x @ dequant(w) through the fused dequant-matmul kernel, and with
+    ``naf`` a FASST mode, that activation of it: equal to
+    ``fasst(qmm(x, w), naf)``, in one launch.
 
     Accepts x of shape (..., K); w is an unbatched (K, N) QTensor
     quantized along q_axis=-2. The kernel masks ragged tile edges
@@ -52,10 +56,15 @@ def qmm(x: torch.Tensor, w: QTensor, *, compute_dtype=torch.bfloat16):
     scales = w.block_scales()
     if x2.is_cuda:
         y = _qmm.qmm_kernel_call(x2, w.data, scales, fmt_name=w.fmt,
-                                 sub_block=sub_block, out_dtype=compute_dtype)
+                                 sub_block=sub_block, out_dtype=compute_dtype,
+                                 naf=naf or "identity")
         LAUNCHES["qmm"] += 1
+        if naf is not None:
+            LAUNCHES["qmm_naf"] += 1
     else:
         y = _qmm.qmm_plain(x2, w.data, scales, w.fmt, out_dtype=compute_dtype)
+        if naf is not None:
+            y = _fasst.fasst_act_plain(y, naf)
     return y if x.dim() == 2 else y.reshape(*x.shape[:-1], N)
 
 

@@ -25,27 +25,20 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .build import H100_SMS, sm_count
 from .decode_attn import decode_attn_plain
 from .paging import gather_pages
+from .split_attn import SMEM_LIMIT, TARGET_TOKENS, int32, scratch, smem_bytes
 
 __all__ = ["paged_attn_plain", "paged_attn_call", "paged_attn_plan", "PagedAttnPlan"]
 
 _KV_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
-# per (device index, stream): the split workspace and the int32 counters
-# of each (row, kv head), made at first use and grown as needed (see _scratch)
-_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-# csrc/paged_attn.cu's configuration
-THREADS = 128
-SMEM_LIMIT = 48 * 1024
-TARGET_TOKENS = 64          # tokens of one split, where the chain and shared memory allow
 
 
 class PagedAttnPlan(NamedTuple):
@@ -56,20 +49,6 @@ class PagedAttnPlan(NamedTuple):
     workspace_elems: int        # f32 partials, B * Hkv * splits * G * (d + 2) (0 if one split)
     counters: int               # int32 per (row, kv head) (0 if one split)
     smem_bytes: int
-
-
-def _align16(x: int) -> int:
-    return (x + 15) // 16 * 16
-
-
-def _smem_bytes(T: int, G: int, d: int, kv_bytes: int, pps: int) -> int:
-    """Shared memory of one block (csrc/paged_attn.cu::make_layout)."""
-    cols4 = G * d // 4
-    slices = 1 if cols4 >= THREADS else THREADS // cols4
-    row = d * kv_bytes + 16
-    parts = [T * row, T * row, 4 * T, 4 * T, 4 * G * d, 4 * G * T, 4 * slices * G * d,
-             4 * G, 4 * G, 4 * pps, 4]
-    return sum(_align16(n) for n in parts)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,10 +65,10 @@ def paged_attn_plan(B: int, Hkv: int, G: int, d: int, ps: int, maxp: int,
     if d * kv_bytes % 16:
         raise ValueError(f"d={d} x {kv_bytes} B is not a whole number of 16-byte copies")
     most = max(1, TARGET_TOKENS // ps)
-    while most > 1 and _smem_bytes(most * ps, G, d, kv_bytes, most) > SMEM_LIMIT:
+    while most > 1 and smem_bytes(most * ps, G, d, kv_bytes, most) > SMEM_LIMIT:
         most -= 1
-    if _smem_bytes(ps, G, d, kv_bytes, 1) > SMEM_LIMIT:
-        raise ValueError(f"G={G}, d={d}, ps={ps} need {_smem_bytes(ps, G, d, kv_bytes, 1)} "
+    if smem_bytes(ps, G, d, kv_bytes, 1) > SMEM_LIMIT:
+        raise ValueError(f"G={G}, d={d}, ps={ps} need {smem_bytes(ps, G, d, kv_bytes, 1)} "
                          f"B of shared memory for one page (> {SMEM_LIMIT})")
     want = math.ceil(2 * sms / max(1, B * Hkv))
     pps = max(1, min(most, maxp // want))
@@ -98,7 +77,7 @@ def paged_attn_plan(B: int, Hkv: int, G: int, d: int, ps: int, maxp: int,
     return PagedAttnPlan(pps, pps * ps, splits, (B, Hkv, splits),
                          0 if one else B * Hkv * splits * G * (d + 2),
                          0 if one else B * Hkv,
-                         _smem_bytes(pps * ps, G, d, kv_bytes, pps))
+                         smem_bytes(pps * ps, G, d, kv_bytes, pps))
 
 
 def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
@@ -123,10 +102,6 @@ def _library():
             + [ctypes.c_void_p] * 3)
         _lib = lib
     return _lib
-
-
-def _int32(t):
-    return t if t.dtype == torch.int32 and t.is_contiguous() else t.to(torch.int32).contiguous()
 
 
 def paged_attn_call(q, k_pages, k_scales, v_pages, v_scales, block_tables,
@@ -164,7 +139,7 @@ def paged_attn_call(q, k_pages, k_scales, v_pages, v_scales, block_tables,
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("pages must start on a 16-byte boundary (16-byte copies)")
-    tables, lens = _int32(block_tables), _int32(lengths)
+    tables, lens = int32(block_tables), int32(lengths)
     ks = k_scales.contiguous() if quantized else None
     vs = v_scales.contiguous() if quantized else None
     out = torch.empty((B, Hkv, G, d), dtype=out_dtype, device=dev)
@@ -175,7 +150,7 @@ def paged_attn_call(q, k_pages, k_scales, v_pages, v_scales, block_tables,
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     ws = counters = None
     if plan.splits > 1:
-        ws, counters = _scratch(dev.index, stream, plan.workspace_elems, plan.counters)
+        ws, counters = scratch(dev.index, stream, plan.workspace_elems, plan.counters)
     err = _library().paged_attn_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
         ks.data_ptr() if quantized else None, v_pages.data_ptr(),
@@ -186,18 +161,3 @@ def paged_attn_call(q, k_pages, k_scales, v_pages, v_scales, block_tables,
     if err != 0:
         raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
     return out
-
-
-def _scratch(dev: int, stream: int, ws_elems: int, counters: int):
-    """Pointers to the split workspace (at least ``ws_elems`` f32) and the
-    counters (at least ``counters`` int32, all 0) of one stream, made with
-    ``torch.empty`` / ``torch.zeros`` at first use and grown as needed.
-    Launches on one stream run in order, and each leaves every counter at
-    0, so they share both."""
-    ws, cnt = _SCRATCH.get((dev, stream), (None, None))
-    if ws is None or ws.numel() < ws_elems:
-        ws = torch.empty(max(ws_elems, 1 << 16), dtype=torch.float32, device=dev)
-    if cnt is None or cnt.numel() < counters:
-        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32, device=dev)
-    _SCRATCH[(dev, stream)] = ws, cnt
-    return ws.data_ptr(), cnt.data_ptr()

@@ -10,6 +10,11 @@ Codes are ``(K/2, N)`` uint8 for the packed 4-bit formats (low nibble =
 even k), ``(K, N)`` int8 / float8_e4m3fn otherwise; scales are
 ``(K/sub_block, N)`` f32 (double-quantized scales expanded first).
 
+The kernel may apply a FASST activation in its epilogue (``naf``): the
+output is rounded to its type, put through the NAF in f32 and stored,
+as ``fasst_act_plain(qmm_plain(...), naf)`` computes it, with no launch
+of its own.
+
 ``qmm_plan`` picks the kernel's regime from M and its tiles and K splits
 (decode rows: split-K over every SM; prefill rows: tensor-core tiles,
 split-K only where the tiles cannot fill the card). It is pure Python,
@@ -30,6 +35,7 @@ import torch
 from ..core.formats import FORMATS
 from ..core.quantize import dequantize_blockwise
 from .build import H100_SMS, sm_count
+from .fasst import MODES as NAF_MODES
 
 __all__ = ["qmm_plain", "qmm_kernel_call", "qmm_plan", "QmmPlan", "FMT_IDS"]
 
@@ -105,7 +111,7 @@ def _library():
     if _lib is None:
         from .build import library
         lib = library("qmm")
-        # one int64 array of qmm_launch's 19 arguments (see _launch_args)
+        # one int64 array of qmm_launch's 20 arguments (see _launch_args)
         lib.qmm_launch_packed.restype = ctypes.c_int
         lib.qmm_launch_packed.argtypes = [ctypes.c_void_p]
         lib.qmm_set_codebooks.restype = ctypes.c_int
@@ -121,12 +127,15 @@ def _library():
 
 def qmm_kernel_call(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
                     *, fmt_name: str, sub_block: int,
-                    out_dtype=torch.bfloat16) -> torch.Tensor:
+                    out_dtype=torch.bfloat16, naf: str = "identity") -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; raises on anything else.
+    ``naf`` is the FASST mode of the epilogue ("identity": none).
     (Every 4-bit linear of a decode step comes through here, and the step
     is bound by host time: the checks stay, written to cost little.)"""
     if fmt_name not in FMT_IDS:
         raise ValueError(f"qmm kernel formats are {sorted(FMT_IDS)}, got {fmt_name!r}")
+    if naf not in NAF_MODES:
+        raise ValueError(f"unknown NAF mode {naf!r}")
     fmt = FORMATS[fmt_name]
     if not (x.is_cuda and codes.is_cuda and scales.is_cuda):
         raise ValueError("qmm_kernel_call takes CUDA tensors only")
@@ -155,7 +164,7 @@ def qmm_kernel_call(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     lib = _library()
     plan, args, addr = _launch_args(dev.index, M, N, K, sub_block, fmt_name,
                                     x.dtype == torch.bfloat16,
-                                    out_dtype == torch.bfloat16)
+                                    out_dtype == torch.bfloat16, naf)
     # the current stream's handle in one call (torch.cuda.current_stream
     # builds a Stream object first, several µs of host time a launch)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -171,18 +180,18 @@ def qmm_kernel_call(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-def _launch_args(dev: int, M, N, K, sub_block, fmt_name, x_bf16, out_bf16):
-    """The plan of these shapes and its packed launch arguments (19
+def _launch_args(dev: int, M, N, K, sub_block, fmt_name, x_bf16, out_bf16, naf):
+    """The plan of these shapes and its packed launch arguments (20
     int64 in qmm_launch's order), cached per thread; the caller writes
     the pointers and the stream into it before each launch."""
-    key = (dev, M, N, K, sub_block, fmt_name, x_bf16, out_bf16)
+    key = (dev, M, N, K, sub_block, fmt_name, x_bf16, out_bf16, naf)
     hit = _ARGS.__dict__.get(key)
     if hit is None:
         plan = qmm_plan(M, N, K, sub_block, fmt_name, sm_count(dev))
-        args = (ctypes.c_int64 * 19)(
+        args = (ctypes.c_int64 * 20)(
             0, int(x_bf16), 0, 0, 0, int(out_bf16), M, N, K, sub_block, FMT_IDS[fmt_name],
             REGIME_IDS[plan.regime], plan.grid[0], plan.grid[1], plan.splits,
-            plan.k_per_split, 0, 0, 0)
+            plan.k_per_split, 0, 0, 0, NAF_MODES.index(naf))
         hit = _ARGS.__dict__[key] = (plan, args, ctypes.addressof(args))
     return hit
 

@@ -2,7 +2,9 @@
 
 Every matmul routes through core.qlinear.qmatmul, so any layer deploys at
 any weight format. Activations come from the FASST NAF datapath
-(kernels.fasst._naf), shared by the kernel's plain version and the model.
+(kernels.fasst._naf), shared by the kernel's plain version and the model;
+with the FASST kernel on, the FFN's activation rides in the qmm kernel's
+epilogue wherever its input product goes to that kernel at decode rows.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ from typing import Any
 
 import torch
 
-from ..core.qlinear import qmatmul
+from ..core.qlinear import qmatmul, qmm_route
 from ..kernels.fasst import _naf
+from ..kernels.qmm import DECODE_MAX_M
 from ..unported import later
 
 __all__ = ["Ctx", "rms_norm", "rope", "linear", "mlp", "attn_apply",
@@ -32,7 +35,10 @@ class Ctx:
                      routes 4-bit weights through the qmm kernel.
     paged_attn_impl: "gather" materializes each chain densely; "kernel"
                      runs the paged-attention kernel (write-then-attend).
-    use_fasst_kernel: route the FFN activation through the FASST kernel.
+    use_fasst_kernel: route the FFN activation through the FASST datapath on
+                     the card: in the qmm kernel's epilogue where the
+                     product takes the qmm kernel at decode rows, else the
+                     FASST kernel.
     """
     compute_dtype: Any = torch.bfloat16
     act_fmt: str = "bf16"
@@ -52,9 +58,9 @@ class Ctx:
             raise ValueError(f"paged_attn_impl must be one of "
                              f"{_PAGED_ATTN_IMPLS}, got {self.paged_attn_impl!r}")
 
-    def dot(self, x, w):
+    def dot(self, x, w, naf=None):
         return qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
-                       impl=self.matmul_impl)
+                       impl=self.matmul_impl, naf=naf)
 
     def attn_dot(self, subscripts, a, b):
         """QK / PV attention einsum with f32 accumulation."""
@@ -107,7 +113,15 @@ def mlp(ctx: Ctx, params, x, act: str):
     """Two-layer FFN (the GLU variants come with the LM families)."""
     if act not in PLAIN_ACTS:
         raise later(f"FFN activation {act!r}", 4)
-    h = ctx.naf(ctx.dot(x, params["w_in"]), PLAIN_ACTS[act])
+    mode, w_in = PLAIN_ACTS[act], params["w_in"]
+    # the NAF rides in qmm's epilogue at decode rows, where it saves the
+    # FASST launch; at prefill rows qmm then the FASST kernel is faster
+    # than the fused launch (PERF.md)
+    if (ctx.use_fasst_kernel and qmm_route(w_in, ctx.matmul_impl)
+            and x.numel() // x.shape[-1] <= DECODE_MAX_M):
+        h = ctx.dot(x, w_in, naf=mode)
+    else:
+        h = ctx.naf(ctx.dot(x, w_in), mode)
     return ctx.dot(h, params["w_out"])
 
 
