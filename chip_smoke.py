@@ -31,11 +31,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. seeded temperature / top-p requests on both engines: in the
    vocabulary, repeatable, and dense equal to paged up to near ties
    ([sampled]);
-8. the ops API path of the dense decode attention, the row softmax and
+8. on-demand paging on a 10-page pool, where whole budgets would need
+   24: every request ends ``length`` with preempt_limit 16 (overlapped
+   and serial rounds), some end ``preempted_limit`` with preempt_limit 0,
+   streams equal [serve]'s or part only where a prefill replay's rounding
+   meets a near tie, the allocator clean after each drain
+   ([serve-preempt]);
+9. overlapped against serial rounds, paged and dense: token-identical,
+   with host wall per step, tokens/s and idle share, and one steady
+   overlapped round traced with exactly one host wait on the device
+   ([overlap]); streaming and a mid-stream abort ([stream]); the
+   engine's TTFT / TPOT percentiles and a traced run token-identical to
+   the untraced one ([metrics]);
+10. the ops API path of the dense decode attention, the row softmax and
    the standalone FASST activation, driven on the dense engine's live
    caches, logits and FFN weights, with the launch counters set to 0
    just before and read just after ([api]);
-9. a launch-count line, the kernels' JSON line, the card line, and last
+11. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -922,9 +934,7 @@ def serve(torch, card, *, paged: bool, params=None):
     srcs, langs = _requests(rng, LANG_CODES, SLOTS)
     prompts = [{"src_tokens": s[None], "tgt_in": np.array([[LANG_CODES[lg]]], np.int32)}
                for s, lg in zip(srcs, langs)]
-    for name in ("decode_steps", "decode_syncs", "prefill_calls"):
-        setattr(eng, name, 0)
-    eng.prefill_s = eng.decode_s = 0.0
+    eng.reset_metrics()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -963,6 +973,7 @@ def serve(torch, card, *, paged: bool, params=None):
             raise AssertionError(f"{name}: {launches[name]} launches < {n} x {steps} "
                                  "decode steps")
     tokens = sum(len(o.token_ids) for o in outs)
+    m = eng.metrics()
     stats = {"requests": len(outs), "tokens": tokens, "wall_s": wall,
              "tokens_per_s": tokens / wall, "decode_steps": steps,
              "decode_syncs": eng.decode_syncs,
@@ -970,8 +981,14 @@ def serve(torch, card, *, paged: bool, params=None):
              "prefill_calls": eng.prefill_calls,
              "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "overlap_rounds": m.overlap_rounds, "occupancy": m.occupancy,
              "launches": launches, "card": card}
     log(f"[{tag}] " + json.dumps(stats))
+    # [metrics]: the engine's own latency percentiles over this run
+    # (nearest rank, upper edges of power-of-two histogram buckets)
+    log(f"[metrics] {tag}: TTFT p50 {m.ttft_p50_ms} ms, p95 {m.ttft_p95_ms} ms; TPOT p50 "
+        f"{m.tpot_p50_ms} ms, p95 {m.tpot_p95_ms} ms over {len(outs)} requests; "
+        f"prometheus() {len(eng.prometheus().splitlines())} lines; on {card}")
     log(f"[{tag}] first stream: {outs[0].token_ids[:12]} ...")
     return pipe, launches, prompts, outs
 
@@ -1088,12 +1105,14 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
         f"{name} x{n:g} {ms:.4f} ms/step" for name, (ms, n) in sorted(ours.items())))
 
 
-def _fresh_engine(pipe, paged: bool):
-    """An idle engine of the given layout on ``pipe``'s model and weights."""
+def _fresh_engine(pipe, paged: bool, **kw):
+    """An idle engine of the given layout on ``pipe``'s model and weights;
+    ``kw`` sets engine options (pool, overlap, preempt_limit, trace)."""
     from repro_torch.serving import ServeEngine
     return ServeEngine(pipe.model, pipe.params, slots=SLOTS, max_len=MAX_LEN,
                        kv_dtype=pipe.engine.kv_dtype, ctx=pipe.ctx, paged=paged,
-                       page_size=PAGE, horizon=HORIZON, device=pipe.engine.device)
+                       page_size=PAGE, horizon=HORIZON, max_src_len=pipe.engine.enc_cap,
+                       device=pipe.engine.device, **kw)
 
 
 def _filter_slack(torch, lg, sp, t):
@@ -1175,6 +1194,8 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
             eng._admit_pending()
             if [s.request.id for s in eng.slots] != list(range(len(prompts))):
                 raise AssertionError(f"[{tag}] admission placed requests out of order")
+            if eng.paged:       # on-demand chains: cover the forced steps
+                eng._grow_chains(steps)
         dev = engines[0].device
         forced = torch.tensor([t[:steps] for t in paged_streams], dtype=torch.int32,
                               device=dev)
@@ -1237,7 +1258,7 @@ def sampled(torch, pipe_p, pipe_d, prompts):
 
     def run(pipe):
         eng = pipe.engine
-        eng.decode_steps, eng.decode_s = 0, 0.0
+        eng.reset_metrics()
         ids = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
         by_id = {o.request_id: o for o in eng.run_until_drained()}
         outs = [by_id[i] for i in ids]
@@ -1261,6 +1282,312 @@ def sampled(torch, pipe_p, pipe_d, prompts):
         f"token-identical, {len(part)} part at a near tie; {distinct} distinct streams; "
         f"decode ms per micro-step paged {ms['paged']:.3f}, dense {ms['dense']:.3f}; "
         f"first stream {streams['paged'][0][:12]} ...")
+
+
+# ---------------------------------------------------------------------------
+# on-demand paging, overlapped rounds, streaming, metrics and tracing
+# ---------------------------------------------------------------------------
+
+PREEMPT_PAGES = 10      # 8 requests of 1 + 32 positions need 24 pages whole
+OVERLAP_GEN = 64        # 4 horizons of 16 a request in [overlap]
+
+
+def _first_parting(a, b):
+    return next((t for t in range(min(len(a), len(b))) if a[t] != b[t]), None)
+
+
+def _resumes(tracer):
+    """Request id -> stash lengths of its resumes, from the trace."""
+    out = {}
+    for e in tracer.events:
+        if e.name == "resumed":
+            out.setdefault(e.tid - 1, []).append(e.args["replayed"])
+    return out
+
+
+def replay_partings(torch, tag, pipe, prompts, ref_streams, got_streams, resumes):
+    """Where a preempted run's stream parts from the uncontended [serve]
+    stream, show that the parting is the replay's rounding at a near tie.
+    A stream may part only at a token produced after a resume (stash
+    length m <= parting token j): the resume rebuilt the cache by a
+    prefill of the prompt plus m - 1 tokens, where [serve] decoded them
+    one at a time. Two fresh paged engines of the same slots replay the
+    common prefix teacher-forced: one decoding every token, one resuming
+    each parting request from its last stash before j (through the
+    engine's own resume path). At the parting, the top-2 margin of the
+    decoded logits must be at most twice the two engines' largest logit
+    difference there. Returns {request: (j, m)}."""
+    from repro_torch.serving import SamplingParams
+    part = {}
+    for i, (a, b) in enumerate(zip(ref_streams, got_streams)):
+        j = _first_parting(a, b)
+        if j is None:
+            if len(b) > len(a):
+                raise AssertionError(f"[{tag}] request {i}: {len(b)} tokens > {len(a)}")
+            continue                    # equal, or a prefix (preempted_limit)
+        m = max((r for r in resumes.get(i, []) if r <= j), default=None)
+        if j == 0 or m is None:
+            raise AssertionError(f"[{tag}] request {i} parts at token {j} ({a[j]} vs "
+                                 f"{b[j]}) with no replay before it (resumes "
+                                 f"{resumes.get(i, [])})")
+        part[i] = (j, m)
+    if not part:
+        return part
+    sp = SamplingParams(max_new_tokens=GEN)
+    engines = [_fresh_engine(pipe, True) for _ in range(2)]
+    for k, eng in enumerate(engines):
+        for p in prompts:
+            eng.submit(p, sp)
+        if k:                           # the resumed engine
+            for i, (j, m) in part.items():
+                eng._preempted[i] = list(ref_streams[i][:m])
+        eng._admit_pending()
+    # forced input of each request at step u (1-based): the decoding
+    # engine feeds token u - 1; a resumed request feeds m - 1 + u - 1
+    off = [[0] * len(prompts), [0] * len(prompts)]
+    for i, (j, m) in part.items():
+        off[1][i] = m - 1
+    steps = [max(j for j, _ in part.values()),
+             max(j - m + 1 for j, m in part.values())]
+    dev = engines[0].device
+    want = {}
+    with torch.no_grad():
+        for k, eng in enumerate(engines):
+            eng._grow_chains(steps[k])
+            slot_of = {s.request.id: s.id for s in eng.slots if s.active}
+            for u in range(1, steps[k] + 1):
+                col = torch.zeros((SLOTS, 1), dtype=torch.int32)
+                for rid, sid in slot_of.items():
+                    col[sid, 0] = ref_streams[rid][min(off[k][rid] + u - 1, GEN - 1)]
+                eng.cache, lg = eng.model.decode_step(eng.ctx, eng.params, col.to(dev),
+                                                      eng.cache)
+                for i, (j, m) in part.items():
+                    if u == (j if k == 0 else j - m + 1):
+                        want[k, i] = lg[slot_of[i], -1].float()
+    for i, (j, m) in part.items():
+        la, lb = want[0, i], want[1, i]
+        err = float((la - lb).abs().max())
+        top2 = la.topk(2).values
+        margin = float(top2[0] - top2[1])
+        where = (f"[{tag}] request {i} parts at token {j} ({ref_streams[i][j]} vs "
+                 f"{got_streams[i][j]}) after a resume from {m} stashed tokens")
+        if not (err < 0.3 and margin <= 2 * err):
+            raise AssertionError(f"{where}: top-2 margin {margin:.4g}, replay vs decode "
+                                 f"logit difference {err:.4g}: not a near tie")
+        log(f"{where}: near tie, top-2 margin {margin:.4g} <= 2 x {err:.4g} (replay vs "
+            "decode logit difference)")
+    return part
+
+
+def serve_preempt(torch, card, pipe, prompts, ref_outs):
+    """[serve-preempt]: [serve]'s requests on a 10-page pool (whole
+    budgets would need 24): on-demand paging, preemption and prefill
+    replay at full width, traced. preempt_limit 16 with overlapped and
+    with serial rounds (serial rounds stash and replay whole horizons),
+    then preempt_limit 0."""
+    from repro_torch.serving import SamplingParams, TraceConfig
+    sp = SamplingParams(max_new_tokens=GEN)
+    ref = [o.token_ids for o in ref_outs]
+    for limit, overlap in ((16, True), (16, False), (0, True)):
+        eng = _fresh_engine(pipe, True, num_pages=PREEMPT_PAGES, preempt_limit=limit,
+                            overlap=overlap, trace=TraceConfig())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, sp) for p in prompts]
+        by_id = {o.request_id: o for o in eng.run_until_drained()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs = [by_id[i] for i in ids]
+        m = eng.metrics()
+        eng.allocator.check()
+        problems = eng.trace.check()
+        where = f"[serve-preempt] preempt_limit {limit}, overlap {overlap}"
+        if eng.allocator.pages_in_use or problems:
+            raise AssertionError(f"{where}: {eng.allocator.pages_in_use} pages leaked; "
+                                 f"trace {problems[:3]}")
+        reasons = [o.finish_reason for o in outs]
+        if limit and (set(reasons) != {"length"} or not m.preemptions
+                      or not m.resumed_requests):
+            raise AssertionError(f"{where}: reasons {reasons}, {m.preemptions} "
+                                 f"preemptions, {m.resumed_requests} resumes")
+        if not limit and "preempted_limit" not in reasons:
+            raise AssertionError(f"{where}: no request retired as preempted_limit")
+        _check_vocab(pipe, outs)
+        resumes = _resumes(eng.trace)
+        part = replay_partings(torch, "serve-preempt", pipe, prompts, ref,
+                               [o.token_ids for o in outs], resumes)
+        tokens = sum(len(o.token_ids) for o in outs)
+        log(f"{where}: " + json.dumps({
+            "reasons": reasons, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall, "preemptions": m.preemptions,
+            "resumed_requests": m.resumed_requests,
+            "replayed": {str(k): v for k, v in resumes.items()},
+            "same_as_serve": sum(o.token_ids == r[:len(o.token_ids)]
+                                 for o, r in zip(outs, ref)),
+            "near_tie_partings": len(part), "page_utilization": m.page_utilization,
+            "pages_in_use_after": eng.allocator.pages_in_use,
+            "decode_steps": m.decode_steps, "decode_syncs": m.decode_syncs,
+            "overlap_rounds": m.overlap_rounds, "card": card}))
+
+
+_HOST_WAITS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+               "cudaMemcpy")
+
+
+def _busy_ms(torch, prof) -> float:
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def overlap_phase(torch, card, pipe, pipe_d, prompts):
+    """[overlap]: the same requests (64 new tokens each) on paged and
+    dense engines, with overlapped and with serial rounds: token-identical
+    streams; host wall
+    per step, tokens/s, overlap_rounds, and the idle share from a
+    profiled second run. Then one steady overlapped round, with no
+    admission, under torch.profiler: exactly one host wait on the
+    device (the walk's event)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.serving import SamplingParams
+    sp = SamplingParams(max_new_tokens=OVERLAP_GEN)
+
+    def run(eng):
+        eng.reset_metrics()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, sp) for p in prompts]
+        by_id = {o.request_id: o for o in eng.run_until_drained()}
+        torch.cuda.synchronize()
+        return [by_id[i].token_ids for i in ids], time.perf_counter() - t0
+
+    for layout, base in (("paged", pipe), ("dense", pipe_d)):
+        engines = {ov: _fresh_engine(base, layout == "paged", overlap=ov)
+                   for ov in (True, False)}
+        streams, walls = {}, {True: [], False: []}
+        for ov in (True, False, False, True, True, False):    # in turns
+            got, wall = run(engines[ov])
+            if streams.setdefault(ov, got) != got:
+                raise AssertionError(f"[overlap] {layout}: two runs differ")
+            walls[ov].append(wall)
+        for ov, eng in engines.items():
+            m = eng.metrics()
+            # device kernels only: CPU op events would cost minutes to process
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, pwall = run(eng)
+            busy = _busy_ms(torch, prof)
+            tokens = sum(len(t) for t in streams[ov])
+            log(f"[overlap] {layout}, overlap {ov}: " + json.dumps({
+                "host_wall_ms_per_step": [1e3 * w / m.decode_steps for w in walls[ov]],
+                "tokens_per_s": [tokens / w for w in walls[ov]],
+                "decode_steps": m.decode_steps, "decode_syncs": m.decode_syncs,
+                "overlap_rounds": m.overlap_rounds,
+                "idle_share": (1 - busy / (1e3 * pwall)) if busy else "not measured",
+                "profiled_wall_s": pwall, "device_busy_ms": busy, "card": card}))
+        if streams[True] != streams[False]:
+            raise AssertionError(f"[overlap] {layout}: overlapped and serial streams differ")
+        log(f"[overlap] {layout}: overlapped and serial rounds token-identical "
+            f"({len(prompts)} streams; timed runs in turns True, False, False, True, "
+            "True, False)")
+
+    eng = _fresh_engine(pipe, True)
+    for p in prompts:
+        eng.submit(p, SamplingParams(max_new_tokens=MAX_LEN - 1))
+    rounds = eng.serve_rounds()
+    next(rounds)                         # admission + the first horizon
+    next(rounds)                         # the first overlapped round
+    torch.cuda.synchronize()
+    before = (eng.overlap_rounds, eng.prefill_calls, eng.decode_syncs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("steady_round"):
+            next(rounds)
+    after = (eng.overlap_rounds, eng.prefill_calls, eng.decode_syncs)
+    rounds.close()
+    eng.run_until_drained()
+    eng.allocator.check()
+    evs = prof.events()
+    win = next(e for e in evs if e.name == "steady_round")
+    inside = [e for e in evs if e.time_range.start >= win.time_range.start
+              and e.time_range.end <= win.time_range.end]
+    waits = [e.name for e in inside if e.name in _HOST_WAITS]
+    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
+                   for e in inside)
+    if after != (before[0] + 1, before[1], before[2] + 1):
+        raise AssertionError(f"[overlap] the profiled round was not one steady overlapped "
+                             f"round: (overlap_rounds, prefill_calls, decode_syncs) "
+                             f"{before} -> {after}")
+    log(f"[overlap] one steady overlapped round (8 live slots, no admission) under "
+        f"torch.profiler: host waits on the device {waits}, {launches} kernel launches, "
+        f"round host wall {win.time_range.elapsed_us() / 1e3:.3f} ms (profiled)")
+    if len(waits) != 1:
+        raise AssertionError(f"[overlap] a steady round waited on the device "
+                             f"{len(waits)} times, not once: {waits}")
+
+
+def stream_phase(torch, pipe, prompts, ref_outs):
+    """[stream]: one request streamed by generate_stream while the other
+    seven are served; then an abort from the caller mid-stream."""
+    from repro_torch.serving import SamplingParams
+    sp = SamplingParams(max_new_tokens=GEN)
+    eng = pipe.engine
+    others = [eng.submit(p, sp) for p in prompts[1:]]
+    gen = pipe.generate_stream(prompts[0], sp)
+    toks = []
+    while True:
+        try:
+            toks.append(next(gen))
+        except StopIteration as fin:
+            out = fin.value
+            break
+    rest = eng.run_until_drained()
+    if not (out is not None and toks == out.token_ids and len(toks) == GEN
+            and out.finish_reason == "length"):
+        raise AssertionError(f"[stream] streamed {len(toks)} tokens, output "
+                             f"{None if out is None else out.token_ids}")
+    if sorted(o.request_id for o in rest) != others:
+        raise AssertionError("[stream] the other requests' outputs went missing")
+    seen = []
+    rid = eng.submit(prompts[1], sp, on_token=seen.append)
+    rounds = eng.serve_rounds()
+    while len(seen) < 5:
+        next(rounds)
+    got = eng.abort(rid)
+    rounds.close()
+    eng.allocator.check()
+    ref = ref_outs[1].token_ids
+    if not (got.finish_reason == "abort" and got.token_ids == seen
+            and got.token_ids == ref[:len(seen)] and len(seen) < GEN
+            and eng.allocator.pages_in_use == 0 and eng.abort(rid) is None):
+        raise AssertionError(f"[stream] abort returned {got.finish_reason} "
+                             f"{got.token_ids} after {seen}; "
+                             f"{eng.allocator.pages_in_use} pages in use")
+    log(f"[stream] generate_stream yielded {len(toks)} tokens equal to its output "
+        f"(equal to [serve]'s stream: {toks == ref_outs[0].token_ids}) while 7 more were "
+        f"served; abort after {len(seen)} streamed tokens returned that prefix of [serve]'s "
+        f"stream and freed its pages (0 in use)")
+
+
+def trace_phase(torch, pipe, prompts, ref_outs):
+    """[metrics]: a traced run (trace=TraceConfig()) is token-identical
+    to [serve], syncs as often, and its trace passes Tracer.check(); the
+    trace JSON goes to build/ (not committed)."""
+    from repro_torch.serving import SamplingParams, TraceConfig
+    eng = _fresh_engine(pipe, True, trace=TraceConfig())
+    ids = [eng.submit(p, SamplingParams(max_new_tokens=GEN)) for p in prompts]
+    by_id = {o.request_id: o for o in eng.run_until_drained()}
+    problems = eng.trace.check()
+    same = [by_id[i].token_ids == o.token_ids for i, o in zip(ids, ref_outs)]
+    if not all(same) or problems:
+        raise AssertionError(f"[metrics] traced streams equal [serve]'s: {same}; trace "
+                             f"problems {problems[:3]}")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    eng.trace.dump_json(str(out_dir / "serve_trace.json"))
+    m = eng.metrics()
+    log(f"[metrics] traced paged run token-identical to [serve] ({len(ids)} streams), "
+        f"{m.decode_syncs} syncs, {len(eng.trace)} events, {eng.trace.dropped} dropped, "
+        f"Tracer.check() clean; phases admit {m.phase_admit_ms} ms, dispatch "
+        f"{m.phase_dispatch_ms} ms, sync {m.phase_sync_ms} ms, walk {m.phase_walk_ms} ms; "
+        f"trace in build/serve_trace.json")
 
 
 def api_path(torch, pipe):
@@ -1350,6 +1677,7 @@ def api_path(torch, pipe):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1409,11 +1737,20 @@ def main() -> int:
     profile_decode(torch, pipe_d, prompts, "profile-dense-sampled", sampled=True)
     dense_vs_paged(torch, pipe, prompts, paged_outs, dense_outs)
     sampled(torch, pipe, pipe_d, prompts)
+    for name, phase in (("serve-preempt", lambda: serve_preempt(torch, card, pipe, prompts,
+                                                                paged_outs)),
+                        ("overlap", lambda: overlap_phase(torch, card, pipe, pipe_d, prompts)),
+                        ("stream", lambda: stream_phase(torch, pipe, prompts, paged_outs)),
+                        ("metrics", lambda: trace_phase(torch, pipe, prompts, paged_outs))):
+        t0 = time.perf_counter()
+        phase()
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
     api_launches = api_path(torch, pipe_d)
 
     for e in entries:
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
+    log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
                                 for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "max_abs_err",

@@ -92,8 +92,9 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     mantissa of a float in [1, 2), as in ``jax.random.uniform``."""
     bits = random_bits(key, shape)
     floats = ((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # filled on the device: no host-to-device copy inside a decode horizon
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -10,7 +10,7 @@ point at the reserved trash page 0.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -64,6 +64,16 @@ class PageAllocator:
         del self._free[:n]
         self._in_use.update(chain)
         return chain
+
+    def try_alloc_chain(self, n: int) -> Optional[List[int]]:
+        """``alloc_chain`` that returns ``None`` on a shortage instead of
+        raising: the engine's on-demand growth turns a shortage into a
+        preemption, never into a MemoryError out of the serving loop."""
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} pages")
+        if n > self.num_free:
+            return None
+        return self.alloc_chain(n)
 
     def free_chain(self, chain: Sequence[int]) -> None:
         """Return a request's pages to the free list."""

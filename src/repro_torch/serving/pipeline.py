@@ -6,6 +6,8 @@
     pipe = deploy("nllb600m", "int4", paged=True)       # block-paged KV
     outs = pipe.translate(src_tokens, "ita",
                           SamplingParams(temperature=0.7, top_p=0.9, seed=1))
+    for tok in pipe.translate_stream(src_row, "ita", sp):  # token at a time
+        print(tok)
 
 ``deploy`` runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``device="cpu"``); without a card it raises. Kernel
@@ -19,7 +21,7 @@ routes. The FASST activation kernel is the ``Ctx.use_fasst_kernel`` knob.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Iterator, List, Optional, Sequence, Union
 
 import torch
 
@@ -27,9 +29,11 @@ from ..configs import get_config, reduce_config
 from ..core import QuantSpec, quantize_tree, resolve_spec
 from ..data import LANG_CODES
 from ..models import Ctx, build_model
+from ..obs import TraceConfig, Tracer
 from ..unported import later
 from .engine import ServeEngine
-from .params import RequestOutput, SamplingParams
+from .metrics import SLATarget
+from .params import Request, RequestOutput, SamplingParams
 
 __all__ = ["deploy", "TranslationPipeline", "impl_routes", "DEFAULT_IMPL"]
 
@@ -57,6 +61,12 @@ class TranslationPipeline:
     engine: ServeEngine
     ctx: Ctx
 
+    @property
+    def tracer(self) -> Optional[Tracer]:
+        """The engine's Tracer when deployed with ``trace=...``; dump it
+        with ``pipe.tracer.dump_json(path)``."""
+        return self.engine.trace
+
     def generate(self, prompts: Sequence[Any],
                  params: Optional[SamplingParams] = None) -> List[RequestOutput]:
         """Serve a list of B=1 batch dicts (or Requests); outputs come
@@ -70,13 +80,41 @@ class TranslationPipeline:
         """Many-to-many NMT: one output per source row. ``tgt_lang`` is a
         name from ``data.LANG_CODES`` or a raw code-token id; the decoder
         is prompted with that code token."""
-        code = LANG_CODES[tgt_lang] if isinstance(tgt_lang, str) else tgt_lang
-        src = torch.as_tensor(src_tokens, dtype=torch.int32)
-        src = src[None] if src.ndim == 1 else src
-        prompts = [{"src_tokens": src[i:i + 1],
-                    "tgt_in": torch.full((1, 1), code, dtype=torch.int32)}
-                   for i in range(src.shape[0])]
-        return self.generate(prompts, params)
+        return self.generate(_lang_prompts(src_tokens, tgt_lang), params)
+
+    def generate_stream(self, prompt: Any,
+                        params: Optional[SamplingParams] = None) -> Iterator[int]:
+        """Stream ONE prompt (a B=1 batch dict or a Request): yields token
+        ids as each block lands; the finished RequestOutput is the
+        generator's return value. Other requests keep being served."""
+        if not isinstance(prompt, (dict, Request)):
+            raise TypeError("enc-dec prompts must be batch dicts with "
+                            "'src_tokens' and 'tgt_in'")
+        return self.engine.stream_request(prompt, params)
+
+    def translate_stream(self, src_tokens, tgt_lang: Union[str, int],
+                         params: Optional[SamplingParams] = None) -> Iterator[int]:
+        """Streaming translate() of ONE source row: yields target token
+        ids as they arrive (the first at prefill) and returns the
+        RequestOutput. Batches loop, or submit through
+        ``engine.submit(..., on_token=...)`` for interleaved streams."""
+        prompts = _lang_prompts(src_tokens, tgt_lang)
+        if len(prompts) != 1:
+            raise ValueError(f"translate_stream() streams one source row, got a "
+                             f"batch of {len(prompts)}; loop over rows or submit "
+                             "them via engine.submit(on_token=...)")
+        return self.engine.stream_request(prompts[0], params)
+
+
+def _lang_prompts(src_tokens, tgt_lang: Union[str, int]) -> List[dict]:
+    """One B=1 prompt per source row, the decoder prompted with the
+    target language's code token."""
+    code = LANG_CODES[tgt_lang] if isinstance(tgt_lang, str) else tgt_lang
+    src = torch.as_tensor(src_tokens, dtype=torch.int32)
+    src = src[None] if src.ndim == 1 else src
+    return [{"src_tokens": src[i:i + 1],
+             "tgt_in": torch.full((1, 1), code, dtype=torch.int32)}
+            for i in range(src.shape[0])]
 
 
 def _device(device) -> torch.device:
@@ -98,9 +136,10 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
            num_pages: Optional[int] = None, max_src_len: Optional[int] = None,
            horizon: int = 1, matmul_impl: Optional[str] = None,
            paged_attn_impl: Optional[str] = None, calib_batches=None,
-           draft_spec=None, draft_lookahead: int = 4, overlap: bool = False,
-           sla=None, max_pending: Optional[int] = None, preempt_limit: int = 3,
-           faults=None, trace=None, mesh=None, device=None
+           draft_spec=None, draft_lookahead: int = 4, overlap: bool = True,
+           sla: Optional[SLATarget] = None, max_pending: Optional[int] = None,
+           preempt_limit: int = 3, faults=None,
+           trace: Union[Tracer, TraceConfig, None] = None, mesh=None, device=None
            ) -> TranslationPipeline:
     """Build a ready-to-serve TranslationPipeline in one call.
 
@@ -114,28 +153,41 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  ``device``, quantized here per ``policy``; default: a
                  fresh random init seeded by ``init_seed``.
     paged:       False (default): a dense ``(slots, max_len)`` KV cache with
-                 per-request admission. True: a block-paged KV cache with
-                 batched prefill admission and whole-budget page
-                 reservation (``num_pages`` defaults to slots x pages of
-                 ``max_len``). Both give the same token streams.
+                 per-request admission at submit. True: a block-paged KV
+                 cache (a shared pool of ``num_pages`` pages of
+                 ``page_size`` tokens, default slots x pages of
+                 ``max_len``) with batched prefill admission and on-demand
+                 paging: a request is admitted with its prompt's pages and
+                 its chain grows just ahead of each decode horizon. Both
+                 give the same token streams.
     horizon:     decode micro-steps fused per host sync.
     matmul_impl / paged_attn_impl: override single routes of the default
                  "kernels" bundle; they replace the routes of an
                  explicit ``ctx``.
-    preempt_limit: accepted for signature parity; whole-budget page
-                 reservation never preempts.
+    overlap:     True (default): dispatch horizon N+1 on the card before
+                 the host waits for and walks horizon N's token block;
+                 False: serial rounds. Same token streams either way;
+                 horizon=1 is always serial.
+    sla:         an SLATarget: a percentile-feedback controller retunes
+                 the effective horizon and the paged prefill-group cap
+                 against the measured p95 TTFT / TPOT.
+    preempt_limit: a paged engine whose pool runs out preempts the
+                 lowest-priority, youngest request (pages freed, tokens
+                 stashed) and resumes it later by prefill replay; a
+                 request preempted more than ``preempt_limit`` times
+                 retires as ``preempted_limit`` with its prefix.
+    trace:       a TraceConfig (or a Tracer): per-request lifecycle and
+                 scheduler phase tracing, read back through
+                 ``pipe.tracer``. None adds no clock read to the loop.
     device:      None = "cuda" (raises without a card).
     """
-    unported = {"draft_spec": draft_spec, "sla": sla, "faults": faults,
-                "trace": trace, "max_pending": max_pending,
-                "calib_batches": calib_batches}
+    unported = {"draft_spec": draft_spec, "faults": faults,
+                "max_pending": max_pending, "calib_batches": calib_batches}
     for name, value in unported.items():
         if value is not None:
             raise later(f"deploy({name}=...)", 2)
     if mesh is not None:
         raise later("deploy(mesh=...)", 5)
-    if overlap:
-        raise later("overlapped rounds (overlap=True)", 2)
     spec = resolve_spec(policy)
     if spec.quantizes_act or spec.quantizes_attn:
         raise later(f"act-quantizing spec {spec}", 3)
@@ -162,5 +214,6 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     engine = ServeEngine(model, params, slots=slots, max_len=max_len,
                          kv_dtype=kv, ctx=ctx, paged=paged, page_size=page_size,
                          num_pages=num_pages, max_src_len=max_src_len,
-                         horizon=horizon, device=dev)
+                         horizon=horizon, overlap=overlap, sla=sla,
+                         preempt_limit=preempt_limit, trace=trace, device=dev)
     return TranslationPipeline(cfg, model, params, engine, ctx)

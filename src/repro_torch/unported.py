@@ -6,9 +6,8 @@ ROADMAP.md, queue 1); nothing runs another route in its place.
 """
 
 SLICES = {
-    2: "serving features: on-demand paging and preemption, overlapped "
-       "rounds, SLA admission, deadlines and fault injection, tracing, "
-       "speculative decoding",
+    2: "serving features: deadlines, bounded admission (max_pending) and "
+       "fault injection, speculative decoding, the serving launcher",
     3: "quantization routes: act-quantizing specs (w8a8, a8, afp8, x<fmt>), "
        "fp8 KV caches, activation calibration, QLoRA",
     4: "the other model families (decoder-only LMs, MoE, SSM, hybrid, audio)",

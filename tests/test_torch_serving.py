@@ -181,10 +181,13 @@ def test_translate_surface(torch_params):
 @pytest.mark.parametrize("kwargs", [
     dict(policy="w8a8"), dict(policy="fp8e2e"), dict(policy="w4a8kv8"),
     dict(policy="w16x8"), dict(policy="fp8"), dict(kv_dtype="fp8"),
-    dict(max_pending=4), dict(draft_spec="wfp4"), dict(sla=object()),
-    dict(faults=object()), dict(trace=object()), dict(mesh=object()),
-    dict(overlap=True)])
+    dict(max_pending=4), dict(draft_spec="wfp4"), dict(calib_batches=[]),
+    dict(faults=object()), dict(kv_dtype="fp8", paged=False), dict(mesh=object()),
+    dict(faults=object(), paged=False)])
 def test_unported_routes_raise(kwargs):
+    """Routes outside the ported slices raise, naming their slice; SLA
+    admission, tracing and overlapped rounds are ported
+    (tests/test_torch_streaming.py, tests/test_torch_obs.py)."""
     kw = dict(KW, **kwargs)
     policy = kw.pop("policy", "int4")
     with pytest.raises(NotImplementedError, match="port slice"):
