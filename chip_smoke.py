@@ -43,11 +43,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ([overlap]); streaming and a mid-stream abort ([stream]); the
    engine's TTFT / TPOT percentiles and a traced run token-identical to
    the untraced one ([metrics]);
-10. the ops API path of the dense decode attention, the row softmax and
+10. speculative decoding on [serve]'s prompts and weights: a paged
+   engine with an nf4 draft arm and a dense one with an int4 draft (the
+   target itself, so every drafted token is accepted); greedy streams
+   equal [serve]'s and [serve-dense]'s up to near ties; the draft's
+   served FFN-in, fused with its NAF, within the plain versions' bound;
+   one round of lookahead K launches qmm 96 x K and (paged) paged_attn
+   12 x K times and waits on the device once ([spec]);
+11. fault injection on the [serve] configuration: a page steal that
+   forces preemption, a NaN on one slot, a clock skew past two requests'
+   deadlines and a submit past max_pending; survivors equal [serve]'s
+   streams, casualties keep prefixes, the allocator is clean ([faults]);
+12. the serving launcher, ``python -m repro_torch.launch.serve``, in a
+   process of its own on the card ([launch]);
+13. the ops API path of the dense decode attention, the row softmax and
    the standalone FASST activation, driven on the dense engine's live
    caches, logits and FFN weights, with the launch counters set to 0
    just before and read just after ([api]);
-11. a launch-count line, the kernels' JSON line, the card line, and last
+14. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -57,6 +70,8 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -383,10 +398,10 @@ def check_qmm_naf(torch, dev, card):
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     exact = ("relu", "identity", "squared_relu")
     worst = worst_plain = 0.0
-    for fmt in ("int4", "fp4"):
+    for fmt in ("int4", "fp4", "nf4"):
         for m, k, n, block in QMM_NAF_CASES:
             w = torch.randn((k, n), generator=g, device=dev) * 0.05
-            qt = QTensor.quantize(w, fmt, block)
+            qt = QTensor.quantize(w, fmt, block, double_quant=(fmt == "nf4"))
             x = torch.randn((m, k), generator=g, device=dev)
             plan = qmm_plan(m, n, k, block, fmt)
             for dt in (torch.float32, torch.bfloat16):
@@ -416,7 +431,8 @@ def check_qmm_naf(torch, dev, card):
                                              "against ops.fasst(ops.qmm)")
                     if (k, n) == (1024, 8192) and dt == torch.float32:
                         worst = max(worst, float(err.max()))
-    log(f"[kernels] qmm_naf: 8 modes x int4/fp4 x M={sorted({c[0] for c in QMM_NAF_CASES})} "
+    log(f"[kernels] qmm_naf: 8 modes x int4/fp4/nf4 (nf4 double-quantized) x "
+        f"M={sorted({c[0] for c in QMM_NAF_CASES})} "
         f"(1024x8192 and 960x1001, one and several K splits) x f32/bf16: "
         f"every mode within fasst_act_plain(qmm_plain) (qmm's bound, carried through the "
         f"NAF, plus the FASST bound; max abs err f32 {worst_plain:.3g}); "
@@ -990,7 +1006,7 @@ def serve(torch, card, *, paged: bool, params=None):
         f"{m.tpot_p50_ms} ms, p95 {m.tpot_p95_ms} ms over {len(outs)} requests; "
         f"prometheus() {len(eng.prometheus().splitlines())} lines; on {card}")
     log(f"[{tag}] first stream: {outs[0].token_ids[:12]} ...")
-    return pipe, launches, prompts, outs
+    return pipe, launches, prompts, outs, stats
 
 
 def _check_vocab(pipe, outs):
@@ -1435,8 +1451,59 @@ _HOST_WAITS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynch
 
 
 def _busy_ms(torch, prof) -> float:
+    """Device busy ms: the kernels' and copies' own time, without the
+    device spans of record_function regions (user annotations), as
+    torch.profiler's own table sums it."""
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profiled_round(torch, fn, label):
+    """Run fn() alone under torch.profiler (CPU and CUDA activities),
+    inside record_function(label), then torch.cuda.synchronize(). Returns
+    (profile, host ms of fn, waits, kernel launches, where). The waits are
+    the runtime calls in _HOST_WAITS over the whole profile, less those of
+    the same profile around the synchronize alone (the script's own and
+    the profiler's); launches are counted over the whole profile too.
+    `where` places each wait (the synchronize's left out) against the
+    label's two spans, the host's and the device's (the user annotation):
+    which of them comes first in the profile's events (the one this
+    script once counted inside), the waits inside each, and the gaps to
+    their ends in us."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as empty:
+        torch.cuda.synchronize()
+    own = Counter(e.name for e in empty.events() if e.name in _HOST_WAITS)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        with record_function(label):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    evs = prof.events()
+    found = [e.time_range for e in evs
+             if e.name in _HOST_WAITS and e.name != "cudaDeviceSynchronize"]
+    waits = sorted((Counter(e.name for e in evs if e.name in _HOST_WAITS) - own).elements())
+    labelled = [e for e in evs if e.name == label]
+    spans = {e.device_type: e.time_range for e in labelled}
+    host, dev = spans[DeviceType.CPU], spans.get(DeviceType.CUDA)
+    where = {"first_span": str(labelled[0].device_type).split(".")[-1],
+             "in_host_span": sum(host.start <= w.start and w.end <= host.end for w in found),
+             "host_span_end_after_wait_us": [host.end - w.end for w in found]}
+    if dev is not None:
+        where.update(
+            in_device_span=sum(dev.start <= w.start and w.end <= dev.end for w in found),
+            wait_start_after_device_span_us=[w.start - dev.end for w in found],
+            wait_end_after_device_span_us=[w.end - dev.end for w in found])
+    return prof, ms, waits, sum(e.name in _LAUNCH_CALLS for e in evs), where
 
 
 def overlap_phase(torch, card, pipe, pipe_d, prompts):
@@ -1447,7 +1514,7 @@ def overlap_phase(torch, card, pipe, pipe_d, prompts):
     profiled second run. Then one steady overlapped round, with no
     admission, under torch.profiler: exactly one host wait on the
     device (the walk's event)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import SamplingParams
     sp = SamplingParams(max_new_tokens=OVERLAP_GEN)
 
@@ -1497,27 +1564,19 @@ def overlap_phase(torch, card, pipe, pipe_d, prompts):
     next(rounds)                         # the first overlapped round
     torch.cuda.synchronize()
     before = (eng.overlap_rounds, eng.prefill_calls, eng.decode_syncs)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("steady_round"):
-            next(rounds)
+    _, ms, waits, launches, where = profiled_round(torch, lambda: next(rounds),
+                                                   "steady_round")
     after = (eng.overlap_rounds, eng.prefill_calls, eng.decode_syncs)
     rounds.close()
     eng.run_until_drained()
     eng.allocator.check()
-    evs = prof.events()
-    win = next(e for e in evs if e.name == "steady_round")
-    inside = [e for e in evs if e.time_range.start >= win.time_range.start
-              and e.time_range.end <= win.time_range.end]
-    waits = [e.name for e in inside if e.name in _HOST_WAITS]
-    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx")
-                   for e in inside)
     if after != (before[0] + 1, before[1], before[2] + 1):
         raise AssertionError(f"[overlap] the profiled round was not one steady overlapped "
                              f"round: (overlap_rounds, prefill_calls, decode_syncs) "
                              f"{before} -> {after}")
     log(f"[overlap] one steady overlapped round (8 live slots, no admission) under "
-        f"torch.profiler: host waits on the device {waits}, {launches} kernel launches, "
-        f"round host wall {win.time_range.elapsed_us() / 1e3:.3f} ms (profiled)")
+        f"torch.profiler: host waits on the device {waits} ({json.dumps(where)}), "
+        f"{launches} kernel launches, round host wall {ms:.3f} ms (profiled)")
     if len(waits) != 1:
         raise AssertionError(f"[overlap] a steady round waited on the device "
                              f"{len(waits)} times, not once: {waits}")
@@ -1588,6 +1647,241 @@ def trace_phase(torch, pipe, prompts, ref_outs):
         f"Tracer.check() clean; phases admit {m.phase_admit_ms} ms, dispatch "
         f"{m.phase_dispatch_ms} ms, sync {m.phase_sync_ms} ms, walk {m.phase_walk_ms} ms; "
         f"trace in build/serve_trace.json")
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding, fault injection and the launcher
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4              # draft lookahead of [spec]
+DEADLINE_MS = 600_000.0  # 10 min: only the injected skew can expire it
+SKEW_MS = 3_600_000.0
+FAULT_NAN_SLOT = 3       # the poisoned request (slot = request id here)
+FAULT_DEADLINED = (5, 6)
+
+
+def draft_ffn_in(torch, pipe, tag):
+    """Hold the draft arm's served decoder FFN-in weights, fused with the
+    model's NAF as a decode step runs them (ops.qmm(x, w_in, naf=)), against
+    the plain versions on the same random bf16 rows (naf_vs_plain), every
+    layer. Returns (format, max abs err)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qmm import qmm_plain
+    from repro_torch.models.layers import PLAIN_ACTS
+    cfg, dev, bf = pipe.cfg, pipe.engine.device, torch.bfloat16
+    w_in = pipe.engine.draft.params["decoder"]["layers"]["mlp"]["w_in"]
+    mode = PLAIN_ACTS[cfg.mlp_act]
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    err = 0.0
+    for i in range(cfg.num_layers):
+        w = w_in.select(i)
+        x = torch.randn((SLOTS, cfg.d_model), generator=g, device=dev).to(bf)
+        q = qmm_plain(x, w.data, w.block_scales(), w.fmt, out_dtype=bf)
+        err = max(err, naf_vs_plain(torch, ops.qmm(x, w, naf=mode), ops.qmm(x, w), q, mode,
+                                    bf, f"[{tag}] the draft's FFN-in {w.fmt} {mode} of "
+                                    f"layer {i}"))
+    return w_in.fmt, err
+
+
+def spec_phase(torch, card, prompts, runs):
+    """[spec]: speculative decoding on [serve]'s 8 prompts and weights
+    (the raw tree of seed SEED, built once and quantized for the target
+    and for each draft; the target equals [serve]'s weights). Paged
+    with an nf4 draft: streams equal [serve]'s; dense with an int4 draft
+    (the target itself): streams equal [serve-dense]'s and every drafted
+    token is accepted. A parting must be a near tie (near_tie_partings).
+    The draft's served FFN-in weights, fused with the NAF, are held
+    against the plain versions (draft_ffn_in). Then one round with 8 live
+    slots: qmm launches 96 x K (48 a micro-step in each arm), paged_attn
+    12 x K on the paged engine, exactly one host wait on the device, timed
+    by torch.profiler. Returns each run's launches, by run."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx
+    from repro_torch.serving import SamplingParams, deploy
+    sp = SamplingParams(max_new_tokens=GEN)
+    base = runs[True][0]
+    raw = base.model.init(torch.Generator(device=base.engine.device).manual_seed(SEED))
+    out = {}
+    for paged, draft in ((True, "nf4"), (False, "int4")):
+        tag = "spec" if paged else "spec-dense"
+        base, ref_outs, ref_stats = runs[paged]
+        layout = dict(paged=True, page_size=PAGE) if paged else {}
+        pipe = deploy("nllb600m", "int4", slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON,
+                      params=raw, draft_spec=draft, draft_lookahead=SPEC_K,
+                      ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True),
+                      **layout)
+        w_in = [p["decoder"]["layers"]["mlp"]["w_in"].data for p in (pipe.params, base.params)]
+        if not torch.equal(*w_in):
+            raise AssertionError(f"[{tag}] the target's weights are not [serve]'s")
+        draft_fmt, draft_err = draft_ffn_in(torch, pipe, tag)
+        if draft_fmt != draft:
+            raise AssertionError(f"[{tag}] the draft's FFN-in is {draft_fmt}, not {draft}")
+        eng = pipe.engine
+        eng.reset_metrics()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = pipe.generate(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        m = eng.metrics()
+        if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+            raise AssertionError(f"[{tag}] not every request retired on length")
+        _check_vocab(pipe, outs)
+        if paged:
+            eng.allocator.check()
+            if eng.allocator.pages_in_use:
+                raise AssertionError(f"[{tag}] {eng.allocator.pages_in_use} pages leaked")
+        if not m.verify_calls or (draft == "int4" and m.acceptance_rate != 1.0):
+            raise AssertionError(f"[{tag}] {m.verify_calls} verify rounds, acceptance "
+                                 f"{m.acceptance_rate} (an int4 draft of the int4 target "
+                                 "must accept every token)")
+        got = [o.token_ids for o in outs]
+        ref = [o.token_ids for o in ref_outs]
+        part = near_tie_partings(torch, tag, base, prompts, [sp] * len(prompts), got, ref)
+        # one speculative round with every slot live (none retires in it)
+        for p in prompts:
+            eng.submit(p, sp)
+        eng.step()                          # admission and a first round
+        torch.cuda.synchronize()
+        steps0 = eng.decode_steps
+        ops.reset_launches()
+        prof, round_ms, waits, _, where = profiled_round(torch, eng.step, "spec_round")
+        K, per_round = eng.decode_steps - steps0, dict(ops.LAUNCHES)
+        eng.run_until_drained()
+        L = pipe.cfg.num_layers
+        want = {"qmm": 16 * L * K, "qmm_naf": 2 * L * K, "fasst_act": 0,
+                "paged_attn": 2 * L * K if paged else 0}
+        if K != SPEC_K or any(per_round[k] != n for k, n in want.items()):
+            raise AssertionError(f"[{tag}] a round of K={K} (lookahead {SPEC_K}) launched "
+                                 f"{per_round}; expected {want}")
+        if len(waits) != 1:
+            raise AssertionError(f"[{tag}] a speculative round waited on the device "
+                                 f"{len(waits)} times, not once: {waits}")
+        busy = _busy_ms(torch, prof)
+        tokens = sum(len(t) for t in got)
+        log(f"[{tag}] " + json.dumps({
+            "draft": pipe.draft_spec_str, "lookahead": SPEC_K, "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "target_only_tokens_per_s": ref_stats["tokens_per_s"],
+            "acceptance_rate": m.acceptance_rate,
+            "mean_accepted_per_verify": m.mean_accepted_per_verify,
+            "verify_calls": m.verify_calls, "decode_syncs": m.decode_syncs,
+            "same_as_target_only": sum(a == b for a, b in zip(got, ref)),
+            "near_tie_partings": len(part), "kv_cache_bytes": m.kv_cache_bytes,
+            "round_launches": {k: per_round[k] for k in want},
+            "round_host_waits": waits, "round_host_waits_placed": where,
+            "round_host_ms": round_ms,
+            "round_device_ms": busy if busy > 0 else "not measured",
+            "draft_ffn_in_max_abs_err": draft_err, "launches": launches, "card": card}))
+        out[tag.replace("-", "_")] = launches
+        del pipe, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def faults_phase(torch, card, pipe, prompts, ref_outs):
+    """[faults]: [serve]'s paged configuration under one FaultPlan: a
+    steal of every free page at round 1 for 4 rounds (on-demand growth
+    then preempts), NaN logits on slot 3 at micro-step 5 of the first
+    horizon, and a clock skew at round 1 that expires the deadlines of
+    requests 5 and 6, traced. Nothing raises out of stream(); survivors
+    equal [serve]'s streams (a resumed one may part only at a near tie of
+    its replay), casualties keep a prefix; the allocator is clean after
+    release_all; a ninth submit meets max_pending=8. Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineSaturated, FaultPlan, SamplingParams, TraceConfig
+    sp = SamplingParams(max_new_tokens=GEN)
+    dl = SamplingParams(max_new_tokens=GEN, deadline_ms=DEADLINE_MS)
+    plan = FaultPlan(exhaust_at=[(1, SLOTS * pipe.engine.max_pages, 4)],
+                     nan_at=[(0, FAULT_NAN_SLOT, 5)], skew_at=[(1, SKEW_MS)])
+    eng = _fresh_engine(pipe, True, faults=plan, max_pending=len(prompts),
+                        preempt_limit=16, trace=TraceConfig())
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, dl if i in FAULT_DEADLINED else sp) for i, p in enumerate(prompts)]
+    try:
+        eng.submit(prompts[0], sp)
+    except EngineSaturated as e:
+        if (e.pending, e.limit) != (len(prompts), len(prompts)):
+            raise AssertionError(f"[faults] EngineSaturated({e.pending}, {e.limit})") from e
+    else:
+        raise AssertionError("[faults] a submit past max_pending was queued")
+    by_id = {o.request_id: o for o in eng.stream()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    outs = [by_id[i] for i in ids]
+    m = eng.metrics()
+    reasons = [o.finish_reason for o in outs]
+    want = ["error" if i == FAULT_NAN_SLOT else "deadline" if i in FAULT_DEADLINED
+            else "length" for i in range(len(prompts))]
+    fired = {e[0] for e in plan.events}
+    if reasons != want or not {"exhaust", "nan", "skew"} <= fired:
+        raise AssertionError(f"[faults] reasons {reasons}, expected {want}; events "
+                             f"{plan.events}")
+    if (m.slot_errors, m.deadline_expirations, m.admission_rejections) != (1, 2, 1) \
+            or not (m.preemptions and m.resumed_requests):
+        raise AssertionError(f"[faults] counters {m}")
+    _check_vocab(pipe, outs)
+    ref = [o.token_ids for o in ref_outs]
+    resumes = _resumes(eng.trace)
+    part = replay_partings(torch, "faults", pipe, prompts, ref,
+                           [o.token_ids for o in outs], resumes)
+    names = [e.name for e in eng.trace.events]
+    problems = eng.trace.check()
+    missing = [n for n in ("fault:exhaust", "fault:nan", "fault:skew", "deadline", "error")
+               if n not in names]
+    held = plan.held_pages
+    plan.release_all(eng)
+    eng.allocator.check()
+    if eng.allocator.pages_in_use or problems or missing:
+        raise AssertionError(f"[faults] {eng.allocator.pages_in_use} pages in use after "
+                             f"release_all; trace problems {problems[:3]}; no {missing}")
+    log("[faults] " + json.dumps({
+        "reasons": reasons, "tokens": [len(o.token_ids) for o in outs],
+        "events": [list(e) for e in plan.events], "held_at_drain": held,
+        "preemptions": m.preemptions, "resumed_requests": m.resumed_requests,
+        "slot_errors": m.slot_errors, "deadline_expirations": m.deadline_expirations,
+        "admission_rejections": m.admission_rejections,
+        "survivors_same_as_serve": sum(o.token_ids == r for o, r, w in zip(outs, ref, want)
+                                       if w == "length"),
+        "casualty_prefixes": sum(o.token_ids == r[:len(o.token_ids)]
+                                 for o, r, w in zip(outs, ref, want) if w != "length"),
+        "near_tie_partings": len(part), "pages_in_use_after": eng.allocator.pages_in_use,
+        "wall_s": wall, "launches": launches, "card": card}))
+    return launches
+
+
+def launch_phase(card):
+    """[launch]: the serving launcher as a user runs it, in its own process
+    on the card: a paged int4 engine with an nf4 draft arm and a queue
+    bound of 4. It exits 0 and prints 8 finished ``[req N]`` lines, the
+    ``served`` line and the ``faults:`` line."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "nllb600m",
+           "--policy", "int4", "--paged", "--draft-spec", "nf4", "--requests", "8",
+           "--gen", "16", "--max-len", "128", "--horizon", "16", "--max-pending", "4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    done = [x for x in lines if re.match(r"^\[req \d+\] slot \d+ ", x)]
+    served = [x for x in lines if x.startswith("served ")]
+    faults = [x for x in lines if x.startswith("faults: ")]
+    if res.returncode or len(done) != 8 or len(served) != 1 or len(faults) != 1:
+        raise AssertionError(f"[launch] exit {res.returncode}, {len(done)} finished "
+                             f"requests; stdout tail {lines[-12:]}; stderr tail "
+                             f"{res.stderr.splitlines()[-12:]}")
+    for x in lines:
+        if x.startswith(("model bytes", "speculative", "saturated", "served", "latency",
+                         "faults")) or x in done[:2]:
+            log(f"[launch] {x}")
+    log(f"[launch] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s, {len(done)} requests "
+        f"served; on {card}")
 
 
 def api_path(torch, pipe):
@@ -1729,10 +2023,11 @@ def main() -> int:
             f"{fmt_ms(q['prefill_library_device_ms'][m])}; on {card}")
     torch.cuda.empty_cache()
 
-    pipe, launches, prompts, paged_outs = serve(torch, card, paged=True)
+    pipe, launches, prompts, paged_outs, paged_stats = serve(torch, card, paged=True)
     routes_agree(torch, pipe, prompts)
     profile_decode(torch, pipe, prompts)
-    pipe_d, _, _, dense_outs = serve(torch, card, paged=False, params=pipe.params)
+    pipe_d, _, _, dense_outs, dense_stats = serve(torch, card, paged=False,
+                                                  params=pipe.params)
     profile_decode(torch, pipe_d, prompts, "profile-dense")
     profile_decode(torch, pipe_d, prompts, "profile-dense-sampled", sampled=True)
     dense_vs_paged(torch, pipe, prompts, paged_outs, dense_outs)
@@ -1745,15 +2040,28 @@ def main() -> int:
         t0 = time.perf_counter()
         phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+    runs = {True: (pipe, paged_outs, paged_stats), False: (pipe_d, dense_outs, dense_stats)}
+    phase_launches = {}
+    for name, phase in (("spec", lambda: spec_phase(torch, card, prompts, runs)),
+                        ("faults", lambda: faults_phase(torch, card, pipe, prompts,
+                                                        paged_outs)),
+                        ("launch", lambda: launch_phase(card))):
+        t0 = time.perf_counter()
+        phase_launches[name] = phase()
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
     api_launches = api_path(torch, pipe_d)
 
+    by_run = {**phase_launches["spec"], "faults": phase_launches["faults"]}
     for e in entries:
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
+        for run, counts in by_run.items():          # spec, spec_dense, faults
+            e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
                                 for e in entries))
-    keys = ("name", "route", "path", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
+            "launches_spec_dense", "launches_faults", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

@@ -16,7 +16,7 @@ import torch
 
 from .qtensor import QTensor
 
-__all__ = ["PrecisionPolicy", "quantize_tree"]
+__all__ = ["PrecisionPolicy", "quantize_tree", "tree_nbytes"]
 
 _EXEMPT = re.compile(
     r"(norm|bias|scale_|rope|a_log|dt_|conv|rglru|router|a_param|\['D'\])")
@@ -69,3 +69,14 @@ def quantize_tree(params: Any, policy: PrecisionPolicy) -> Any:
                                 q_axis=q_axis, double_quant=policy.double_quant)
 
     return visit("", params)
+
+
+def tree_nbytes(params: Any) -> int:
+    """Total storage bytes of a (possibly quantized) parameter tree."""
+    if isinstance(params, dict):
+        return sum(tree_nbytes(v) for v in params.values())
+    if isinstance(params, QTensor):
+        return params.nbytes()
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    return 0

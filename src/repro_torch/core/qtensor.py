@@ -62,6 +62,11 @@ class QTensor:
         return dequantize_scales(self.scales_q, self.scales_cscale,
                                  self.scales_offset, tuple(shape))
 
+    def nbytes(self) -> int:
+        """Storage bytes of the codes and every scale tensor."""
+        return sum(t.numel() * t.element_size()
+                   for t in (getattr(self, n) for n in self._CHILDREN) if t is not None)
+
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
         return dequantize_blockwise(self.data, self.block_scales(), self.fmt,
                                     q_axis=self.q_axis, out_dtype=dtype)

@@ -1,3 +1,5 @@
-from .synthetic import LANG_CODES
+from .synthetic import (INDIC_LANGS, LANG_CODES, OVERSEAS_LANGS,
+                        SyntheticTranslation, pairs)
 
-__all__ = ["LANG_CODES"]
+__all__ = ["LANG_CODES", "INDIC_LANGS", "OVERSEAS_LANGS", "pairs",
+           "SyntheticTranslation"]

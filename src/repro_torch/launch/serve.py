@@ -1,0 +1,246 @@
+"""Serving launcher: quantized NMT inference, the paper's deployment mode.
+
+One deploy() call builds the quantized pipeline; the engine schedules
+admission and slots. The launcher submits requests and prints each
+output as it finishes (the overlapped scheduler dispatches horizon N+1
+while the host walks horizon N; ``--no-overlap`` restores serial rounds,
+and ``--sla-ttft-ms`` / ``--sla-tpot-ms`` attach the percentile-feedback
+admission controller).
+
+Failure handling: ``--max-pending`` bounds the queue (the submit loop
+steps and retries on the typed EngineSaturated), ``--deadline-ms`` gives
+every request a wall-clock budget, and the shutdown line reports the
+engine's fault counters. Every shutdown number comes from ONE frozen
+``engine.metrics()`` snapshot.
+
+Observability: ``--trace-out FILE`` dumps Chrome/Perfetto trace JSON,
+``--metrics-out FILE`` the Prometheus text of the final snapshot, and
+``--metrics-port N`` serves the live exposition at ``GET /metrics``.
+
+``--draft-spec`` adds a quantized speculative draft arm (greedy output
+unchanged). ``--mesh dp<N>,tp<K>`` keeps the reference's grammar; a
+factor above 1 raises until the scale-out slice. ``--device`` (default
+``cuda``) picks the device; the CPU runs the kernels' plain versions.
+
+  python -m repro_torch.launch.serve --arch nllb600m --policy int4 \\
+      --paged --draft-spec nf4 --requests 8 --gen 16 --max-len 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --policy int4 --requests 6 --gen 8 --temperature 0.7 --top-p 0.9
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import time
+from typing import Optional, Sequence, Tuple
+
+from ..configs import REGISTRY
+from ..core import ALIASES, resolve_spec
+from ..data import SyntheticTranslation
+from ..obs import MetricsServer
+from ..serving import (DEFAULT_IMPL, IMPL_CHOICES, EngineSaturated, SamplingParams,
+                       SLATarget, TraceConfig, deploy, impl_routes)
+from ..unported import later
+
+__all__ = ["main", "parse_mesh_spec"]
+
+
+def parse_mesh_spec(spec: str) -> Tuple[int, int]:
+    """Parse the CLI mesh convention ``"dp2,tp2"`` -> ``(dp, tp)``:
+    comma-separated ``dp<N>`` / ``tp<N>`` factors in either order, an
+    omitted factor 1."""
+    dp = tp = 1
+    seen = set()
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        m = re.fullmatch(r"(dp|tp)(\d+)", part)
+        if m is None:
+            raise ValueError(f"bad mesh factor {part!r} in {spec!r}; expected "
+                             "comma-separated dp<N>/tp<N>, e.g. 'dp2,tp2'")
+        axis, n = m.group(1), int(m.group(2))
+        if axis in seen:
+            raise ValueError(f"duplicate {axis!r} factor in {spec!r}")
+        seen.add(axis)
+        if n < 1:
+            raise ValueError(f"mesh factor {part!r} must be >= 1")
+        if axis == "dp":
+            dp = n
+        else:
+            tp = n
+    return dp, tp
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="nllb600m", choices=sorted(REGISTRY))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--policy", default="int4", metavar="SPEC",
+                    help="quantization spec: an alias "
+                         f"({', '.join(sorted(ALIASES))}) or a grammar "
+                         "string like w4kv8")
+    ap.add_argument("--draft-spec", default=None, metavar="SPEC",
+                    help="speculative-decoding draft arm: the same checkpoint "
+                         "quantized at this spec drafts tokens the target "
+                         "verifies (greedy output is unchanged)")
+    ap.add_argument("--draft-lookahead", type=int, default=4,
+                    help="tokens drafted per speculative verify round")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--paged", action="store_true",
+                    help="block-paged KV cache + batched prefill admission")
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--num-pages", type=int, default=None)
+    ap.add_argument("--horizon", type=int, default=1,
+                    help="decode steps fused per host sync")
+    ap.add_argument("--impl", choices=IMPL_CHOICES, default=DEFAULT_IMPL,
+                    help="kernel route bundle: kernels = the qmm and "
+                         "paged-attention kernels, torch = plain PyTorch")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="serial dispatch-then-walk rounds")
+    ap.add_argument("--sla-ttft-ms", type=float, default=None, metavar="T",
+                    help="p95 time-to-first-token target")
+    ap.add_argument("--sla-tpot-ms", type=float, default=None, metavar="T",
+                    help="p95 per-output-token target")
+    ap.add_argument("--max-pending", type=int, default=None, metavar="N",
+                    help="bounded admission queue: submit() raises the typed "
+                         "EngineSaturated past N pending requests (the "
+                         "launcher steps and retries)")
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="T",
+                    help="per-request wall-clock budget from submit")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="trace and dump Chrome/Perfetto trace JSON here")
+    ap.add_argument("--metrics-out", default=None, metavar="FILE",
+                    help="write the final Prometheus text exposition here")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="N",
+                    help="serve the live exposition at "
+                         "http://127.0.0.1:N/metrics (0 = ephemeral)")
+    ap.add_argument("--mesh", default=None, metavar="SPEC",
+                    help="scale-out spec 'dp<N>,tp<K>' (a factor above 1 "
+                         "comes with the scale-out slice)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (the tests pass cpu)")
+    args = ap.parse_args(argv)
+
+    resolve_spec(args.policy)        # fail on typos before any build work
+    if args.draft_spec is not None:
+        resolve_spec(args.draft_spec)
+    dp, tp = parse_mesh_spec(args.mesh) if args.mesh else (1, 1)
+    if dp > 1 or tp > 1:
+        raise later(f"--mesh {args.mesh} (dp{dp} replicas x tp{tp})", 5)
+    sla = None
+    if args.sla_ttft_ms is not None or args.sla_tpot_ms is not None:
+        sla = SLATarget(p95_ttft_ms=args.sla_ttft_ms, p95_tpot_ms=args.sla_tpot_ms,
+                        window=max(args.requests // 2, 1))
+    pipe = deploy(args.arch, args.policy, slots=args.slots, max_len=args.max_len,
+                  smoke=args.smoke, paged=args.paged, page_size=args.page_size,
+                  num_pages=args.num_pages, horizon=args.horizon,
+                  draft_spec=args.draft_spec, draft_lookahead=args.draft_lookahead,
+                  overlap=not args.no_overlap, sla=sla, max_pending=args.max_pending,
+                  trace=TraceConfig() if args.trace_out else None,
+                  device=args.device, **impl_routes(args.impl))
+    print(f"model bytes {pipe.fp_bytes/2**20:.1f} MB -> "
+          f"{pipe.quantized_bytes/2**20:.1f} MB "
+          f"({args.policy} = {pipe.spec_str}, {pipe.compression:.2f}x)")
+    if args.draft_spec is not None:
+        print(f"speculative draft arm: {args.draft_spec} = "
+              f"{pipe.draft_spec_str}, lookahead {args.draft_lookahead}")
+
+    cfg = pipe.cfg
+    # sources up to the engine's cross capacity (default enc_len); the
+    # decoder budget (1-token language-code prompt + gen) is independent
+    ds = SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=0)
+
+    metrics_srv = None
+    if args.metrics_port is not None:
+        metrics_srv = MetricsServer(pipe.engine.prometheus,
+                                    port=args.metrics_port).start()
+        print(f"metrics: live at {metrics_srv.url}")
+
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                            top_p=args.top_p, eos_id=args.eos_id,
+                            max_new_tokens=args.gen, seed=i,
+                            deadline_ms=args.deadline_ms)
+        b = ds.sample(1)
+        req = {"src_tokens": b["src_tokens"], "tgt_in": b["tgt_in"][:, :1]}
+        # backpressure: a saturated queue is a typed signal, not a crash —
+        # run one scheduler round and retry with backoff
+        backoff = 0.01
+        while True:
+            try:
+                rid = pipe.engine.submit(req, sp)
+                break
+            except EngineSaturated as exc:
+                print(f"saturated ({exc.pending}/{exc.limit} pending), "
+                      f"stepping + retrying in {backoff*1e3:.0f} ms")
+                pipe.engine.step()
+                time.sleep(backoff)
+                backoff = min(backoff * 2, 0.5)
+        print(f"[req {rid}] queued (pending={pipe.engine.num_pending}, "
+              f"active={pipe.engine.num_active})")
+
+    # outputs stream back as each request finishes, not at the drain
+    outs = []
+    for o in pipe.engine.stream():
+        outs.append(o)
+        print(f"[req {o.request_id}] slot {o.slot} {o.finish_reason:6s} "
+              f"ttft {o.ttft_ms:6.1f} ms tpot {o.tpot_ms:5.2f} ms: "
+              f"{o.token_ids}")
+    dt = time.perf_counter() - t0
+    done_tokens = sum(o.num_generated for o in outs)
+    m = pipe.engine.metrics()
+    line = (f"served {args.requests} requests, {done_tokens} tokens in "
+            f"{dt:.2f}s ({done_tokens/dt:.1f} tok/s host, "
+            f"{m.prefill_compiles} prefill compiles, "
+            f"{m.decode_syncs} decode syncs @ "
+            f"{m.mean_tokens_per_sync:.1f} tok/sync, "
+            f"{m.overlap_rounds} overlapped rounds, "
+            f"occupancy {m.occupancy:.2f}")
+    if args.paged:
+        line += (f", page util {m.page_utilization:.2f}, "
+                 f"kv {m.kv_cache_bytes/2**20:.2f} MB")
+    if args.draft_spec is not None:
+        line += (f", acceptance {m.acceptance_rate:.2f} "
+                 f"({m.accepted_tokens}/{m.drafted_tokens} drafted, "
+                 f"{m.verify_calls} verify rounds)")
+    print(line + ")")
+    print(f"latency: ttft p50/p95 {m.ttft_p50_ms:.1f}/{m.ttft_p95_ms:.1f} "
+          f"ms, tpot p50/p95 {m.tpot_p50_ms:.2f}/{m.tpot_p95_ms:.2f} ms")
+    # shutdown fault summary: zero across the board on a healthy run
+    print(f"faults: {m.preemptions} preemptions "
+          f"({m.resumed_requests} resumed), "
+          f"{m.deadline_expirations} deadline expirations, "
+          f"{m.admission_rejections} admission rejections, "
+          f"{m.slot_errors} slot errors")
+    if args.trace_out:
+        print(f"phases: admit {m.phase_admit_ms:.1f} ms, dispatch "
+              f"{m.phase_dispatch_ms:.1f} ms, sync {m.phase_sync_ms:.1f} "
+              f"ms, walk {m.phase_walk_ms:.1f} ms")
+        pipe.tracer.dump_json(args.trace_out)
+        print(f"trace: {len(pipe.tracer)} events "
+              f"({pipe.tracer.dropped} dropped) -> {args.trace_out}")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(pipe.engine.prometheus())
+        print(f"metrics: prometheus text -> {args.metrics_out}")
+    if metrics_srv is not None:
+        metrics_srv.close()
+        print("metrics: endpoint closed")
+    if pipe.engine.sla is not None:
+        ctl = pipe.engine.sla
+        held = ctl.holding()
+        print(f"sla: target ttft_p95 {args.sla_ttft_ms} ms / tpot_p95 "
+              f"{args.sla_tpot_ms} ms -> horizon {ctl.horizon}, "
+              f"prefill cap {ctl.prefill_cap}, {ctl.retunes} retunes, "
+              f"held={'n/a' if held is None else held}")
+
+
+if __name__ == "__main__":
+    main()

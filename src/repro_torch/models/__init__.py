@@ -1,4 +1,4 @@
-from .api import ModelAPI, build_model
+from .api import ModelAPI, build_model, decode_block
 from .layers import Ctx
 
-__all__ = ["ModelAPI", "build_model", "Ctx"]
+__all__ = ["ModelAPI", "build_model", "decode_block", "Ctx"]

@@ -7,6 +7,7 @@ build_model(cfg, device) -> ModelAPI with
                                      -> block-paged serving cache
   prefill(ctx, params, cache, batch) -> (cache, logits)
   decode_step(ctx, params, tok, c)   -> (cache, logits)   (dense or paged)
+decode_block(model, ctx, params, tokens, cache) -> (cache, logits (B, K, V))
 
 Batches are dicts: {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}.
 This slice ports the enc-dec family; the others raise.
@@ -17,10 +18,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 from ..unported import later
 from . import encdec as ed
 
-__all__ = ["ModelAPI", "build_model"]
+__all__ = ["ModelAPI", "build_model", "decode_block"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +34,23 @@ class ModelAPI:
     prefill: Callable
     decode_step: Callable
     init_paged_cache: Callable
+
+
+def decode_block(model: ModelAPI, ctx, params, tokens, cache):
+    """Teacher-forced multi-token decode: feed ``tokens`` (B, K) through K
+    ``decode_step`` micro-steps and return ``(cache, logits (B, K, V))``.
+
+    The speculative verify: the target's forward over a drafted block.
+    Per-slot masking rides on the cache's own machinery (dense ``pos`` /
+    ``len``, paged ``block_tables`` / ``len`` / ``active``), so the logits
+    at position i are what a sequential decode of the same prefix gives.
+    A caller that needs retired slots frozen puts an ``active`` mask into
+    the cache first; it holds for the whole block."""
+    logits = []
+    for i in range(tokens.shape[1]):
+        cache, lg = model.decode_step(ctx, params, tokens[:, i:i + 1], cache)
+        logits.append(lg[:, -1])
+    return cache, torch.stack(logits, dim=1)
 
 
 def build_model(cfg, device="cuda") -> ModelAPI:

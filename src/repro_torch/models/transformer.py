@@ -24,7 +24,10 @@ def paged_view(cache):
 
     Returns (positions (B, S_view) with -1 beyond each length, page_ids
     (B,), offsets (B,)) where S_view = maxp * ps. Idle slots (active=0)
-    write to the trash page.
+    write to the trash page, and so does a write at or past S_view (a
+    speculative round drafting past the chain's end; those positions are
+    rolled back): clamped to the last page, it would overwrite a kept
+    position there.
     """
     tables, lens, active = cache["block_tables"], cache["len"], cache["active"]
     B, maxp = tables.shape
@@ -33,8 +36,9 @@ def paged_view(cache):
     pos = torch.arange(s_view, dtype=torch.int32, device=lens.device).expand(B, s_view)
     pos = torch.where(pos < lens[:, None], pos, -1)
     rows = torch.arange(B, device=lens.device)
-    pid = tables[rows, torch.clamp(lens // ps, 0, maxp - 1).long()]
-    pid = torch.where(active > 0, pid, 0)          # 0 = trash page
+    page = lens // ps
+    pid = tables[rows, torch.clamp(page, 0, maxp - 1).long()]
+    pid = torch.where((active > 0) & (page < maxp), pid, 0)     # 0 = trash page
     off = torch.where(active > 0, lens % ps, 0)
     return pos, pid, off
 
@@ -127,9 +131,12 @@ def _dense_kv(codes, scales):
 
 def _scatter_tokens(cache, new, lens):
     """Insert (B, S_new, ...) rows into (B, Smax, ...) at per-row offsets,
-    in place."""
+    in place. An offset past ``Smax - S_new`` is clamped to it, as the
+    reference's ``dynamic_update_slice`` clamps (a speculative round may
+    run a slot past its budget; those positions are rolled back)."""
     rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
-    cols = lens.long()[:, None] + torch.arange(new.shape[1], device=cache.device)
+    start = torch.clamp(lens.long(), 0, cache.shape[1] - new.shape[1])
+    cols = start[:, None] + torch.arange(new.shape[1], device=cache.device)
     cache[rows, cols] = new.to(cache.dtype)
     return cache
 

@@ -60,6 +60,30 @@ stream may part from an uncontended one at a near tie. After
 ``preempt_limit`` evictions a request retires as ``preempted_limit``
 with its prefix.
 
+Deadlines, bounded admission and fault injection
+------------------------------------------------
+``SamplingParams.deadline_ms`` is checked at every round boundary on the
+engine clock (wall time plus any injected skew; no device sync):
+expired requests, active or queued, retire as ``deadline`` with their
+synced tokens. ``max_pending`` bounds the queue: ``submit`` raises the
+typed ``EngineSaturated`` instead of queueing. ``faults=FaultPlan(...)``
+(serving/faults.py) steals pages and skews the clock at round
+boundaries and forces NaN logits on chosen slots of a target dispatch;
+the sampler's guard retires only the poisoned slot as ``error``.
+
+Speculative decoding (``draft=DraftArm(...)``)
+----------------------------------------------
+With a draft arm (serving/spec_decode.py) every round whose active slots
+are all greedy is a speculative round: the draft proposes ``lookahead``
+tokens through the horizon loop, the target replays them teacher-forced
+(``models.decode_block``), and the longest matching prefix plus the
+target's token at the first divergence is emitted, token for token the
+target-only stream. A sampled request in the batch sends the round down
+the target-only path. Both arms keep a cache per slot (a paged engine
+holds two chains per request out of one allocator and reserves whole
+budgets); a rejection rolls both back to the emitted length. Speculative
+rounds are serial.
+
 Metrics and tracing
 -------------------
 ``metrics()`` returns one frozen ``EngineMetrics`` snapshot (counters,
@@ -85,11 +109,14 @@ import torch
 from .. import random as prng
 from ..obs import PHASES, SCHED_TID, Histogram, TraceConfig, Tracer
 from ..obs.metrics import render_prometheus
+from ..models.api import decode_block
 from ..unported import later
 from .metrics import EngineMetrics, SLAController, SLATarget
 from .paged_cache import TRASH_PAGE, PageAllocator, paged_insert, pages_needed
-from .params import GREEDY, Request, RequestOutput, RequestStats, SamplingParams
+from .params import (GREEDY, EngineSaturated, Request, RequestOutput, RequestStats,
+                     SamplingParams)
 from .sampler import ERR_TOKEN, sample_tokens, sample_tokens_scan
+from .spec_decode import DraftArm, accept_longest_prefix
 
 __all__ = ["ServeEngine", "greedy_generate", "translate"]
 
@@ -134,10 +161,13 @@ class ServeEngine:
                  kv_dtype: str = "bf16", ctx=None, paged: bool = False,
                  page_size: int = 8, num_pages: Optional[int] = None,
                  max_src_len: Optional[int] = None, horizon: int = 1,
-                 overlap: bool = True, sla: Optional[SLATarget] = None,
-                 preempt_limit: int = 3, trace=None, device="cuda"):
+                 draft: Optional[DraftArm] = None, overlap: bool = True,
+                 sla: Optional[SLATarget] = None, max_pending: Optional[int] = None,
+                 preempt_limit: int = 3, faults=None, trace=None, device="cuda"):
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
+        if max_pending is not None and max_pending < 1:
+            raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         if preempt_limit < 0:
             raise ValueError(f"preempt_limit must be >= 0, got {preempt_limit}")
         if model.cfg.family != "encdec":
@@ -153,18 +183,26 @@ class ServeEngine:
         self.enc_cap = int(max_src_len or model.cfg.enc_len)
         self.paged = bool(paged)
         self.page_size = int(page_size)
+        self.draft = draft
         self.allocator: Optional[PageAllocator] = None
+        kvs = [kv_dtype] + ([draft.kv_dtype] if draft is not None else [])
         if self.paged:
             self.max_pages = pages_needed(max_len, self.page_size)
-            usable = num_pages if num_pages is not None else slots * self.max_pages
+            # a draft arm doubles the default pool: both arms hold a chain
+            # per request out of the same allocator
+            usable = num_pages if num_pages is not None \
+                else slots * self.max_pages * len(kvs)
             self.allocator = PageAllocator(usable + 1, reserved=1)
-            self.cache = model.init_paged_cache(slots, self.max_pages, usable + 1,
-                                                self.page_size, kv_dtype,
-                                                enc_len=self.enc_cap)
+            caches = [model.init_paged_cache(slots, self.max_pages, usable + 1,
+                                             self.page_size, kv, enc_len=self.enc_cap)
+                      for kv in kvs]
         else:
-            self.cache = model.init_cache(slots, max_len, kv_dtype,
-                                          enc_len=self.enc_cap)
+            caches = [model.init_cache(slots, max_len, kv, enc_len=self.enc_cap)
+                      for kv in kvs]
+        self.cache = caches[0]
+        self.draft_cache = caches[1] if draft is not None else None
         self._chains: Dict[int, list] = {}          # request id -> pages
+        self._draft_chains: Dict[int, list] = {}    # request id -> draft pages
         self.slots = [_Slot(i) for i in range(slots)]
         dev = self.device
         self.cur = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
@@ -174,6 +212,8 @@ class ServeEngine:
         self._top_ps = torch.ones((slots,), dtype=torch.float32, device=dev)
         self._keys = torch.zeros((slots, 2), dtype=torch.int64, device=dev)
         self._offsets = torch.zeros((slots,), dtype=torch.int64, device=dev)
+        # the draft scan retires no slot: no EOS ids
+        self._no_eos = torch.full((slots,), -1, dtype=torch.int32, device=dev)
         self._queue: collections.deque = collections.deque()
         self._finished: List[RequestOutput] = []
         self._next_id = 0
@@ -185,9 +225,17 @@ class ServeEngine:
         # the carry merge takes THEIR masks from host state
         self._dirty_slots: set = set()
         self.sla = SLAController(sla, self.horizon, slots) if sla is not None else None
-        # on-demand paging: every paged engine admits with the prefill
-        # feed's pages and grows chains per dispatched horizon
-        self.on_demand = self.paged
+        # -- fault tolerance -------------------------------------------
+        self.max_pending = max_pending
+        self.faults = faults                # a FaultPlan (serving/faults.py)
+        if faults is not None:
+            faults.reset()                  # one plan per engine, from 0
+        self._skew_s = 0.0                  # fault-injected clock skew
+        # on-demand paging: a target-only paged engine admits with the
+        # prefill feed's pages and grows chains per dispatched horizon; a
+        # draft arm reserves whole budgets (two chains that roll back
+        # together)
+        self.on_demand = self.paged and draft is None
         self.preempt_limit = int(preempt_limit)
         self._admit_seq = 0
         self._preempted: Dict[int, list] = {}       # rid -> stashed tokens
@@ -218,7 +266,13 @@ class ServeEngine:
 
         ``on_token`` (or ``Request.on_token``) is called with each token
         id as the block carrying it lands on the host; it runs on the
-        scheduler's walk, so keep it cheap."""
+        scheduler's walk, so keep it cheap.
+
+        With ``max_pending`` set, a full queue raises the typed
+        ``EngineSaturated`` (retry after a round drains it)."""
+        if self.max_pending is not None and len(self._queue) >= self.max_pending:
+            self._admission_rejections += 1
+            raise EngineSaturated(len(self._queue), self.max_pending)
         if not isinstance(request, Request):
             request = Request(inputs=dict(request), params=params or GREEDY)
         elif params is not None:
@@ -226,8 +280,6 @@ class ServeEngine:
         if on_token is not None:
             request = dataclasses.replace(request, on_token=on_token)
         sp = request.params
-        if sp.deadline_ms is not None:
-            raise later("request deadlines", 2)
         inputs = {}
         for key in ("tgt_in", "src_tokens"):
             t = torch.as_tensor(request.inputs[key], dtype=torch.int32).cpu()
@@ -239,17 +291,19 @@ class ServeEngine:
                 f"request needs prompt_len + max_new_tokens = {prompt_len} + "
                 f"{sp.max_new_tokens} = {budget} cache positions but the "
                 f"engine was built with max_len={self.max_len}")
+        request = dataclasses.replace(request, inputs=inputs)
         if self.paged:
-            need = pages_needed(budget, self.page_size)
+            need = self._request_pages(request)
             usable = self.allocator.capacity - self.allocator.reserved
             if need > usable:
-                raise ValueError(f"request needs {need} KV pages but the pool "
-                                 f"holds only {usable}")
+                raise ValueError(f"request needs {need} KV pages"
+                                 + (" (target + draft arms)" if self.draft else "")
+                                 + f" but the pool holds only {usable}")
         se = int(inputs["src_tokens"].shape[1])
         if se > self.enc_cap:
             raise ValueError(f"source length {se} exceeds the engine's "
                              f"cross-attention capacity {self.enc_cap}")
-        request = dataclasses.replace(request, inputs=inputs, id=self._next_id)
+        request = dataclasses.replace(request, id=self._next_id)
         self._next_id += 1
         arrival = self._now()
         self._stats[request.id] = RequestStats(arrival_s=arrival, prompt_len=prompt_len)
@@ -271,7 +325,9 @@ class ServeEngine:
         if self.trace is not None:
             self._round_begin()
         self._round_boundary()
-        if self.num_active and K == 1:
+        if self._speculate_now():
+            self._spec_round()
+        elif self.num_active and K == 1:
             self._token_step()
         elif self.num_active:
             _, _, block, Kd, seqs = self._dispatch_horizon(
@@ -380,6 +436,30 @@ class ServeEngine:
     def free_slot(self) -> Optional[int]:
         return next((s.id for s in self.slots if not s.active), None)
 
+    # -- legacy slot-level surface ---------------------------------------------
+
+    def add_request(self, batch_one: dict, gen_tokens: int) -> int:
+        """Legacy: a greedy request into a free slot, admitted now;
+        returns the slot id (the first free one: admission takes it)."""
+        sid = self.free_slot()
+        if self._queue or sid is None:
+            raise RuntimeError("no free slots")
+        rid = self.submit(batch_one, SamplingParams(max_new_tokens=gen_tokens))
+        if self.paged:
+            self._admit_pending()
+        if self._queue:             # paged: the page pool is exhausted
+            self.abort(rid)
+            raise RuntimeError("no free pages")
+        return sid
+
+    def tick(self) -> List[int]:
+        """Legacy: one step; returns the slot ids finished in it."""
+        return [o.slot for o in self.step()]
+
+    def result(self, slot: int) -> list:
+        """Legacy: the token ids of the request last served in ``slot``."""
+        return self.slots[slot].tokens
+
     # -- metrics -------------------------------------------------------------
 
     def metrics(self) -> EngineMetrics:
@@ -391,15 +471,20 @@ class ServeEngine:
             active_slot_steps=self._active_slot_steps,
             page_slot_steps=self._page_slot_steps,
             overlap_rounds=self._overlap_rounds,
-            verify_calls=0, drafted_tokens=0, accepted_tokens=0, rejected_tokens=0,
+            verify_calls=self._verify_calls,
+            drafted_tokens=self._drafted,
+            accepted_tokens=self._accepted,
+            rejected_tokens=self._rejected,
             preemptions=self._preemptions,
             resumed_requests=self._resumed,
-            deadline_expirations=0, admission_rejections=0,
+            deadline_expirations=self._deadline_expirations,
+            admission_rejections=self._admission_rejections,
             slot_errors=self._slot_errors,
             mean_tokens_per_sync=self.mean_tokens_per_sync,
             occupancy=self.occupancy,
             page_utilization=self.page_utilization,
-            acceptance_rate=0.0, mean_accepted_per_verify=0.0,
+            acceptance_rate=self.acceptance_rate,
+            mean_accepted_per_verify=self.mean_accepted_per_verify,
             ttft_p50_ms=round(self._ttft_hist.percentile(50.0), 4),
             ttft_p95_ms=round(self._ttft_hist.percentile(95.0), 4),
             tpot_p50_ms=round(self._tpot_hist.percentile(50.0), 4),
@@ -435,8 +520,14 @@ class ServeEngine:
         self._decode_syncs = 0
         self._synced_tokens = 0
         self._overlap_rounds = 0
+        self._verify_calls = 0
+        self._drafted = 0
+        self._accepted = 0
+        self._rejected = 0
         self._preemptions = 0
         self._resumed = 0
+        self._deadline_expirations = 0
+        self._admission_rejections = 0
         self._slot_errors = 0
         self._ttft_hist.reset()
         self._tpot_hist.reset()
@@ -473,9 +564,47 @@ class ServeEngine:
         return self._resumed
 
     @property
+    def deadline_expirations(self) -> int:
+        """Requests retired because their ``deadline_ms`` elapsed."""
+        return self._deadline_expirations
+
+    @property
+    def admission_rejections(self) -> int:
+        """``submit`` calls refused with EngineSaturated."""
+        return self._admission_rejections
+
+    @property
     def slot_errors(self) -> int:
         """Slots retired as ``error`` by the non-finite-logits guard."""
         return self._slot_errors
+
+    @property
+    def verify_calls(self) -> int:
+        """Speculative rounds run: one target replay of a drafted block each."""
+        return self._verify_calls
+
+    @property
+    def drafted_tokens(self) -> int:
+        return self._drafted
+
+    @property
+    def accepted_tokens(self) -> int:
+        return self._accepted
+
+    @property
+    def rejected_tokens(self) -> int:
+        return self._rejected
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the target accepted (0.0 before any
+        speculative round)."""
+        return self._accepted / self._drafted if self._drafted else 0.0
+
+    @property
+    def mean_accepted_per_verify(self) -> float:
+        """Accepted draft tokens per verify round, summed over slots."""
+        return self._accepted / self._verify_calls if self._verify_calls else 0.0
 
     @property
     def mean_tokens_per_sync(self) -> float:
@@ -498,8 +627,10 @@ class ServeEngine:
 
     @property
     def kv_cache_bytes(self) -> int:
-        """Allocated KV-cache storage, every leaf of the cache."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        """Allocated KV-cache storage, every leaf of the cache and of the
+        draft arm's cache."""
+        return sum(t.numel() * t.element_size() for c in (self.cache, self.draft_cache)
+                   if c is not None for t in c.values())
 
     # -- the round loop ------------------------------------------------------
 
@@ -508,11 +639,14 @@ class ServeEngine:
         return out
 
     def _now(self) -> float:
-        return time.perf_counter()
+        """The engine clock: wall time plus any fault-injected skew."""
+        return time.perf_counter() + self._skew_s
 
     def _phase_done(self, phase: str, t0: float, **args) -> None:
         """Close one scheduler phase (tracing only): accumulate its wall
-        time and emit the complete event."""
+        time, from raw ``perf_counter`` deltas so that a skew injected
+        inside the phase does not inflate it, and emit the complete event
+        on the engine clock."""
         dur = time.perf_counter() - t0
         self._phase_ms[phase] += dur * 1e3
         self._phase_hist[phase].record(dur * 1e3)
@@ -526,11 +660,46 @@ class ServeEngine:
         self.trace.end(SCHED_TID, "round", self._now())
 
     def _round_boundary(self) -> None:
-        """Host work at every round boundary: admit from the queue."""
+        """Host work at every round boundary, no-op rounds included: tick
+        the fault plan (release / steal pages, skew the clock), expire
+        deadlines, then admit from the queue."""
         t0 = time.perf_counter()
+        if self.faults is not None:
+            self.faults.on_round(self)
+        self._expire_deadlines()
         self._admit_pending()
         if self.trace is not None:
             self._phase_done("admit", t0)
+
+    def _deadline_passed(self, request: Request, now: float) -> bool:
+        dl = request.params.deadline_ms
+        if dl is None:
+            return False
+        return (now - self._stats[request.id].arrival_s) * 1e3 > dl
+
+    def _expire_deadlines(self) -> None:
+        """Retire every request, active or queued, whose ``deadline_ms``
+        elapsed on the engine clock: a host compare, no device sync.
+        Active slots free their pages through ``_retire``; their tokens
+        stop at the last synced position, as an abort's do."""
+        now = self._now()
+        for s in self.slots:
+            if s.active and self._deadline_passed(s.request, now):
+                self._retire(s, "deadline")
+        if self._queue:
+            keep = collections.deque()
+            for r in self._queue:
+                if self._deadline_passed(r, now):
+                    self._finished.append(self._finish_queued(r, "deadline"))
+                else:
+                    keep.append(r)
+            self._queue = keep
+
+    def _speculate_now(self) -> bool:
+        """A speculative round needs a draft arm and only greedy active
+        requests: exact-match acceptance reproduces the argmax alone."""
+        return (self.draft is not None and self.num_active > 0
+                and self._all_greedy(s.request for s in self.slots if s.active))
 
     def _effective_horizon(self, horizon: Optional[int]) -> int:
         """One round's horizon: explicit argument > SLA controller >
@@ -548,8 +717,9 @@ class ServeEngine:
     def _ahead_horizon(self, K_cfg: int, Kd: int) -> int:
         """Length of the horizon to dispatch before walking the in-flight
         Kd-step block, or 0 to stay serial: only when some slot's budget
-        outlasts the in-flight block."""
-        if not self.overlap or K_cfg <= 1:
+        outlasts the in-flight block, and never with a draft arm (its
+        rounds are host decision points)."""
+        if not self.overlap or K_cfg <= 1 or self.draft is not None:
             return 0
         rem_after = self._max_rem() - Kd
         if rem_after <= 0:
@@ -591,7 +761,9 @@ class ServeEngine:
                     self._walk_block(block, Kd, seqs)
                 elif self.num_active:
                     K = self._effective_horizon(horizon)
-                    if K == 1:
+                    if self._speculate_now():
+                        self._spec_round()
+                    elif K == 1:
                         self._token_step()
                     else:
                         pending = self._dispatch_horizon(
@@ -701,17 +873,39 @@ class ServeEngine:
         self._dirty_slots.clear()
         seqs = tuple(s.seq if s.active else -1 for s in self.slots)
         greedy = self._all_greedy(s.request for s in self.slots if s.active)
-        cache, cur, offsets, toks = self.cache, self.cur, self._offsets, []
-        for _ in range(K):
+        self.cache, self.cur, self._offsets, alive, rem, toks = self._decode_loop(
+            self.ctx, self.params, self.cache, self.cur, self._offsets, alive, rem,
+            eos, K, greedy=greedy, poison=self._poison_arr(K))
+        block = _Block(toks)
+        self._note_dispatched(K)
+        self.decode_s += time.perf_counter() - t0
+        if tr is not None:
+            self._phase_done("dispatch", t0, K=K)
+        return alive, rem, block, K, seqs
+
+    def _decode_loop(self, ctx, params, cache, cur, offsets, alive, rem, eos, K: int,
+                     *, greedy: bool, poison: Optional[torch.Tensor] = None):
+        """K decode + sample micro-steps of one arm, with in-loop
+        retirement: a slot that emits its eos id, exhausts its budget or
+        samples ERR_TOKEN goes dead and decodes into masked positions.
+        ``greedy`` takes the argmax whatever the slots' knobs (the draft
+        scan passes it and drops the returned offsets).
+        ``poison`` (S,) is the fault plan's NaN schedule: at micro-step
+        i the logits of every slot whose entry equals i become NaN.
+        Returns ``(cache, cur, offsets, alive, rem, tokens (K, S))``."""
+        toks = []
+        for i in range(K):
             # dense caches take the mask for the step only; paged caches
             # keep it
             cache = dict(cache, active=alive)
-            cache, logits = self.model.decode_step(self.ctx, self.params, cur, cache)
+            cache, logits = self.model.decode_step(ctx, params, cur, cache)
             if not self.paged:
                 del cache["active"]
-            tok = sample_tokens_scan(logits[:, -1], self._temps, self._top_ks,
-                                     self._top_ps, self._keys, offsets, alive,
-                                     all_greedy=greedy)
+            lg = logits[:, -1]
+            if poison is not None:
+                lg = torch.where((poison == i)[:, None], float("nan"), lg)
+            tok = sample_tokens_scan(lg, self._temps, self._top_ks, self._top_ps,
+                                     self._keys, offsets, alive, all_greedy=greedy)
             offsets = offsets + 1
             rem = rem - alive
             done = ((alive > 0) & (eos >= 0) & (tok == eos)) | (rem <= 0) \
@@ -719,13 +913,110 @@ class ServeEngine:
             alive = torch.where(done, 0, alive)
             cur = tok[:, None]
             toks.append(tok)
-        self.cache, self.cur, self._offsets = cache, cur, offsets
-        block = _Block(torch.stack(toks))
-        self._note_dispatched(K)
+        return cache, cur, offsets, alive, rem, torch.stack(toks)
+
+    def _poison_arr(self, K: int) -> Optional[torch.Tensor]:
+        """The fault plan's NaN schedule for one target dispatch of K
+        micro-steps: (S,) micro-step indices, -1 = clean, uploaded without
+        a wait; None for a clean dispatch (nothing is added to it)."""
+        if self.faults is None:
+            return None
+        arr = self.faults.poison(self.n_slots, K)
+        if arr is None:
+            return None
+        sched = np.asarray(arr, np.int32)
+        if self.trace is not None:
+            self.trace.instant(SCHED_TID, "fault:nan", self._now(),
+                               slots=[int(i) for i in np.nonzero(sched >= 0)[0]])
+        return self._upload(sched)
+
+    @torch.no_grad()
+    def _spec_round(self) -> None:
+        """One speculative round: the draft arm proposes K tokens through
+        the horizon loop (greedy, no EOS, a budget that outlasts the scan,
+        its own ctx, params and cache), the target replays
+        ``[cur, d_0..d_{K-2}]`` teacher-forced, and each live slot emits
+        the longest matching prefix plus the target's token at the first
+        divergence (1..K tokens). Both caches roll back to the emitted
+        length; the round waits on the device once."""
+        draft = self.draft
+        tr = self.trace
+        t0 = time.perf_counter()
+        K = max(1, min(draft.lookahead, self._bucket(self._max_rem())))
+        self._decode_steps += K
+        if self.paged:
+            self._page_slot_steps += K * self.allocator.pages_in_use
+        alive, _, _, _ = self._scan_masks()
+        dcache, _, _, _, _, block = self._decode_loop(
+            draft.ctx, draft.params, self.draft_cache, self.cur, self._offsets, alive,
+            (K + 1) * alive, self._no_eos, K, greedy=True)
+        feed = torch.cat([self.cur, block[:K - 1].t()], dim=1)
+        cache, logits = decode_block(self.model, self.ctx, self.params, feed,
+                                     dict(self.cache, active=alive))
+        if not self.paged:
+            del cache["active"]
+        lg32 = logits.to(torch.float32)                          # (S, K, V)
+        tgt = lg32.argmax(dim=-1).t().to(block.dtype)            # (K, S)
+        out, n_emit, acc, new_cur = accept_longest_prefix(block, tgt, alive)
+        # a slot whose target logits went non-finite emits one ERR_TOKEN
+        # and accepts nothing; a non-finite draft token just mismatches
+        bad = (alive > 0) & ~torch.isfinite(lg32).all(dim=-1).all(dim=-1)
+        n_emit = torch.where(bad, 1, n_emit)
+        acc = torch.where(bad, 0, acc)
+        first = torch.arange(K, device=out.device)[:, None] == 0
+        out = torch.where(bad[None, :] & first, ERR_TOKEN, out)
+        roll = torch.where(alive > 0, K - n_emit, 0)
+        self.cache = self._rollback(cache, roll)
+        self.draft_cache = self._rollback(dcache, roll)
+        self.cur = new_cur[:, None]
+        self._verify_calls += 1
+        res = _Block(torch.cat([out, n_emit[None], acc[None]]))
         self.decode_s += time.perf_counter() - t0
         if tr is not None:
-            self._phase_done("dispatch", t0, K=K)
-        return alive, rem, block, K, seqs
+            self._phase_done("dispatch", t0, K=K, spec=1)
+        t0 = time.perf_counter()
+        self._decode_syncs += 1
+        host = res.numpy()                  # the round's one wait on the device
+        blk, n_emit, acc = host[:K], host[K], host[K + 1]
+        self.decode_s += time.perf_counter() - t0
+        if tr is not None:
+            self._phase_done("sync", t0, K=K)
+            t0 = time.perf_counter()
+        for s in self.slots:
+            if not s.active:
+                continue
+            a = int(acc[s.id])
+            st = self._stats[s.request.id]
+            st.drafted += K
+            st.accepted += a
+            st.rejected += K - a
+            self._drafted += K
+            self._accepted += a
+            self._rejected += K - a
+            if tr is not None:
+                tr.instant(s.request.id + 1, "verify", self._now(), drafted=K,
+                           accepted=a, emitted=int(n_emit[s.id]))
+            for t in range(int(n_emit[s.id])):
+                self._active_slot_steps += 1
+                self._emit(s, int(blk[t, s.id]))
+                if not s.active:
+                    break
+        if tr is not None:
+            self._phase_done("walk", t0)
+
+    @staticmethod
+    def _rollback(cache, roll: torch.Tensor):
+        """Keep the first ``len - roll`` positions of a cache that ran K
+        positions this round; a dense cache also re-masks ``pos`` past
+        the new length, so rolled-back positions read as invalid."""
+        new = dict(cache)
+        new_len = cache["len"] - roll.to(cache["len"].dtype)
+        new["len"] = new_len
+        if "pos" in cache:
+            pos = cache["pos"]
+            idx = torch.arange(pos.shape[1], dtype=pos.dtype, device=pos.device)
+            new["pos"] = torch.where(idx[None, :] >= new_len[:, None], -1, pos)
+        return new
 
     def _walk_block(self, block: _Block, K: int, seqs=None,
                     count_slot_steps: bool = True) -> None:
@@ -792,12 +1083,14 @@ class ServeEngine:
         self._tpot_hist.record(out.tpot_ms)
         if self.trace is not None:
             tid = rid + 1
-            if reason == "error":
+            if reason in ("deadline", "error"):
                 self.trace.instant(tid, reason, st.finished_s)
             self.trace.instant(tid, "retired", st.finished_s, reason=reason,
                                tokens=st.new_tokens)
             self.trace.end(tid, "request", st.finished_s)
-        if reason == "error":
+        if reason == "deadline":
+            self._deadline_expirations += 1
+        elif reason == "error":
             self._slot_errors += 1
         if self.sla is not None and reason in ("eos", "length"):
             # only clean completions feed the percentile window
@@ -805,17 +1098,24 @@ class ServeEngine:
         self._preempted.pop(rid, None)
         self._preempt_counts.pop(rid, None)
         self._disp_len.pop(s.id, None)
-        s.active, s.request, s.tokens = False, None, []
+        # the slot keeps its tokens until its next admission (``result``)
+        s.active, s.request = False, None
         if self.paged:
+            # both arms' chains are freed together, by this one path,
+            # whatever the finish reason
             self.allocator.free_chain(self._chains.pop(rid))
+            if self.draft is not None:
+                self.allocator.free_chain(self._draft_chains.pop(rid))
             self._park(s.id)
 
     def _park(self, sid: int) -> None:
-        """Point a freed paged slot at the trash page so that its idle
-        decode writes cannot touch live pages."""
-        self.cache["block_tables"][sid] = TRASH_PAGE
-        self.cache["active"][sid] = 0
-        self.cache["len"][sid] = 0
+        """Point a freed paged slot at the trash page, in both arms'
+        caches, so that its idle decode writes cannot touch live pages."""
+        for c in (self.cache, self.draft_cache):
+            if c is not None:
+                c["block_tables"][sid] = TRASH_PAGE
+                c["active"][sid] = 0
+                c["len"][sid] = 0
 
     def _finish_queued(self, r: Request, reason: str) -> RequestOutput:
         """Finish a request that is not in a slot (queued, possibly with
@@ -828,12 +1128,16 @@ class ServeEngine:
         if st.first_token_s == 0.0:
             st.first_token_s = st.finished_s
         st.new_tokens = len(toks)
+        if reason == "deadline":
+            self._deadline_expirations += 1
         if self.trace is not None:
             tid = r.id + 1
             self.trace.end(tid, "queued", st.finished_s)
             if fid is not None:
                 # the stash died before its resume: close the link here
                 self.trace.flow_end(tid, "resume", st.finished_s, fid, reason=reason)
+            if reason == "deadline":
+                self.trace.instant(tid, "deadline", st.finished_s)
             self.trace.instant(tid, "retired", st.finished_s, reason=reason,
                                tokens=st.new_tokens)
             self.trace.end(tid, "request", st.finished_s)
@@ -975,15 +1279,21 @@ class ServeEngine:
                                       (0, self._bucket(true_len) - true_len))
         src = request.inputs["src_tokens"]
         self._note_prefill_shape(tgt, src, 1)
+        batch = {"tgt_in": self._upload(tgt.numpy()), "src_tokens": self._upload(src.numpy()),
+                 "lengths": self._upload(np.array([true_len], np.int32))}
         one = self.model.init_cache(1, self.max_len, self.kv_dtype, enc_len=src.shape[1])
-        one, logits = self.model.prefill(
-            self.ctx, self.params, one,
-            {"tgt_in": self._upload(tgt.numpy()), "src_tokens": self._upload(src.numpy()),
-             "lengths": self._upload(np.array([true_len], np.int32))})
+        one, logits = self.model.prefill(self.ctx, self.params, one, batch)
         slot = self._upload(np.array([sid], np.int64))
         self._set_sampling(slot, [request], [1])
         first = self._first_tokens(logits[:, true_len - 1], [request], slot)
-        self._splice(one, sid)
+        self._splice(self.cache, one, sid)
+        if self.draft is not None:
+            # the draft only warms its own cache: the first token is the
+            # target's
+            d = self.draft
+            d_one = self.model.init_cache(1, self.max_len, d.kv_dtype, enc_len=src.shape[1])
+            d_one, _ = self.model.prefill(d.ctx, d.params, d_one, batch)
+            self._splice(self.draft_cache, d_one, sid)
         self.cur[sid, 0] = first[0]
         tok = int(first[0])             # admission waits for its first token
         now = self._now()
@@ -999,13 +1309,15 @@ class ServeEngine:
         self._stats[request.id].first_token_s = now
         self._emit(s, tok, synced=False)
 
-    def _splice(self, one, sid: int) -> None:
-        """Write a one-slot cache into batch slot ``sid``, in place. The
+    @staticmethod
+    def _splice(cache, one, sid: int) -> None:
+        """Write a one-slot cache into batch slot ``sid`` of ``cache``, in
+        place. The
         cross-attention leaves are zero-padded from the request's source
         length to the engine's capacity (``cross_len`` masks the rest);
         ``pos`` / ``len`` / ``cross_len`` carry the batch axis first, the
         layer-stacked K/V leaves second."""
-        for key, c in self.cache.items():
+        for key, c in cache.items():
             o = one[key].to(c.dtype)
             if key in ("pos", "len", "cross_len"):
                 c[sid] = o[0]
@@ -1015,9 +1327,24 @@ class ServeEngine:
             else:
                 c[:, sid] = o[:, 0]
 
+    def _arm_pages(self, request: Request) -> int:
+        """Pages one KV arm reserves under whole-budget reservation
+        (draft-armed engines): the full prompt + decode budget."""
+        budget = request.inputs["tgt_in"].shape[1] + request.params.max_new_tokens
+        return pages_needed(min(budget, self.max_len), self.page_size)
+
+    def _request_pages(self, request: Request) -> int:
+        """The whole-budget reservation across arms (a draft arm holds a
+        second chain of the same length in its own KV format): the most a
+        request holds, and what a draft-armed engine admits with."""
+        return self._arm_pages(request) * (2 if self.draft is not None else 1)
+
     def _admit_pages(self, request: Request) -> int:
-        """Pages a paged admission allocates now: the prefill feed's."""
-        return pages_needed(self._feed_tokens(request).shape[1], self.page_size)
+        """Pages a paged admission allocates now: the prefill feed's when
+        on demand, else every arm's whole budget."""
+        if self.on_demand:
+            return pages_needed(self._feed_tokens(request).shape[1], self.page_size)
+        return self._request_pages(request)
 
     def _shape_key(self, request: Request):
         """Batched-prefill key: the feed's bucket (prompt, plus replayed
@@ -1079,23 +1406,37 @@ class ServeEngine:
         chains = []
         for i, (r, f) in enumerate(zip(group, feeds)):
             tgt[i, :true_lens[i]] = f[0].numpy()
-            chain = self.allocator.alloc_chain(pages_needed(true_lens[i], self.page_size))
+            chain = self.allocator.alloc_chain(
+                pages_needed(true_lens[i], self.page_size) if self.on_demand
+                else self._arm_pages(r))
             chains.append(chain)
             rows[i, :len(chain)] = chain
+        dchains = []
+        if self.draft is not None:
+            drows = np.zeros((n, self.max_pages), np.int32)
+            for i, r in enumerate(group):
+                dchains.append(self.allocator.alloc_chain(self._arm_pages(r)))
+                drows[i, :len(dchains[i])] = dchains[i]
         src = np.concatenate([r.inputs["src_tokens"].numpy() for r in group])
         self._note_prefill_shape(tgt, src, n)
         stashes = [self._preempted.pop(r.id, None) for r in group]
         lengths = self._upload(np.array(true_lens, np.int32))
+        batch = {"tgt_in": self._upload(tgt), "src_tokens": self._upload(src),
+                 "lengths": lengths}
         mini = self.model.init_cache(n, pad_to, self.kv_dtype, enc_len=src.shape[1])
-        mini, logits = self.model.prefill(
-            self.ctx, self.params, mini,
-            {"tgt_in": self._upload(tgt), "src_tokens": self._upload(src),
-             "lengths": lengths})
+        mini, logits = self.model.prefill(self.ctx, self.params, mini, batch)
         slot_ids = self._upload(np.array(free, np.int64))
         self._set_sampling(slot_ids, group, [len(st) if st else 1 for st in stashes])
         first = self._first_tokens(
             logits[torch.arange(n, device=self.device), lengths.long() - 1], group, slot_ids)
         paged_insert(self.cache, mini, slot_ids, self._upload(rows), lengths)
+        if self.draft is not None:
+            # the draft only warms its own cache: first tokens are the
+            # target's
+            d = self.draft
+            dmini = self.model.init_cache(n, pad_to, d.kv_dtype, enc_len=src.shape[1])
+            dmini, _ = self.model.prefill(d.ctx, d.params, dmini, batch)
+            paged_insert(self.draft_cache, dmini, slot_ids, self._upload(drows), lengths)
         first = first.cpu().tolist()    # admission waits for its first tokens
         toks = [st[-1] if st else tok for st, tok in zip(stashes, first)]
         self.cur[slot_ids, 0] = self._upload(np.array(toks, np.int32))
@@ -1109,8 +1450,8 @@ class ServeEngine:
             for r in group:
                 tr.complete(r.id + 1, "prefill", now - p_dur, p_dur, group=n)
         admitted = []
-        for r, sid, chain, stash, tok, L in zip(group, free, chains, stashes, toks,
-                                               true_lens):
+        for i, (r, sid, chain, stash, tok, L) in enumerate(
+                zip(group, free, chains, stashes, toks, true_lens)):
             s = self.slots[sid]
             if stash:
                 self._resumed += 1
@@ -1120,10 +1461,13 @@ class ServeEngine:
                     if fid is not None:
                         tr.flow_end(r.id + 1, "resume", now, fid)
             self._chains[r.id] = chain
+            if self.draft is not None:
+                self._draft_chains[r.id] = dchains[i]
             s.request, s.tokens, s.active = r, list(stash) if stash else [], True
             s.seq = self._admit_seq
             self._admit_seq += 1
-            self._disp_len[sid] = L
+            if self.on_demand:
+                self._disp_len[sid] = L
             self._dirty_slots.add(sid)
             admitted.append((s, r, tok, bool(stash)))
         # first tokens only once every slot of the group is live; resumed

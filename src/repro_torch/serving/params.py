@@ -9,9 +9,8 @@ reason and timing stats:
   * ``preempted_limit``     — preempted for pages more than the engine's
     ``preempt_limit`` times; retired with its partial tokens.
   * ``error``               — the model gave the slot non-finite logits.
-  * ``deadline``            — the reference's ``deadline_ms`` expiry; the
-    name is kept for parity, and ``deadline_ms`` raises until deadlines
-    are ported.
+  * ``deadline``            — ``deadline_ms`` elapsed before completion;
+    the synced tokens are returned.
 
   * ``temperature == 0.0`` -> greedy argmax; ``> 0`` samples after the
     ``top_k`` / ``top_p`` filters from the request's own ``seed`` stream.
@@ -35,9 +34,10 @@ FINISH_REASONS = ("eos", "length", "abort", "deadline", "preempted_limit",
 
 
 class EngineSaturated(RuntimeError):
-    """Typed backpressure signal of a bounded pending queue, with
-    ``pending`` (queue depth at rejection) and ``limit``. Nothing raises
-    it yet: ``max_pending`` comes with a later port slice."""
+    """Typed backpressure signal: ``submit`` found the engine's bounded
+    pending queue (``max_pending``) full. Carries ``pending`` (queue depth
+    at rejection) and ``limit``, so callers retry after a round without
+    parsing the message."""
 
     def __init__(self, pending: int, limit: int):
         self.pending = pending
@@ -57,7 +57,8 @@ class SamplingParams:
     eos_id: Optional[int] = None  # None = never stop on a token id
     max_new_tokens: int = 16      # includes the prefill-sampled first token
     seed: int = 0
-    deadline_ms: Optional[float] = None
+    deadline_ms: Optional[float] = None   # budget from submit, checked at
+    #                               round boundaries (None = no deadline)
     priority: int = 0             # preemption victim ordering: on page-pool
     #                               exhaustion the lowest-priority (then
     #                               youngest) request is evicted first
@@ -107,8 +108,8 @@ class RequestStats:
 
     ``new_tokens`` is the count of tokens delivered to the caller (an
     aborted request is cut at its last synced position).
-    ``drafted`` / ``accepted`` / ``rejected`` are the reference's
-    speculative-decoding counts, 0 until speculative decoding is ported.
+    ``drafted`` / ``accepted`` / ``rejected`` count the request's
+    speculative-decoding draft tokens (0 without a draft arm).
     ``preemptions`` counts how many times the request was evicted from
     its slot for page pressure.
     """

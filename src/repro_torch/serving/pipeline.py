@@ -8,6 +8,7 @@
                           SamplingParams(temperature=0.7, top_p=0.9, seed=1))
     for tok in pipe.translate_stream(src_row, "ita", sp):  # token at a time
         print(tok)
+    pipe = deploy("nllb600m", "int4", draft_spec="nf4")  # speculative decoding
 
 ``deploy`` runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``device="cpu"``); without a card it raises. Kernel
@@ -26,7 +27,7 @@ from typing import Any, Iterator, List, Optional, Sequence, Union
 import torch
 
 from ..configs import get_config, reduce_config
-from ..core import QuantSpec, quantize_tree, resolve_spec
+from ..core import QuantSpec, quantize_tree, resolve_spec, tree_nbytes
 from ..data import LANG_CODES
 from ..models import Ctx, build_model
 from ..obs import TraceConfig, Tracer
@@ -34,14 +35,17 @@ from ..unported import later
 from .engine import ServeEngine
 from .metrics import SLATarget
 from .params import Request, RequestOutput, SamplingParams
+from .spec_decode import build_draft_arm, check_draft_spec
 
-__all__ = ["deploy", "TranslationPipeline", "impl_routes", "DEFAULT_IMPL"]
+__all__ = ["deploy", "TranslationPipeline", "impl_routes", "DEFAULT_IMPL",
+           "IMPL_CHOICES"]
 
 _IMPL_ROUTES = {
     "torch": {"matmul_impl": "torch", "paged_attn_impl": "gather"},
     "kernels": {"matmul_impl": "kernel", "paged_attn_impl": "kernel"},
 }
 DEFAULT_IMPL = "kernels"
+IMPL_CHOICES = tuple(sorted(_IMPL_ROUTES))     # the CLIs' --impl choices
 
 
 def impl_routes(impl: str) -> dict:
@@ -60,6 +64,28 @@ class TranslationPipeline:
     params: Any
     engine: ServeEngine
     ctx: Ctx
+    policy: str                   # the spec as the caller named it
+    fp_bytes: int                 # parameter bytes before quantization
+    spec: QuantSpec               # the resolved quantization spec
+    draft_spec: Optional[QuantSpec] = None   # the speculative draft arm's
+
+    @property
+    def spec_str(self) -> str:
+        """Canonical grammar spelling of the deployed spec."""
+        return str(self.spec)
+
+    @property
+    def draft_spec_str(self) -> Optional[str]:
+        """Canonical spelling of the draft spec (None without a draft arm)."""
+        return str(self.draft_spec) if self.draft_spec is not None else None
+
+    @property
+    def quantized_bytes(self) -> int:
+        return tree_nbytes(self.params)
+
+    @property
+    def compression(self) -> float:
+        return self.fp_bytes / max(self.quantized_bytes, 1)
 
     @property
     def tracer(self) -> Optional[Tracer]:
@@ -118,14 +144,13 @@ def _lang_prompts(src_tokens, tgt_lang: Union[str, int]) -> List[dict]:
 
 
 def _device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "deploy() runs on the CUDA device and none is available; "
-                "pass device='cpu' to run the plain PyTorch versions of the "
-                "kernels on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "deploy() runs on the CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions of the "
+            "kernels on the CPU")
+    return dev
 
 
 def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
@@ -161,6 +186,12 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  its chain grows just ahead of each decode horizon. Both
                  give the same token streams.
     horizon:     decode micro-steps fused per host sync.
+    draft_spec:  a weight-only spec for a speculative draft arm: the same
+                 checkpoint, quantized a second time from the raw tree.
+                 Greedy requests decode speculatively (the draft proposes
+                 ``draft_lookahead`` tokens, the target verifies them),
+                 token for token the target-only stream; sampled requests
+                 fall back to target-only rounds.
     matmul_impl / paged_attn_impl: override single routes of the default
                  "kernels" bundle; they replace the routes of an
                  explicit ``ctx``.
@@ -171,21 +202,23 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     sla:         an SLATarget: a percentile-feedback controller retunes
                  the effective horizon and the paged prefill-group cap
                  against the measured p95 TTFT / TPOT.
+    max_pending: bounded admission: ``submit`` raises the typed
+                 ``EngineSaturated`` once this many requests are queued.
     preempt_limit: a paged engine whose pool runs out preempts the
                  lowest-priority, youngest request (pages freed, tokens
                  stashed) and resumes it later by prefill replay; a
                  request preempted more than ``preempt_limit`` times
-                 retires as ``preempted_limit`` with its prefix.
+                 retires as ``preempted_limit`` with its prefix. A
+                 draft-armed engine reserves whole budgets instead.
+    faults:      a FaultPlan: deterministic page exhaustion, NaN logits
+                 and clock skew at chosen rounds and dispatches.
     trace:       a TraceConfig (or a Tracer): per-request lifecycle and
                  scheduler phase tracing, read back through
                  ``pipe.tracer``. None adds no clock read to the loop.
     device:      None = "cuda" (raises without a card).
     """
-    unported = {"draft_spec": draft_spec, "faults": faults,
-                "max_pending": max_pending, "calib_batches": calib_batches}
-    for name, value in unported.items():
-        if value is not None:
-            raise later(f"deploy({name}=...)", 2)
+    if calib_batches is not None:
+        raise later("deploy(calib_batches=...): activation calibration", 3)
     if mesh is not None:
         raise later("deploy(mesh=...)", 5)
     spec = resolve_spec(policy)
@@ -194,6 +227,8 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     kv = kv_dtype or spec.kv
     if kv == "fp8":
         raise later("fp8 KV caches", 3)
+    if draft_spec is not None:
+        check_draft_spec(draft_spec)
     dev = _device(device)
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
     if smoke:
@@ -209,11 +244,20 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     ctx = dataclasses.replace(ctx, **routes)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(init_seed))
+    fp_bytes = tree_nbytes(params)
+    raw_params = params             # the draft arm quantizes from here
     if spec.weights != "f32":
         params = quantize_tree(params, spec.policy())
+    draft = None
+    if draft_spec is not None:
+        draft = build_draft_arm(model, raw_params, ctx, draft_spec,
+                                lookahead=draft_lookahead)
     engine = ServeEngine(model, params, slots=slots, max_len=max_len,
                          kv_dtype=kv, ctx=ctx, paged=paged, page_size=page_size,
                          num_pages=num_pages, max_src_len=max_src_len,
-                         horizon=horizon, overlap=overlap, sla=sla,
-                         preempt_limit=preempt_limit, trace=trace, device=dev)
-    return TranslationPipeline(cfg, model, params, engine, ctx)
+                         horizon=horizon, draft=draft, overlap=overlap, sla=sla,
+                         max_pending=max_pending, preempt_limit=preempt_limit,
+                         faults=faults, trace=trace, device=dev)
+    name = policy if isinstance(policy, str) else str(spec)
+    return TranslationPipeline(cfg, model, params, engine, ctx, name, fp_bytes, spec,
+                               draft_spec=draft.spec if draft else None)

@@ -5,9 +5,9 @@ A route of the reference that this package does not run yet raises
 ROADMAP.md, queue 1); nothing runs another route in its place.
 """
 
+# slice 2, the serving features (deadlines, bounded admission, fault
+# injection, speculative decoding, the launcher), has landed in full
 SLICES = {
-    2: "serving features: deadlines, bounded admission (max_pending) and "
-       "fault injection, speculative decoding, the serving launcher",
     3: "quantization routes: act-quantizing specs (w8a8, a8, afp8, x<fmt>), "
        "fp8 KV caches, activation calibration, QLoRA",
     4: "the other model families (decoder-only LMs, MoE, SSM, hybrid, audio)",

@@ -1,0 +1,146 @@
+"""The serving launcher and the synthetic corpus it draws prompts from:
+the port's ``repro_torch.launch.serve`` against the reference's
+``repro.launch.serve`` (smoke nllb600m on the CPU).
+
+The port's SyntheticTranslation draws the reference's batches byte for
+byte; the launcher prints the reference's lines (the same model-bytes
+line, queue lines, per-request lines and counters; times and tokens
+differ, since each package draws its own random weights); its
+``[req N]`` streams are the streams of the same requests served through
+``deploy()``; ``--max-pending`` prints ``saturated`` lines and counts the
+rejections; ``--mesh`` keeps the reference's grammar and raises for
+scale-out, which comes with its own slice.
+"""
+
+import json
+import re
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.cluster import parse_mesh_spec as j_parse_mesh_spec  # noqa: E402
+from repro.data import SyntheticTranslation as JSyntheticTranslation  # noqa: E402
+from repro.data import pairs as j_pairs  # noqa: E402
+from repro.launch import serve as j_serve  # noqa: E402
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.data import SyntheticTranslation, pairs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serving import SamplingParams, deploy  # noqa: E402
+
+SMOKE = ["--smoke", "--requests", "4", "--gen", "6", "--max-len", "32"]
+_REQ = re.compile(r"^\[req (\d+)\] slot (\d+) (\w+)\s+ttft .*: (\[.*\])$")
+
+
+def run_port(capsys, *argv):
+    serve.main([*SMOKE, "--impl", "torch", "--device", "cpu", *argv])
+    return capsys.readouterr().out.splitlines()
+
+
+def streams(lines):
+    """Request id -> (finish reason, tokens) from the ``[req N]`` lines."""
+    out = {}
+    for line in lines:
+        m = _REQ.match(line)
+        if m:
+            out[int(m.group(1))] = (m.group(3), json.loads(m.group(4)))
+    return out
+
+
+def shape(line: str) -> str:
+    """A line with its times and token lists masked."""
+    line = re.sub(r"\[[\d, ]*\]$", "[..]", line)
+    line = re.sub(r"\d+\.\d+", "#", line)
+    return re.sub(r"\s+", " ", line)
+
+
+@pytest.mark.parametrize("seed,split,pair", [(0, "train", None), (3, "eval", None),
+                                             (5, "train", ("hin", "ita"))])
+def test_synthetic_translation_equals_reference(seed, split, pair):
+    a = SyntheticTranslation(1000, 24, seed=seed, split=split)
+    b = JSyntheticTranslation(1000, 24, seed=seed, split=split)
+    for batch in (1, 3, 2):
+        x, y = a.sample(batch, pair), b.sample(batch, pair)
+        assert x.keys() == y.keys()
+        for k in x:
+            if isinstance(x[k], np.ndarray):
+                assert x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes(), k
+            else:
+                assert x[k] == y[k], k
+    assert pairs() == j_pairs()
+
+
+@pytest.mark.parametrize("spec", ["dp2,tp2", "tp4", "dp3", " tp2 , dp1 ", ""])
+def test_parse_mesh_spec_equals_reference(spec):
+    assert serve.parse_mesh_spec(spec) == j_parse_mesh_spec(spec)
+
+
+def test_launcher_prints_the_reference_lines(capsys, monkeypatch):
+    """Same flags, both launchers: every line has the reference's shape,
+    and the model-bytes, queue, fault and counter lines are equal."""
+    monkeypatch.setattr(sys, "argv", ["serve", *SMOKE, "--impl", "xla"])
+    j_serve.main()
+    ref = capsys.readouterr().out.splitlines()
+    got = run_port(capsys)
+    assert [shape(x) for x in got] == [shape(x) for x in ref]
+    for a, b in zip(got, ref):
+        if not (_REQ.match(a) or a.startswith(("served", "latency"))):
+            assert a == b       # lines without times or tokens
+    counters = re.compile(r"(\d+ prefill compiles, \d+ decode syncs @ [\d.]+ tok/sync, "
+                          r"\d+ overlapped rounds, occupancy [\d.]+)")
+    assert counters.search(got[-3]).group(1) == counters.search(ref[-3]).group(1)
+    assert got[0] == "model bytes 0.6 MB -> 0.1 MB (int4 = w4kv8, 6.49x)"
+    assert got[-1] == ("faults: 0 preemptions (0 resumed), 0 deadline expirations, "
+                       "0 admission rejections, 0 slot errors")
+
+
+def test_launcher_streams_equal_deploy(capsys):
+    """Paged, an nf4 draft arm, horizon 4: the printed streams are those
+    of the same requests served through deploy() directly."""
+    flags = ["--paged", "--page-size", "4", "--draft-spec", "nf4", "--horizon", "4"]
+    lines = run_port(capsys, *flags)
+    got = streams(lines)
+    assert any(line.startswith("speculative draft arm: nf4 = wnf4kv8dq") for line in lines)
+    assert "verify rounds" in next(x for x in lines if x.startswith("served"))
+    pipe = deploy("nllb600m", "int4", smoke=True, device="cpu", slots=4, max_len=32,
+                  paged=True, page_size=4, draft_spec="nf4", horizon=4,
+                  matmul_impl="torch", paged_attn_impl="gather")
+    cfg = reduce_config(get_config("nllb600m"))
+    ds = SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=0)
+    reqs = []
+    for _ in range(4):
+        b = ds.sample(1)
+        reqs.append({"src_tokens": b["src_tokens"], "tgt_in": b["tgt_in"][:, :1]})
+    outs = [pipe.generate([r], SamplingParams(max_new_tokens=6, seed=i))[0]
+            for i, r in enumerate(reqs)]
+    assert got == {i: (o.finish_reason, o.token_ids) for i, o in enumerate(outs)}
+
+
+def test_launcher_max_pending_prints_saturated(capsys):
+    """Paged admission waits for the next round, so a queue of 2 fills:
+    the launcher steps and retries, and the fault line counts the
+    rejections."""
+    lines = run_port(capsys, "--paged", "--max-pending", "2", "--requests", "6")
+    sat = [x for x in lines if x.startswith("saturated")]
+    assert sat and all(x.startswith("saturated (2/2 pending), stepping + retrying")
+                       for x in sat)
+    assert len(streams(lines)) == 6
+    assert f"{len(sat)} admission rejections" in lines[-1]
+
+
+@pytest.mark.parametrize("mesh", ["tp2", "dp2", "dp2,tp2"])
+def test_launcher_scale_out_raises(capsys, mesh):
+    with pytest.raises(NotImplementedError, match="port slice 5"):
+        run_port(capsys, "--mesh", mesh)
+
+
+def test_launcher_unit_mesh_and_bad_specs(capsys):
+    """dp1,tp1 is the single engine; a bad mesh or policy fails before
+    any build work."""
+    assert len(streams(run_port(capsys, "--mesh", "dp1,tp1", "--requests", "1"))) == 1
+    with pytest.raises(ValueError, match="mesh factor"):
+        run_port(capsys, "--mesh", "pp2")
+    with pytest.raises(ValueError, match="unknown quantization spec"):
+        run_port(capsys, "--policy", "w3")

@@ -181,13 +181,15 @@ def test_translate_surface(torch_params):
 @pytest.mark.parametrize("kwargs", [
     dict(policy="w8a8"), dict(policy="fp8e2e"), dict(policy="w4a8kv8"),
     dict(policy="w16x8"), dict(policy="fp8"), dict(kv_dtype="fp8"),
-    dict(max_pending=4), dict(draft_spec="wfp4"), dict(calib_batches=[]),
-    dict(faults=object()), dict(kv_dtype="fp8", paged=False), dict(mesh=object()),
-    dict(faults=object(), paged=False)])
+    dict(draft_spec="wfp4a8"), dict(draft_spec="w4kvfp8"), dict(calib_batches=[]),
+    dict(calib_batches=[], paged=False), dict(kv_dtype="fp8", paged=False),
+    dict(mesh=object()), dict(mesh=object(), paged=False)])
 def test_unported_routes_raise(kwargs):
     """Routes outside the ported slices raise, naming their slice; SLA
     admission, tracing and overlapped rounds are ported
-    (tests/test_torch_streaming.py, tests/test_torch_obs.py)."""
+    (tests/test_torch_streaming.py, tests/test_torch_obs.py), and so are
+    faults, max_pending and weight-only draft arms
+    (tests/test_torch_faults.py, tests/test_torch_spec_decode.py)."""
     kw = dict(KW, **kwargs)
     policy = kw.pop("policy", "int4")
     with pytest.raises(NotImplementedError, match="port slice"):
@@ -195,13 +197,13 @@ def test_unported_routes_raise(kwargs):
 
 
 def test_sampled_decoding_raises(torch_params):
-    """Sampled decoding is ported (tests/test_torch_sampling.py); a
-    sampled request with a deadline still raises, since deadlines come
-    with a later slice."""
+    """Sampled decoding is ported (tests/test_torch_sampling.py), and so
+    are deadlines (tests/test_torch_faults.py): a sampled request with a
+    generous deadline runs to its budget; a non-positive deadline still
+    raises."""
     pipe = deploy("nllb600m", "int4", params=torch_params, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="port slice"):
-        pipe.generate(_prompts()[:1], SamplingParams(temperature=0.7,
-                                                     deadline_ms=1e3))
-    outs = pipe.generate(_prompts()[:1], SamplingParams(temperature=0.7,
-                                                        max_new_tokens=3))
-    assert len(outs[0].token_ids) == 3
+    with pytest.raises(ValueError, match="deadline_ms"):
+        SamplingParams(temperature=0.7, deadline_ms=0)
+    outs = pipe.generate(_prompts()[:1], SamplingParams(temperature=0.7, max_new_tokens=3,
+                                                        deadline_ms=1e6))
+    assert len(outs[0].token_ids) == 3 and outs[0].finish_reason == "length"
