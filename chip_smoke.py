@@ -56,11 +56,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    streams, casualties keep prefixes, the allocator is clean ([faults]);
 12. the serving launcher, ``python -m repro_torch.launch.serve``, in a
    process of its own on the card ([launch]);
-13. the ops API path of the dense decode attention, the row softmax and
+13. the quantization routes on [serve]'s prompts and raw weights, one
+   deploy per arm: w8a8 (integer matmuls) calibrated, fp8e2e paged and
+   dense (float8 pools, streams equal up to near ties), w4a8kv8
+   calibrated (fake-quantized qmm inputs, kernels vs torch bundle) and
+   int4 with QLoRA adapters (no epilogue NAF for an adapted FFN-in, the
+   served FFN-in against the plain relu(x @ W + lora)); tokens/s, a
+   profiled horizon and the launches of each arm ([quant]);
+14. the ops API path of the dense decode attention, the row softmax and
    the standalone FASST activation, driven on the dense engine's live
    caches, logits and FFN weights, with the launch counters set to 0
    just before and read just after ([api]);
-14. a launch-count line, the kernels' JSON line, the card line, and last
+15. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -1014,9 +1021,11 @@ def _check_vocab(pipe, outs):
         raise AssertionError("a token outside the vocabulary")
 
 
-def routes_agree(torch, pipe, prompts):
-    """One decode step of a live engine state through both bundles."""
-    from repro_torch.models import Ctx
+def routes_agree(torch, pipe, prompts, tag="routes"):
+    """One decode step of a live engine state through both bundles, on the
+    engine's own Ctx otherwise (compute dtype, activation formats and
+    calibrated scales). Returns the largest logit difference."""
+    import dataclasses
     from repro_torch.serving import SamplingParams
     eng = pipe.engine
     for p in prompts:
@@ -1026,9 +1035,10 @@ def routes_agree(torch, pipe, prompts):
     active = [s.id for s in eng.slots if s.active]
     if not active:
         raise AssertionError("no active slot to compare routes on")
-    kern = Ctx(compute_dtype=torch.bfloat16, matmul_impl="kernel",
-               paged_attn_impl="kernel", use_fasst_kernel=True)
-    plain = Ctx(compute_dtype=torch.bfloat16)
+    kern = dataclasses.replace(pipe.ctx, matmul_impl="kernel", paged_attn_impl="kernel",
+                               use_fasst_kernel=True)
+    plain = dataclasses.replace(pipe.ctx, matmul_impl="torch", paged_attn_impl="gather",
+                                use_fasst_kernel=False)
     with torch.no_grad():
         c1 = {k: v.clone() for k, v in eng.cache.items()}
         c2 = {k: v.clone() for k, v in eng.cache.items()}
@@ -1041,7 +1051,7 @@ def routes_agree(torch, pipe, prompts):
     # reference engine test bound for int8 KV: the kernel route quantizes
     # the fresh token before attending, the gather route does not
     if not err < 0.3:
-        raise AssertionError(f"kernel and torch routes differ by {err:.3g} >= 0.3")
+        raise AssertionError(f"[{tag}] kernel and torch routes differ by {err:.3g} >= 0.3")
     # greedy argmax must agree wherever the top-2 margin exceeds twice the
     # routes' largest logit difference (closer calls are ties at this
     # precision, and random weights make some)
@@ -1050,13 +1060,15 @@ def routes_agree(torch, pipe, prompts):
     decided = margin > 2 * err
     same = lk.argmax(-1) == lt.argmax(-1)
     if not bool(same[decided].all()):
-        raise AssertionError(f"argmax differs between routes on a slot with margin > "
-                             f"2 x {err:.3g}: margins {margin.tolist()}, same {same.tolist()}")
-    log(f"[routes] kernels vs torch bundle on {len(active)} live slots: max |logit "
+        raise AssertionError(f"[{tag}] argmax differs between routes on a slot with margin "
+                             f"> 2 x {err:.3g}: margins {margin.tolist()}, same {same.tolist()}")
+    log(f"[{tag}] kernels vs torch bundle on {len(active)} live slots: max |logit "
         f"diff| {err:.4g} (< 0.3); argmax equal on {int(same.sum())}/{len(active)} "
         f"slots, required on the {int(decided.sum())} with top-2 margin > {2 * err:.3g}")
     eng.run_until_drained()
-    eng.allocator.check()
+    if eng.paged:
+        eng.allocator.check()
+    return err
 
 
 PORT_KERNELS = ("qmm_kernel", "paged_attn_kernel", "decode_attn_kernel", "fasst_act_kernel",
@@ -1064,10 +1076,13 @@ PORT_KERNELS = ("qmm_kernel", "paged_attn_kernel", "decode_attn_kernel", "fasst_
                 "softmax_normalize_kernel")
 
 
-def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
+def profile_decode(torch, pipe, prompts, tag="profile", sampled=False, expect=None):
     """Where a decode micro-step's time goes: torch.profiler over one
     4-step horizon of the served engine with 8 live slots, greedy or
-    sampled (temperature 0.7, top-p 0.9)."""
+    sampled (temperature 0.7, top-p 0.9). ``expect`` gives the exact
+    wrapper launches of a decode step (default: [serve]'s, at least 8 qmm
+    a layer, one qmm_naf a layer, no FASST launch). Returns the host ms,
+    device-busy ms, idle share and kernel launches of a step."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.serving import SamplingParams
@@ -1090,17 +1105,20 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
     # a decode step: the FFN activation in the epilogue of each layer's
     # FFN-in qmm, no FASST launch of its own
     L = pipe.cfg.num_layers
-    if not (steps and launches["qmm_naf"] == L * steps and not launches["fasst_act"]
-            and launches["qmm"] >= 8 * L * steps):
+    exact = expect if expect is not None else {"qmm_naf": L, "fasst_act": 0}
+    least = {} if expect is not None else {"qmm": 8 * L}
+    if not (steps and all(launches[k] == n * steps for k, n in exact.items())
+            and all(launches[k] >= n * steps for k, n in least.items())):
         raise AssertionError(f"[{tag}] {steps} decode steps launched {launches}; a step "
-                             f"launches qmm >= {8 * L}, qmm_naf {L}, fasst_act 0")
+                             f"launches {exact}" + (f", at least {least}" if least else ""))
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and getattr(e, "self_device_time_total", 0) > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if not kernels:
         log(f"[{tag}] the profiler recorded no device time: not measured")
-        return
+        return {"host_ms_per_step": wall_ms / K, "device_busy_ms_per_step": "not measured",
+                "idle_share": "not measured", "kernel_launches_per_step": "not measured"}
     log(f"[{tag}] {K} decode micro-steps, 8 live slots: host wall {wall_ms / K:.3f} ms "
         f"per step, device busy {busy_ms / K:.3f} ms per step "
         f"(idle share {1 - busy_ms / wall_ms:.3f}), "
@@ -1119,6 +1137,9 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False):
             ours[name] = (ms + e.self_device_time_total / 1e3 / K, n + e.count / K)
     log(f"[{tag}] the port's kernels: " + ", ".join(
         f"{name} x{n:g} {ms:.4f} ms/step" for name, (ms, n) in sorted(ours.items())))
+    return {"host_ms_per_step": wall_ms / K, "device_busy_ms_per_step": busy_ms / K,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / K}
 
 
 def _fresh_engine(pipe, paged: bool, **kw):
@@ -1884,6 +1905,225 @@ def launch_phase(card):
         f"served; on {card}")
 
 
+QUANT_CALIB = (2, 8, 64)   # [quant]'s calibration: batches, rows, tokens a row
+
+
+def _quant_ffn_in(torch, pipe, tag):
+    """The adapted decoder FFN-in of every layer as a decode step serves it
+    (the adapted weight declines the epilogue NAF: qmm, the adapter term,
+    then the FASST kernel) against the plain relu(x @ W + lora) on the same
+    random bf16 rows (naf_vs_plain). Returns the max abs err."""
+    from repro_torch.core.qlinear import _lora_term
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qmm import qmm_plain
+    from repro_torch.models.layers import PLAIN_ACTS, fuses_naf
+    cfg, dev, bf = pipe.cfg, pipe.engine.device, torch.bfloat16
+    ctx, mode = pipe.ctx, PLAIN_ACTS[cfg.mlp_act]
+    w_in = pipe.params["decoder"]["layers"]["mlp"]["w_in"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    err = 0.0
+    for i in range(cfg.num_layers):
+        w = w_in.select(i)
+        x = torch.randn((SLOTS, 1, cfg.d_model), generator=g, device=dev).to(bf)
+        if fuses_naf(ctx, w, x):
+            raise AssertionError(f"[{tag}] the adapted FFN-in of layer {i} would fuse its NAF")
+        n0 = ops.LAUNCHES["qmm_naf"]
+        served = ctx.naf(ctx.dot(x, w, site="dec.ffn.in"), mode)
+        if ops.LAUNCHES["qmm_naf"] != n0:
+            raise AssertionError(f"[{tag}] the adapted FFN-in launched qmm_naf")
+        lora = _lora_term(x, w, bf)
+        y = ops.qmm(x, w.with_lora(None, None), compute_dtype=bf) + lora
+        q = qmm_plain(x.reshape(SLOTS, -1), w.data, w.block_scales(), w.fmt,
+                      out_dtype=bf).reshape(y.shape) + lora
+        err = max(err, naf_vs_plain(torch, served, y, q, mode, bf,
+                                    f"[{tag}] the adapted FFN-in of layer {i}"))
+    return err
+
+
+def quant_phase(torch, card, prompts, base):
+    """[quant]: the quantization routes on [serve]'s prompts and raw
+    weights (seed SEED, full width, all layers), "kernels" bundle, one
+    deploy per arm:
+
+    - w8a8, paged, calibrated on SyntheticTranslation batches (seed
+      SEED): int8 weights and activations take torch._int_mm; the log
+      names the calibrated sites;
+    - fp8e2e, paged and dense, dynamic (it warns): fp8 weights,
+      activations and KV; the pools stay float8_e4m3fn and dense and
+      paged streams part only at near ties (near_tie_partings);
+    - w4a8kv8, paged, calibrated: qmm takes fake-quantized inputs; the
+      kernels bundle agrees with the torch bundle on a decode step
+      (routes_agree), and the int8 activations move the logits;
+    - int4 with rank-16 QLoRA adapters (B non-zero, seeded): the bundles
+      agree on a decode step, the adapted FFN-in never launches qmm_naf,
+      and the served FFN-in equals the plain relu(x @ W + lora).
+
+    Each arm logs tokens/s and decode ms a step, a profiled 4-step
+    horizon (host ms, device-busy ms, idle share, launches a step), the
+    launches of each port kernel over its measured run and
+    kv_cache_bytes. Returns the summed launches of the measured runs."""
+    import dataclasses
+    import warnings
+    from repro_torch.core import (attach_lora, extract_adapters, inject_adapters,
+                                  quantize_tree, resolve_spec)
+    from repro_torch.data import SyntheticTranslation
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx
+    from repro_torch.serving import SamplingParams, deploy
+
+    cfg, dev = base.cfg, base.engine.device
+    L = cfg.num_layers
+    raw = base.model.init(torch.Generator(device=dev).manual_seed(SEED))
+    nb, rows, toks = QUANT_CALIB
+    ds = SyntheticTranslation(cfg.vocab_size, toks, seed=SEED)
+    calib = [{k: v for k, v in ds.sample(rows).items() if not isinstance(v, str)}
+             for _ in range(nb)]
+    sp = SamplingParams(max_new_tokens=GEN)
+    total = {k: 0 for k in ops.LAUNCHES}
+    streams = {}
+
+    def run(tag, spec, paged, params=raw, calibrate=False, expect=None):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pipe = deploy("nllb600m", spec, slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON,
+                          params=params, calib_batches=calib if calibrate else None,
+                          ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True),
+                          **(dict(paged=True, page_size=PAGE) if paged else {}))
+        torch.cuda.synchronize()
+        warned = [str(w.message) for w in caught if "dynamic per-token" in str(w.message)]
+        s = resolve_spec(spec)
+        if (s.quantizes_act or s.quantizes_attn) and bool(warned) == calibrate:
+            raise AssertionError(f"[{tag}] calibrated={calibrate} but warnings {warned}")
+        eng, ctx = pipe.engine, pipe.ctx
+        if (ctx.act_fmt, ctx.attn_act_fmt) != (s.act, s.attn):
+            raise AssertionError(f"[{tag}] ctx formats {ctx.act_fmt}/{ctx.attn_act_fmt}, "
+                                 f"spec {s}")
+        scales = dict(ctx.act_scales or ())
+        log(f"[{tag}] deployed nllb600m {pipe.spec_str} ({'paged' if paged else 'dense'}, "
+            f"kv {eng.kv_dtype}) in {time.perf_counter() - t0:.2f} s"
+            + (f", calibrated on {nb} x {rows} x {toks} SyntheticTranslation tokens: "
+               f"{len(scales)} sites {sorted(scales)}" if calibrate else
+               (", uncalibrated: warned it quantizes dynamically" if warned else "")))
+        if calibrate and not ({"enc.attn.qkv", "dec.ffn.in"} <= set(scales)
+                              and all(v > 0 for v in scales.values())):
+            raise AssertionError(f"[{tag}] calibrated scales {scales}")
+        pipe.generate(prompts[:2], SamplingParams(max_new_tokens=4))       # warm-up
+        eng.reset_metrics()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = pipe.generate(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        steps, decode_ms = eng.decode_steps, 1e3 * eng.decode_s
+        for k in total:
+            total[k] += launches[k]
+        if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+            raise AssertionError(f"[{tag}] not every request retired on length")
+        _check_vocab(pipe, outs)
+        if paged:
+            eng.allocator.check()
+            if eng.allocator.pages_in_use:
+                raise AssertionError(f"[{tag}] {eng.allocator.pages_in_use} pages leaked")
+        # over the whole run, a kernel of the decode step launched and one
+        # outside it did not; prefill rows (32-64 tokens) add FASST launches
+        # on every arm (they never carry the NAF in qmm's epilogue)
+        for name, n in expect.items():
+            if (n > 0 and not launches[name]) or (n == 0 and name != "fasst_act"
+                                                  and launches[name]):
+                raise AssertionError(f"[{tag}] {name}: {launches[name]} launches, a decode "
+                                     f"step launches {n}")
+        prof = profile_decode(torch, pipe, prompts, f"{tag}-profile", expect=expect)
+        m = eng.metrics()
+        tokens = sum(len(o.token_ids) for o in outs)
+        log(f"[{tag}] " + json.dumps({
+            "spec": pipe.spec_str, "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "decode_ms_per_step": decode_ms / max(steps, 1),
+            "decode_steps": steps, **prof, "launches": launches,
+            "kv_cache_bytes": m.kv_cache_bytes, "calibrated_sites": len(scales),
+            "card": card}))
+        streams[tag] = [o.token_ids for o in outs]
+        return pipe
+
+    # w8a8: no weight reaches qmm (int8 weights take the integer route)
+    tag = "quant-w8a8"
+    pipe = run(tag, "w8a8", True, calibrate=True,
+               expect={"qmm": 0, "qmm_naf": 0, "paged_attn": L, "fasst_act": L})
+    w = pipe.params["decoder"]["layers"]["attn"]["wq"].select(0)
+    if not (w.fmt == "int8" and w.block_scales().shape[-2] == 1):
+        raise AssertionError(f"[{tag}] wq is {w.fmt} with {w.block_scales().shape[-2]} "
+                             "K-blocks, not the per-channel int8 of the integer route")
+    del pipe
+    torch.cuda.empty_cache()
+
+    # fp8e2e: paged and dense, float8 pools, streams part only at near ties
+    fp8 = {}
+    for paged in (True, False):
+        tag = "quant-fp8e2e" + ("" if paged else "-dense")
+        fp8[paged] = run(tag, "fp8e2e", paged, expect={
+            "qmm": 0, "qmm_naf": 0, "paged_attn": L if paged else 0, "fasst_act": L})
+        cache = fp8[paged].engine.cache
+        dts = {k: str(cache[k].dtype) for k in ("k", "v", "cross_k", "cross_v")}
+        if set(dts.values()) != {"torch.float8_e4m3fn"} or "k_codes" in cache:
+            raise AssertionError(f"[{tag}] cache dtypes {dts}")
+        log(f"[{tag}] cache {dts}, kv_cache_bytes {fp8[paged].engine.kv_cache_bytes}")
+    part = near_tie_partings(torch, "quant-fp8e2e", fp8[True], prompts,
+                             [sp] * len(prompts), streams["quant-fp8e2e"],
+                             streams["quant-fp8e2e-dense"])
+    log(f"[quant-fp8e2e] dense vs paged: {len(prompts) - len(part)}/{len(prompts)} streams "
+        f"equal, {len(part)} part at near ties")
+    del fp8
+    torch.cuda.empty_cache()
+
+    # w4a8kv8: fake-quantized activations into qmm (the NAF in its epilogue)
+    tag = "quant-w4a8kv8"
+    pipe = run(tag, "w4a8kv8", True, calibrate=True,
+               expect={"qmm": 8 * L, "qmm_naf": L, "paged_attn": L, "fasst_act": 0})
+    err = routes_agree(torch, pipe, prompts, tag)
+    eng = pipe.engine
+    for p in prompts:
+        eng.submit(p, sp)
+    eng.step(horizon=1)
+    with torch.no_grad():
+        c1 = {k: v.clone() for k, v in eng.cache.items()}
+        c2 = {k: v.clone() for k, v in eng.cache.items()}
+        _, la = pipe.model.decode_step(pipe.ctx, pipe.params, eng.cur, c1)
+        _, lb = pipe.model.decode_step(dataclasses.replace(pipe.ctx, act_fmt="bf16"),
+                                       pipe.params, eng.cur, c2)
+    eng.run_until_drained()
+    moved = float((la - lb).abs().max())
+    if not moved > 0:
+        raise AssertionError(f"[{tag}] int8 activations left the logits unchanged")
+    log(f"[{tag}] a decode step with int8 activations moves the logits by up to "
+        f"{moved:.4g} against bf16 activations; kernels vs torch bundle {err:.4g}")
+    del pipe, eng
+    torch.cuda.empty_cache()
+
+    # int4 + rank-16 QLoRA adapters, B non-zero
+    tag = "quant-qlora"
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    q = attach_lora(quantize_tree(raw, resolve_spec("int4").policy()), g, rank=16)
+
+    def fill(node):
+        if isinstance(node, dict) and set(node) == {"a", "b"}:
+            return {"a": node["a"], "b": 0.02 * torch.randn(
+                node["b"].shape, generator=g, device=dev)}
+        return {k: fill(v) for k, v in node.items()} if isinstance(node, dict) else node
+    q = inject_adapters(q, fill(extract_adapters(q)))
+    pipe = run(tag, "int4", True, params=q,
+               expect={"qmm": 8 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L})
+    err = routes_agree(torch, pipe, prompts, tag)
+    ffn_err = _quant_ffn_in(torch, pipe, tag)
+    log(f"[{tag}] adapted FFN-in: no qmm_naf launch, served relu(x @ W + lora) within "
+        f"{ffn_err:.4g} of the plain versions; kernels vs torch bundle {err:.4g}")
+    del pipe, q, raw
+    torch.cuda.empty_cache()
+    return total
+
+
 def api_path(torch, pipe):
     """The ops API path of the two kernels that no serving path launches
     and of the FASST activation, which the served path launches only at
@@ -2045,23 +2285,25 @@ def main() -> int:
     for name, phase in (("spec", lambda: spec_phase(torch, card, prompts, runs)),
                         ("faults", lambda: faults_phase(torch, card, pipe, prompts,
                                                         paged_outs)),
-                        ("launch", lambda: launch_phase(card))):
+                        ("launch", lambda: launch_phase(card)),
+                        ("quant", lambda: quant_phase(torch, card, prompts, pipe))):
         t0 = time.perf_counter()
         phase_launches[name] = phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
     api_launches = api_path(torch, pipe_d)
 
-    by_run = {**phase_launches["spec"], "faults": phase_launches["faults"]}
+    by_run = {**phase_launches["spec"], "faults": phase_launches["faults"],
+              "quant": phase_launches["quant"]}
     for e in entries:
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
-        for run, counts in by_run.items():          # spec, spec_dense, faults
+        for run, counts in by_run.items():          # spec, spec_dense, faults, quant
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
                                 for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
-            "launches_spec_dense", "launches_faults", "max_abs_err",
+            "launches_spec_dense", "launches_faults", "launches_quant", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

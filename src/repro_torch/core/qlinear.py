@@ -1,35 +1,78 @@
 """Quantized linear algebra front-end.
 
-Every matmul of the model routes through :func:`qmatmul`:
+Every matmul of the model routes through :func:`qmatmul`, which
+dispatches on the weight's storage and the activation format, in the
+reference's order:
 
-  * plain tensor        -> matmul in the compute dtype;
-  * QTensor, "torch"    -> dequantize to the compute dtype, then matmul
-                           (the counterpart of the reference's XLA route);
-  * QTensor, "kernel"   -> 4-bit weights with 2-D codes go through the
-                           hand-written qmm kernel (kernels/qmm.py);
-                           other formats take the dequantize route, as in
-                           the reference.
+  * plain tensor           -> matmul in the compute dtype;
+  * QTensor int8 + act int8 -> integer matmul (int8 x int8 -> int32,
+                              ``torch._int_mm``) with the per-token x
+                              per-channel rescale: the w8a8 route;
+  * act int8 / fp8 otherwise -> the activations are quantized (absmax
+                              grid / e4m3 codes) and widened back, then
+                              take the route below: an act-quantizing
+                              spec never runs its activations unquantized;
+  * QTensor, "torch"       -> dequantize to the compute dtype, then matmul
+                              (the counterpart of the reference's XLA route);
+  * QTensor, "kernel"      -> 4-bit weights with 2-D codes go through the
+                              hand-written qmm kernel (kernels/qmm.py);
+                              other formats take the dequantize route, as in
+                              the reference.
+
+QLoRA adapters on the weight add their low-rank term last:
+y += (x @ A) @ B * (alpha / r), from the unquantized ``x``.
 
 On the kernel route ``naf`` names a FASST activation that the qmm kernel
 applies in its epilogue (``qmm_route`` says whether a product takes that
-route); the caller of any other route applies its activation itself.
+route); the caller of any other route, or of an adapted weight, applies
+its activation itself.
 
-Activation quantization (a8 / afp8 specs) and QLoRA adapters are not part
-of this slice and raise.
+Static per-site activation scales (core.calibration) arrive as
+``act_scale``; ``None`` means dynamic per-token quantization.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
-from ..unported import later
 from .formats import SUB_OCTET
 from .qtensor import QTensor
 from .quantize import dequantize_blockwise
 
-__all__ = ["qmatmul", "qmm_route", "embed_lookup"]
+__all__ = ["qmatmul", "qmm_route", "embed_lookup", "quantize_activations",
+           "quantize_activations_int8", "int8_mac_eligible", "act_quant_eligible",
+           "StaticScale", "static_scale", "f32_reciprocal"]
+
+_MAX_CODE = {"int8": 127.0, "fp8": 448.0}
+
+
+def f32_reciprocal(v: float) -> float:
+    """1 / v rounded to f32. The reference's compiled programs divide by a
+    constant as a product with its f32 reciprocal (XLA rewrites
+    ``a / c`` so), which rounds differently from the division; the port
+    computes what they compute."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+class StaticScale(NamedTuple):
+    """A calibrated static activation scale as two f32 scalar tensors on
+    the activations' device: the scale and its f32 reciprocal."""
+    scale: torch.Tensor
+    inv: torch.Tensor
+
+
+def static_scale(value: float, device) -> StaticScale:
+    return StaticScale(torch.tensor(value, dtype=torch.float32, device=device),
+                       torch.tensor(f32_reciprocal(value), dtype=torch.float32,
+                                    device=device))
+
+
+# torch._int_mm on the card takes more than 16 rows; decode rows are fewer,
+# so the codes are padded to this many rows and the product sliced
+_INT_MM_MIN_ROWS = 24
 
 
 def qmm_route(w: Any, impl: str) -> bool:
@@ -38,23 +81,116 @@ def qmm_route(w: Any, impl: str) -> bool:
             and w.data.ndim == 2)
 
 
+def int8_mac_eligible(w: Any) -> bool:
+    """True when ``w`` takes the integer w8a8 route: int8 storage with
+    per-channel scales (one K-block)."""
+    return (isinstance(w, QTensor) and w.fmt == "int8"
+            and w.block_scales().shape[-2] == 1)
+
+
+def act_quant_eligible(w: Any) -> bool:
+    """True when a matmul against ``w`` quantizes its activations under an
+    act-quantizing spec: the sites the calibration collector observes."""
+    return isinstance(w, QTensor)
+
+
+def quantize_activations(x: torch.Tensor, fmt: str = "int8", scale=None):
+    """Symmetric quantization of activations to int8 or fp8 (e4m3).
+
+    ``scale=None`` is the dynamic per-token path (each row of the last
+    axis gets its absmax scale); a static ``scale`` (a per-site scalar from
+    core.calibration, as a float or a StaticScale) saturates outliers at
+    the format's edge. The codes are computed in f32 whatever ``x``'s
+    dtype, as the reference's f32 scale makes JAX compute them, and with
+    the reference's compiled arithmetic: the dynamic scale is absmax times
+    the f32 reciprocal of the format's max code, and a static scale
+    multiplies by its f32 reciprocal. Returns ``(codes, scale)``.
+    """
+    if fmt not in _MAX_CODE:
+        raise ValueError(f"activation format must be int8 | fp8, got {fmt!r}")
+    xf = x.to(torch.float32)
+    if scale is None:
+        absmax = xf.abs().amax(dim=-1, keepdim=True)
+        scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                            absmax * f32_reciprocal(_MAX_CODE[fmt]))
+        y = xf / scale
+    else:
+        if not isinstance(scale, StaticScale):
+            scale = static_scale(float(scale), x.device)
+        y = xf * scale.inv
+        scale = scale.scale
+    if fmt == "int8":
+        q = torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    else:
+        q = torch.clamp(y, -448.0, 448.0).to(torch.float8_e4m3fn)
+    return q, scale
+
+
+def quantize_activations_int8(x: torch.Tensor, scale=None):
+    """Legacy alias for ``quantize_activations(x, "int8", scale)``."""
+    return quantize_activations(x, "int8", scale)
+
+
+def _lora_term(x, w: QTensor, compute_dtype):
+    if w.lora_a is None:
+        return None
+    scaling = w.lora_alpha / w.lora_a.shape[-1]
+    xa = torch.matmul(x.to(compute_dtype), w.lora_a.to(compute_dtype))
+    return torch.matmul(xa, w.lora_b.to(compute_dtype)) * scaling
+
+
+def _int8_path(x, w: QTensor, compute_dtype, act_scale=None):
+    """w8a8 integer matmul; None for an int8 weight with several K-blocks
+    (it fake-quantizes instead)."""
+    if not int8_mac_eligible(w):
+        return None
+    xq, sx = quantize_activations(x, "int8", act_scale)
+    K, N = w.data.shape
+    x2 = xq.reshape(-1, K)
+    M = x2.shape[0]
+    if M < _INT_MM_MIN_ROWS:
+        x2 = torch.nn.functional.pad(x2, (0, 0, 0, _INT_MM_MIN_ROWS - M))
+    out = torch._int_mm(x2, w.data)[:M].reshape(*x.shape[:-1], N)
+    sw = w.block_scales().squeeze(-2)                      # (N,)
+    return (out.to(torch.float32) * sx * sw).to(compute_dtype)
+
+
+def _fake_quant_act(x, fmt: str, act_scale, compute_dtype):
+    """Quantize-then-widen activations for a (weight, act) pair with no
+    integer route: the quantization error is real, the accumulate wide."""
+    xq, sx = quantize_activations(x, fmt, act_scale)
+    return (xq.to(torch.float32) * sx).to(compute_dtype)
+
+
 def qmatmul(x: torch.Tensor, w: Any, *, act: str = "bf16",
             compute_dtype=torch.bfloat16, impl: str = "torch",
-            naf: str | None = None) -> torch.Tensor:
+            naf: str | None = None, act_scale=None) -> torch.Tensor:
     """y = x @ w for plain or quantized ``w`` (last-2-axis contraction);
-    with ``naf``, the qmm kernel's FASST activation of it (kernel route
-    only: ``act`` is the activation *format*, not this)."""
-    if act != "bf16":
-        raise later(f"activation format {act!r} (act-quantizing matmuls)", 3)
-    if qmm_route(w, impl):
-        from ..kernels import ops as kops  # lazy: avoid import cycle
-        return kops.qmm(x, w, compute_dtype=compute_dtype, naf=naf)
-    if naf is not None:
-        raise ValueError(f"naf={naf!r} fuses into the qmm kernel only; this product "
-                         f"takes the {impl!r} route (qmm_route is False)")
+    with ``naf``, the qmm kernel's FASST activation of it (kernel route of
+    an unadapted weight only: ``act`` is the activation *format*, not
+    this). ``act_scale``: a calibrated static scale for the int8 / fp8
+    activation routes."""
+    if naf is not None and not (qmm_route(w, impl) and w.lora_a is None):
+        raise ValueError(f"naf={naf!r} fuses into the qmm kernel only, for a "
+                         f"weight without adapters; this product takes the "
+                         f"{impl!r} route")
     if not isinstance(w, QTensor):
         return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
-    return torch.matmul(x.to(compute_dtype), w.dequantize(compute_dtype))
+    lora = _lora_term(x, w, compute_dtype)
+    y = None
+    if act == "int8" and w.fmt == "int8":
+        y = _int8_path(x, w, compute_dtype, act_scale)
+    if y is None:
+        if act in _MAX_CODE:
+            x = _fake_quant_act(x, act, act_scale, compute_dtype)
+        if qmm_route(w, impl):
+            from ..kernels import ops as kops  # lazy: avoid import cycle
+            y = kops.qmm(x, w, compute_dtype=compute_dtype, naf=naf)
+        else:
+            y = torch.matmul(x.to(compute_dtype), w.dequantize(compute_dtype))
+    if lora is not None:
+        y = y + lora.to(y.dtype)
+    return y
 
 
 def embed_lookup(table: Any, ids: torch.Tensor, compute_dtype=torch.bfloat16):

@@ -1,9 +1,11 @@
-"""QTensor: a quantized weight — packed codes plus blockwise scales.
+"""QTensor: a quantized weight — packed codes plus blockwise scales, and
+optional QLoRA adapters.
 
 The field names and static metadata are those of the reference's
 QTensor, so a quantized parameter tree has the same shape in both
-packages. A layer-stacked QTensor (leading ``L`` axis on every child)
-yields one layer's weight through :meth:`QTensor.select`.
+packages. A layer-stacked QTensor (leading ``L`` axis on every child,
+adapters included) yields one layer's weight through
+:meth:`QTensor.select`.
 """
 
 from __future__ import annotations
@@ -27,12 +29,16 @@ class QTensor:
     scales_q: Optional[torch.Tensor] = None  # int8 scale codes (double quant)
     scales_cscale: Optional[torch.Tensor] = None
     scales_offset: Optional[torch.Tensor] = None
+    lora_a: Optional[torch.Tensor] = None    # (K, r) QLoRA adapter
+    lora_b: Optional[torch.Tensor] = None    # (r, N) QLoRA adapter
     fmt: str = "int4"
     q_axis: int = -2
     shape: tuple = ()                        # logical (dequantized) shape
     scales_shape: tuple = ()                 # shape of the f32 scales tensor
+    lora_alpha: float = 16.0
 
-    _CHILDREN = ("data", "scales", "scales_q", "scales_cscale", "scales_offset")
+    _CHILDREN = ("data", "scales", "scales_q", "scales_cscale", "scales_offset",
+                 "lora_a", "lora_b")
 
     @classmethod
     def quantize(cls, w: torch.Tensor, fmt: str | Format, block_size: int = 64,
@@ -62,8 +68,13 @@ class QTensor:
         return dequantize_scales(self.scales_q, self.scales_cscale,
                                  self.scales_offset, tuple(shape))
 
+    def with_lora(self, lora_a: torch.Tensor, lora_b: torch.Tensor,
+                  alpha: float = 16.0) -> "QTensor":
+        return dataclasses.replace(self, lora_a=lora_a, lora_b=lora_b,
+                                   lora_alpha=alpha)
+
     def nbytes(self) -> int:
-        """Storage bytes of the codes and every scale tensor."""
+        """Storage bytes of the codes, every scale tensor and the adapters."""
         return sum(t.numel() * t.element_size()
                    for t in (getattr(self, n) for n in self._CHILDREN) if t is not None)
 

@@ -17,8 +17,11 @@ Observability: ``--trace-out FILE`` dumps Chrome/Perfetto trace JSON,
 ``--metrics-out FILE`` the Prometheus text of the final snapshot, and
 ``--metrics-port N`` serves the live exposition at ``GET /metrics``.
 
-``--draft-spec`` adds a quantized speculative draft arm (greedy output
-unchanged). ``--mesh dp<N>,tp<K>`` keeps the reference's grammar; a
+``--policy`` and ``--draft-spec`` take any spec of the grammar, the
+act-quantizing and fp8-KV ones included (``w8a8``, ``fp8e2e``,
+``w4a8kv8``); an act-quantizing spec warns that it quantizes dynamically
+per token, since the launcher calibrates nothing. ``--draft-spec`` adds a
+quantized speculative draft arm (greedy output unchanged). ``--mesh dp<N>,tp<K>`` keeps the reference's grammar; a
 factor above 1 raises until the scale-out slice. ``--device`` (default
 ``cuda``) picks the device; the CPU runs the kernels' plain versions.
 
@@ -77,11 +80,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--policy", default="int4", metavar="SPEC",
                     help="quantization spec: an alias "
                          f"({', '.join(sorted(ALIASES))}) or a grammar "
-                         "string like w4kv8")
+                         "string like w4a8kv8 / wfp8e4m3afp8kvfp8")
     ap.add_argument("--draft-spec", default=None, metavar="SPEC",
                     help="speculative-decoding draft arm: the same checkpoint "
                          "quantized at this spec drafts tokens the target "
-                         "verifies (greedy output is unchanged)")
+                         "verifies (greedy output is unchanged, same "
+                         "alias/grammar as --policy)")
     ap.add_argument("--draft-lookahead", type=int, default=4,
                     help="tokens drafted per speculative verify round")
     ap.add_argument("--slots", type=int, default=4)

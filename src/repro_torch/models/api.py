@@ -2,6 +2,7 @@
 
 build_model(cfg, device) -> ModelAPI with
   init(generator)                    -> params
+  forward(ctx, params, batch)        -> (logits, aux_loss)  (teacher-forced)
   init_cache(batch, max_len, kv)     -> dense prefill cache
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
                                      -> block-paged serving cache
@@ -9,7 +10,9 @@ build_model(cfg, device) -> ModelAPI with
   decode_step(ctx, params, tok, c)   -> (cache, logits)   (dense or paged)
 decode_block(model, ctx, params, tokens, cache) -> (cache, logits (B, K, V))
 
-Batches are dicts: {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}.
+Batches are dicts: {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]};
+``forward`` also takes numpy arrays (a ``data`` batch), moved to the
+model's device.
 This slice ports the enc-dec family; the others raise.
 """
 
@@ -30,6 +33,7 @@ __all__ = ["ModelAPI", "build_model", "decode_block"]
 class ModelAPI:
     cfg: Any
     init: Callable
+    forward: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -60,6 +64,13 @@ def build_model(cfg, device="cuda") -> ModelAPI:
     def init(generator):
         return ed.encdec_init(generator, cfg)
 
+    def forward(ctx, params, batch):
+        if "frames" in batch:
+            raise later("audio (frame) encoders", 4)
+        tgt, src = (torch.as_tensor(batch[k], device=device)
+                    for k in ("tgt_in", "src_tokens"))
+        return ed.encdec_forward(ctx, params, cfg, tgt, src)
+
     def init_cache(batch_size, max_len, kv_dtype="bf16", enc_len=None):
         return ed.encdec_init_cache(cfg, batch_size, max_len,
                                     enc_len or cfg.enc_len, kv_dtype, device)
@@ -79,5 +90,5 @@ def build_model(cfg, device="cuda") -> ModelAPI:
                                           page_size, kv_dtype,
                                           enc_len or cfg.enc_len, device)
 
-    return ModelAPI(cfg, init, init_cache, prefill, decode_step,
+    return ModelAPI(cfg, init, forward, init_cache, prefill, decode_step,
                     init_paged_cache)

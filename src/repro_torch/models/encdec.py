@@ -7,7 +7,9 @@ reference; the stacks run as Python loops over per-layer slices.
 
 Serving caches are updated in place: prefill writes into the cache it is
 given, and a decode step writes the fresh token into its dense row or
-its page.
+its page. A cache holds its K/V in one of three layouts, told apart by
+its keys (``_kv_layout``): int8 (``k_codes`` + ``k_scales``), fp8
+(float8 ``k`` + ``k_scales``) or float (``k`` alone).
 """
 
 from __future__ import annotations
@@ -18,11 +20,10 @@ from ..core.qlinear import embed_lookup
 from ..core.qtensor import QTensor, maybe_dequantize
 from ..unported import later
 from .layers import Ctx, attn_apply, decode_attn_apply, mlp, rms_norm
-from .transformer import (_commit_decode_position, _dense_kv,
-                          _quantize_token_kv, _scatter_tokens, paged_attn,
-                          paged_view)
+from .transformer import (SCALED_KV, _commit_decode_position, _dense_kv,
+                          _scatter_tokens, paged_attn, paged_view)
 
-__all__ = ["encdec_init", "encdec_encode", "encdec_init_cache",
+__all__ = ["encdec_init", "encdec_encode", "encdec_forward", "encdec_init_cache",
            "encdec_init_paged_cache", "encdec_prefill", "encdec_decode_step",
            "encdec_paged_decode_step"]
 
@@ -103,10 +104,10 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens):
         y, _ = attn_apply(ctx, lp["attn"], h, positions,
                           num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                           head_dim=cfg.head_dim, causal=False,
-                          rope_theta=cfg.rope_theta)
+                          rope_theta=cfg.rope_theta, site="enc.attn")
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="enc.ffn")
     return rms_norm(x, params["encoder"]["norm_f_scale"], cfg.norm_eps)
 
 
@@ -115,24 +116,25 @@ def _dec_layer(ctx, cfg, lp, x, positions, enc_kv):
     h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
     y, kv = attn_apply(ctx, lp["attn"], h, positions, num_heads=cfg.num_heads,
                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                       causal=True, rope_theta=cfg.rope_theta)
+                       causal=True, rope_theta=cfg.rope_theta, site="dec.attn")
     x = x + y
     h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
     y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                      causal=False, kv_override=enc_kv, use_rope=False)
+                      causal=False, kv_override=enc_kv, use_rope=False,
+                      site="dec.cross")
     x = x + y
     h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
-    return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act), kv
+    return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="dec.ffn"), kv
 
 
 def _cross_kv(ctx, lp, cfg, enc_out):
     """Per-layer cross-attention K/V from the encoder output."""
     B, Se, _ = enc_out.shape
-    k = ctx.dot(enc_out, lp["cross"]["wk"]).reshape(B, Se, cfg.num_kv_heads,
-                                                     cfg.head_dim)
-    v = ctx.dot(enc_out, lp["cross"]["wv"]).reshape(B, Se, cfg.num_kv_heads,
-                                                     cfg.head_dim)
+    k = ctx.dot(enc_out, lp["cross"]["wk"], site="dec.cross.kv").reshape(
+        B, Se, cfg.num_kv_heads, cfg.head_dim)
+    v = ctx.dot(enc_out, lp["cross"]["wv"], site="dec.cross.kv").reshape(
+        B, Se, cfg.num_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -143,21 +145,49 @@ def _head(ctx, params, cfg, x):
         w = maybe_dequantize(params["embedding"], ctx.compute_dtype)
         logits = torch.matmul(x.to(ctx.compute_dtype), w.t())
     else:
-        logits = ctx.dot(x, params["lm_head"])
+        logits = ctx.dot(x, params["lm_head"], site="head")
     return logits.to(torch.float32)
+
+
+def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens):
+    """Teacher-forced decoder pass over tgt_tokens (B, Sd) given
+    src_tokens (B, Se). Returns (logits (B, Sd, V), aux_loss)."""
+    enc_out = encdec_encode(ctx, params, cfg, src_tokens)
+    B, Sd = tgt_tokens.shape
+    Se = enc_out.shape[1]
+    dev = enc_out.device
+    x = embed_lookup(params["embedding"], tgt_tokens, ctx.compute_dtype)
+    positions, enc_pos = _positions(B, Sd, dev), _positions(B, Se, dev)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["decoder"]["layers"], i)
+        k, v = _cross_kv(ctx, lp, cfg, enc_out)
+        x, _ = _dec_layer(ctx, cfg, lp, x, positions, (k, v, enc_pos))
+    x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
+    return _head(ctx, params, cfg, x), torch.zeros((), dtype=torch.float32, device=dev)
+
+
+def _kv_layout(cache) -> str:
+    """"int8" (codes + scales), "fp8" (float8 K/V + scales, no codes) or
+    "float" (bf16 / f32 K/V): the key test every cache reader goes
+    through, so fp8 codes are never read as unscaled K/V."""
+    if "k_codes" in cache:
+        return "int8"
+    return "fp8" if "k_scales" in cache else "float"
 
 
 _KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def _kv_leaves(prefix: str, L, B, S, Hkv, hd, kv_dtype, device):
-    if kv_dtype == "int8":
-        return {f"{prefix}k_codes": torch.zeros((L, B, S, Hkv, hd), dtype=torch.int8, device=device),
+    if kv_dtype in SCALED_KV:
+        dt, sfx, _ = SCALED_KV[kv_dtype]
+        return {f"{prefix}k{sfx}": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
                 f"{prefix}k_scales": torch.zeros((L, B, S, Hkv), device=device),
-                f"{prefix}v_codes": torch.zeros((L, B, S, Hkv, hd), dtype=torch.int8, device=device),
+                f"{prefix}v{sfx}": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
                 f"{prefix}v_scales": torch.zeros((L, B, S, Hkv), device=device)}
     if kv_dtype not in _KV_DTYPES:
-        raise later(f"KV cache {kv_dtype!r}", 3)
+        raise ValueError(f"KV cache format must be one of "
+                         f"{sorted(SCALED_KV) + sorted(_KV_DTYPES)}, got {kv_dtype!r}")
     dt = _KV_DTYPES[kv_dtype]
     return {f"{prefix}k": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
             f"{prefix}v": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device)}
@@ -198,14 +228,15 @@ def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens,
     lens = lengths if lengths is not None else torch.full(
         (B,), Sd, dtype=torch.int32, device=dev)
     new = dict(cache)
-    if "k_codes" in cache:
+    layout = _kv_layout(cache)
+    if layout != "float":
+        _, sfx, qfn = SCALED_KV[layout]
         for name, t in (("k", ks), ("v", vs)):
-            codes, scales = _quantize_token_kv(t)
-            new[f"{name}_codes"][:, :, :Sd] = codes
+            codes, scales = qfn(t)
+            new[f"{name}{sfx}"][:, :, :Sd] = codes
             new[f"{name}_scales"][:, :, :Sd] = scales
         for name, t in (("k", cks), ("v", cvs)):
-            new[f"cross_{name}_codes"], new[f"cross_{name}_scales"] = \
-                _quantize_token_kv(t)
+            new[f"cross_{name}{sfx}"], new[f"cross_{name}_scales"] = qfn(t)
     else:
         new["cross_k"] = cks.to(cache["cross_k"].dtype)
         new["cross_v"] = cvs.to(cache["cross_v"].dtype)
@@ -242,6 +273,24 @@ def _enc_positions(cache, B: int, Se: int, device):
     return torch.where(enc_pos < cache["cross_len"][:, None], enc_pos, -1)
 
 
+def _layer_kv(cache, i: int, layout: str):
+    """Layer ``i``'s self-attention leaves (the cache's own tensors, for
+    in-place writes) and its dense cross-attention K / V."""
+    if layout == "float":
+        return (cache["k"][i], cache["v"][i]), cache["cross_k"][i], cache["cross_v"][i]
+    sfx = SCALED_KV[layout][1]
+    leaves = (cache[f"k{sfx}"][i], cache["k_scales"][i],
+              cache[f"v{sfx}"][i], cache["v_scales"][i])
+    ck = _dense_kv(cache[f"cross_k{sfx}"][i], cache["cross_k_scales"][i])
+    cv = _dense_kv(cache[f"cross_v{sfx}"][i], cache["cross_v_scales"][i])
+    return leaves, ck, cv
+
+
+def _cross_len(cache, layout: str) -> int:
+    key = "cross_k_codes" if layout == "int8" else "cross_k"
+    return cache[key].shape[2]
+
+
 def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     """One decoder token (tokens (B, 1)) against dense self + cross
     caches. Returns (cache, logits (B, 1, V)).
@@ -250,50 +299,42 @@ def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     cache may carry an optional ``active`` (B,) mask (the engine's
     horizon loop injects it): inactive slots decode into masked positions
     (``pos`` stays -1) and their ``len`` freezes. The fresh token's K/V
-    is written into the cache in place (quantized on int8 caches)."""
+    is written into the cache in place (quantized on int8 / fp8 caches)."""
     if "block_tables" in cache:
         return encdec_paged_decode_step(ctx, params, cfg, tokens, cache)
-    quant = "k_codes" in cache
-    if "k_scales" in cache and not quant:
-        raise later("fp8 KV caches", 3)
+    layout = _kv_layout(cache)
     B = tokens.shape[0]
     positions = cache["len"][:, None]
     x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
-    Se = (cache["cross_k_codes"] if quant else cache["cross_k"]).shape[2]
-    enc_pos = _enc_positions(cache, B, Se, x.device)
+    enc_pos = _enc_positions(cache, B, _cross_len(cache, layout), x.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["decoder"]["layers"], i)
-        if quant:
-            kc, ksc = cache["k_codes"][i], cache["k_scales"][i]
-            vc, vsc = cache["v_codes"][i], cache["v_scales"][i]
-            k_dense, v_dense = _dense_kv(kc, ksc), _dense_kv(vc, vsc)
-            ck = _dense_kv(cache["cross_k_codes"][i], cache["cross_k_scales"][i])
-            cv = _dense_kv(cache["cross_v_codes"][i], cache["cross_v_scales"][i])
+        leaves, ck, cv = _layer_kv(cache, i, layout)
+        if layout == "float":
+            k_dense, v_dense = leaves
         else:
-            k_dense, v_dense = cache["k"][i], cache["v"][i]
-            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+            k_dense, v_dense = _dense_kv(*leaves[:2]), _dense_kv(*leaves[2:])
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
         y, k_new, v_new = decode_attn_apply(
             ctx, lp["attn"], h, positions, k_dense, v_dense, cache["pos"],
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, site="dec.attn")
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
         y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
                           num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                           causal=False, kv_override=(ck, cv, enc_pos),
-                          use_rope=False)
+                          use_rope=False, site="dec.cross")
         x = x + y
         h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
-        if quant:
-            nkc, nks = _quantize_token_kv(k_new)
-            nvc, nvs = _quantize_token_kv(v_new)
-            for leaf, new in ((kc, nkc), (ksc, nks), (vc, nvc), (vsc, nvs)):
-                _scatter_tokens(leaf, new, cache["len"])
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="dec.ffn")
+        if layout == "float":
+            new = (k_new, v_new)
         else:
-            _scatter_tokens(k_dense, k_new, cache["len"])
-            _scatter_tokens(v_dense, v_new, cache["len"])
+            qfn = SCALED_KV[layout][2]
+            new = (*qfn(k_new), *qfn(v_new))
+        for leaf, t in zip(leaves, new):
+            _scatter_tokens(leaf, t, cache["len"])
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
     logits = _head(ctx, params, cfg, x)
     return _commit_decode_position(dict(cache), cache, positions), logits
@@ -303,39 +344,32 @@ def encdec_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     """One decoder token (tokens (B, 1)): paged self-attention + per-slot
     dense cross-attention. Returns (cache, logits (B, 1, V))."""
     tables, active = cache["block_tables"], cache["active"]
+    layout = _kv_layout(cache)
     B = tokens.shape[0]
     positions = cache["len"][:, None]
     view_pos, pid, off = paged_view(cache)
     x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
-    quant = "k_codes" in cache
-    Se = (cache["cross_k_codes"] if quant else cache["cross_k"]).shape[2]
-    enc_pos = _enc_positions(cache, B, Se, x.device)
+    enc_pos = _enc_positions(cache, B, _cross_len(cache, layout), x.device)
     use_kernel = ctx.paged_attn_impl == "kernel"
     lengths_now = torch.where(active > 0, cache["len"] + 1, 0)
     for i in range(cfg.num_layers):
         lp = _layer(params["decoder"]["layers"], i)
-        if quant:
-            leaves = (cache["k_codes"][i], cache["k_scales"][i],
-                      cache["v_codes"][i], cache["v_scales"][i])
-            ck = _dense_kv(cache["cross_k_codes"][i], cache["cross_k_scales"][i])
-            cv = _dense_kv(cache["cross_v_codes"][i], cache["cross_v_scales"][i])
-        else:
-            leaves = (cache["k"][i], cache["v"][i])
-            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+        leaves, ck, cv = _layer_kv(cache, i, layout)
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
         y, _ = paged_attn(ctx, lp["attn"], h, positions, leaves, view_pos, pid,
                           off, lengths_now, tables, use_kernel=use_kernel,
                           num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                          head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+                          head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                          site="dec.attn")
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
         y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
                           num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                           causal=False, kv_override=(ck, cv, enc_pos),
-                          use_rope=False)
+                          use_rope=False, site="dec.cross")
         x = x + y
         h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="dec.ffn")
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
     logits = _head(ctx, params, cfg, x)
     new = dict(cache)

@@ -15,12 +15,13 @@ from typing import Any
 
 import torch
 
-from ..core.qlinear import qmatmul, qmm_route
+from ..core.qlinear import (act_quant_eligible, qmatmul, qmm_route,
+                            quantize_activations, static_scale)
 from ..kernels.fasst import _naf
 from ..kernels.qmm import DECODE_MAX_M
 from ..unported import later
 
-__all__ = ["Ctx", "rms_norm", "rope", "linear", "mlp", "attn_apply",
+__all__ = ["Ctx", "rms_norm", "rope", "linear", "mlp", "fuses_naf", "attn_apply",
            "decode_attn_apply"]
 
 _MATMUL_IMPLS = ("torch", "kernel")
@@ -31,14 +32,28 @@ _PAGED_ATTN_IMPLS = ("gather", "kernel")
 class Ctx:
     """Per-call execution context threaded through model code.
 
+    act_fmt:         matmul activation format (bf16 | int8 | fp8).
+    attn_act_fmt:    QK / PV activation format, the spec's x<fmt> slot: a
+                     quantized format fake-quantizes both operands of the
+                     attention einsums (attn_dot). The paged-attention
+                     kernel computes QK / PV unquantized whatever this says,
+                     as the reference's kernel does: the slot reaches the
+                     gather and dense routes only.
     matmul_impl:     "torch" dequantizes next to a torch matmul; "kernel"
                      routes 4-bit weights through the qmm kernel.
     paged_attn_impl: "gather" materializes each chain densely; "kernel"
                      runs the paged-attention kernel (write-then-attend).
     use_fasst_kernel: route the FFN activation through the FASST datapath on
                      the card: in the qmm kernel's epilogue where the
-                     product takes the qmm kernel at decode rows, else the
-                     FASST kernel.
+                     product takes the qmm kernel at decode rows (and its
+                     weight has no adapters), else the FASST kernel.
+    act_scales:      calibrated static activation scales, a sorted tuple of
+                     (site, scale) from core.calibration; a site absent
+                     from it (or None) quantizes dynamically per token.
+    act_collector:   a core.calibration.SiteCollector: when set, every
+                     activation entering a quantized-weight matmul (and
+                     each x<fmt> attention operand) reports its absmax
+                     under its site label. Not part of eq / hash.
     """
     compute_dtype: Any = torch.bfloat16
     act_fmt: str = "bf16"
@@ -46,11 +61,10 @@ class Ctx:
     matmul_impl: str = "torch"
     paged_attn_impl: str = "gather"
     use_fasst_kernel: bool = False
+    act_scales: Any = None
+    act_collector: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
-        if self.act_fmt != "bf16" or self.attn_act_fmt != "bf16":
-            raise later(f"act_fmt={self.act_fmt!r}, "
-                        f"attn_act_fmt={self.attn_act_fmt!r}", 3)
         if self.matmul_impl not in _MATMUL_IMPLS:
             raise ValueError(f"matmul_impl must be one of {_MATMUL_IMPLS}, "
                              f"got {self.matmul_impl!r}")
@@ -58,13 +72,56 @@ class Ctx:
             raise ValueError(f"paged_attn_impl must be one of "
                              f"{_PAGED_ATTN_IMPLS}, got {self.paged_attn_impl!r}")
 
-    def dot(self, x, w, naf=None):
-        return qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
-                       impl=self.matmul_impl, naf=naf)
+    @functools.cached_property
+    def _site_scales(self):
+        return dict(self.act_scales) if self.act_scales is not None else {}
 
-    def attn_dot(self, subscripts, a, b):
-        """QK / PV attention einsum with f32 accumulation."""
-        return torch.einsum(subscripts, a.to(torch.float32), b.to(torch.float32))
+    @functools.cached_property
+    def _device_scales(self):
+        return {}
+
+    def scale_for(self, site, device):
+        """Calibrated static activation scale of a matmul site, as a
+        StaticScale on ``device`` (made once, so a step uploads nothing);
+        None = dynamic per-token quantization."""
+        scale = self._site_scales.get(site) if site is not None else None
+        if scale is None:
+            return None
+        key = (site, device)
+        if key not in self._device_scales:
+            self._device_scales[key] = static_scale(scale, device)
+        return self._device_scales[key]
+
+    def dot(self, x, w, site=None, naf=None):
+        """x @ w with the context's activation route. ``site`` is the
+        matmul's calibration label (e.g. "dec.ffn.in"): the collector
+        files absmax observations under it, and the static-scale registry
+        is keyed by it; unlabelled sites stay dynamic."""
+        if self.act_collector is not None and act_quant_eligible(w):
+            self.act_collector.observe(site, x)
+        return qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
+                       impl=self.matmul_impl, naf=naf,
+                       act_scale=self.scale_for(site, x.device))
+
+    def _attn_fq(self, x, site):
+        """Fake-quantize one f32 attention operand at the attention format:
+        observe its absmax when calibrating, quantize at the site's static
+        scale (or per token), widen back to f32."""
+        if self.act_collector is not None:
+            self.act_collector.observe(site, x)
+        codes, scale = quantize_activations(x, fmt=self.attn_act_fmt,
+                                            scale=self.scale_for(site, x.device))
+        return codes.to(torch.float32) * scale
+
+    def attn_dot(self, subscripts, a, b, site=None):
+        """QK / PV attention einsum with f32 accumulation. A quantized
+        attention format fake-quantizes BOTH operands (sites "{site}.a" /
+        "{site}.b") and contracts in f32."""
+        if self.attn_act_fmt == "bf16":
+            return torch.einsum(subscripts, a.to(torch.float32), b.to(torch.float32))
+        af = self._attn_fq(a.to(torch.float32), f"{site}.a")
+        bf = self._attn_fq(b.to(torch.float32), f"{site}.b")
+        return torch.einsum(subscripts, af, bf)
 
     def naf(self, x, mode):
         if self.use_fasst_kernel:
@@ -98,8 +155,8 @@ def rope(x, positions, theta: float = 1e4):
                      dim=-1).to(x.dtype)
 
 
-def linear(ctx: Ctx, x, w, b=None):
-    y = ctx.dot(x, w)
+def linear(ctx: Ctx, x, w, b=None, site=None):
+    y = ctx.dot(x, w, site=site)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -109,7 +166,17 @@ PLAIN_ACTS = {"squared_relu": "squared_relu", "gelu": "gelu", "relu": "relu",
               "silu": "silu"}
 
 
-def mlp(ctx: Ctx, params, x, act: str):
+def fuses_naf(ctx: Ctx, w, x) -> bool:
+    """Whether the FFN activation rides in qmm's epilogue for ``x @ w``:
+    the FASST kernel is on, the product takes the qmm kernel at decode
+    rows, and ``w`` has no adapters (the adapter term is added after the
+    product, so a fused NAF would compute naf(x @ W) + lora, not
+    naf(x @ W + lora))."""
+    return (ctx.use_fasst_kernel and qmm_route(w, ctx.matmul_impl)
+            and w.lora_a is None and x.numel() // x.shape[-1] <= DECODE_MAX_M)
+
+
+def mlp(ctx: Ctx, params, x, act: str, site="ffn"):
     """Two-layer FFN (the GLU variants come with the LM families)."""
     if act not in PLAIN_ACTS:
         raise later(f"FFN activation {act!r}", 4)
@@ -117,12 +184,11 @@ def mlp(ctx: Ctx, params, x, act: str):
     # the NAF rides in qmm's epilogue at decode rows, where it saves the
     # FASST launch; at prefill rows qmm then the FASST kernel is faster
     # than the fused launch (PERF.md)
-    if (ctx.use_fasst_kernel and qmm_route(w_in, ctx.matmul_impl)
-            and x.numel() // x.shape[-1] <= DECODE_MAX_M):
-        h = ctx.dot(x, w_in, naf=mode)
+    if fuses_naf(ctx, w_in, x):
+        h = ctx.dot(x, w_in, site=f"{site}.in", naf=mode)
     else:
-        h = ctx.naf(ctx.dot(x, w_in), mode)
-    return ctx.dot(h, params["w_out"])
+        h = ctx.naf(ctx.dot(x, w_in, site=f"{site}.in"), mode)
+    return ctx.dot(h, params["w_out"], site=f"{site}.out")
 
 
 def _mask(pos_q, pos_k, causal: bool):
@@ -135,25 +201,29 @@ def _mask(pos_q, pos_k, causal: bool):
     return m
 
 
-def _sdpa(ctx: Ctx, q, k, v, mask, sm_scale):
-    """q (B,Sq,Hkv,G,hd), k/v (B,Sk,Hkv,hd), mask (B,Sq,Sk) -> (B,Sq,Hkv,G,hd)."""
-    scores = ctx.attn_dot("bqhgd,bkhd->bhgqk", q, k.to(q.dtype)) * sm_scale
+def _sdpa(ctx: Ctx, q, k, v, mask, sm_scale, site="attn"):
+    """q (B,Sq,Hkv,G,hd), k/v (B,Sk,Hkv,hd), mask (B,Sq,Sk) -> (B,Sq,Hkv,G,hd);
+    QK at site "{site}.qk", PV at "{site}.pv"."""
+    scores = ctx.attn_dot("bqhgd,bkhd->bhgqk", q, k.to(q.dtype),
+                          site=f"{site}.qk") * sm_scale
     scores = torch.where(mask[:, None, None, :, :], scores, -1e30)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
-    return ctx.attn_dot("bhgqk,bkhd->bqhgd", p, v).to(v.dtype)
+    return ctx.attn_dot("bhgqk,bkhd->bqhgd", p, v, site=f"{site}.pv").to(v.dtype)
 
 
 def attn_apply(ctx: Ctx, params, x, positions, *, num_heads, num_kv_heads,
                head_dim, causal=True, rope_theta=1e4, kv_override=None,
-               use_rope=True):
+               use_rope=True, site="attn"):
     """Self- (or cross-, via kv_override) attention block body."""
     B, S, _ = x.shape
     H, Hkv = num_heads, num_kv_heads
-    q = linear(ctx, x, params["wq"], params.get("bias_q")).reshape(B, S, H, head_dim)
+    qkv = f"{site}.qkv"
+    q = linear(ctx, x, params["wq"], params.get("bias_q"), site=qkv).reshape(
+        B, S, H, head_dim)
     if kv_override is None:
-        k = linear(ctx, x, params["wk"], params.get("bias_k")).reshape(
+        k = linear(ctx, x, params["wk"], params.get("bias_k"), site=qkv).reshape(
             B, S, Hkv, head_dim)
-        v = linear(ctx, x, params["wv"], params.get("bias_v")).reshape(
+        v = linear(ctx, x, params["wv"], params.get("bias_v"), site=qkv).reshape(
             B, S, Hkv, head_dim)
         pos_k = positions
     else:
@@ -167,26 +237,32 @@ def attn_apply(ctx: Ctx, params, x, positions, *, num_heads, num_kv_heads,
     if mask.ndim == 2:
         mask = mask[None]
     mask = mask.expand((B,) + tuple(mask.shape[-2:]))
-    out = _sdpa(ctx, qg, k, v, mask, head_dim ** -0.5).reshape(B, S, H, head_dim)
-    y = ctx.dot(out.reshape(B, S, H * head_dim), params["wo"])
+    out = _sdpa(ctx, qg, k, v, mask, head_dim ** -0.5,
+                site=site).reshape(B, S, H, head_dim)
+    y = ctx.dot(out.reshape(B, S, H * head_dim), params["wo"], site=f"{site}.out")
     return y, (k, v)
 
 
 def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
                       cache_positions, *, num_heads, num_kv_heads, head_dim,
-                      rope_theta=1e4):
+                      rope_theta=1e4, site="attn"):
     """One-token decode against a dense (dequantized) KV view.
 
     x (B, 1, d); cache_k/v (B, Smax, Hkv, hd); cache_positions (B, Smax)
     with -1 = empty. The fresh token joins through a two-part softmax
-    combine. Returns (y, new_k_token, new_v_token).
+    combine. Both QK products share the "{site}.qk" site and the cache's
+    PV product is "{site}.pv"; the fresh token's PV term is an
+    elementwise f32 product, not a matmul, so it stays unquantized.
+    Returns (y, new_k_token, new_v_token).
     """
     B = x.shape[0]
     H, Hkv = num_heads, num_kv_heads
-    q = linear(ctx, x, params["wq"], params.get("bias_q")).reshape(B, 1, H, head_dim)
-    k_new = linear(ctx, x, params["wk"], params.get("bias_k")).reshape(
+    qkv = f"{site}.qkv"
+    q = linear(ctx, x, params["wq"], params.get("bias_q"), site=qkv).reshape(
+        B, 1, H, head_dim)
+    k_new = linear(ctx, x, params["wk"], params.get("bias_k"), site=qkv).reshape(
         B, 1, Hkv, head_dim)
-    v_new = linear(ctx, x, params["wv"], params.get("bias_v")).reshape(
+    v_new = linear(ctx, x, params["wv"], params.get("bias_v"), site=qkv).reshape(
         B, 1, Hkv, head_dim)
     q = rope(q, positions, rope_theta)
     k_new = rope(k_new, positions, rope_theta)
@@ -194,17 +270,21 @@ def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
     qg = q.reshape(B, 1, Hkv, H // Hkv, head_dim)
     sm_scale = head_dim ** -0.5
     cd = qg.dtype
-    s_cache = ctx.attn_dot("bqhgd,bkhd->bhgqk", qg, cache_k.to(cd)) * sm_scale
+    s_cache = ctx.attn_dot("bqhgd,bkhd->bhgqk", qg, cache_k.to(cd),
+                           site=f"{site}.qk") * sm_scale
     mask = _mask(positions, cache_positions, causal=True)      # (B,1,S)
     s_cache = torch.where(mask[:, None, None, :, :], s_cache, -1e30)
-    s_new = ctx.attn_dot("bqhgd,bqhd->bhgq", qg, k_new.to(cd))[..., None] * sm_scale
+    s_new = ctx.attn_dot("bqhgd,bqhd->bhgq", qg, k_new.to(cd),
+                         site=f"{site}.qk")[..., None] * sm_scale
     m = torch.maximum(s_cache.amax(dim=-1, keepdim=True), s_new)
     e_cache = torch.exp(s_cache - m)                        # (B,Hkv,G,1,S)
     e_new = torch.exp(s_new - m)                            # (B,Hkv,G,1,1)
     denom = e_cache.sum(dim=-1, keepdim=True) + e_new
-    out = ctx.attn_dot("bhgqk,bkhd->bqhgd", e_cache.to(cd), cache_v.to(cd))
+    out = ctx.attn_dot("bhgqk,bkhd->bqhgd", e_cache.to(cd), cache_v.to(cd),
+                       site=f"{site}.pv")
     out = out + e_new.permute(0, 3, 1, 2, 4) * v_new[:, :, :, None, :].to(torch.float32)
     out = out / denom.permute(0, 3, 1, 2, 4)
-    y = ctx.dot(out.to(cd).reshape(B, 1, H * head_dim), params["wo"])
+    y = ctx.dot(out.to(cd).reshape(B, 1, H * head_dim), params["wo"],
+                site=f"{site}.out")
     return y, k_new, v_new
 

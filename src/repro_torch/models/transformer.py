@@ -10,12 +10,14 @@ from __future__ import annotations
 
 import torch
 
+from ..core.qlinear import f32_reciprocal
 from ..kernels.decode_attn import quantize_token_kv as _quantize_token_kv
 from ..kernels.paging import gather_pages, scatter_token
 from .layers import decode_attn_apply, linear, rope
 
-__all__ = ["paged_view", "paged_attn", "_quantize_token_kv", "_dense_kv",
-           "_scatter_tokens", "_commit_decode_position"]
+__all__ = ["paged_view", "paged_attn", "SCALED_KV", "_quantize_token_kv",
+           "_fp8_token_kv", "_token_kv_quantizer", "_dense_kv", "_scatter_tokens",
+           "_commit_decode_position"]
 
 
 def paged_view(cache):
@@ -43,23 +45,29 @@ def paged_view(cache):
     return pos, pid, off
 
 
+def _token_kv_quantizer(codes_dtype):
+    """Per-token KV quantizer matching a cache's storage dtype."""
+    return _quantize_token_kv if codes_dtype == torch.int8 else _fp8_token_kv
+
+
 def paged_attn(ctx, ap, x, positions, leaves, view_pos, pid, off, lengths_now,
                tables, *, use_kernel, num_heads, num_kv_heads, head_dim,
-               rope_theta=1e4):
+               rope_theta=1e4, site="attn"):
     """One layer of paged decode self-attention + KV commit.
 
     The gather path attends a dense chain view through decode_attn_apply
     (the fresh token at full precision) and then commits it; the kernel
     path commits first and attends the whole chain in the kernel.
     ``leaves`` is (k, v) for bf16/f32 pages or (codes, scales, codes,
-    scales) for int8 pages. Returns (attn_out_projection, leaves).
+    scales) for int8 / fp8 pages (the codes dtype picks the token
+    quantizer). Returns (attn_out_projection, leaves).
     """
     if use_kernel:
         return _paged_attn_kernel_apply(
             ctx, ap, x, positions, leaves, pid, off, lengths_now, tables,
             num_heads=num_heads, num_kv_heads=num_kv_heads,
-            head_dim=head_dim, rope_theta=rope_theta)
-    if len(leaves) == 4:                       # int8 pages
+            head_dim=head_dim, rope_theta=rope_theta, site=site)
+    if len(leaves) == 4:                       # int8 / fp8 pages
         kc, ksc, vc, vsc = leaves
         k_dense = _dense_kv(gather_pages(kc, tables), gather_pages(ksc, tables))
         v_dense = _dense_kv(gather_pages(vc, tables), gather_pages(vsc, tables))
@@ -70,18 +78,19 @@ def paged_attn(ctx, ap, x, positions, leaves, view_pos, pid, off, lengths_now,
     y, k_new, v_new = decode_attn_apply(
         ctx, ap, x, positions, k_dense, v_dense, view_pos,
         num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
-        rope_theta=rope_theta)
+        rope_theta=rope_theta, site=site)
     _commit_token(leaves, k_new, v_new, pid, off)
     return y, leaves
 
 
 def _commit_token(leaves, k_new, v_new, pid, off):
-    """Write one fresh token per slot into its page (quantized on int8
-    pools)."""
+    """Write one fresh token per slot into its page (quantized on int8 /
+    fp8 pools)."""
     if len(leaves) == 4:
         kc, ksc, vc, vsc = leaves
-        nkc, nks = _quantize_token_kv(k_new)
-        nvc, nvs = _quantize_token_kv(v_new)
+        qfn = _token_kv_quantizer(kc.dtype)
+        nkc, nks = qfn(k_new)
+        nvc, nvs = qfn(v_new)
         scatter_token(kc, nkc[:, 0], pid, off)
         scatter_token(ksc, nks[:, 0], pid, off)
         scatter_token(vc, nvc[:, 0], pid, off)
@@ -94,19 +103,22 @@ def _commit_token(leaves, k_new, v_new, pid, off):
 
 def _paged_attn_kernel_apply(ctx, ap, x, positions, leaves, pid, off,
                              lengths_now, tables, *, num_heads, num_kv_heads,
-                             head_dim, rope_theta=1e4):
+                             head_dim, rope_theta=1e4, site="attn"):
     """Paged decode attention through the paged-attention kernel.
 
     Write-then-attend: the new token's K/V is committed to its page first
-    (quantized on int8 pools), then one kernel call covers the whole
-    chain at ``lengths_now`` = len + 1 (idle slots pass 0).
+    (quantized on int8 / fp8 pools), then one kernel call covers the whole
+    chain at ``lengths_now`` = len + 1 (idle slots pass 0). The kernel
+    computes QK / PV unquantized whatever ``ctx.attn_act_fmt`` says, as
+    the reference's kernel does.
     """
     from ..kernels import ops as kops
     B = x.shape[0]
     H, Hkv, hd = num_heads, num_kv_heads, head_dim
-    q = linear(ctx, x, ap["wq"], ap.get("bias_q")).reshape(B, 1, H, hd)
-    k_new = linear(ctx, x, ap["wk"], ap.get("bias_k")).reshape(B, 1, Hkv, hd)
-    v_new = linear(ctx, x, ap["wv"], ap.get("bias_v")).reshape(B, 1, Hkv, hd)
+    qkv = f"{site}.qkv"
+    q = linear(ctx, x, ap["wq"], ap.get("bias_q"), site=qkv).reshape(B, 1, H, hd)
+    k_new = linear(ctx, x, ap["wk"], ap.get("bias_k"), site=qkv).reshape(B, 1, Hkv, hd)
+    v_new = linear(ctx, x, ap["wv"], ap.get("bias_v"), site=qkv).reshape(B, 1, Hkv, hd)
     q = rope(q, positions, rope_theta)
     k_new = rope(k_new, positions, rope_theta)
     _commit_token(leaves, k_new, v_new, pid, off)
@@ -119,8 +131,25 @@ def _paged_attn_kernel_apply(ctx, ap, x, positions, leaves, pid, off,
         kp, vp = leaves
         out = kops.paged_decode_attention(q[:, 0], kp, vp, tables, lengths_now,
                                           out_dtype=torch.float32)
-    y = ctx.dot(out.to(x.dtype).reshape(B, 1, H * hd), ap["wo"])
+    y = ctx.dot(out.to(x.dtype).reshape(B, 1, H * hd), ap["wo"], site=f"{site}.out")
     return y, leaves
+
+
+def _fp8_token_kv(t):
+    """(..., d) -> float8 e4m3 codes + per-(token, head) f32 scales (...),
+    the layout the dense and paged fp8 caches hold."""
+    absmax = t.to(torch.float32).abs().amax(dim=-1)
+    # absmax / 448 as the reference's compiled step computes it
+    scales = torch.where(absmax == 0, torch.ones_like(absmax),
+                         absmax * f32_reciprocal(448.0))
+    codes = (t / scales[..., None]).to(torch.float8_e4m3fn)
+    return codes, scales
+
+
+# the scaled KV layouts: the codes' storage dtype, the codes' key suffix
+# ("k_codes" for int8, "k" for fp8) and the per-token quantizer
+SCALED_KV = {"int8": (torch.int8, "_codes", _quantize_token_kv),
+             "fp8": (torch.float8_e4m3fn, "", _fp8_token_kv)}
 
 
 def _dense_kv(codes, scales):

@@ -1,8 +1,8 @@
 """Block-paged KV cache: free-list page allocator + shared block storage.
 
 The KV cache is a shared pool of ``num_pages`` pages of ``page_size``
-tokens, stored layer-stacked as ``(L, P, ps, Hkv, hd)`` (bf16, or int8
-codes with ``(L, P, ps, Hkv)`` f32 scales). Each in-flight request owns
+tokens, stored layer-stacked as ``(L, P, ps, Hkv, hd)`` (bf16 / f32, or
+int8 / float8 e4m3 codes with ``(L, P, ps, Hkv)`` f32 scales). Each in-flight request owns
 a chain of pages handed out by the host-side ``PageAllocator``; token
 ``t`` lives at ``(chain[t // ps], t % ps)``. Unused block-table entries
 point at the reserved trash page 0.
@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..kernels.paging import TRASH_PAGE, scatter_prefill
-from ..unported import later
+from ..models.transformer import SCALED_KV
 
 __all__ = ["PageAllocator", "pages_needed", "init_paged_kv", "paged_insert",
            "TRASH_PAGE"]
@@ -98,17 +98,18 @@ def init_paged_kv(num_layers: int, num_pages: int, page_size: int,
                   num_kv_heads: int, head_dim: int, kv_dtype: str = "bf16",
                   device="cuda"):
     """Shared paged K/V storage leaves, layer-stacked: (L, P, ps, Hkv, hd)
-    [+ (L, P, ps, Hkv) f32 scales for int8]."""
+    [+ (L, P, ps, Hkv) f32 scales for int8 / fp8]. fp8 pages keep the int8
+    layout with float8 storage under the keys "k" / "v", so a pool is fp8
+    when it has "k_scales" and no "k_codes" (as the dense caches)."""
     shape = (num_layers, num_pages, page_size, num_kv_heads, head_dim)
-    if kv_dtype == "int8":
-        return {"k_codes": torch.zeros(shape, dtype=torch.int8, device=device),
+    if kv_dtype in SCALED_KV:
+        dt, sfx, _ = SCALED_KV[kv_dtype]
+        return {f"k{sfx}": torch.zeros(shape, dtype=dt, device=device),
                 "k_scales": torch.zeros(shape[:-1], device=device),
-                "v_codes": torch.zeros(shape, dtype=torch.int8, device=device),
+                f"v{sfx}": torch.zeros(shape, dtype=dt, device=device),
                 "v_scales": torch.zeros(shape[:-1], device=device)}
-    if kv_dtype == "fp8":
-        raise later("fp8 KV pages", 3)
     if kv_dtype not in ("bf16", "f32"):
-        raise ValueError(f"paged KV storage supports bf16|f32|int8, got {kv_dtype!r}")
+        raise ValueError(f"paged KV storage supports bf16|f32|int8|fp8, got {kv_dtype!r}")
     dt = torch.bfloat16 if kv_dtype == "bf16" else torch.float32
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}

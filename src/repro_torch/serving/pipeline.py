@@ -9,6 +9,7 @@
     for tok in pipe.translate_stream(src_row, "ita", sp):  # token at a time
         print(tok)
     pipe = deploy("nllb600m", "int4", draft_spec="nf4")  # speculative decoding
+    pipe = deploy("nllb600m", "w8a8", calib_batches=batches)  # static act scales
 
 ``deploy`` runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``device="cpu"``); without a card it raises. Kernel
@@ -22,12 +23,12 @@ routes. The FASST activation kernel is the ``Ctx.use_fasst_kernel`` knob.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterator, List, Optional, Sequence, Union
+from typing import Any, Iterable, Iterator, List, Optional, Sequence, Union
 
 import torch
 
 from ..configs import get_config, reduce_config
-from ..core import QuantSpec, quantize_tree, resolve_spec, tree_nbytes
+from ..core import QuantSpec, calibrated_ctx, quantize_tree, resolve_spec, tree_nbytes
 from ..data import LANG_CODES
 from ..models import Ctx, build_model
 from ..obs import TraceConfig, Tracer
@@ -35,7 +36,7 @@ from ..unported import later
 from .engine import ServeEngine
 from .metrics import SLATarget
 from .params import Request, RequestOutput, SamplingParams
-from .spec_decode import build_draft_arm, check_draft_spec
+from .spec_decode import build_draft_arm
 
 __all__ = ["deploy", "TranslationPipeline", "impl_routes", "DEFAULT_IMPL",
            "IMPL_CHOICES"]
@@ -160,7 +161,8 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
            paged: bool = False, page_size: int = 8,
            num_pages: Optional[int] = None, max_src_len: Optional[int] = None,
            horizon: int = 1, matmul_impl: Optional[str] = None,
-           paged_attn_impl: Optional[str] = None, calib_batches=None,
+           paged_attn_impl: Optional[str] = None,
+           calib_batches: Optional[Iterable[dict]] = None,
            draft_spec=None, draft_lookahead: int = 4, overlap: bool = True,
            sla: Optional[SLATarget] = None, max_pending: Optional[int] = None,
            preempt_limit: int = 3, faults=None,
@@ -169,14 +171,17 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     """Build a ready-to-serve TranslationPipeline in one call.
 
     arch_or_cfg: registry name or a ModelConfig.
-    policy:      a QuantSpec, an alias ("int4", "fp4", "nf4", ...) or a
-                 grammar string; the KV dtype follows the spec unless
-                 ``kv_dtype`` overrides.
+    policy:      a QuantSpec, an alias ("int4", "w8a8", "fp8e2e", ...) or a
+                 grammar string ("w4a8kv8", "wfp8e4m3afp8kvfp8"); the KV
+                 dtype follows the spec unless ``kv_dtype`` overrides, and
+                 the spec's activation and attention formats override
+                 those of an explicit ``ctx``.
     smoke:       reduce the config to CPU-testable size and compute in
                  f32 (when no ``ctx`` is given).
     params:      a parameter tree (e.g. from ``repro_torch.convert``) on
-                 ``device``, quantized here per ``policy``; default: a
-                 fresh random init seeded by ``init_seed``.
+                 ``device``, quantized here per ``policy`` (QTensors, with
+                 their QLoRA adapters, pass through); default: a fresh
+                 random init seeded by ``init_seed``.
     paged:       False (default): a dense ``(slots, max_len)`` KV cache with
                  per-request admission at submit. True: a block-paged KV
                  cache (a shared pool of ``num_pages`` pages of
@@ -186,8 +191,16 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  its chain grows just ahead of each decode horizon. Both
                  give the same token streams.
     horizon:     decode micro-steps fused per host sync.
-    draft_spec:  a weight-only spec for a speculative draft arm: the same
-                 checkpoint, quantized a second time from the raw tree.
+    calib_batches: sample batches (``data`` dicts with ``src_tokens`` and
+                 ``tgt_in``) for static activation calibration: when the
+                 spec quantizes activations (a8 / afp8 / x<fmt>), they run
+                 teacher-forced through the quantized model and the
+                 per-site scales replace dynamic per-token quantization.
+                 Without them such a spec warns and stays dynamic. Ignored
+                 for specs that keep activations in bf16.
+    draft_spec:  a spec for a speculative draft arm: the same
+                 checkpoint, quantized a second time from the raw tree
+                 (``calib_batches`` calibrate it too).
                  Greedy requests decode speculatively (the draft proposes
                  ``draft_lookahead`` tokens, the target verifies them),
                  token for token the target-only stream; sampled requests
@@ -217,18 +230,10 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  ``pipe.tracer``. None adds no clock read to the loop.
     device:      None = "cuda" (raises without a card).
     """
-    if calib_batches is not None:
-        raise later("deploy(calib_batches=...): activation calibration", 3)
     if mesh is not None:
         raise later("deploy(mesh=...)", 5)
     spec = resolve_spec(policy)
-    if spec.quantizes_act or spec.quantizes_attn:
-        raise later(f"act-quantizing spec {spec}", 3)
     kv = kv_dtype or spec.kv
-    if kv == "fp8":
-        raise later("fp8 KV caches", 3)
-    if draft_spec is not None:
-        check_draft_spec(draft_spec)
     dev = _device(device)
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
     if smoke:
@@ -241,17 +246,29 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
         routes["matmul_impl"] = matmul_impl
     if paged_attn_impl is not None:
         routes["paged_attn_impl"] = paged_attn_impl
-    ctx = dataclasses.replace(ctx, **routes)
+    # the spec owns the activation formats, even over an explicit ctx: a
+    # caller's ctx must not run a w8a8 spec with bf16 activations
+    ctx = dataclasses.replace(ctx, act_fmt=spec.act, attn_act_fmt=spec.attn, **routes)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(init_seed))
     fp_bytes = tree_nbytes(params)
     raw_params = params             # the draft arm quantizes from here
+    if draft_spec is not None and calib_batches is not None \
+            and not isinstance(calib_batches, (list, tuple)):
+        # both arms calibrate on the same batches: a one-shot iterable
+        # would be spent by the target
+        calib_batches = list(calib_batches)
     if spec.weights != "f32":
         params = quantize_tree(params, spec.policy())
+    if spec.quantizes_act or spec.quantizes_attn:
+        fmt = spec.act if spec.quantizes_act else spec.attn
+        ctx = calibrated_ctx(ctx, model, params, calib_batches, fmt,
+                             f"spec {spec} quantizes activations")
     draft = None
     if draft_spec is not None:
         draft = build_draft_arm(model, raw_params, ctx, draft_spec,
-                                lookahead=draft_lookahead)
+                                lookahead=draft_lookahead,
+                                calib_batches=calib_batches)
     engine = ServeEngine(model, params, slots=slots, max_len=max_len,
                          kv_dtype=kv, ctx=ctx, paged=paged, page_size=page_size,
                          num_pages=num_pages, max_src_len=max_src_len,

@@ -14,25 +14,23 @@ BOTH arms' caches back to the emitted length. Sampled requests fall the
 whole round back to the target-only path (the draft cache goes stale,
 which lowers acceptance later and never changes a token).
 
-This slice runs weight-only draft specs (``int4``, ``fp4``, ``nf4``,
-``int8``, ``bf16`` and their grammar spellings); a draft spec that
-quantizes activations or keeps an fp8 KV cache, and activation
-calibration, raise until the quantization-routes slice.
+Any spec serves as a draft: weight-only, act-quantizing (calibrated on
+the deployment's ``calib_batches``, or dynamic with a warning) and fp8-KV
+specs alike. The draft's activation format is its own spec's; its
+attention format is the target's, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Iterable, Optional, Tuple
 
 import torch
 
-from ..core import QuantSpec, quantize_tree, resolve_spec
+from ..core import QuantSpec, calibrated_ctx, quantize_tree, resolve_spec
 from ..models.layers import Ctx
-from ..unported import later
 
-__all__ = ["DraftArm", "accept_longest_prefix", "build_draft_arm",
-           "check_draft_spec"]
+__all__ = ["DraftArm", "accept_longest_prefix", "build_draft_arm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,25 +82,23 @@ def accept_longest_prefix(draft_block: torch.Tensor, target_block: torch.Tensor,
     return out, n_emit, torch.where(live, accepted, 0), new_cur
 
 
-def check_draft_spec(draft_spec) -> QuantSpec:
-    """Resolve a draft spec, raising for the routes this slice does not
-    run (activation quantization, fp8 KV caches)."""
-    spec = resolve_spec(draft_spec)
-    if spec.quantizes_act or spec.quantizes_attn:
-        raise later(f"act-quantizing draft spec {spec}", 3)
-    if spec.kv == "fp8":
-        raise later(f"draft spec {spec}: fp8 KV caches", 3)
-    return spec
-
-
 def build_draft_arm(model, raw_params, base_ctx: Ctx, draft_spec, *,
-                    lookahead: int = 4) -> DraftArm:
+                    lookahead: int = 4,
+                    calib_batches: Optional[Iterable[dict]] = None) -> DraftArm:
     """Quantize a second arm of ``raw_params`` (the UN-quantized
-    checkpoint) at ``draft_spec`` and bundle it as a DraftArm;
-    ``base_ctx`` supplies the compute dtype and kernel routes."""
-    spec = check_draft_spec(draft_spec)
+    checkpoint) at ``draft_spec`` and bundle it as a DraftArm.
+
+    ``base_ctx`` supplies the compute dtype, the kernel routes and the
+    attention format; the draft's activation format and (calibrated on
+    ``calib_batches``) static scales replace the target's. An
+    act-quantizing draft without batches warns and stays dynamic."""
+    spec = resolve_spec(draft_spec)
+    ctx = dataclasses.replace(base_ctx, act_fmt=spec.act, act_scales=None)
     params = raw_params
     if spec.weights != "f32":
         params = quantize_tree(raw_params, spec.policy())
-    return DraftArm(params=params, ctx=base_ctx, spec=spec, kv_dtype=spec.kv,
+    if spec.quantizes_act:
+        ctx = calibrated_ctx(ctx, model, params, calib_batches, spec.act,
+                             f"draft spec {spec} quantizes activations")
+    return DraftArm(params=params, ctx=ctx, spec=spec, kv_dtype=spec.kv,
                     lookahead=int(lookahead))

@@ -5,11 +5,9 @@ A route of the reference that this package does not run yet raises
 ROADMAP.md, queue 1); nothing runs another route in its place.
 """
 
-# slice 2, the serving features (deadlines, bounded admission, fault
-# injection, speculative decoding, the launcher), has landed in full
+# slice 2 (the serving features) and slice 3 (the quantization routes:
+# act-quantizing specs, fp8 KV caches, calibration, QLoRA) have landed
 SLICES = {
-    3: "quantization routes: act-quantizing specs (w8a8, a8, afp8, x<fmt>), "
-       "fp8 KV caches, activation calibration, QLoRA",
     4: "the other model families (decoder-only LMs, MoE, SSM, hybrid, audio)",
     5: "scale-out: tensor-parallel meshes and replica routing",
 }

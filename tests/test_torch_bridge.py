@@ -2,15 +2,20 @@
 
 ``jax_tree_to_numpy`` flattens a JAX parameter tree (QTensors included)
 into the nested-dict-of-numpy form that ``repro_torch.convert`` reads;
-``same_bytes`` compares a JAX array with a torch tensor byte for byte.
-The tests here check the bridge itself.
+``same_bytes`` compares a JAX array with a torch tensor byte for byte;
+``exact_fp8_reference`` runs the reference with its f32 -> float8 e4m3
+conversions rounded once (see there). The tests here check the bridge
+itself.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import QTensor as JQTensor  # noqa: E402
@@ -27,7 +32,7 @@ def jax_tree_to_numpy(tree):
         out = {f: None if getattr(tree, f) is None else np.asarray(getattr(tree, f))
                for f in _QT_FIELDS}
         out.update(fmt=tree.fmt, q_axis=tree.q_axis, shape=tuple(tree.shape),
-                   scales_shape=tuple(tree.scales_shape))
+                   scales_shape=tuple(tree.scales_shape), lora_alpha=tree.lora_alpha)
         return out
     if isinstance(tree, dict):
         return {k: jax_tree_to_numpy(v) for k, v in tree.items()}
@@ -65,6 +70,70 @@ def tree_same_bytes(jax_tree, torch_tree, path=""):
             tree_same_bytes(jax_tree[k], torch_tree[k], f"{path}['{k}']")
         return
     assert same_bytes(jax_tree, torch_tree), path
+
+
+def exact_fp8(y):
+    """f32 -> float8 e4m3fn rounded once to nearest even, in jnp: y is
+    rounded on the e4m3 grid (3 mantissa bits, subnormal step 2**-9) in
+    f32, so the final cast is exact. ``|y| <= 448``."""
+    _, e = jnp.frexp(y)
+    step = jnp.ldexp(jnp.float32(1.0), jnp.maximum(e, -5) - 4)
+    return (jnp.round(y / step) * step).astype(jnp.float8_e4m3fn)
+
+
+@contextlib.contextmanager
+def exact_fp8_reference():
+    """The reference with its f32 -> fp8 casts (activation codes and fp8
+    KV codes) rounded once, as ``astype`` defines them and as eager JAX,
+    ml_dtypes and torch round. XLA's CPU backend rounds such a cast inside
+    some fused loops through f16 first (two roundings), so a compiled
+    reference engine parts from its own eager semantics at some fp8
+    midpoints; the formulas are otherwise the reference's own."""
+    import repro.core.qlinear as jql
+    import repro.models.encdec as jed
+    import repro.models.layers as jlayers
+    import repro.models.transformer as jtf
+    orig = jql.quantize_activations
+
+    def quantize_activations(x, fmt="int8", scale=None):
+        if fmt != "fp8":
+            return orig(x, fmt, scale)
+        if scale is None:
+            absmax = jnp.max(jnp.abs(x.astype(jnp.float32)), axis=-1, keepdims=True)
+            scale = jnp.where(absmax == 0, 1.0, absmax / 448.0)
+        else:
+            scale = jnp.asarray(scale, jnp.float32)
+        q = exact_fp8(jnp.clip(x.astype(jnp.float32) / scale, -448.0, 448.0))
+        return q, scale.astype(jnp.float32)
+
+    def fp8_token_kv(t):
+        absmax = jnp.max(jnp.abs(t.astype(jnp.float32)), axis=-1)
+        scales = jnp.where(absmax == 0, 1.0, absmax / 448.0)
+        return exact_fp8(t / scales[..., None]), scales.astype(jnp.float32)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jql, "quantize_activations", quantize_activations)
+        mp.setattr(jlayers, "quantize_activations", quantize_activations)
+        mp.setattr(jtf, "_fp8_token_kv", fp8_token_kv)
+        mp.setattr(jed, "_fp8_token_kv", fp8_token_kv)
+        yield
+
+
+def test_exact_fp8_rounds_once():
+    """exact_fp8 equals ml_dtypes' (and torch's) direct conversion on
+    values across the e4m3 range, subnormals and midpoints included."""
+    import ml_dtypes
+    rng = np.random.default_rng(5)
+    y = rng.standard_normal(50000) * np.exp(rng.standard_normal(50000) * 3)
+    grid = np.arange(256, dtype=np.uint8).view(ml_dtypes.float8_e4m3fn).astype(np.float32)
+    grid = np.sort(grid[np.isfinite(grid)])
+    mids = (grid[1:] + grid[:-1]) / 2
+    y = np.clip(np.concatenate([y, grid, mids]), -448, 448).astype(np.float32)
+    want = y.astype(ml_dtypes.float8_e4m3fn).view(np.uint8)
+    got = np.asarray(jax.jit(exact_fp8)(jnp.asarray(y))).view(np.uint8)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        torch.from_numpy(y).to(torch.float8_e4m3fn).view(torch.uint8).numpy(), want)
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16, jnp.float8_e4m3fn,

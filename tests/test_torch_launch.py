@@ -8,7 +8,8 @@ line, queue lines, per-request lines and counters; times and tokens
 differ, since each package draws its own random weights); its
 ``[req N]`` streams are the streams of the same requests served through
 ``deploy()``; ``--max-pending`` prints ``saturated`` lines and counts the
-rejections; ``--mesh`` keeps the reference's grammar and raises for
+rejections; act-quantizing and fp8 specs serve as ``--policy`` and
+``--draft-spec``; ``--mesh`` keeps the reference's grammar and raises for
 scale-out, which comes with its own slice.
 """
 
@@ -26,6 +27,7 @@ from repro.data import SyntheticTranslation as JSyntheticTranslation  # noqa: E4
 from repro.data import pairs as j_pairs  # noqa: E402
 from repro.launch import serve as j_serve  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.core import resolve_spec  # noqa: E402
 from repro_torch.data import SyntheticTranslation, pairs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving import SamplingParams, deploy  # noqa: E402
@@ -128,6 +130,21 @@ def test_launcher_max_pending_prints_saturated(capsys):
                        for x in sat)
     assert len(streams(lines)) == 6
     assert f"{len(sat)} admission rejections" in lines[-1]
+
+
+@pytest.mark.parametrize("flags", [["--policy", "w8a8", "--paged", "--page-size", "4"],
+                                   ["--policy", "fp8e2e"],
+                                   ["--draft-spec", "w4a8kv8", "--paged", "--page-size", "4"]],
+                         ids=["w8a8-paged", "fp8e2e-dense", "w4a8kv8-draft"])
+def test_launcher_serves_act_and_fp8_specs(capsys, flags):
+    """--policy and --draft-spec take the act-quantizing and fp8 specs, as
+    the reference's do; the launcher calibrates nothing, so an act spec
+    warns that it quantizes dynamically per token."""
+    with pytest.warns(UserWarning, match="dynamic per-token"):
+        lines = run_port(capsys, *flags)
+    assert len(streams(lines)) == 4
+    policy = flags[1] if flags[0] == "--policy" else "int4"
+    assert f"({policy} = {resolve_spec(policy)}, " in lines[0]
 
 
 @pytest.mark.parametrize("mesh", ["tp2", "dp2", "dp2,tp2"])

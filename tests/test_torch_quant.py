@@ -79,7 +79,8 @@ def test_nf4_double_quant_byte_equal(shape):
         assert same_bytes(layer.block_scales(), tt.select(1).block_scales())
 
 
-@pytest.mark.parametrize("spec", ["int4", "fp4", "nf4", "int8", "fp8", "bf16"])
+@pytest.mark.parametrize("spec", ["int4", "fp4", "nf4", "int8", "fp8", "bf16",
+                                  "w8a8", "fp8e2e"])
 def test_quantize_tree_smoke_nllb_byte_equal(spec):
     cfg = reduce_config(REGISTRY["nllb600m"])
     raw = j_build_model(cfg).init(jax.random.PRNGKey(0))

@@ -8,6 +8,8 @@ tokens too; plus EOS retirement, page reclaim and the unported routes.
 Each JAX engine is built once and serves the greedy and the sampled
 requests."""
 
+import warnings
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,7 @@ from repro.models import build_model as j_build_model  # noqa: E402
 from repro.serving import SamplingParams as JSamplingParams  # noqa: E402
 from repro.serving import deploy as j_deploy  # noqa: E402
 from repro.serving import impl_routes as j_impl_routes  # noqa: E402
+from repro_torch.core import resolve_spec  # noqa: E402
 from repro_torch.serving import SamplingParams, deploy, impl_routes  # noqa: E402
 
 SPECS = ["int4", "fp4", "nf4"]
@@ -185,15 +188,32 @@ def test_translate_surface(torch_params):
     dict(calib_batches=[], paged=False), dict(kv_dtype="fp8", paged=False),
     dict(mesh=object()), dict(mesh=object(), paged=False)])
 def test_unported_routes_raise(kwargs):
-    """Routes outside the ported slices raise, naming their slice; SLA
-    admission, tracing and overlapped rounds are ported
-    (tests/test_torch_streaming.py, tests/test_torch_obs.py), and so are
-    faults, max_pending and weight-only draft arms
-    (tests/test_torch_faults.py, tests/test_torch_spec_decode.py)."""
+    """Routes outside the ported slices raise, naming their slice: a mesh
+    (slice 5). The quantization routes (slice 3) deploy: act-quantizing
+    and fp8-KV specs and drafts and ``calib_batches`` build engines whose
+    Ctx carries the spec's activation formats and whose caches the KV
+    format (tests/test_torch_quant_routes.py, tests/test_torch_fp8_kv.py);
+    SLA admission, tracing, overlapped rounds, faults, max_pending and
+    draft arms are ported too."""
     kw = dict(KW, **kwargs)
     policy = kw.pop("policy", "int4")
-    with pytest.raises(NotImplementedError, match="port slice"):
-        deploy("nllb600m", policy, device="cpu", **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="port slice 5"):
+            deploy("nllb600m", policy, device="cpu", **kw)
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # uncalibrated act specs warn
+        pipe = deploy("nllb600m", policy, device="cpu", **kw)
+    spec = resolve_spec(policy)
+    assert (pipe.ctx.act_fmt, pipe.ctx.attn_act_fmt) == (spec.act, spec.attn)
+    kv = kw.get("kv_dtype", spec.kv)
+    layout = {"int8": "k_codes", "fp8": "k"}.get(kv, "k")
+    assert layout in pipe.engine.cache
+    assert ("k_scales" in pipe.engine.cache) == (kv in ("int8", "fp8"))
+    if kv == "fp8":
+        assert pipe.engine.cache["k"].dtype == torch.float8_e4m3fn
+    if "draft_spec" in kw:
+        assert pipe.engine.draft.spec == resolve_spec(kw["draft_spec"])
 
 
 def test_sampled_decoding_raises(torch_params):

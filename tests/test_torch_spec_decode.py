@@ -8,9 +8,11 @@ speculative streams equal target-only streams, dense and paged, for
 4-bit drafts (an identical draft accepts everything); the port's
 speculative engine equals the JAX one in streams and in every counter
 but the times (verify_calls, drafted, accepted, ...); EOS mid-block,
-sampled fallback and abort behave; act-quantizing drafts raise naming
-their slice. The JAX speculative engines are built once.
+sampled fallback and abort behave; act-quantizing and fp8-KV drafts
+decode speculatively too. The JAX speculative engines are built once.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -305,9 +307,23 @@ def test_paged_abort_frees_both_chains_once(torch_params):
 
 
 @pytest.mark.parametrize("draft_spec", ["wfp4a8", "w4a8kv8", "w4kvfp8"])
-def test_act_quantizing_or_fp8_kv_draft_raises(draft_spec):
-    with pytest.raises(NotImplementedError, match="port slice 3"):
-        deploy("nllb600m", "int4", smoke=True, device="cpu", draft_spec=draft_spec)
+def test_act_quantizing_or_fp8_kv_draft_raises(torch_params, target_only, draft_spec):
+    """Act-quantizing and fp8-KV draft arms are ported: they no longer
+    raise, and greedy speculative decoding with them equals target-only
+    decoding (an uncalibrated act-quantizing draft warns and quantizes
+    dynamically)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pipe = port_pipe(torch_params, "paged", draft_spec=draft_spec)
+    assert any("dynamic per-token" in str(w.message) for w in caught) == \
+        ("a" in draft_spec[2:])
+    d = pipe.engine.draft
+    assert d.ctx.act_fmt == d.spec.act and d.kv_dtype == d.spec.kv
+    if d.kv_dtype == "fp8":
+        assert pipe.engine.draft_cache["k"].dtype == torch.float8_e4m3fn
+    outs = pipe.generate(prompts(), SamplingParams(max_new_tokens=GEN))
+    assert [o.token_ids for o in outs] == target_only["paged"]
+    assert pipe.engine.metrics().verify_calls > 0
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
