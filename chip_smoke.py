@@ -63,11 +63,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    int4 with QLoRA adapters (no epilogue NAF for an adapted FFN-in, the
    served FFN-in against the plain relu(x @ W + lora)); tokens/s, a
    profiled horizon and the launches of each arm ([quant]);
-14. the ops API path of the dense decode attention, the row softmax and
+14. training ([train]): one f32 step of the reduced config on the card
+   against the CPU (loss, every gradient leaf, the update); full-width
+   NLLB-600M training with f32 AdamW, 8-bit moments and QLoRA on an nf4
+   base (loss finite and falling, the base unchanged), a checkpoint save
+   and restore byte-equal; step ms, tokens/s, peak memory, model FLOPs;
+15. the quality grid ([eval]): the reduced config trained by the port's
+   TrainLoop (the reference test's fit), swept over bf16 / int8 / int4 /
+   fp4 / nf4 / w8a8 / fp8e2e through the "kernels" bundle with the
+   reference test's quality bars, the int8 grid dense against paged and
+   overlapped against serial rounds, and the [train] weights deployed at
+   full width (int4, paged) and scored on hin<->eng;
+16. the ops API path of the dense decode attention, the row softmax and
    the standalone FASST activation, driven on the dense engine's live
    caches, logits and FFN weights, with the launch counters set to 0
    just before and read just after ([api]);
-15. a launch-count line, the kernels' JSON line, the card line, and last
+17. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -240,7 +251,11 @@ QMM_CASES = ([(8, 128, 64, 32), (48, 256, 128, 64), (1, 64, 96, 16), (130, 512, 
                 for k, n, b in ((1344, 1000, 64), (1008, 96, 16), (960, 1001, 32),
                                 (1536, 1000, 128))]
              + [(m, 90, 40, 45) for m in (8, 130)]
-             + [(m, k, n, 64) for k, n in QMM_SERVED_KN for m in (1, 8, 64, 512)])
+             + [(m, k, n, 64) for k, n in QMM_SERVED_KN for m in (1, 8, 64, 512)]
+             # the reduced config of [eval]: d 64, d_ff 96 (FFN-out blocks
+             # of 96), at decode rows (4 slots) and prefill rows (4 x 12)
+             + [(m, k, n, b) for m in (4, 48)
+                for k, n, b in ((64, 64, 64), (64, 96, 64), (96, 64, 96))])
 
 
 def qmm_tol(torch, dt):
@@ -388,7 +403,8 @@ def naf_vs_plain(torch, fused, y, q, mode, dt, where):
 # an odd N (rows not 16-byte aligned: the element-by-element epilogue)
 # at one and several K splits
 QMM_NAF_CASES = ([(m, 1024, 8192, 64) for m in (8, 64, 512)]
-                 + [(m, 960, 1001, 32) for m in (8, 130)])
+                 + [(m, 960, 1001, 32) for m in (8, 130)]
+                 + [(4, 64, 96, 64)])         # [eval]'s reduced FFN-in
 
 
 def check_qmm_naf(torch, dev, card):
@@ -555,6 +571,7 @@ def check_paged_attn(torch, dev):
             case(2, H, Hkv, d, 17, 16, 4, [64, 33], kind)
         case(4, 8, 2, 64, 33, 8, 4, [32, 1, 17, 29], kind)
         case(3, 4, 2, 64, 9, 8, 2, [0, 5, 16], kind)
+        case(4, 4, 4, 16, 17, 4, 4, [16, 1, 9, 12], kind)      # [eval]'s reduced config
         lens = torch.randint(1, 257, (SLOTS,), generator=g, device=dev).tolist()
         worst = max(worst, case(SLOTS, 16, 16, 64, SLOTS * 16 + 1, 16, 16, lens,
                                 kind, torch.bfloat16, name="served"))
@@ -645,7 +662,7 @@ def check_fasst(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     worst = 0.0
-    for shape in ((37, 100), (SLOTS, 8192), (64, 8192)):
+    for shape in ((37, 100), (48, 96), (SLOTS, 8192), (64, 8192)):
         x = torch.randn(shape, generator=g, device=dev) * 3
         for mode in MODES:
             for dt in (torch.float32, torch.bfloat16):
@@ -1144,12 +1161,14 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False, expect=No
 
 def _fresh_engine(pipe, paged: bool, **kw):
     """An idle engine of the given layout on ``pipe``'s model and weights;
-    ``kw`` sets engine options (pool, overlap, preempt_limit, trace)."""
+    ``kw`` sets engine options (pool, overlap, preempt_limit, trace) and
+    may replace the served shape (slots, max_len, page_size, horizon)."""
     from repro_torch.serving import ServeEngine
-    return ServeEngine(pipe.model, pipe.params, slots=SLOTS, max_len=MAX_LEN,
-                       kv_dtype=pipe.engine.kv_dtype, ctx=pipe.ctx, paged=paged,
-                       page_size=PAGE, horizon=HORIZON, max_src_len=pipe.engine.enc_cap,
-                       device=pipe.engine.device, **kw)
+    shape = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, horizon=HORIZON)
+    shape.update(kw)
+    return ServeEngine(pipe.model, pipe.params, kv_dtype=pipe.engine.kv_dtype,
+                       ctx=pipe.ctx, paged=paged, max_src_len=pipe.engine.enc_cap,
+                       device=pipe.engine.device, **shape)
 
 
 def _filter_slack(torch, lg, sp, t):
@@ -1198,7 +1217,8 @@ def _sampled_parting(torch, prng, lp, fp, fd, sp, j, a, b, err):
     return what
 
 
-def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_streams):
+def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_streams,
+                      engine_kw=None):
     """Where a dense and a paged stream part, show that the step was a
     near tie. Both layouts replay the common prefix teacher-forced in
     fresh engines of the same slots. At a greedy slot's parting step the
@@ -1207,7 +1227,8 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
     draws are replayed from its key: either both tokens pass both
     engines' filters and their Gumbel-max margin is at most twice the
     difference over the temperature, or one sits on the top-k / top-p
-    edge within what that difference can move. Returns the parting
+    edge within what that difference can move. ``engine_kw`` replaces the
+    fresh engines' served shape (default: [serve]'s). Returns the parting
     steps."""
     from repro_torch import random as prng
     from repro_torch.serving.sampler import filter_logits
@@ -1223,7 +1244,7 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
         if j is not None:
             part[i] = j
     steps = max(list(part.values()) + [3])
-    engines = [_fresh_engine(pipe, paged) for paged in (True, False)]
+    engines = [_fresh_engine(pipe, paged, **(engine_kw or {})) for paged in (True, False)]
     with torch.no_grad():
         for eng in engines:
             for p, sp in zip(prompts, sps):
@@ -2124,6 +2145,396 @@ def quant_phase(torch, card, prompts, base):
     return total
 
 
+# [train] and [eval]: the enc-dec training path and the quality grid
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 64, 1e-3    # launch.train's batch and sequence
+TRAIN_STEPS, TRAIN_STEPS_8BIT, QLORA_STEPS, QLORA_RANK = 20, 5, 3, 16
+EVAL_LANGS = ["hin", "eng"]
+EVAL_PAIRS = [("hin", "eng"), ("eng", "hin")]
+# the reference's tests/test_eval_suite.py fit and serving shape
+EVAL_FIT = dict(steps=1500, batch=32, lr=3e-3, seed=0)
+EVAL_FORMATS = ["bf16", "int8", "int4", "fp4", "nf4", "w8a8", "fp8e2e"]
+EVAL_SERVE = dict(slots=4, max_len=16, page_size=4, horizon=4)
+EVAL_SENT, EVAL_CALIB = 6, (3, 8)          # sentences a pair; calibration batches x rows
+EVAL_FULL_SENT, EVAL_FULL_MAX_LEN = 8, 64  # full width: 63 new tokens a sentence
+
+
+def _params_leaves(torch, tree):
+    from repro_torch.tree import leaves_with_path
+    return {k: v for k, v in leaves_with_path(tree) if isinstance(v, torch.Tensor)}
+
+
+def train_parity(torch, dev):
+    """One f32 train step of the reduced config (AdamW, constant lr
+    TRAIN_LR) on the card and on the CPU from the same parameters
+    (``random.prng_key(SEED)``, the reference's init) and batch. TF32 is
+    off. Bounds: loss within 1e-5 relative; every gradient leaf within
+    1e-4 of its largest element; the updated parameters within 1e-6 at
+    99.9% of elements and everywhere within 2 lr (Adam's first step is
+    g / (|g| + eps) per element, so a gradient that is zero within
+    rounding may take either sign)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data import SyntheticTranslation
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.random import prng_key
+    from repro_torch.train import compute_loss, make_train_step
+    from repro_torch.tree import leaves_with_path, map_like
+
+    cfg = reduce_config(get_config("nllb600m"))
+    ctx = Ctx(compute_dtype=torch.float32)
+    batch = {k: v for k, v in SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=SEED)
+             .sample(8).items() if not isinstance(v, str)}
+    init_cpu = build_model(cfg, "cpu").init(prng_key(SEED))
+    runs = {}
+    for d in ("cpu", dev):
+        model = build_model(cfg, d)
+        params = map_like(lambda t: t.to(d), init_cpu)
+        live = map_like(lambda t: t.detach().clone().requires_grad_(), params)
+        loss, _ = compute_loss(ctx, model, live, batch)
+        grads = torch.autograd.grad(loss, [v for _, v in leaves_with_path(live)])
+        init, step = make_train_step(model, lr_fn=lambda s: TRAIN_LR, ctx=ctx)
+        state, _ = step(init(params), batch)
+        runs[str(d)] = (float(loss.detach()), [g.cpu() for g in grads],
+                        [v.cpu() for _, v in leaves_with_path(state["params"])])
+    (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs[str(dev)]
+    g_err = max(float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
+                for a, b in zip(gc, gg))
+    diffs = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(pc, pg)])
+    close = float((diffs <= 1e-6).float().mean())
+    if not (abs(lg - lc) <= 1e-5 * abs(lc) and g_err <= 1e-4 and close >= 0.999
+            and float(diffs.max()) <= 2 * TRAIN_LR):
+        raise AssertionError(f"[train] card vs CPU: loss {lg!r} vs {lc!r}, gradient err "
+                             f"{g_err:.3g} of each leaf's max, params within 1e-6 at "
+                             f"{close:.5f}, max {float(diffs.max()):.3g}")
+    log(f"[train] parity, reduced config one f32 step (TF32 off): loss card {lg!r} vs CPU "
+        f"{lc!r}; {len(gc)} gradient leaves, largest difference {g_err:.3g} of the leaf's "
+        f"max (bound 1e-4); updated params within 1e-6 at {100 * close:.3f}% of "
+        f"{diffs.numel()} elements (bound 99.9%), max {float(diffs.max()):.3g} "
+        f"(bound 2 lr = {2 * TRAIN_LR:g})")
+
+
+def _train_run(torch, step, state, batches, n, tag, card, n_params, extra=()):
+    """``n`` steps of ``step``, each timed on the host clock to its one host
+    read (the loss); returns (state, losses, stats)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n):
+        b = next(batches)
+        t0 = time.perf_counter()
+        state, met = step(state, *extra, b)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train] {tag}: non-finite loss in {losses}")
+    step_s = float(np.median(times[1:]))        # the first step warms cuBLAS up
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = {"steps": n, "step_ms": 1e3 * step_s, "first_step_ms": 1e3 * times[0],
+             "tokens_per_s": tokens / step_s,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "model_tflops_per_s": 6 * n_params * tokens / step_s / 1e12,
+             "share_of_bf16_peak": 6 * n_params * tokens / step_s / (BF16_FLOPS_PER_MS * 1e3),
+             "loss_first": losses[0], "loss_last": losses[-1], "card": card}
+    log(f"[train] {tag}: " + json.dumps(stats))
+    return state, losses, stats
+
+
+def profiled_train_step(torch, fn, tag, card):
+    """One train step (``fn``) under torch.profiler: host ms to its end
+    (the step's loss read is its one sync), device busy ms, idle share,
+    kernel launches and the kernels that take most of the device time."""
+    prof, ms, _, launches, _ = profiled_round(torch, fn, tag)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and getattr(e, "self_device_time_total", 0) > 0]
+    if not kernels:
+        log(f"{tag} the profiler recorded no device time: not measured")
+        return
+    busy = _busy_ms(torch, prof)
+    log(f"{tag} one profiled step: host {ms:.3f} ms, device busy {busy:.3f} ms (idle share "
+        f"{1 - busy / ms:.3f}), {launches} kernel launches; on {card}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:100]}")
+
+
+def train_phase(torch, card, dev):
+    """[train]: the enc-dec training path on the card. The reduced
+    config's step against the CPU's (train_parity); then full-width
+    nllb600m (random weights from seed SEED, f32 parameters, bf16
+    compute, SyntheticTranslation batches of TRAIN_BATCH x TRAIN_SEQ,
+    warmup-cosine lr TRAIN_LR): TRAIN_STEPS steps of f32 AdamW (the mean
+    loss of the last 5 below the first), TRAIN_STEPS_8BIT with 8-bit
+    moments, a CheckpointManager save of that state and a restore into a
+    fresh template (byte-equal), and QLORA_STEPS QLoRA steps on an nf4
+    base with rank-QLORA_RANK adapters (the base's bytes unchanged, the
+    adapters moved). Step ms, tokens/s, peak memory and model FLOPs
+    (6 x params x tokens) per second as a share of the bf16 peak are
+    printed. Returns (the launches of the phase, the f32 run's
+    parameters)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.core import attach_lora, quantize_tree, resolve_spec
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import batches_for
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import make_qlora_step, make_train_step
+    from repro_torch.tree import map_like
+
+    ops.reset_launches()
+    train_parity(torch, dev)
+    cfg = get_config("nllb600m")
+    model = build_model(cfg, dev)
+    ctx = Ctx(compute_dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(v.numel() for v in _params_leaves(torch, params).values())
+    log(f"[train] nllb600m full width: {n_params} parameters ({param_count(cfg)} by the "
+        f"analytic count, which leaves out the norm scales), f32, bf16 compute; batches "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+    batches = batches_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=dev)
+
+    def lr(total):
+        return lambda s: warmup_cosine(s, peak_lr=TRAIN_LR, warmup=5, total=total)
+
+    init, step = make_train_step(model, lr_fn=lr(TRAIN_STEPS), ctx=ctx)
+    state, losses, _ = _train_run(torch, step, init(params), batches, TRAIN_STEPS,
+                                  "f32 AdamW", card, n_params)
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"[train] f32 loss did not fall: {losses}")
+    b = next(batches)
+    profiled_train_step(torch, lambda: float(step(state, b)[1]["loss"]), "[train] f32 AdamW",
+                        card)
+    params = state["params"]
+    del state
+
+    init, step = make_train_step(model, lr_fn=lr(TRAIN_STEPS_8BIT), ctx=ctx, state_bits=8)
+    state, _, _ = _train_run(torch, step, init(params), batches, TRAIN_STEPS_8BIT,
+                             "8-bit AdamW", card, n_params)
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    t0 = time.perf_counter()
+    mgr.save(state, TRAIN_STEPS + TRAIN_STEPS_8BIT, blocking=True)
+    t_save = time.perf_counter() - t0
+    template = map_like(lambda t: None if t is None else torch.zeros_like(t), state)
+    t0 = time.perf_counter()
+    restored, at, _ = mgr.restore_latest(template)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    want, got = _params_leaves(torch, state), _params_leaves(torch, restored)
+    if sorted(want) != sorted(got) or not all(
+            want[k].dtype == got[k].dtype and torch.equal(want[k], got[k]) for k in want):
+        raise AssertionError("[train] the restored checkpoint is not the saved state")
+    nbytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    shutil.rmtree(ckpt)
+    log(f"[train] checkpoint of the 8-bit state at step {at}: {len(want)} leaves, "
+        f"{nbytes / 1e9:.2f} GB, save {t_save:.1f} s, restore into a fresh template "
+        f"{t_load:.1f} s, byte-equal")
+    del state, restored, template
+
+    qparams = attach_lora(quantize_tree(params, resolve_spec("nf4").policy()),
+                          torch.Generator(device=dev).manual_seed(SEED), rank=QLORA_RANK)
+    base = {k: [getattr(v, f).clone() for f in QTensor._CHILDREN
+                if f not in ("lora_a", "lora_b") and getattr(v, f) is not None]
+            for k, v in _qtensors(qparams)}
+    init, step = make_qlora_step(model, lr_fn=lr(QLORA_STEPS), ctx=ctx)
+    state0 = init(qparams)
+    state, _, _ = _train_run(torch, step, state0, batches, QLORA_STEPS,
+                             f"QLoRA nf4 base, rank {QLORA_RANK}", card, n_params,
+                             extra=(qparams,))
+    for k, v in _qtensors(qparams):
+        now = [getattr(v, f) for f in QTensor._CHILDREN
+               if f not in ("lora_a", "lora_b") and getattr(v, f) is not None]
+        if not all(torch.equal(a, b) for a, b in zip(base[k], now)):
+            raise AssertionError(f"[train] QLoRA changed the quantized base at {k}")
+    moved = max(float((a - b).abs().max()) for a, b in
+                zip(_params_leaves(torch, state["adapters"]).values(),
+                    _params_leaves(torch, state0["adapters"]).values()))
+    if not moved > 0:
+        raise AssertionError("[train] the QLoRA adapters did not move")
+    log(f"[train] QLoRA: {len(base)} quantized weights byte-identical after "
+        f"{QLORA_STEPS} steps; adapters moved by up to {moved:.3g}")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"[train] kernel launches over the phase: {launches} (training runs the plain "
+        "torch routes: the kernels have no backward)")
+    return launches, params
+
+
+def _qtensors(tree):
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.tree import leaves_with_path
+    return [(k, v) for k, v in leaves_with_path(tree) if isinstance(v, QTensor)]
+
+
+def _grid_prompts(cfg, pair_list, n_sent):
+    """decode_token_grid's requests, rebuilt: (pair, B=1 prompt) per
+    sentence, drawn in the grid's order from the same eval stream."""
+    from repro_torch.data import LANG_CODES, SyntheticTranslation
+    ds = SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=0, languages=EVAL_LANGS,
+                              split="eval")
+    out = []
+    for src, tgt in pair_list:
+        for row in ds.sample(n_sent, pair=(src, tgt))["src_tokens"]:
+            out.append(((src, tgt), {"src_tokens": row[None],
+                                     "tgt_in": np.array([[LANG_CODES[tgt]]], np.int32)}))
+    return out
+
+
+def eval_layouts(torch, cfg, params, ctx, dev):
+    """The int8 grid of dense horizon 1, paged horizon 4 and paged horizon
+    4 with serial rounds: the two paged grids equal, the dense one equal
+    or parting only at near ties (near_tie_partings)."""
+    from repro_torch.eval import decode_token_grid
+    from repro_torch.serving import SamplingParams, deploy
+
+    kw = dict(slots=EVAL_SERVE["slots"], max_len=EVAL_SERVE["max_len"], ctx=ctx, device=dev)
+    layouts = {"dense-h1": dict(horizon=1),
+               "paged-h4": dict(paged=True, page_size=EVAL_SERVE["page_size"], horizon=4),
+               "paged-h4-serial": dict(paged=True, page_size=EVAL_SERVE["page_size"],
+                                       horizon=4, overlap=False)}
+    grids, pipes = {}, {}
+    for name, lay in layouts.items():
+        pipes[name] = deploy(cfg, "int8", params=params, **kw, **lay)
+        grids[name] = decode_token_grid(pipes[name], EVAL_PAIRS, n_sent=EVAL_SENT, seed=0,
+                                        languages=EVAL_LANGS)
+    if grids["paged-h4"] != grids["paged-h4-serial"]:
+        raise AssertionError("[eval] overlapped and serial paged rounds serve different grids")
+    flat = {n: [c for pair in EVAL_PAIRS for c in g[pair]] for n, g in grids.items()}
+    prompts = _grid_prompts(cfg, EVAL_PAIRS, EVAL_SENT)
+    parting = [i for i, (a, b) in enumerate(zip(flat["paged-h4"], flat["dense-h1"])) if a != b]
+    gen = len(flat["paged-h4"][0][0])
+    for at in range(0, len(parting), EVAL_SERVE["slots"]):
+        idx = parting[at:at + EVAL_SERVE["slots"]]
+        near_tie_partings(torch, "eval-layouts", pipes["paged-h4"], [prompts[i][1] for i in idx],
+                          [SamplingParams(max_new_tokens=gen)] * len(idx),
+                          [list(flat["paged-h4"][i][0]) for i in idx],
+                          [list(flat["dense-h1"][i][0]) for i in idx], engine_kw=EVAL_SERVE)
+    log(f"[eval] layouts: int8 grids of {len(flat['dense-h1'])} sentences; paged horizon 4 "
+        f"overlapped == serial; dense horizon 1 vs paged horizon 4: "
+        f"{len(flat['dense-h1']) - len(parting)} equal, {len(parting)} part at near ties")
+
+
+def eval_phase(torch, card, full_params, dev):
+    """[eval]: the paper's quality grid on the card. The reduced config is
+    trained by the port's TrainLoop at the reference test's settings
+    (EVAL_FIT), then quant_sweep deploys it at every EVAL_FORMATS spec
+    through the "kernels" bundle (paged, page 4, horizon 4, 4 slots,
+    max_len 16; w8a8 calibrated on 3 batches of 8) over hin<->eng, 6
+    sentences a direction, traced. Gates (the reference test's): bf16
+    mean BLEU and chrF > 0.8; int8 within 0.15 of bf16 on both, with
+    fewer model bytes; w8a8 mean BLEU > 0.5. Then the layouts
+    (eval_layouts), and full width: the [train] phase's f32 parameters
+    deployed at int4, paged, through the kernels, scored on hin<->eng
+    with EVAL_FULL_SENT sentences of 63 new tokens (floor scores: the
+    model is barely trained); qmm and paged attention must launch. The
+    report goes to build/eval_report.json and .md. Returns the launches
+    of the sweep and the full-width run."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data import SyntheticTranslation
+    from repro_torch.eval import (evaluate_pairs, load, make_report, quant_sweep,
+                                  render_markdown, save, summarize)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.eval import train_params
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serving import deploy, impl_routes
+    from repro_torch.train import make_train_step
+
+    cfg = reduce_config(get_config("nllb600m"))
+    t0 = time.perf_counter()
+    params = train_params(cfg, EVAL_LANGS, device=dev, log=lambda m: log(f"[eval] {m}"),
+                          **EVAL_FIT)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    log(f"[eval] the reduced config's fit: {EVAL_FIT['steps']} steps in {fit_s:.1f} s "
+        f"({1e3 * fit_s / EVAL_FIT['steps']:.2f} ms a step) on {card}")
+    fit_model = build_model(cfg, dev)
+    init, step = make_train_step(fit_model, lr_fn=lambda s: EVAL_FIT["lr"],
+                                 ctx=Ctx(compute_dtype=torch.float32))
+    state = init(params)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTranslation(
+        cfg.vocab_size, cfg.enc_len, seed=0, languages=EVAL_LANGS).sample(
+        EVAL_FIT["batch"]).items() if not isinstance(v, str)}
+    profiled_train_step(torch, lambda: float(step(state, b)[1]["loss"]), "[eval] fit", card)
+    del state
+
+    ctx = Ctx(compute_dtype=torch.float32, use_fasst_kernel=True)
+    nb, rows = EVAL_CALIB
+
+    def calib():
+        ds = SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=0, languages=EVAL_LANGS)
+        return ({k: torch.as_tensor(v, device=dev) for k, v in ds.sample(rows).items()
+                 if not isinstance(v, str)} for _ in range(nb))
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sweep = quant_sweep(cfg, EVAL_FORMATS, params=params, pair_list=EVAL_PAIRS,
+                        languages=EVAL_LANGS, n_sent=EVAL_SENT, seed=0,
+                        calib_batches_fn=calib,
+                        deploy_kwargs=dict(EVAL_SERVE, paged=True, ctx=ctx, device=dev,
+                                           **impl_routes("kernels")),
+                        trace=True, log=lambda m: log(f"[eval] {m}"))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for name in ("qmm", "qmm_naf", "paged_attn", "fasst_act"):
+        if not launches[name]:
+            raise AssertionError(f"[eval] the sweep launched no {name}")
+    rows = {r.fmt: r for r in sweep}
+    for r in sweep:
+        log(f"[eval] {r.fmt:6s} {r.spec:14s} model bytes {r.model_bytes} ({r.compression:.2f}x)"
+            f" BLEU {r.mean_bleu:.4f} chrF {r.mean_chrf:.4f} (delta {r.bleu_delta}, "
+            f"{r.chrf_delta}) tok/s {r.mean_tok_s} TTFT p95 {r.ttft_p95_ms} ms TPOT p95 "
+            f"{r.tpot_p95_ms} ms calibrated {r.calibrated} phases {r.round_phases}")
+    bf16, int8, w8a8 = rows["bf16"], rows["int8"], rows["w8a8"]
+    if not (bf16.mean_bleu > 0.8 and bf16.mean_chrf > 0.8):
+        raise AssertionError(f"[eval] bf16 BLEU {bf16.mean_bleu} / chrF {bf16.mean_chrf} <= 0.8")
+    if not (abs(int8.bleu_delta) <= 0.15 and abs(int8.chrf_delta) <= 0.15
+            and int8.model_bytes < bf16.model_bytes):
+        raise AssertionError(f"[eval] int8 deltas {int8.bleu_delta}, {int8.chrf_delta}, "
+                             f"bytes {int8.model_bytes} vs {bf16.model_bytes}")
+    if not (w8a8.calibrated and w8a8.mean_bleu > 0.5):
+        raise AssertionError(f"[eval] w8a8 BLEU {w8a8.mean_bleu} (calibrated {w8a8.calibrated})")
+    report = make_report(arch=cfg.name, rows=[r.as_row() for r in sweep],
+                         config={"formats": EVAL_FORMATS, "fit": EVAL_FIT,
+                                 "pairs": [f"{s}-{t}" for s, t in EVAL_PAIRS],
+                                 "n_sent": EVAL_SENT, "serve": EVAL_SERVE, "paged": True,
+                                 "impl": "kernels", "device": card})
+    (ROOT / "build").mkdir(exist_ok=True)
+    save(report, str(ROOT / "build" / "eval_report.json"))
+    (ROOT / "build" / "eval_report.md").write_text(render_markdown(report) + "\n")
+    if load((ROOT / "build" / "eval_report.json").read_text()) != report:
+        raise AssertionError("[eval] the report does not load back")
+    log(f"[eval] sweep of {len(sweep)} formats in {sweep_s:.1f} s; gates met: bf16 BLEU "
+        f"{bf16.mean_bleu:.4f} chrF {bf16.mean_chrf:.4f} (> 0.8), int8 delta "
+        f"{int8.bleu_delta:+.4f} / {int8.chrf_delta:+.4f} (<= 0.15), w8a8 BLEU "
+        f"{w8a8.mean_bleu:.4f} (> 0.5); launches {launches}; report in build/eval_report.json")
+
+    eval_layouts(torch, cfg, params, ctx, dev)
+
+    t0 = time.perf_counter()
+    pipe = deploy("nllb600m", "int4", params=full_params, slots=EVAL_FULL_SENT,
+                  max_len=EVAL_FULL_MAX_LEN, paged=True, page_size=PAGE, horizon=HORIZON,
+                  ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True), device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    scores = evaluate_pairs(pipe, EVAL_PAIRS, n_sent=EVAL_FULL_SENT, seed=0,
+                            languages=EVAL_LANGS)
+    torch.cuda.synchronize()
+    full = dict(ops.LAUNCHES)
+    if not (full["qmm"] and full["paged_attn"]):
+        raise AssertionError(f"[eval] full width: qmm / paged_attn did not launch: {full}")
+    agg = summarize(scores)
+    log(f"[eval] full width nllb600m int4 paged ({TRAIN_STEPS}-step weights, floor scores): "
+        + json.dumps({"pairs": [(s.src, s.tgt, s.bleu, s.chrf, s.gen_tokens, s.tok_s,
+                                 s.ttft_p95_ms, s.tpot_p95_ms) for s in scores],
+                      "mean_bleu": agg["mean_bleu"], "mean_chrf": agg["mean_chrf"],
+                      "seconds": time.perf_counter() - t0, "launches": full, "card": card}))
+    return {k: launches[k] + full[k] for k in launches}
+
+
 def api_path(torch, pipe):
     """The ops API path of the two kernels that no serving path launches
     and of the FASST activation, which the served path launches only at
@@ -2290,20 +2701,32 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_launches[name] = phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_launches["train"], trained = train_phase(torch, card, dev)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_launches["eval"] = eval_phase(torch, card, trained, dev)
+    log(f"[eval] phase took {time.perf_counter() - t0:.1f} s")
+    del trained
+    torch.cuda.empty_cache()
     api_launches = api_path(torch, pipe_d)
 
     by_run = {**phase_launches["spec"], "faults": phase_launches["faults"],
-              "quant": phase_launches["quant"]}
+              "quant": phase_launches["quant"], "train": phase_launches["train"],
+              "eval": phase_launches["eval"]}
     for e in entries:
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
-        for run, counts in by_run.items():          # spec, spec_dense, faults, quant
+        for run, counts in by_run.items():   # spec, spec_dense, faults, quant, train, eval
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
                                 for e in entries))
+    log("kernels in [train] / [eval]: " + ", ".join(
+        f"{e['name']}={e['launches_train']} / {e['launches_eval']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
-            "launches_spec_dense", "launches_faults", "launches_quant", "max_abs_err",
+            "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
+            "launches_eval", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

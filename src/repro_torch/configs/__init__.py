@@ -5,7 +5,8 @@ that port their model families.
 """
 
 from . import nllb600m
-from .base import ModelConfig, MoECfg, SSMCfg, reduce_config
+from .base import (ModelConfig, MoECfg, ShapeSpec, SSMCfg, param_count,
+                   reduce_config)
 
 REGISTRY = {c.name: c for c in (nllb600m.CONFIG,)}
 
@@ -17,4 +18,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["get_config", "REGISTRY", "ModelConfig", "MoECfg", "SSMCfg",
-           "reduce_config"]
+           "ShapeSpec", "param_count", "reduce_config"]

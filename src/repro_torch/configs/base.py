@@ -1,11 +1,13 @@
-"""Model configuration dataclasses and the smoke-size reduction."""
+"""Model configuration dataclasses, the batch-shape spec, the smoke-size
+reduction and the analytic parameter count."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["MoECfg", "SSMCfg", "ModelConfig", "reduce_config"]
+__all__ = ["MoECfg", "SSMCfg", "ModelConfig", "ShapeSpec", "reduce_config",
+           "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +57,14 @@ class ModelConfig:
     source: str = ""
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # train | prefill | decode
+
+
 def reduce_config(cfg: ModelConfig, **over) -> ModelConfig:
     """Smoke-test variant: same family/topology, tiny dims."""
     heads = 4
@@ -82,3 +92,45 @@ def reduce_config(cfg: ModelConfig, **over) -> ModelConfig:
     )
     changes.update(over)
     return dataclasses.replace(cfg, **changes)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (the reference's formula)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    H, Hkv, V, ff = cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size, cfg.d_ff
+    embed = V * d * (1 if cfg.tie_embeddings else 2)
+
+    def attn():
+        return d * H * hd * 2 + d * Hkv * hd * 2
+
+    def ffn(width):
+        mult = 3 if cfg.mlp_act.endswith("_glu") else 2
+        return mult * d * width
+
+    if cfg.family == "ssm":
+        d_inner = cfg.ssm.expand * d
+        nh = d_inner // cfg.ssm.head_dim
+        per = d * (2 * d_inner + 2 * cfg.ssm.state_dim + nh) + d_inner * d
+        return embed + cfg.num_layers * per
+
+    if cfg.family == "hybrid":
+        n_super = cfg.num_layers // 3
+        tail = cfg.num_layers - 3 * n_super
+        rec = (2 * d * cfg.d_rec + 2 * cfg.d_rec ** 2 + cfg.d_rec * d
+               + ffn(ff))
+        at = attn() + ffn(ff)
+        return embed + (2 * n_super + tail) * rec + n_super * at
+
+    if cfg.moe is not None:
+        per = attn() + d * cfg.moe.num_experts + cfg.moe.num_experts * ffn(ff)
+        dec = cfg.num_layers * per
+        if cfg.enc_layers:
+            dec += cfg.enc_layers * (attn() + ffn(ff))
+        return embed + dec
+
+    per = attn() + ffn(ff)
+    total = embed + cfg.num_layers * per
+    if cfg.enc_layers:
+        total += cfg.enc_layers * (attn() + ffn(ff))
+        total += cfg.num_layers * attn()      # decoder cross-attention
+    return total

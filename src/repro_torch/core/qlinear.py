@@ -70,9 +70,11 @@ def static_scale(value: float, device) -> StaticScale:
                                     device=device))
 
 
-# torch._int_mm on the card takes more than 16 rows; decode rows are fewer,
-# so the codes are padded to this many rows and the product sliced
-_INT_MM_MIN_ROWS = 24
+# torch._int_mm on the card (cuBLASLt, torch 2.11) takes more than 16 rows,
+# and at 24 or 48 rows refuses K <= 96; at every multiple of 32 rows it
+# took every K and N from 32 to 1024 (a probe on the H100). So the codes
+# are padded with zero rows to a multiple of this and the product sliced
+_INT_MM_ROWS = 32
 
 
 def qmm_route(w: Any, impl: str) -> bool:
@@ -148,8 +150,8 @@ def _int8_path(x, w: QTensor, compute_dtype, act_scale=None):
     K, N = w.data.shape
     x2 = xq.reshape(-1, K)
     M = x2.shape[0]
-    if M < _INT_MM_MIN_ROWS:
-        x2 = torch.nn.functional.pad(x2, (0, 0, 0, _INT_MM_MIN_ROWS - M))
+    if M % _INT_MM_ROWS:
+        x2 = torch.nn.functional.pad(x2, (0, 0, 0, -M % _INT_MM_ROWS))
     out = torch._int_mm(x2, w.data)[:M].reshape(*x.shape[:-1], N)
     sw = w.block_scales().squeeze(-2)                      # (N,)
     return (out.to(torch.float32) * sx * sw).to(compute_dtype)

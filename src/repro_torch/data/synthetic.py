@@ -7,17 +7,22 @@ perm_tgt(inv_perm_src(src_t)), prefixed with the target-language code
 token. Token ids 1..N are reserved as target-language codes: the
 decoder is prompted with the code of the language to translate into.
 The same seed draws the same batches as the reference, byte for byte.
-The LM corpus and the batch helpers come with the training slice.
+``SyntheticLM`` (a Zipf-ish autoregressive stream with lagged copies),
+``make_batch`` and ``batch_iterator`` are copies too; the audio and VLM
+batches of ``make_batch`` come with their model families.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..unported import later
+
 __all__ = ["LANG_CODES", "INDIC_LANGS", "OVERSEAS_LANGS", "pairs",
-           "SyntheticTranslation"]
+           "SyntheticTranslation", "SyntheticLM", "make_batch",
+           "batch_iterator"]
 
 # paper Fig. 9 languages (token ids 1..N reserved as language codes)
 LANG_CODES = {
@@ -114,3 +119,51 @@ class SyntheticTranslation:
         return {"src_tokens": src_tok, "tgt_in": tgt_in,
                 "tgt_out": tgt_out, "loss_mask": mask,
                 "src_lang": src_l, "tgt_lang": tgt_l}
+
+
+class SyntheticLM:
+    """Autoregressive stream with learnable copy/lag structure."""
+
+    def __init__(self, vocab_size: int, seq_len: int, seed: int = 0,
+                 lag: int = 4):
+        self.vocab = vocab_size
+        self.seq = seq_len
+        self.lag = lag
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, batch: int):
+        z = self.rng.zipf(1.5, size=(batch, self.seq)).astype(np.int64)
+        toks = 1 + (z - 1) % (self.vocab - 1)
+        # copy structure: token repeats from `lag` back with p=0.5
+        copy = self.rng.random((batch, self.seq)) < 0.5
+        for t in range(self.lag, self.seq):
+            toks[:, t] = np.where(copy[:, t], toks[:, t - self.lag], toks[:, t])
+        toks = toks.astype(np.int32)
+        mask = np.ones((batch, self.seq), np.float32)
+        return {"tokens": toks, "loss_mask": mask}
+
+
+def make_batch(cfg, shape_spec, seed: int = 0, batch: Optional[int] = None,
+               seq: Optional[int] = None):
+    """One concrete (host) batch for an (arch x shape) cell."""
+    B = batch or shape_spec.global_batch
+    S = seq or shape_spec.seq_len
+    if cfg.family == "audio":
+        raise later("audio (frame) batches", 4)
+    if cfg.family == "vlm":
+        raise later("VLM (image-embedding) batches", 4)
+    if cfg.family == "encdec":
+        ds = SyntheticTranslation(cfg.vocab_size, S, seed)
+        b = ds.sample(B)
+        b["src_tokens"] = b["src_tokens"][:, :cfg.enc_len] if \
+            cfg.enc_len < S else b["src_tokens"]
+        return b
+    return SyntheticLM(cfg.vocab_size, S, seed).sample(B)
+
+
+def batch_iterator(cfg, shape_spec, seed: int = 0, batch=None,
+                   seq=None) -> Iterator[dict]:
+    step = 0
+    while True:
+        yield make_batch(cfg, shape_spec, seed + step, batch, seq)
+        step += 1

@@ -29,6 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..core.qlinear import f32_reciprocal
 from .build import H100_SMS, sm_count
 from .split_attn import SMEM_LIMIT, TARGET_TOKENS, int32, scratch, smem_bytes
 
@@ -81,9 +82,12 @@ def decode_attn_plan(B: int, Hkv: int, G: int, d: int, S: int,
 
 def quantize_token_kv(t):
     """(..., d) -> int8 codes + per-(token, head) f32 scales (...), the
-    layout the dense and paged int8 caches hold."""
+    layout the dense and paged int8 caches hold. The scale is absmax times
+    the f32 reciprocal of 127, as the reference's compiled engines compute
+    it (XLA turns the division by a constant into that product)."""
     absmax = t.to(torch.float32).abs().amax(dim=-1)
-    scales = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    scales = torch.where(absmax == 0, torch.ones_like(absmax),
+                         absmax * f32_reciprocal(127.0))
     codes = torch.clamp(torch.round(t / scales[..., None]), -127, 127).to(torch.int8)
     return codes, scales
 

@@ -1,8 +1,9 @@
 """Unified model facade: one callable surface per architecture family.
 
 build_model(cfg, device) -> ModelAPI with
-  init(generator)                    -> params
-  forward(ctx, params, batch)        -> (logits, aux_loss)  (teacher-forced)
+  init(generator | key)              -> params (a key from random.prng_key(seed)
+                                        draws the reference's init for that seed)
+  forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced)
   init_cache(batch, max_len, kv)     -> dense prefill cache
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
                                      -> block-paged serving cache
@@ -64,12 +65,12 @@ def build_model(cfg, device="cuda") -> ModelAPI:
     def init(generator):
         return ed.encdec_init(generator, cfg)
 
-    def forward(ctx, params, batch):
+    def forward(ctx, params, batch, remat=False):
         if "frames" in batch:
             raise later("audio (frame) encoders", 4)
         tgt, src = (torch.as_tensor(batch[k], device=device)
                     for k in ("tgt_in", "src_tokens"))
-        return ed.encdec_forward(ctx, params, cfg, tgt, src)
+        return ed.encdec_forward(ctx, params, cfg, tgt, src, remat=remat)
 
     def init_cache(batch_size, max_len, kv_dtype="bf16", enc_len=None):
         return ed.encdec_init_cache(cfg, batch_size, max_len,

@@ -15,9 +15,11 @@ its keys (``_kv_layout``): int8 (``k_codes`` + ``k_scales``), fp8
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.qlinear import embed_lookup
 from ..core.qtensor import QTensor, maybe_dequantize
+from ..random import normal, split
 from ..unported import later
 from .layers import Ctx, attn_apply, decode_attn_apply, mlp, rms_norm
 from .transformer import (SCALED_KV, _commit_decode_position, _dense_kv,
@@ -53,10 +55,65 @@ def _mlp_init(g, L, cfg):
             "w_out": _normal(g, (L, ff, d), ff ** -0.5)}
 
 
-def encdec_init(g: torch.Generator, cfg):
-    """Random parameters with the reference's shapes and scales, drawn
-    from ``g`` on its device."""
+def _init_from_key(key: torch.Tensor, cfg):
+    """The reference's ``encdec_init(jax.random.PRNGKey(seed), cfg)``, key
+    for key: the same splits and normal draws (``repro_torch.random``), so
+    each parameter is within two float32 ulps of the reference's (one from
+    the normal draw, one from its scale)."""
+    d, H, Hkv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim, cfg.d_ff)
+
+    def ones():
+        return torch.ones((d,), dtype=torch.float32, device=key.device)
+
+    def attn(k):
+        ks = split(k, 4)
+        s = d ** -0.5
+        return {"wq": normal(ks[0], (d, H * hd)) * s,
+                "wk": normal(ks[1], (d, Hkv * hd)) * s,
+                "wv": normal(ks[2], (d, Hkv * hd)) * s,
+                "wo": normal(ks[3], (H * hd, d)) * (H * hd) ** -0.5}
+
+    def mlp_(k):
+        ks = split(k, 3)
+        return {"w_in": normal(ks[0], (d, ff)) * d ** -0.5,
+                "w_out": normal(ks[1], (ff, d)) * ff ** -0.5}
+
+    def enc_layer(k):
+        k1, k2 = split(k)
+        return {"attn": attn(k1), "norm1_scale": ones(), "norm2_scale": ones(),
+                "mlp": mlp_(k2)}
+
+    def dec_layer(k):
+        k1, k2, k3 = split(k, 3)
+        return {"attn": attn(k1), "cross": attn(k2), "norm1_scale": ones(),
+                "norm2_scale": ones(), "norm3_scale": ones(), "mlp": mlp_(k3)}
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
+        return torch.stack(layers)
+
+    ke, k1, k2, kh = split(key, 4)
+    params = {
+        "embedding": normal(ke, (cfg.vocab_size, d)) * 0.02,
+        "encoder": {"layers": stack([enc_layer(k) for k in split(k1, cfg.enc_layers)]),
+                    "norm_f_scale": ones()},
+        "decoder": {"layers": stack([dec_layer(k) for k in split(k2, cfg.num_layers)]),
+                    "norm_f_scale": ones()},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(kh, (d, cfg.vocab_size)) * d ** -0.5
+    return params
+
+
+def encdec_init(g, cfg):
+    """Random parameters with the reference's shapes and scales: drawn from
+    a torch.Generator ``g`` on its device, or, for a key from
+    ``random.prng_key(seed)``, the reference's own draws for that seed."""
     _check_family(cfg)
+    if isinstance(g, torch.Tensor):
+        return _init_from_key(g, cfg)
     Le, Ld, d = cfg.enc_layers, cfg.num_layers, cfg.d_model
 
     def ones(*shape):
@@ -93,13 +150,22 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def encdec_encode(ctx: Ctx, params, cfg, src_tokens):
-    """Bidirectional encoder over src_tokens (B, Se)."""
+def _remat(body, remat: bool):
+    """``body`` recomputed in the backward pass when ``remat`` (the
+    counterpart of the reference's ``jax.checkpoint(body)``)."""
+    if not remat:
+        return body
+    return lambda *a: checkpoint(body, *a, use_reentrant=False)
+
+
+def encdec_encode(ctx: Ctx, params, cfg, src_tokens, remat: bool = False):
+    """Bidirectional encoder over src_tokens (B, Se); ``remat`` recomputes
+    each layer's activations in the backward pass."""
     x = embed_lookup(params["embedding"], src_tokens, ctx.compute_dtype)
     B, Se, _ = x.shape
     positions = _positions(B, Se, x.device)
-    for i in range(cfg.enc_layers):
-        lp = _layer(params["encoder"]["layers"], i)
+
+    def body(x, lp):
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
         y, _ = attn_apply(ctx, lp["attn"], h, positions,
                           num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -107,7 +173,11 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens):
                           rope_theta=cfg.rope_theta, site="enc.attn")
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="enc.ffn")
+        return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="enc.ffn")
+
+    body_fn = _remat(body, remat)
+    for i in range(cfg.enc_layers):
+        x = body_fn(x, _layer(params["encoder"]["layers"], i))
     return rms_norm(x, params["encoder"]["norm_f_scale"], cfg.norm_eps)
 
 
@@ -149,19 +219,25 @@ def _head(ctx, params, cfg, x):
     return logits.to(torch.float32)
 
 
-def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens):
+def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens,
+                   remat: bool = False):
     """Teacher-forced decoder pass over tgt_tokens (B, Sd) given
-    src_tokens (B, Se). Returns (logits (B, Sd, V), aux_loss)."""
-    enc_out = encdec_encode(ctx, params, cfg, src_tokens)
+    src_tokens (B, Se). Returns (logits (B, Sd, V), aux_loss); ``remat``
+    recomputes each layer's activations in the backward pass."""
+    enc_out = encdec_encode(ctx, params, cfg, src_tokens, remat)
     B, Sd = tgt_tokens.shape
     Se = enc_out.shape[1]
     dev = enc_out.device
     x = embed_lookup(params["embedding"], tgt_tokens, ctx.compute_dtype)
     positions, enc_pos = _positions(B, Sd, dev), _positions(B, Se, dev)
-    for i in range(cfg.num_layers):
-        lp = _layer(params["decoder"]["layers"], i)
+
+    def body(x, lp, enc_out):
         k, v = _cross_kv(ctx, lp, cfg, enc_out)
-        x, _ = _dec_layer(ctx, cfg, lp, x, positions, (k, v, enc_pos))
+        return _dec_layer(ctx, cfg, lp, x, positions, (k, v, enc_pos))[0]
+
+    body_fn = _remat(body, remat)
+    for i in range(cfg.num_layers):
+        x = body_fn(x, _layer(params["decoder"]["layers"], i), enc_out)
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
     return _head(ctx, params, cfg, x), torch.zeros((), dtype=torch.float32, device=dev)
 

@@ -1,4 +1,5 @@
-"""Counter-based random bits: the parts of ``jax.random`` the sampler uses.
+"""Counter-based random bits: the parts of ``jax.random`` the sampler and
+the seeded parameter init use.
 
 The reference draws its sampling noise from JAX's default generator,
 threefry2x32 in its partitionable counter layout. This module computes
@@ -9,6 +10,8 @@ in both packages:
     key = fold_in(key, t)                # jax.random.fold_in(key, t)
     bits = random_bits(key, (V,))        # jax.random.bits(key, (V,))
     tok = categorical(key, logits)       # jax.random.categorical(key, logits)
+    keys = split(key, 4)                 # jax.random.split(key, 4)
+    w = normal(keys[0], (64, 96))        # jax.random.normal(keys[0], (64, 96))
 
 A key is an int64 tensor whose last axis holds the two 32-bit words;
 leading axes batch independent keys (one per serving slot). The uint32
@@ -16,7 +19,10 @@ arithmetic runs in int64 masked to 32 bits, so the same code runs on
 CPU and CUDA tensors. ``uniform`` and ``gumbel`` follow JAX's float32
 mapping of the bits; ``gumbel`` takes logarithms, which the two
 libraries may round one ulp apart, so ``categorical`` agrees with JAX's
-draw except on ties at that precision.
+draw except on ties at that precision. ``normal`` evaluates XLA's
+inverse-error-function polynomial with fused multiply-adds; it agrees with
+``jax.random.normal`` to one float32 ulp (the two ``log1p`` may round
+apart).
 """
 
 from __future__ import annotations
@@ -26,8 +32,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["prng_key", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "gumbel", "categorical"]
+__all__ = ["prng_key", "fold_in", "split", "threefry2x32", "random_bits", "uniform",
+           "normal", "gumbel", "categorical"]
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -72,6 +78,14 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (the partitionable layout): key (2,) -> (num, 2),
+    key i being threefry of the 64-bit counter i."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    o1, o2 = threefry2x32(key[0], key[1], idx >> 32, idx & _MASK)
+    return torch.stack([o1, o2], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32-bit random words (as int64) of ``shape`` for each key: the
     partitionable layout hashes the 64-bit flat index of each element.
@@ -96,6 +110,44 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     lo = torch.full((), minval, dtype=torch.float32, device=key.device)
     hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# XLA's float32 inverse error function (M. Giles, "Approximating the erfinv
+# function"): a degree-8 polynomial in w = -log1p(-x^2), one per branch
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                  0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+                  1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+                  2.83297682)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 erfinv of x in (-1, 1); each Horner step is a fused
+    multiply-add (computed in float64, one rounding to float32), as the
+    compiled reference evaluates it. log1p is taken in float64 and rounded
+    once: torch's float32 log1p may round an element one way or the other
+    depending on which vector lane computes it."""
+    w = (-torch.log1p(-(x * x).to(torch.float64))).to(torch.float32)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).to(torch.float64)
+    p = torch.where(lt, _ERFINV_W_LT_5[0], _ERFINV_W_GE_5[0]).to(torch.float32)
+    for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
+        c = torch.where(lt, torch.tensor(a, dtype=torch.float32, device=x.device),
+                        torch.tensor(b, dtype=torch.float32, device=x.device))
+        p = (c.to(torch.float64) + p.to(torch.float64) * w).to(torch.float32)
+    return p * x
+
+
+_SQRT2_F32 = float(torch.tensor(math.sqrt(2.0), dtype=torch.float32))
+# the largest float32 below 1 in magnitude: jax.random.normal's lower bound
+_NEG_ONE_NEXT = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: sqrt(2) erfinv(u), u
+    uniform in (-1, 1)."""
+    return _SQRT2_F32 * _erfinv(uniform(key, shape, _NEG_ONE_NEXT, 1.0))
 
 
 def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

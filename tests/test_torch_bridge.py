@@ -27,7 +27,10 @@ _QT_FIELDS = ("data", "scales", "scales_q", "scales_cscale", "scales_offset",
 
 
 def jax_tree_to_numpy(tree):
-    """JAX params (nested dicts, arrays, QTensors) -> numpy form."""
+    """JAX params or optimizer state (nested dicts, arrays, QTensors, None
+    leaves) -> numpy form."""
+    if tree is None:
+        return None
     if isinstance(tree, JQTensor):
         out = {f: None if getattr(tree, f) is None else np.asarray(getattr(tree, f))
                for f in _QT_FIELDS}

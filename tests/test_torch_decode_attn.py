@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -90,10 +91,25 @@ def test_quantize_kv_matches_jax():
     rng = np.random.default_rng(4)
     kv = rng.standard_normal((2, 7, 3, 64)).astype(np.float32)
     kv[0, 1] = 0.0                                  # all-zero rows take scale 1
-    jc, js = jops.quantize_kv(jnp.asarray(kv))
+    # the engines run the quantizer compiled (absmax times 1/127 in f32)
+    jc, js = jax.jit(jops.quantize_kv)(jnp.asarray(kv))
     tc, ts = ops.quantize_kv(torch.from_numpy(kv))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_quantize_kv_equals_compiled_reference_on_wide_scales():
+    """The int8 KV quantizer's scales and codes equal jax.jit(quantize_kv_ref)
+    byte for byte on rows whose magnitudes span three decades: the scale
+    is absmax times the f32 reciprocal of 127, as the compiled reference
+    computes it (a division gives 42 of these 1024 scales one ulp apart)."""
+    rng = np.random.default_rng(0)
+    kv = (rng.standard_normal((64, 16, 64))
+          * rng.uniform(0.01, 10, (64, 16, 1))).astype(np.float32)
+    jc, js = jax.jit(jref.quantize_kv_ref)(jnp.asarray(kv))
+    tc, ts = ops.quantize_kv(torch.from_numpy(kv))
+    assert ts.numpy().tobytes() == np.asarray(js).tobytes()
+    assert tc.numpy().tobytes() == np.asarray(jc).tobytes()
 
 
 @pytest.mark.parametrize("rows,cols", [(8, 64), (33, 100), (1, 128)])

@@ -176,7 +176,8 @@ def test_dense_cache_helpers_match_reference():
     from repro.models import transformer as jtf
     rng = np.random.default_rng(4)
     t = rng.standard_normal((2, 3, 4, 16)).astype(np.float32)
-    jc, js = jtf._quantize_token_kv(jnp.asarray(t))
+    # the engines run the quantizer compiled (absmax times 1/127 in f32)
+    jc, js = jax.jit(jtf._quantize_token_kv)(jnp.asarray(t))
     tc, ts = ttf._quantize_token_kv(torch.from_numpy(t))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
