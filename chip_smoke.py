@@ -78,7 +78,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the standalone FASST activation, driven on the dense engine's live
    caches, logits and FFN weights, with the launch counters set to 0
    just before and read just after ([api]);
-17. a launch-count line, the kernels' JSON line, the card line, and last
+17. the decoder-only LMs, each deploy freed before the next: qmm and
+   paged attention at qwen2.5-14b's served shapes against their plain
+   versions; qwen2.5-14b at full width, 24 of its 48 layers, int4 paged
+   and dense ([lm]); gemma3-1b whole, paged and dense, prompts past its
+   512-token local windows and no paged-attention launch ([lm-gemma]);
+   llava-next-mistral-7b whole, dense, with image rows ([vlm]). Each
+   engine holds qmm and the FASST activation against their plain
+   versions at every shape its warm-up gave them; each phase checks the
+   kernel bundle against the torch bundle, and dense against paged up
+   to near ties (a first token may part there at an exact bf16 tie);
+18. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -87,6 +97,7 @@ either it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -163,6 +174,15 @@ def times(kernel, plain, library, plain_reps: int = 5) -> dict:
 
 def fmt_ms(t) -> str:
     return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def log_time(e, card, pre=""):
+    """The [time] line of a kernel entry's timed work (keys ``pre``...)."""
+    log(f"[time] {e['name']}{' ' + pre.rstrip('_') if pre else ''}: kernel "
+        f"{e[pre + 'ms']:.4f} ms, plain {e[pre + 'plain_ms']:.4f} ms, library "
+        f"{fmt_ms(e[pre + 'library_ms'])}, bound {e[pre + 'bound_ms']:.4f} ms "
+        f"({e[pre + 'bound_by']}); device only: kernel {fmt_ms(e[pre + 'device_ms'])}, "
+        f"library {fmt_ms(e[pre + 'library_device_ms'])} — {e[pre + 'work']}; on {card}")
 
 
 def _short(fn: str) -> str:
@@ -266,10 +286,72 @@ def qmm_tol(torch, dt):
     return 1e-5 if dt == torch.float32 else 4e-3
 
 
-def check_qmm(torch, dev):
-    from repro_torch.core.qtensor import QTensor
+def qmm_agree(torch, x, qt, where, naf=None):
+    """Hold ops.qmm(x, qt) against qmm_plain on the f32 rows ``x``, f32 and
+    bf16 out: two launches bit-identical (the split-K partials are summed
+    in split order by the tile's last block), within qmm_tol, finite; with
+    ``naf`` the fused epilogue within the plain versions' bound
+    (naf_vs_plain). Returns the max abs error at f32 out and the plan."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.qmm import qmm_plain, qmm_plan
+    k, n = qt.shape[-2:]         # a layer's select keeps the stacked shape
+    m = x.shape[0]
+    plan = qmm_plan(m, n, k, k // qt.scales_shape[-2], qt.fmt)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        xi = x.to(dt)
+        y = ops.qmm(xi, qt, compute_dtype=dt, naf=naf)
+        at = f"{where} {qt.fmt} M={m} K={k} N={n} {dt} ({plan})"
+        if not torch.equal(y, ops.qmm(xi, qt, compute_dtype=dt, naf=naf)):
+            raise AssertionError(f"{at}: two launches differ")
+        p = qmm_plain(xi, qt.data, qt.block_scales(), qt.fmt, out_dtype=dt)
+        if naf is not None:
+            e = naf_vs_plain(torch, y, ops.qmm(xi, qt, compute_dtype=dt), p, naf, dt, at)
+        else:
+            y, p = y.float(), p.float()
+            rel = float((y - p).norm() / (p.norm() + 1e-9))
+            if not (rel <= qmm_tol(torch, dt) and bool(torch.isfinite(y).all())):
+                raise AssertionError(f"{at}: rel err {rel:.3g} > {qmm_tol(torch, dt)}")
+            e = float((y - p).abs().max())
+        if dt == torch.float32:
+            worst = e
+    return worst, plan
+
+
+def qmm_window(torch, g, dev, ws, m):
+    """Kernel, plain and library calls over the int4 weights ``ws`` (sub-
+    block 64) at M = m bf16 rows, one launch each, and the bound of that
+    work."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.qmm import qmm_plain
+    bf = torch.bfloat16
+    xs = {k: torch.randn((m, k), generator=g, device=dev).to(bf)
+          for k in sorted({qt.shape[0] for qt in ws})}
+    dense = [qt.dequantize(bf) for qt in ws]
+    scales = [qt.block_scales() for qt in ws]
+
+    def run_kernel():
+        for qt in ws:
+            ops.qmm(xs[qt.shape[0]], qt, compute_dtype=bf)
+
+    def run_plain():
+        for qt, s in zip(ws, scales):
+            qmm_plain(xs[qt.shape[0]], qt.data, s, "int4", out_dtype=bf)
+
+    def run_library():
+        for qt, wd in zip(ws, dense):
+            torch.matmul(xs[qt.shape[0]], wd)
+
+    nbytes = flops = 0
+    for qt in ws:
+        k, n = qt.shape
+        nbytes += m * k * 2 + k * n // 2 + (k // 64) * n * 4 + m * n * 2
+        flops += 2 * m * k * n
+    return (run_kernel, run_plain, run_library), bound_ms(nbytes, flops, BF16_FLOPS_PER_MS)
+
+
+def check_qmm(torch, dev):
+    from repro_torch.core.qtensor import QTensor
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
@@ -279,26 +361,10 @@ def check_qmm(torch, dev):
             w = torch.randn((k, n), generator=g, device=dev) * 0.05
             qt = QTensor.quantize(w, fmt, block, double_quant=(fmt == "nf4"))
             x = torch.randn((m, k), generator=g, device=dev)
-            plan = qmm_plan(m, n, k, block, fmt)
+            err, plan = qmm_agree(torch, x, qt, f"qmm sub_block={block}")
             regimes.add((plan.regime, plan.splits > 1))
-            for x_dt, out_dt in ((torch.float32, torch.float32),
-                                 (torch.bfloat16, torch.bfloat16)):
-                xi = x.to(x_dt)
-                y = ops.qmm(xi, qt, compute_dtype=out_dt)
-                again = ops.qmm(xi, qt, compute_dtype=out_dt)
-                where = f"qmm {fmt} M={m} K={k} N={n} sub_block={block} {out_dt} ({plan})"
-                # the split-K partials are summed in split order by the
-                # tile's last block: reruns are bit-identical
-                if not torch.equal(y, again):
-                    raise AssertionError(f"{where}: two launches differ")
-                y = y.float()
-                p = qmm_plain(xi, qt.data, qt.block_scales(), fmt, out_dtype=out_dt).float()
-                rel = float((y - p).norm() / (p.norm() + 1e-9))
-                tol = qmm_tol(torch, out_dt)
-                if not (rel <= tol and bool(torch.isfinite(y).all())):
-                    raise AssertionError(f"{where}: rel err {rel:.3g} > {tol}")
-                if out_dt == torch.float32 and (k, n) in QMM_SERVED_KN:
-                    worst = max(worst, float((y - p).abs().max()))
+            if (k, n) in QMM_SERVED_KN:
+                worst = max(worst, err)
     if regimes != {("decode", True), ("decode", False), ("prefill", True),
                    ("prefill", False)}:
         raise AssertionError(f"qmm cases cover only {sorted(regimes)}")
@@ -316,35 +382,7 @@ def check_qmm(torch, dev):
         for k, n in shapes:
             w = torch.randn((k, n), generator=g, device=dev) * 0.05
             weights.append(QTensor.quantize(w, "int4", 64))
-
-    def window(ws, m):
-        """kernel, plain and library calls over the int4 weights ``ws`` at
-        M = m bf16 rows, and the bound of that work"""
-        xs = {k: torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
-              for k in (1024, 8192)}
-        dense = [qt.dequantize(torch.bfloat16) for qt in ws]
-        scales = [qt.block_scales() for qt in ws]
-
-        def run_kernel():
-            for qt in ws:
-                ops.qmm(xs[qt.shape[0]], qt, compute_dtype=torch.bfloat16)
-
-        def run_plain():
-            for qt, s in zip(ws, scales):
-                qmm_plain(xs[qt.shape[0]], qt.data, s, "int4", out_dtype=torch.bfloat16)
-
-        def run_library():
-            for qt, wd in zip(ws, dense):
-                torch.matmul(xs[qt.shape[0]], wd)
-
-        nbytes = flops = 0
-        for qt in ws:
-            k, n = qt.shape
-            nbytes += m * k * 2 + k * n // 2 + (k // 64) * n * 4 + m * n * 2
-            flops += 2 * m * k * n
-        return (run_kernel, run_plain, run_library), bound_ms(nbytes, flops, BF16_FLOPS_PER_MS)
-
-    fns, (t, by) = window(weights, SLOTS)
+    fns, (t, by) = qmm_window(torch, g, dev, weights, SLOTS)
     entry = {"name": "qmm", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/qmm.cu",
              "replaces": "src/repro/kernels/qmm.py:85",
@@ -353,7 +391,7 @@ def check_qmm(torch, dev):
     # engine's 64-row admission and a batched 512-row one
     firsts = [weights[0], weights[6], weights[7]]
     for m in (64, 512):
-        fns, (t, by) = window(firsts, m)
+        fns, (t, by) = qmm_window(torch, g, dev, firsts, m)
         for key, val in times(*fns).items():
             entry.setdefault(f"prefill_{key}", {})[f"M={m}"] = val
         entry.setdefault("prefill_bound_ms", {})[f"M={m}"] = t
@@ -530,41 +568,57 @@ def _pool(torch, g, dev, P, ps, Hkv, d, kind):
             (v / vs[..., None]).to(torch.float8_e4m3fn), vs)
 
 
-def check_paged_attn(torch, dev):
+def _paged_call(torch, q, kc, ks, vc, vs, tables, lens):
     from repro_torch.kernels import ops
+    return ops.paged_decode_attention(q, kc, vc, tables, lens, k_scales=ks,
+                                      v_scales=vs, out_dtype=torch.float32)
+
+
+def paged_case(torch, g, dev, B, H, Hkv, d, P, ps, maxp, lengths, kind,
+               q_dt=None, name=None, plans=None):
+    """One paged-attention case on a random pool: launched twice
+    (bit-identical), held against paged_attn_plain (< 1e-5), zero-length
+    rows exactly 0. Returns the max abs error; records the split plan of
+    a named int8 case in ``plans``."""
     from repro_torch.kernels.paged_attn import paged_attn_plain, paged_attn_plan
+    q_dt = q_dt or torch.float32
+    kc, ks, vc, vs = _pool(torch, g, dev, P, ps, Hkv, d, kind)
+    perm = 1 + torch.randperm(P - 1, generator=g, device=dev)
+    tables = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, d), generator=g, device=dev).to(q_dt)
+    out = _paged_call(torch, q, kc, ks, vc, vs, tables, lens)
+    where = f"paged_attn {kind} B={B} H={H} Hkv={Hkv} d={d} ps={ps} lengths {lengths}"
+    # the splits are merged in split order by the last block of each
+    # (row, kv head): reruns are bit-identical
+    if not torch.equal(out, _paged_call(torch, q, kc, ks, vc, vs, tables, lens)):
+        raise AssertionError(f"{where}: two launches differ")
+    ref = paged_attn_plain(q.reshape(B, Hkv, H // Hkv, d), kc, ks, vc, vs,
+                           tables, lens, d ** -0.5).reshape(B, H, d)
+    err = float((out - ref).abs().max())
+    if not err < 1e-5:
+        raise AssertionError(f"{where}: max abs err {err:.3g}")
+    if not bool((out[lens == 0] == 0).all()):
+        raise AssertionError(f"{where}: a zero-length row is not exactly zero")
+    if name and kind == "int8" and plans is not None:
+        plan = paged_attn_plan(B, Hkv, H // Hkv, d, ps, maxp, kv_bytes=kc.element_size())
+        plans[name] = f"{plan.splits} splits x {plan.tokens_per_split} tokens"
+    return err
+
+
+def check_paged_attn(torch, dev):
+    from repro_torch.kernels.paged_attn import paged_attn_plan
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     worst = 0.0
     plans = {}
 
     def call(q, kc, ks, vc, vs, tables, lens):
-        return ops.paged_decode_attention(q, kc, vc, tables, lens, k_scales=ks,
-                                          v_scales=vs, out_dtype=torch.float32)
+        return _paged_call(torch, q, kc, ks, vc, vs, tables, lens)
 
     def case(B, H, Hkv, d, P, ps, maxp, lengths, kind, q_dt=torch.float32, name=None):
-        kc, ks, vc, vs = _pool(torch, g, dev, P, ps, Hkv, d, kind)
-        perm = 1 + torch.randperm(P - 1, generator=g, device=dev)
-        tables = perm[:B * maxp].reshape(B, maxp).to(torch.int32)
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        q = torch.randn((B, H, d), generator=g, device=dev).to(q_dt)
-        out = call(q, kc, ks, vc, vs, tables, lens)
-        where = f"paged_attn {kind} B={B} H={H} Hkv={Hkv} d={d} ps={ps} lengths {lengths}"
-        # the splits are merged in split order by the last block of each
-        # (row, kv head): reruns are bit-identical
-        if not torch.equal(out, call(q, kc, ks, vc, vs, tables, lens)):
-            raise AssertionError(f"{where}: two launches differ")
-        ref = paged_attn_plain(q.reshape(B, Hkv, H // Hkv, d), kc, ks, vc, vs,
-                               tables, lens, d ** -0.5).reshape(B, H, d)
-        err = float((out - ref).abs().max())
-        if not err < 1e-5:
-            raise AssertionError(f"{where}: max abs err {err:.3g}")
-        if not bool((out[lens == 0] == 0).all()):
-            raise AssertionError(f"{where}: a zero-length row is not exactly zero")
-        if name and kind == "int8":
-            plan = paged_attn_plan(B, Hkv, H // Hkv, d, ps, maxp, kv_bytes=kc.element_size())
-            plans[name] = f"{plan.splits} splits x {plan.tokens_per_split} tokens"
-        return err
+        return paged_case(torch, g, dev, B, H, Hkv, d, P, ps, maxp, lengths, kind, q_dt,
+                          name, plans)
 
     for kind in ("int8", "fp8", "bf16"):
         for H, Hkv, d in [(8, 2, 64), (4, 1, 128), (16, 16, 64), (10, 2, 64)]:
@@ -596,35 +650,8 @@ def check_paged_attn(torch, dev):
 
     # the served shape: B=slots, Hkv=16, G=1, d=64, ps=16, int8 pages,
     # ragged lengths up to 256; one decode step = 6 launches (one a layer)
-    B, H, d, ps, maxp = SLOTS, 16, 64, 16, 16
-    lens = torch.randint(1, 257, (B,), generator=g, device=dev)
-    pools = [_pool(torch, g, dev, B * maxp + 1, ps, H, d, "int8") for _ in range(6)]
-    tables = (1 + torch.arange(B * maxp, device=dev)).reshape(B, maxp).to(torch.int32)
-    q = torch.randn((B, H, d), generator=g, device=dev).to(torch.bfloat16)
-    lens32 = lens.to(torch.int32)
-
-    def run_kernel():
-        for kc, ks, vc, vs in pools:
-            ops.paged_decode_attention(q, kc, vc, tables, lens32, k_scales=ks,
-                                       v_scales=vs, out_dtype=torch.float32)
-
-    def run_plain():
-        for kc, ks, vc, vs in pools:
-            paged_attn_plain(q.reshape(B, H, 1, d), kc, ks, vc, vs, tables, lens32,
-                             d ** -0.5)
-
-    # library yardstick: SDPA on K/V already gathered dense (the gather
-    # and dequantization are left out of its time)
-    S = maxp * ps
-    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-    dense = [(torch.randn((B, H, S, d), generator=g, device=dev).to(torch.bfloat16),
-              torch.randn((B, H, S, d), generator=g, device=dev).to(torch.bfloat16))
-             for _ in range(6)]
-    q4 = q[:, :, None, :]
-
-    def run_library():
-        for k, v in dense:
-            torch.nn.functional.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+    lens = torch.randint(1, 257, (SLOTS,), generator=g, device=dev)
+    fns, (t, by), work = paged_window(torch, g, dev, 16, 16, 64, 16, 6, lens)
 
     # the split plan's edges, drawn after the timed inputs (so that those
     # stay the ones earlier runs timed): one long row over many splits;
@@ -640,20 +667,70 @@ def check_paged_attn(torch, dev):
         + "; ".join(f"{k} {v}" for k, v in plans.items())
         + f"; max abs err at the served shape {worst:.3g}")
 
-    tokens = int(lens.sum())
-    nbytes = 6 * (B * H * d * 2 + tokens * H * (2 * d + 2 * 4) + B * maxp * 4
-                  + B * 4 + B * H * d * 4)
-    flops = 6 * 4 * tokens * H * d
-    t, by = bound_ms(nbytes, flops, F32_FLOPS_PER_MS)
-    plan = paged_attn_plan(B, H, 1, d, ps, maxp)
     return {"name": "paged_attn", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
             "replaces": "src/repro/kernels/paged_attn.py:105",
-            "max_abs_err": worst, **times(run_kernel, run_plain, run_library),
-            "bound_ms": t, "bound_by": by,
-            "work": f"one decode step: 6 launches, B={B} Hkv=16 G=1 d=64 ps=16 "
-                    f"int8 pages, {tokens} cached tokens (lengths 1..256); grid "
-                    f"{plan.grid}, {plan.tokens_per_split} tokens a split"}
+            "max_abs_err": worst, **times(*fns), "bound_ms": t, "bound_by": by,
+            "work": f"one decode step: {work}"}
+
+
+def paged_window(torch, g, dev, H, Hkv, d, maxp, layers, lens):
+    """Kernel, plain and library calls over one decode step's paged
+    attention: ``layers`` launches at B = slots, pages of PAGE tokens,
+    each layer on its own int8 pool, ``lens`` (B,) the cached lengths;
+    the library yardstick is SDPA on bf16 K/V already gathered dense and
+    repeated to the H query heads (gather, dequantization and the repeat
+    left out of its time). Returns the calls, the bound of that work and
+    its description."""
+    from repro_torch.kernels.paged_attn import paged_attn_plain, paged_attn_plan
+    B, ps, G = SLOTS, PAGE, H // Hkv
+    lens32 = lens.to(torch.int32)
+    pools = [_pool(torch, g, dev, B * maxp + 1, ps, Hkv, d, "int8") for _ in range(layers)]
+    tables = (1 + torch.arange(B * maxp, device=dev)).reshape(B, maxp).to(torch.int32)
+    q = torch.randn((B, H, d), generator=g, device=dev).to(torch.bfloat16)
+
+    def run_kernel():
+        for kc, ks, vc, vs in pools:
+            _paged_call(torch, q, kc, ks, vc, vs, tables, lens32)
+
+    def run_plain():
+        for kc, ks, vc, vs in pools:
+            paged_attn_plain(q.reshape(B, Hkv, G, d), kc, ks, vc, vs, tables, lens32,
+                             d ** -0.5)
+
+    S = maxp * ps
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    kv = [tuple(torch.randn((B, Hkv, S, d), generator=g, device=dev).to(torch.bfloat16)
+                .repeat_interleave(G, dim=1) for _ in range(2)) for _ in range(layers)]
+    q4 = q[:, :, None, :]
+
+    def run_library():
+        for k, v in kv:
+            torch.nn.functional.scaled_dot_product_attention(q4, k, v, attn_mask=mask)
+
+    tokens = int(lens.sum())
+    nbytes = layers * (B * H * d * 2 + tokens * Hkv * (2 * d + 2 * 4) + B * maxp * 4
+                       + B * 4 + B * H * d * 4)
+    plan = paged_attn_plan(B, Hkv, G, d, ps, maxp)
+    return ((run_kernel, run_plain, run_library),
+            bound_ms(nbytes, layers * 4 * tokens * H * d, F32_FLOPS_PER_MS),
+            f"{layers} launches, B={B} H={H} Hkv={Hkv} G={G} d={d} ps={ps} int8 pages, "
+            f"{tokens} cached tokens (lengths 1..{S}); grid {plan.grid}, "
+            f"{plan.tokens_per_split} tokens a split")
+
+
+def fasst_agree(torch, x, mode, where="", out_dtype=None):
+    """ops.fasst(x, mode) against fasst_act_plain within fasst_tol;
+    returns the max abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fasst import fasst_act_plain
+    y = ops.fasst(x, mode, out_dtype=out_dtype).float()
+    p = fasst_act_plain(x, mode, out_dtype=out_dtype).float()
+    err = float((y - p).abs().max())
+    if not bool(((y - p).abs() <= fasst_tol(torch, p, x.dtype)).all()):
+        raise AssertionError(f"{where}fasst {mode} {x.dtype} {tuple(x.shape)}: max abs err "
+                             f"{err:.3g}")
+    return err
 
 
 def check_fasst(torch, dev):
@@ -666,15 +743,9 @@ def check_fasst(torch, dev):
         x = torch.randn(shape, generator=g, device=dev) * 3
         for mode in MODES:
             for dt in (torch.float32, torch.bfloat16):
-                xi = x.to(dt)
-                y = ops.fasst(xi, mode).float()
-                p = fasst_act_plain(xi, mode).float()
-                err = (y - p).abs()
-                if not bool((err <= fasst_tol(torch, p, dt)).all()):
-                    raise AssertionError(f"fasst {mode} {dt} {shape}: max abs err "
-                                         f"{float(err.max()):.3g}")
+                err = fasst_agree(torch, x.to(dt), mode)
                 if dt == torch.bfloat16 and shape[1] == 8192 and mode == "relu":
-                    worst = float(err.max())
+                    worst = err
     log("[kernels] fasst_act: 8 modes x (f32, bf16) agree with fasst_act_plain")
 
     # one decode step's worth: 6 relu launches on (slots, 8192) bf16 (the
@@ -1041,7 +1112,8 @@ def _check_vocab(pipe, outs):
 def routes_agree(torch, pipe, prompts, tag="routes"):
     """One decode step of a live engine state through both bundles, on the
     engine's own Ctx otherwise (compute dtype, activation formats and
-    calibrated scales). Returns the largest logit difference."""
+    calibrated scales). Returns the largest logit difference between the
+    bundles."""
     import dataclasses
     from repro_torch.serving import SamplingParams
     eng = pipe.engine
@@ -1049,6 +1121,11 @@ def routes_agree(torch, pipe, prompts, tag="routes"):
         eng.submit(p, SamplingParams(max_new_tokens=GEN))
     eng.step(horizon=4)
     eng.step(horizon=4)
+    # the engine grows on-demand chains just ahead of each horizon: cover
+    # the step taken here, or a slot whose next position opens a page
+    # would write its fresh token into the trash page, which every such
+    # slot shares
+    eng._grow_chains(1)
     active = [s.id for s in eng.slots if s.active]
     if not active:
         raise AssertionError("no active slot to compare routes on")
@@ -1218,10 +1295,14 @@ def _sampled_parting(torch, prng, lp, fp, fd, sp, j, a, b, err):
 
 
 def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_streams,
-                      engine_kw=None):
+                      engine_kw=None, first_token_ties=False):
     """Where a dense and a paged stream part, show that the step was a
     near tie. Both layouts replay the common prefix teacher-forced in
-    fresh engines of the same slots. At a greedy slot's parting step the
+    fresh engines of the same slots. A parting at the first token fails,
+    unless ``first_token_ties``: then it is read from the logits each
+    fresh engine's admission samples it from (the same prefill calls as
+    the served run: dense one request a call, paged in the same groups)
+    and held to the same bound. At a greedy slot's parting step the
     top-2 margin of the paged engine's logits must be at most twice the
     engines' largest logit difference at that step. A sampled slot's
     draws are replayed from its key: either both tokens pass both
@@ -1239,17 +1320,27 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
         if j is None and len(a) != len(b):
             raise AssertionError(f"[{tag}] request {i}: streams of {len(a)} and "
                                  f"{len(b)} tokens share every token")
-        if j == 0:
+        if j == 0 and not first_token_ties:
             raise AssertionError(f"[{tag}] request {i}: the prefill tokens differ")
         if j is not None:
             part[i] = j
     steps = max(list(part.values()) + [3])
     engines = [_fresh_engine(pipe, paged, **(engine_kw or {})) for paged in (True, False)]
+    prefill = []
     with torch.no_grad():
         for eng in engines:
+            rows = {}
+
+            def record(logits, requests, slots, real=eng._first_tokens, rows=rows):
+                rows.update((r.id, lg.float()) for r, lg in zip(requests, logits))
+                return real(logits, requests, slots)
+
+            eng._first_tokens = record
             for p, sp in zip(prompts, sps):
                 eng.submit(p, sp)
             eng._admit_pending()
+            del eng._first_tokens
+            prefill.append(torch.stack([rows[i] for i in range(len(prompts))]))
             if [s.request.id for s in eng.slots] != list(range(len(prompts))):
                 raise AssertionError(f"[{tag}] admission placed requests out of order")
             if eng.paged:       # on-demand chains: cover the forced steps
@@ -1260,9 +1351,9 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
         knobs = [torch.tensor([getattr(sp, k) for sp in sps], dtype=dt, device=dev)
                  for k, dt in (("temperature", torch.float32), ("top_k", torch.int64),
                                ("top_p", torch.float32))]
-        for j in range(1, steps + 1):
-            lgs = []
-            for eng in engines:
+        for j in range(steps + 1):
+            lgs = prefill if j == 0 else []
+            for eng in engines if j else ():
                 eng.cache, lg = eng.model.decode_step(eng.ctx, eng.params,
                                                       forced[:, j - 1:j], eng.cache)
                 lgs.append(lg[:, -1].float())
@@ -2621,6 +2712,341 @@ def api_path(torch, pipe):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [lm], [lm-gemma], [vlm]: the decoder-only LMs
+# ---------------------------------------------------------------------------
+
+# qwen2.5-14b at full width, depth cut to 24 of 48 layers: deploy() draws
+# the f32 tree whole and quantizes it, as the reference does; all 48
+# layers are 59 GB in f32 (14.77 B parameters) and the quantization
+# temporaries of the stacked (48, 5120, 13824) gate and up leaves would
+# pass 80 GB; 24 layers are 32.7 GB
+LM_ARCH, LM_LAYERS = "qwen2.5-14b", 24
+LM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120))
+LM_HEAD_KN = (5120, 152064)
+LONG_LEN = 768          # [lm-gemma] and [vlm] cache length
+
+
+def check_lm_kernels(torch, dev):
+    """qmm and paged attention at qwen2.5-14b's served shapes, held against
+    their plain versions before the [lm] phase, and one decode step's
+    worth of each timed:
+
+    - qmm at the four served (K, N) pairs (int4, sub-block 64) and at the
+      untied lm_head (int8; the served head takes the dequantize route,
+      as in the reference, so this checks the kernel at that shape only),
+      at decode rows (8) and prefill rows (512) (qmm_agree);
+    - paged attention at B 8, H 40, Hkv 8 (G = 5), d 128, page 16, int8
+      and bf16 pages, ragged lengths up to 128 and the edges 0/1/16/17/128
+      (G·d/4 = 160 > 128 threads: the P·V loop strides).
+
+    Each LM phase then holds the kernels at every shape its served run
+    gave them (hold_served). Returns the ``lm_`` keys of the qmm and
+    paged_attn entries."""
+    from repro_torch.core.qtensor import QTensor
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    worst = 0.0
+    for fmt, (k, n) in [("int4", kn) for kn in LM_KN] + [("int8", LM_HEAD_KN)]:
+        qt = QTensor.quantize(torch.randn((k, n), generator=g, device=dev) * 0.02, fmt, 64)
+        for m in (SLOTS, 512):
+            err, _ = qmm_agree(torch, torch.randn((m, k), generator=g, device=dev), qt,
+                               "[lm-kernels] qmm")
+            if m == SLOTS:
+                worst = max(worst, err)
+        del qt
+    log(f"[kernels] qmm at {LM_ARCH}'s served shapes: int4 (K, N) {list(LM_KN)} and the "
+        f"int8 lm_head {LM_HEAD_KN}, M = {SLOTS} and 512, f32 and bf16 out, agree with "
+        f"qmm_plain (norm-relative 1e-5 f32, 4e-3 bf16), every case launched twice and "
+        f"bit-identical; max abs err (M={SLOTS}, f32 out) {worst:.3g}")
+
+    # one decode step's qmm work: 24 layers x (q, o 5120x5120; k, v
+    # 5120x1024; gate, up 5120x13824; down 13824x5120), each launch on its
+    # own int4 weight, as in the model (3.3 GB of codes, far past the L2)
+    layer = [(5120, 5120)] * 2 + [(5120, 1024)] * 2 + [(5120, 13824)] * 2 + [(13824, 5120)]
+    ws = [QTensor.quantize(torch.randn(kn, generator=g, device=dev) * 0.02, "int4", 64)
+          for _ in range(LM_LAYERS) for kn in layer]
+    fns, (t, by) = qmm_window(torch, g, dev, ws, SLOTS)
+    out = {"qmm": {**times(*fns, plain_reps=2), "bound_ms": t, "bound_by": by,
+                   "max_abs_err": worst,
+                   "work": f"one {LM_ARCH} decode step ({LM_LAYERS} layers): {len(ws)} int4 "
+                           f"launches at M={SLOTS} (q, o 5120x5120; k, v 5120x1024; gate, "
+                           "up 5120x13824; down 13824x5120)"}}
+    del ws, fns
+    torch.cuda.empty_cache()
+
+    H, Hkv, d, ps, maxp = 40, 8, 128, PAGE, MAX_LEN // PAGE
+    plans, worst = {}, 0.0
+    for kind in ("int8", "bf16"):
+        lens = torch.randint(1, MAX_LEN + 1, (SLOTS,), generator=g, device=dev).tolist()
+        worst = max(worst, paged_case(torch, g, dev, SLOTS, H, Hkv, d, SLOTS * maxp + 1, ps,
+                                      maxp, lens, kind, torch.bfloat16, "served", plans))
+        paged_case(torch, g, dev, 5, H, Hkv, d, 5 * maxp + 1, ps, maxp,
+                   [0, 1, 16, 17, MAX_LEN], kind, None, "edges", plans)
+    log(f"[kernels] paged_attn at {LM_ARCH}'s served shape (B={SLOTS} H={H} Hkv={Hkv} "
+        f"G={H // Hkv} d={d} ps={ps}): int8 and bf16 pages agree with paged_attn_plain "
+        f"(< 1e-5), ragged lengths and 0/1/16/17/{MAX_LEN}, every case launched twice and "
+        f"bit-identical; plans (int8): " + "; ".join(f"{k} {v}" for k, v in plans.items())
+        + f"; max abs err {worst:.3g}")
+
+    # one decode step's paged attention: 24 launches on their own int8
+    # pools, ragged lengths up to max_len
+    lens = torch.randint(1, MAX_LEN + 1, (SLOTS,), generator=g, device=dev)
+    fns, (t, by), work = paged_window(torch, g, dev, H, Hkv, d, maxp, LM_LAYERS, lens)
+    out["paged_attn"] = {**times(*fns), "bound_ms": t, "bound_by": by, "max_abs_err": worst,
+                         "work": f"one {LM_ARCH} decode step: {work}"}
+    del fns
+    torch.cuda.empty_cache()
+    return {name: {f"lm_{k}": v for k, v in e.items()} for name, e in out.items()}
+
+
+@contextlib.contextmanager
+def served_shapes():
+    """While the block runs, wrap ops.qmm and ops.fasst to record the
+    shapes the main path hands them: the first weight of each (rows, K, N,
+    format, sub-block, compute dtype, NAF), and each (shape, dtype, mode,
+    out dtype) of the activation. The wrappers' launch counts are
+    untouched."""
+    from repro_torch.kernels import ops
+    qmm, fasst = ops.qmm, ops.fasst
+    seen = {"qmm": {}, "fasst_act": set()}
+
+    def rec_qmm(x, w, **kw):
+        k, n = w.shape[-2:]
+        seen["qmm"].setdefault((x.numel() // k, k, n, w.fmt, k // w.scales_shape[-2],
+                                kw.get("compute_dtype"), kw.get("naf")), w)
+        return qmm(x, w, **kw)
+
+    def rec_fasst(x, mode, **kw):
+        seen["fasst_act"].add((tuple(x.shape), x.dtype, mode, kw.get("out_dtype")))
+        return fasst(x, mode, **kw)
+
+    ops.qmm, ops.fasst = rec_qmm, rec_fasst
+    try:
+        yield seen
+    finally:
+        ops.qmm, ops.fasst = qmm, fasst
+
+
+def hold_served(torch, tag, seen, dev):
+    """Hold qmm (on the served weights themselves, random f32 rows, f32
+    and bf16 out) and the FASST activation (random inputs) against their
+    plain versions at every shape ``seen`` recorded (served_shapes)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    worst = {"qmm": 0.0, "fasst_act": 0.0}
+    for (m, k, *_, naf), w in seen["qmm"].items():
+        x = torch.randn((m, k), generator=g, device=dev)
+        worst["qmm"] = max(worst["qmm"], qmm_agree(torch, x, w, f"[{tag}] served", naf)[0])
+    for shape, dt, mode, out_dt in seen["fasst_act"]:
+        x = (3 * torch.randn(shape, generator=g, device=dev)).to(dt)
+        worst["fasst_act"] = max(worst["fasst_act"],
+                                 fasst_agree(torch, x, mode, f"[{tag}] served ", out_dt))
+    rows = sorted({key[0] for key in seen["qmm"]})
+    kns = sorted({key[1:3] for key in seen["qmm"]})
+    acts = sorted({(s, m) for s, _, m, _ in seen["fasst_act"]})
+    log(f"[{tag}] the kernels at every shape the served run gave them agree with their "
+        f"plain versions: qmm at {len(seen['qmm'])} (rows, K, N, format) on the served "
+        f"weights, rows {rows}, (K, N) {kns}, f32 and bf16 out (max abs err f32 "
+        f"{worst['qmm']:.3g}); fasst_act at {acts} (max abs err {worst['fasst_act']:.3g})")
+    if not kns or not acts:
+        raise AssertionError(f"[{tag}] the served run recorded no qmm or fasst_act shape")
+
+
+def _lm_deploy(torch, tag, arch, paged, max_len, params=None, cut=""):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Ctx
+    from repro_torch.serving import deploy
+    import dataclasses
+    cfg = get_config(arch)
+    if arch == LM_ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=LM_LAYERS)
+    t0 = time.perf_counter()
+    pipe = deploy(cfg, "int4", slots=SLOTS, max_len=max_len, horizon=HORIZON,
+                  init_seed=SEED, params=params,
+                  ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True),
+                  **(dict(paged=True, page_size=PAGE) if paged else {}))
+    torch.cuda.synchronize()
+    c = pipe.cfg
+    log(f"[{tag}] deployed {arch} int4 ({'paged' if paged else 'dense'} int8 KV, max_len "
+        f"{max_len}) in {time.perf_counter() - t0:.2f} s: d {c.d_model}, {c.num_heads}/"
+        f"{c.num_kv_heads} heads of {c.head_dim}, d_ff {c.d_ff} ({c.mlp_act}), vocab "
+        f"{c.vocab_size}, {c.num_layers} layers{cut}; "
+        + (f"{pipe.fp_bytes / 1e9:.2f} GB f32 -> {pipe.quantized_bytes / 1e9:.2f} GB, "
+           f"random weights from seed {SEED}" if params is None else
+           f"the paged engine's {pipe.quantized_bytes / 1e9:.2f} GB of weights"))
+    return pipe
+
+
+def lm_serve(torch, card, tag, pipe, prompts, expect):
+    """Serve ``prompts`` (8 requests x GEN new tokens, greedy) after a
+    warm-up on the same prompts that records the shapes the engine hands
+    qmm and the FASST activation and holds both there (hold_served), with
+    the launch counters set to 0 just before and read just after. ``expect`` gives a decode step's wrapper launches: a kernel
+    with n > 0 launches at least n a step over the run, one with 0 never
+    (the prefill rows add qmm and fasst_act launches). Then a profiled
+    4-step horizon, which must launch exactly ``expect``. Logs the phase's
+    JSON line; returns (outputs, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SamplingParams
+    eng = pipe.engine
+    # warm-up: the same requests, 4 tokens each, admitted in the same
+    # prefill calls as the measured run; then the kernels are held at
+    # every shape it gave them
+    with served_shapes() as seen:
+        pipe.generate(prompts, SamplingParams(max_new_tokens=4))
+    hold_served(torch, tag, seen, eng.device)
+    eng.reset_metrics()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = pipe.generate(prompts, SamplingParams(max_new_tokens=GEN))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(outs) != len(prompts) or any(o.finish_reason != "length"
+                                        or len(o.token_ids) != GEN for o in outs):
+        raise AssertionError(f"[{tag}] not every request retired on length: "
+                             f"{[(o.finish_reason, len(o.token_ids)) for o in outs]}")
+    _check_vocab(pipe, outs)
+    if eng.paged:
+        eng.allocator.check()
+        if eng.allocator.pages_in_use:
+            raise AssertionError(f"[{tag}] {eng.allocator.pages_in_use} pages leaked")
+    steps = eng.decode_steps
+    for name, n in expect.items():
+        if (n > 0 and launches[name] < n * steps) or (n == 0 and launches[name]):
+            raise AssertionError(f"[{tag}] {name}: {launches[name]} launches over "
+                                 f"{steps} decode steps; a step launches {n}")
+    prof = profile_decode(torch, pipe, prompts, f"{tag}-profile", expect=expect)
+    tokens = sum(len(o.token_ids) for o in outs)
+    stats = {"arch": pipe.cfg.name, "layers": pipe.cfg.num_layers,
+             "layout": "paged" if eng.paged else "dense", "requests": len(outs),
+             "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+             "decode_steps": steps, "decode_ms_per_step": 1e3 * eng.decode_s / max(steps, 1),
+             "prefill_calls": eng.prefill_calls,
+             "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
+             "peak_mem_gb": peak, **prof,
+             "launches_per_step": {k: v for k, v in expect.items()},
+             "launches": launches, "card": card}
+    log(f"[{tag}] " + json.dumps(stats))
+    log(f"[{tag}] first stream: {outs[0].token_ids[:12]} ...")
+    return outs, launches
+
+
+def _lm_prompts(rng, vocab, lo, hi):
+    return [{"tokens": rng.integers(0, vocab, (1, int(n))).astype(np.int32)}
+            for n in rng.integers(lo, hi + 1, SLOTS)]
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def lm_phase(torch, card):
+    """[lm]: qwen2.5-14b at int4, full width, 24 of its 48 layers, paged
+    (the paged-attention kernel: no windows) and dense on the same
+    weights; 8 requests of 32-64 prompt tokens x 32 new tokens, greedy.
+    The kernel bundle agrees with the torch bundle on live slots, and
+    dense and paged streams part only at near ties. Returns the launches
+    of the measured runs."""
+    from repro_torch.serving import SamplingParams
+    cut = (f" (depth cut to {LM_LAYERS} of 48: the 48-layer f32 init is 59 GB and "
+           "its quantization temporaries pass 80 GB)")
+    pipe = _lm_deploy(torch, "lm", LM_ARCH, True, MAX_LEN, cut=cut)
+    L, V = pipe.cfg.num_layers, pipe.cfg.vocab_size
+    prompts = _lm_prompts(np.random.default_rng(SEED + 20), V, 32, 64)
+    expect = {"qmm": 7 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}
+    outs, launches = lm_serve(torch, card, "lm", pipe, prompts, expect)
+    routes_agree(torch, pipe, prompts, "lm-routes")
+    pipe_d = _lm_deploy(torch, "lm-dense", LM_ARCH, False, MAX_LEN, params=pipe.params,
+                        cut=cut)
+    outs_d, launches_d = lm_serve(torch, card, "lm-dense", pipe_d, prompts,
+                                  dict(expect, paged_attn=0))
+    paged, dense = [o.token_ids for o in outs], [o.token_ids for o in outs_d]
+    part = near_tie_partings(torch, "lm-dense-vs-paged", pipe, prompts,
+                             [SamplingParams(max_new_tokens=GEN)] * len(prompts), paged, dense,
+                             first_token_ties=True)
+    log(f"[lm-dense-vs-paged] {sum(a == b for a, b in zip(paged, dense))}/{len(prompts)} "
+        f"streams token-identical, {len(part)} part, each at a near tie")
+    del pipe, pipe_d
+    torch.cuda.empty_cache()
+    return _add(dict(launches), launches_d)
+
+
+def lm_gemma_phase(torch, card):
+    """[lm-gemma]: gemma3-1b at int4, full width and depth (26 layers, tied
+    head, q/k norm, embed scale, 5:1 local:global windows of 512), paged
+    and dense; prompts of 520-700 tokens, so the local windows truncate.
+    The paged step takes the reference's gather route: no paged-attention
+    launch over the whole run. The kernel bundle agrees with the torch
+    bundle on live slots, and dense and paged streams part only at near
+    ties. Returns the launches of the measured runs."""
+    from repro_torch.models.transformer import window_array
+    from repro_torch.serving import SamplingParams
+    pipe = _lm_deploy(torch, "lm-gemma", "gemma3-1b", True, LONG_LEN)
+    cfg = pipe.cfg
+    L = cfg.num_layers
+    prompts = _lm_prompts(np.random.default_rng(SEED + 21), cfg.vocab_size, 520, 700)
+    lens = [p["tokens"].shape[1] for p in prompts]
+    wins = window_array(cfg)
+    log(f"[lm-gemma] prompts of {min(lens)}-{max(lens)} tokens against windows "
+        f"{sorted(set(wins))} ({wins.count(512)} local, {wins.count(0)} global layers): the "
+        "local windows truncate; the paged step takes the gather route (no paged_attn "
+        "launch), as the reference's does for a windowed arch")
+    expect = {"qmm": 7 * L, "qmm_naf": 0, "paged_attn": 0, "fasst_act": L}
+    outs, launches = lm_serve(torch, card, "lm-gemma", pipe, prompts, expect)
+    routes_agree(torch, pipe, prompts, "lm-gemma-routes")
+    pipe_d = _lm_deploy(torch, "lm-gemma-dense", "gemma3-1b", False, LONG_LEN,
+                        params=pipe.params)
+    outs_d, launches_d = lm_serve(torch, card, "lm-gemma-dense", pipe_d, prompts, expect)
+    paged, dense = [o.token_ids for o in outs], [o.token_ids for o in outs_d]
+    part = near_tie_partings(torch, "lm-gemma-dense-vs-paged", pipe, prompts,
+                             [SamplingParams(max_new_tokens=GEN)] * len(prompts), paged,
+                             dense, engine_kw=dict(max_len=LONG_LEN), first_token_ties=True)
+    log(f"[lm-gemma] dense vs paged: {sum(a == b for a, b in zip(paged, dense))}/"
+        f"{len(prompts)} streams token-identical, {len(part)} part, each at a near tie; "
+        f"paged_attn launches over both runs {launches['paged_attn'] + launches_d['paged_attn']}")
+    del pipe, pipe_d
+    torch.cuda.empty_cache()
+    return _add(dict(launches), launches_d)
+
+
+def vlm_phase(torch, card):
+    """[vlm]: llava-next-mistral-7b at int4, full width and depth (32
+    layers), dense (as in the reference); each request carries seeded
+    random image embeddings (1, 576, 4096) ahead of 16-48 text tokens x
+    32 new tokens. A second run repeats every stream, and the kernel
+    bundle agrees with the torch bundle on live slots. Returns the
+    launches of the measured run."""
+    pipe = _lm_deploy(torch, "vlm", "llava-next-mistral-7b", False, LONG_LEN)
+    cfg, dev = pipe.cfg, pipe.engine.device
+    L = cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    prompts = [dict(p, img_embeds=0.02 * torch.randn((1, cfg.num_patches, cfg.d_model),
+                                                     generator=g, device=dev))
+               for p in _lm_prompts(np.random.default_rng(SEED + 22), cfg.vocab_size,
+                                    16, 48)]
+    expect = {"qmm": 7 * L, "qmm_naf": 0, "paged_attn": 0, "fasst_act": L}
+    outs, launches = lm_serve(torch, card, "vlm", pipe, prompts, expect)
+    from repro_torch.serving import SamplingParams
+    again = pipe.generate(prompts, SamplingParams(max_new_tokens=GEN))
+    if [o.token_ids for o in again] != [o.token_ids for o in outs]:
+        raise AssertionError("[vlm] a second run changed a stream")
+    err = routes_agree(torch, pipe, prompts, "vlm-routes")
+    log(f"[vlm] {len(outs)} requests of {cfg.num_patches} image rows + 16-48 tokens: a "
+        f"second run repeats every stream; kernels vs torch bundle {err:.4g}")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+LM_PHASES = (("lm", lm_phase), ("lm-gemma", lm_gemma_phase), ("vlm", vlm_phase))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2661,10 +3087,7 @@ def main() -> int:
                check_paged_attn(torch, dev), check_fasst(torch, dev),
                check_decode_attn(torch, dev), check_fasst_softmax(torch, dev)]
     for e in entries:
-        log(f"[time] {e['name']}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
-            f"library {fmt_ms(e['library_ms'])}, bound {e['bound_ms']:.4f} ms "
-            f"({e['bound_by']}); device only: kernel {fmt_ms(e['device_ms'])}, library "
-            f"{fmt_ms(e['library_device_ms'])} — {e['work']}; on {card}")
+        log_time(e, card)
     q = entries[0]
     for m in q["prefill_ms"]:
         log(f"[time] qmm prefill {m}: kernel {q['prefill_ms'][m]:.4f} ms, plain "
@@ -2710,27 +3133,49 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     api_launches = api_path(torch, pipe_d)
+    del pipe, pipe_d, runs
+    torch.cuda.empty_cache()
+
+    # the decoder-only LMs: the kernels at qwen2.5-14b's served shapes,
+    # then one deploy at a time, each freed before the next
+    t0 = time.perf_counter()
+    lm_kernels = check_lm_kernels(torch, dev)
+    for e in entries:
+        if e["name"] in lm_kernels:
+            e.update(lm_kernels[e["name"]])
+            log_time(e, card, "lm_")
+    log(f"[lm-kernels] took {time.perf_counter() - t0:.1f} s")
+    for name, phase in LM_PHASES:
+        t0 = time.perf_counter()
+        phase_launches[name] = phase(torch, card)
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
 
     by_run = {**phase_launches["spec"], "faults": phase_launches["faults"],
               "quant": phase_launches["quant"], "train": phase_launches["train"],
-              "eval": phase_launches["eval"]}
+              "eval": phase_launches["eval"], "lm": phase_launches["lm"],
+              "lm_gemma": phase_launches["lm-gemma"], "vlm": phase_launches["vlm"]}
     for e in entries:
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
-        for run, counts in by_run.items():   # spec, spec_dense, faults, quant, train, eval
+        # spec, spec_dense, faults, quant, train, eval, lm, lm_gemma, vlm
+        for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
                                 for e in entries))
     log("kernels in [train] / [eval]: " + ", ".join(
         f"{e['name']}={e['launches_train']} / {e['launches_eval']}" for e in entries))
+    log("kernels in [lm] / [lm-gemma] / [vlm]: " + ", ".join(
+        f"{e['name']}={e['launches_lm']} / {e['launches_lm_gemma']} / {e['launches_vlm']}"
+        for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
-            "launches_eval", "max_abs_err",
+            "launches_eval", "launches_lm", "launches_lm_gemma", "launches_vlm",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
-                                   if k in keys or k.startswith("prefill_")}
+                                   if k in keys or k.startswith(("prefill_", "lm_"))}
                                   for e in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,10 @@
+"""internlm2-20b [dense] — GQA kv=8 [arXiv:2403.17297; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-20b", family="dense",
+    num_layers=48, d_model=6144, num_heads=48, num_kv_heads=8, head_dim=128,
+    d_ff=16384, vocab_size=92544, mlp_act="silu_glu",
+    rope_theta=1e6, norm_eps=1e-5,
+    source="[arXiv:2403.17297; hf:internlm/internlm2-20b]",
+)

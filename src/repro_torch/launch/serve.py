@@ -1,4 +1,5 @@
-"""Serving launcher: quantized NMT inference, the paper's deployment mode.
+"""Serving launcher: quantized NMT inference, the paper's deployment mode,
+and the decoder-only LMs of the registry (random 4-7 token prompts).
 
 One deploy() call builds the quantized pipeline; the engine schedules
 admission and slots. The launcher submits requests and prints each
@@ -29,6 +30,8 @@ factor above 1 raises until the scale-out slice. ``--device`` (default
       --paged --draft-spec nf4 --requests 8 --gen 16 --max-len 128
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --policy int4 --requests 6 --gen 8 --temperature 0.7 --top-p 0.9
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --smoke \\
+      --device cpu --paged --requests 3 --gen 8 --max-len 32
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import re
 import time
 from typing import Optional, Sequence, Tuple
 
+from .. import random as prng
 from ..configs import REGISTRY
 from ..core import ALIASES, resolve_spec
 from ..data import SyntheticTranslation
@@ -158,7 +162,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = pipe.cfg
     # sources up to the engine's cross capacity (default enc_len); the
     # decoder budget (1-token language-code prompt + gen) is independent
-    ds = SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=0)
+    ds = SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=0) \
+        if cfg.family == "encdec" else None
 
     metrics_srv = None
     if args.metrics_port is not None:
@@ -172,8 +177,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                             top_p=args.top_p, eos_id=args.eos_id,
                             max_new_tokens=args.gen, seed=i,
                             deadline_ms=args.deadline_ms)
-        b = ds.sample(1)
-        req = {"src_tokens": b["src_tokens"], "tgt_in": b["tgt_in"][:, :1]}
+        if ds is not None:
+            b = ds.sample(1)
+            req = {"src_tokens": b["src_tokens"], "tgt_in": b["tgt_in"][:, :1]}
+        else:
+            # the reference launcher's prompts: randint(PRNGKey(i)), 4-7
+            # tokens (bucketing keeps the prefill shapes few)
+            req = {"tokens": prng.randint(prng.prng_key(i), (1, 4 + i % 4), 0,
+                                          cfg.vocab_size)}
         # backpressure: a saturated queue is a typed signal, not a crash —
         # run one scheduler round and retry with backoff
         backoff = 0.01

@@ -2,7 +2,8 @@
 
 build_model(cfg, device) -> ModelAPI with
   init(generator | key)              -> params (a key from random.prng_key(seed)
-                                        draws the reference's init for that seed)
+                                        draws the reference's init for that seed;
+                                        enc-dec only, an LM raises on a key)
   forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced)
   init_cache(batch, max_len, kv)     -> dense prefill cache
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
@@ -11,10 +12,16 @@ build_model(cfg, device) -> ModelAPI with
   decode_step(ctx, params, tok, c)   -> (cache, logits)   (dense or paged)
 decode_block(model, ctx, params, tokens, cache) -> (cache, logits (B, K, V))
 
-Batches are dicts: {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]};
+decode_step dispatches on the cache layout: a cache carrying
+``block_tables`` runs the paged attention path, anything else the dense
+path.
+
+Batches are dicts:
+  LM families (dense, vlm): {"tokens" (B,S)[, "img_embeds" (B,P,d) for
+                             vlm][, "lengths"]}
+  enc-dec:                  {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}
 ``forward`` also takes numpy arrays (a ``data`` batch), moved to the
-model's device.
-This slice ports the enc-dec family; the others raise.
+model's device. The MoE, SSM, hybrid and audio families raise.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from ..unported import later
 from . import encdec as ed
+from . import transformer as tf
 
 __all__ = ["ModelAPI", "build_model", "decode_block"]
 
@@ -58,7 +66,40 @@ def decode_block(model: ModelAPI, ctx, params, tokens, cache):
     return cache, torch.stack(logits, dim=1)
 
 
+def _on(device, batch, key):
+    v = batch.get(key)
+    return None if v is None else torch.as_tensor(v, device=device)
+
+
+def _lm_model(cfg, device) -> ModelAPI:
+    def forward(ctx, params, batch, remat=False):
+        logits, aux, _ = tf.lm_forward(ctx, params, cfg, _on(device, batch, "tokens"),
+                                       img_embeds=_on(device, batch, "img_embeds"),
+                                       remat=remat)
+        return logits, aux
+
+    def init_cache(batch_size, max_len, kv_dtype="bf16"):
+        return tf.lm_init_cache(cfg, batch_size, max_len, kv_dtype, device)
+
+    def prefill(ctx, params, cache, batch):
+        return tf.lm_prefill(ctx, params, cfg, batch["tokens"], cache,
+                             lengths=batch.get("lengths"),
+                             img_embeds=batch.get("img_embeds"))
+
+    def decode_step(ctx, params, tokens, cache):
+        return tf.lm_decode_step(ctx, params, cfg, tokens, cache)
+
+    def init_paged_cache(slots, max_pages, num_pages, page_size, kv_dtype="bf16"):
+        return tf.lm_init_paged_cache(cfg, slots, max_pages, num_pages, page_size,
+                                      kv_dtype, device)
+
+    return ModelAPI(cfg, lambda g: tf.lm_init(g, cfg), forward, init_cache, prefill,
+                    decode_step, init_paged_cache)
+
+
 def build_model(cfg, device="cuda") -> ModelAPI:
+    if cfg.family in ("dense", "vlm") and cfg.moe is None:
+        return _lm_model(cfg, device)
     if cfg.family != "encdec":
         raise later(f"model family {cfg.family!r}", 4)
 

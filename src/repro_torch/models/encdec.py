@@ -18,12 +18,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.qlinear import embed_lookup
-from ..core.qtensor import QTensor, maybe_dequantize
 from ..random import normal, split
 from ..unported import later
-from .layers import Ctx, attn_apply, decode_attn_apply, mlp, rms_norm
-from .transformer import (SCALED_KV, _commit_decode_position, _dense_kv,
-                          _scatter_tokens, paged_attn, paged_view)
+from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, mlp,
+                     mlp_init, normal_init, rms_norm)
+from .transformer import (SCALED_KV, _commit_decode_position, _commit_prefill,
+                          _dense_kv, _head, _kv_layout, _kv_leaves, _layer,
+                          _positions, _scatter_tokens, _self_leaves, paged_attn,
+                          paged_view)
 
 __all__ = ["encdec_init", "encdec_encode", "encdec_forward", "encdec_init_cache",
            "encdec_init_paged_cache", "encdec_prefill", "encdec_decode_step",
@@ -33,26 +35,6 @@ __all__ = ["encdec_init", "encdec_encode", "encdec_forward", "encdec_init_cache"
 def _check_family(cfg):
     if cfg.moe is not None:
         raise later(f"{cfg.name}: the MoE encoder-decoder", 4)
-
-
-def _normal(g, shape, scale):
-    return torch.randn(shape, generator=g, device=g.device,
-                       dtype=torch.float32) * scale
-
-
-def _attn_init(g, L, cfg):
-    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    s = d ** -0.5
-    return {"wq": _normal(g, (L, d, H * hd), s),
-            "wk": _normal(g, (L, d, Hkv * hd), s),
-            "wv": _normal(g, (L, d, Hkv * hd), s),
-            "wo": _normal(g, (L, H * hd, d), (H * hd) ** -0.5)}
-
-
-def _mlp_init(g, L, cfg):
-    d, ff = cfg.d_model, cfg.d_ff
-    return {"w_in": _normal(g, (L, d, ff), d ** -0.5),
-            "w_out": _normal(g, (L, ff, d), ff ** -0.5)}
 
 
 def _init_from_key(key: torch.Tensor, cfg):
@@ -120,34 +102,21 @@ def encdec_init(g, cfg):
         return torch.ones(shape + (d,), dtype=torch.float32, device=g.device)
 
     params = {
-        "embedding": _normal(g, (cfg.vocab_size, d), 0.02),
+        "embedding": normal_init(g, (cfg.vocab_size, d), 0.02),
         "encoder": {
-            "layers": {"attn": _attn_init(g, Le, cfg), "norm1_scale": ones(Le),
-                       "norm2_scale": ones(Le), "mlp": _mlp_init(g, Le, cfg)},
+            "layers": {"attn": attention_init(g, Le, cfg), "norm1_scale": ones(Le),
+                       "norm2_scale": ones(Le), "mlp": mlp_init(g, Le, cfg)},
             "norm_f_scale": ones()},
         "decoder": {
-            "layers": {"attn": _attn_init(g, Ld, cfg),
-                       "cross": _attn_init(g, Ld, cfg),
+            "layers": {"attn": attention_init(g, Ld, cfg),
+                       "cross": attention_init(g, Ld, cfg),
                        "norm1_scale": ones(Ld), "norm2_scale": ones(Ld),
-                       "norm3_scale": ones(Ld), "mlp": _mlp_init(g, Ld, cfg)},
+                       "norm3_scale": ones(Ld), "mlp": mlp_init(g, Ld, cfg)},
             "norm_f_scale": ones()},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = _normal(g, (d, cfg.vocab_size), d ** -0.5)
+        params["lm_head"] = normal_init(g, (d, cfg.vocab_size), d ** -0.5)
     return params
-
-
-def _layer(tree, i: int):
-    """Layer ``i`` of a layer-stacked parameter tree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    if isinstance(tree, QTensor):
-        return tree.select(i)
-    return tree[i]
-
-
-def _positions(B: int, S: int, device):
-    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
 def _remat(body, remat: bool):
@@ -208,17 +177,6 @@ def _cross_kv(ctx, lp, cfg, enc_out):
     return k, v
 
 
-def _head(ctx, params, cfg, x):
-    if cfg.tie_embeddings:
-        # a plain product with the dequantized embedding, outside any
-        # kernel (as in the reference)
-        w = maybe_dequantize(params["embedding"], ctx.compute_dtype)
-        logits = torch.matmul(x.to(ctx.compute_dtype), w.t())
-    else:
-        logits = ctx.dot(x, params["lm_head"], site="head")
-    return logits.to(torch.float32)
-
-
 def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens,
                    remat: bool = False):
     """Teacher-forced decoder pass over tgt_tokens (B, Sd) given
@@ -240,33 +198,6 @@ def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens,
         x = body_fn(x, _layer(params["decoder"]["layers"], i), enc_out)
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
     return _head(ctx, params, cfg, x), torch.zeros((), dtype=torch.float32, device=dev)
-
-
-def _kv_layout(cache) -> str:
-    """"int8" (codes + scales), "fp8" (float8 K/V + scales, no codes) or
-    "float" (bf16 / f32 K/V): the key test every cache reader goes
-    through, so fp8 codes are never read as unscaled K/V."""
-    if "k_codes" in cache:
-        return "int8"
-    return "fp8" if "k_scales" in cache else "float"
-
-
-_KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-
-
-def _kv_leaves(prefix: str, L, B, S, Hkv, hd, kv_dtype, device):
-    if kv_dtype in SCALED_KV:
-        dt, sfx, _ = SCALED_KV[kv_dtype]
-        return {f"{prefix}k{sfx}": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
-                f"{prefix}k_scales": torch.zeros((L, B, S, Hkv), device=device),
-                f"{prefix}v{sfx}": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
-                f"{prefix}v_scales": torch.zeros((L, B, S, Hkv), device=device)}
-    if kv_dtype not in _KV_DTYPES:
-        raise ValueError(f"KV cache format must be one of "
-                         f"{sorted(SCALED_KV) + sorted(_KV_DTYPES)}, got {kv_dtype!r}")
-    dt = _KV_DTYPES[kv_dtype]
-    return {f"{prefix}k": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
-            f"{prefix}v": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device)}
 
 
 def encdec_init_cache(cfg, batch: int, max_len: int, enc_len: int,
@@ -303,23 +234,15 @@ def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens,
 
     lens = lengths if lengths is not None else torch.full(
         (B,), Sd, dtype=torch.int32, device=dev)
-    new = dict(cache)
+    new = _commit_prefill(dict(cache), ks, vs, lens)
     layout = _kv_layout(cache)
     if layout != "float":
         _, sfx, qfn = SCALED_KV[layout]
-        for name, t in (("k", ks), ("v", vs)):
-            codes, scales = qfn(t)
-            new[f"{name}{sfx}"][:, :, :Sd] = codes
-            new[f"{name}_scales"][:, :, :Sd] = scales
         for name, t in (("k", cks), ("v", cvs)):
             new[f"cross_{name}{sfx}"], new[f"cross_{name}_scales"] = qfn(t)
     else:
         new["cross_k"] = cks.to(cache["cross_k"].dtype)
         new["cross_v"] = cvs.to(cache["cross_v"].dtype)
-        new["k"][:, :, :Sd] = ks.to(cache["k"].dtype)
-        new["v"][:, :, :Sd] = vs.to(cache["v"].dtype)
-    new["pos"][:, :Sd] = torch.where(positions < lens[:, None], positions, -1)
-    new["len"] = lens.to(torch.int32)
     new["cross_len"] = torch.full((B,), Se, dtype=torch.int32, device=dev)
     return new, logits
 
@@ -352,11 +275,10 @@ def _enc_positions(cache, B: int, Se: int, device):
 def _layer_kv(cache, i: int, layout: str):
     """Layer ``i``'s self-attention leaves (the cache's own tensors, for
     in-place writes) and its dense cross-attention K / V."""
+    leaves = _self_leaves(cache, i, layout)
     if layout == "float":
-        return (cache["k"][i], cache["v"][i]), cache["cross_k"][i], cache["cross_v"][i]
+        return leaves, cache["cross_k"][i], cache["cross_v"][i]
     sfx = SCALED_KV[layout][1]
-    leaves = (cache[f"k{sfx}"][i], cache["k_scales"][i],
-              cache[f"v{sfx}"][i], cache["v_scales"][i])
     ck = _dense_kv(cache[f"cross_k{sfx}"][i], cache["cross_k_scales"][i])
     cv = _dense_kv(cache[f"cross_v{sfx}"][i], cache["cross_v_scales"][i])
     return leaves, ck, cv

@@ -19,10 +19,10 @@ from ..core.qlinear import (act_quant_eligible, qmatmul, qmm_route,
                             quantize_activations, static_scale)
 from ..kernels.fasst import _naf
 from ..kernels.qmm import DECODE_MAX_M
-from ..unported import later
 
 __all__ = ["Ctx", "rms_norm", "rope", "linear", "mlp", "fuses_naf", "attn_apply",
-           "decode_attn_apply"]
+           "decode_attn_apply", "GLU_ACTS", "PLAIN_ACTS", "normal_init",
+           "attention_init", "mlp_init"]
 
 _MATMUL_IMPLS = ("torch", "kernel")
 _PAGED_ATTN_IMPLS = ("gather", "kernel")
@@ -162,8 +162,46 @@ def linear(ctx: Ctx, x, w, b=None, site=None):
     return y
 
 
+GLU_ACTS = {"silu_glu": "silu", "gelu_glu": "gelu", "relu_glu": "relu"}
 PLAIN_ACTS = {"squared_relu": "squared_relu", "gelu": "gelu", "relu": "relu",
               "silu": "silu"}
+
+
+def normal_init(g, shape, scale):
+    """A float32 normal draw from the torch.Generator ``g``, on its device,
+    times ``scale``."""
+    return torch.randn(shape, generator=g, device=g.device, dtype=torch.float32) * scale
+
+
+def attention_init(g, L: int, cfg):
+    """Stacked (L, ...) attention weights with the reference's shapes and
+    scales (zero QKV biases with ``qkv_bias``, unit q / k norm scales with
+    ``qk_norm``), drawn from the torch.Generator ``g``."""
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = d ** -0.5
+    p = {"wq": normal_init(g, (L, d, H * hd), s),
+         "wk": normal_init(g, (L, d, Hkv * hd), s),
+         "wv": normal_init(g, (L, d, Hkv * hd), s),
+         "wo": normal_init(g, (L, H * hd, d), (H * hd) ** -0.5)}
+    if cfg.qkv_bias:
+        for name, width in (("q", H * hd), ("k", Hkv * hd), ("v", Hkv * hd)):
+            p[f"bias_{name}"] = torch.zeros((L, width), device=g.device)
+    if cfg.qk_norm:
+        p["q_norm_scale"] = torch.ones((L, hd), device=g.device)
+        p["k_norm_scale"] = torch.ones((L, hd), device=g.device)
+    return p
+
+
+def mlp_init(g, L: int, cfg):
+    """Stacked (L, ...) FFN weights: w_gate / w_up / w_down for a GLU
+    activation, w_in / w_out otherwise."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act in GLU_ACTS:
+        return {"w_gate": normal_init(g, (L, d, ff), d ** -0.5),
+                "w_up": normal_init(g, (L, d, ff), d ** -0.5),
+                "w_down": normal_init(g, (L, ff, d), ff ** -0.5)}
+    return {"w_in": normal_init(g, (L, d, ff), d ** -0.5),
+            "w_out": normal_init(g, (L, ff, d), ff ** -0.5)}
 
 
 def fuses_naf(ctx: Ctx, w, x) -> bool:
@@ -177,9 +215,16 @@ def fuses_naf(ctx: Ctx, w, x) -> bool:
 
 
 def mlp(ctx: Ctx, params, x, act: str, site="ffn"):
-    """Two-layer FFN (the GLU variants come with the LM families)."""
+    """Two-layer FFN, or a gated (GLU) FFN: naf(x @ w_gate) * (x @ w_up)
+    then w_down. A GLU gate's activation goes through ``ctx.naf`` (the
+    FASST kernel when it is on); a plain FFN's rides in qmm's epilogue
+    where ``fuses_naf`` says so."""
+    if act in GLU_ACTS:
+        h = ctx.naf(ctx.dot(x, params["w_gate"], site=f"{site}.in"), GLU_ACTS[act])
+        h = h * ctx.dot(x, params["w_up"], site=f"{site}.in")
+        return ctx.dot(h, params["w_down"], site=f"{site}.out")
     if act not in PLAIN_ACTS:
-        raise later(f"FFN activation {act!r}", 4)
+        raise ValueError(f"unknown FFN activation {act!r}")
     mode, w_in = PLAIN_ACTS[act], params["w_in"]
     # the NAF rides in qmm's epilogue at decode rows, where it saves the
     # FASST launch; at prefill rows qmm then the FASST kernel is faster
@@ -191,14 +236,29 @@ def mlp(ctx: Ctx, params, x, act: str, site="ffn"):
     return ctx.dot(h, params["w_out"], site=f"{site}.out")
 
 
-def _mask(pos_q, pos_k, causal: bool):
-    """Attention mask (..., Sq, Sk). pos_k < 0 marks invalid cache slots."""
+def _mask(pos_q, pos_k, causal: bool, window: int = 0):
+    """Attention mask (..., Sq, Sk). pos_k < 0 marks invalid cache slots;
+    ``window`` > 0 keeps keys less than ``window`` positions from the
+    query either way (gemma3's local layers), 0 the full span."""
     pq = pos_q[..., :, None]
     pk = pos_k[..., None, :]
     m = pk >= 0
     if causal:
         m = m & (pk <= pq)
+    if window:
+        m = m & ((pq - pk) < window) & ((pk - pq) < window)
     return m
+
+
+def _qk_norm(params, q, k, norm_eps):
+    """The per-head q / k RMS norm of a ``qk_norm`` layer (k None: a
+    cross-attention's precomputed keys stay as they are)."""
+    if "q_norm_scale" not in params:
+        return q, k
+    q = rms_norm(q, params["q_norm_scale"], norm_eps)
+    if k is not None:
+        k = rms_norm(k, params["k_norm_scale"], norm_eps)
+    return q, k
 
 
 def _sdpa(ctx: Ctx, q, k, v, mask, sm_scale, site="attn"):
@@ -212,8 +272,8 @@ def _sdpa(ctx: Ctx, q, k, v, mask, sm_scale, site="attn"):
 
 
 def attn_apply(ctx: Ctx, params, x, positions, *, num_heads, num_kv_heads,
-               head_dim, causal=True, rope_theta=1e4, kv_override=None,
-               use_rope=True, site="attn"):
+               head_dim, causal=True, window=0, rope_theta=1e4, kv_override=None,
+               use_rope=True, norm_eps=1e-6, site="attn"):
     """Self- (or cross-, via kv_override) attention block body."""
     B, S, _ = x.shape
     H, Hkv = num_heads, num_kv_heads
@@ -226,14 +286,16 @@ def attn_apply(ctx: Ctx, params, x, positions, *, num_heads, num_kv_heads,
         v = linear(ctx, x, params["wv"], params.get("bias_v"), site=qkv).reshape(
             B, S, Hkv, head_dim)
         pos_k = positions
+        q, k = _qk_norm(params, q, k, norm_eps)
     else:
         k, v, pos_k = kv_override          # precomputed (cross-attn / cache)
+        q, _ = _qk_norm(params, q, None, norm_eps)
     if use_rope:
         q = rope(q, positions, rope_theta)
         if kv_override is None:
             k = rope(k, pos_k, rope_theta)
     qg = q.reshape(B, S, Hkv, H // Hkv, head_dim)
-    mask = _mask(positions, pos_k, causal)
+    mask = _mask(positions, pos_k, causal, window)
     if mask.ndim == 2:
         mask = mask[None]
     mask = mask.expand((B,) + tuple(mask.shape[-2:]))
@@ -245,7 +307,7 @@ def attn_apply(ctx: Ctx, params, x, positions, *, num_heads, num_kv_heads,
 
 def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
                       cache_positions, *, num_heads, num_kv_heads, head_dim,
-                      rope_theta=1e4, site="attn"):
+                      window=0, rope_theta=1e4, norm_eps=1e-6, site="attn"):
     """One-token decode against a dense (dequantized) KV view.
 
     x (B, 1, d); cache_k/v (B, Smax, Hkv, hd); cache_positions (B, Smax)
@@ -264,6 +326,7 @@ def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
         B, 1, Hkv, head_dim)
     v_new = linear(ctx, x, params["wv"], params.get("bias_v"), site=qkv).reshape(
         B, 1, Hkv, head_dim)
+    q, k_new = _qk_norm(params, q, k_new, norm_eps)
     q = rope(q, positions, rope_theta)
     k_new = rope(k_new, positions, rope_theta)
 
@@ -272,7 +335,7 @@ def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
     cd = qg.dtype
     s_cache = ctx.attn_dot("bqhgd,bkhd->bhgqk", qg, cache_k.to(cd),
                            site=f"{site}.qk") * sm_scale
-    mask = _mask(positions, cache_positions, causal=True)      # (B,1,S)
+    mask = _mask(positions, cache_positions, True, window)     # (B,1,S)
     s_cache = torch.where(mask[:, None, None, :, :], s_cache, -1e30)
     s_new = ctx.attn_dot("bqhgd,bqhd->bhgq", qg, k_new.to(cd),
                          site=f"{site}.qk")[..., None] * sm_scale

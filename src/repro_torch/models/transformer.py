@@ -1,23 +1,125 @@
-"""Paged decode self-attention and KV-cache helpers shared by the
-decoder families (the enc-dec path of this slice uses them; the LM
-family comes with a later slice).
+"""Decoder-only LMs (the dense and VLM families), and the paged decode
+self-attention and KV-cache helpers that the decoder families share.
 
-The page pools are updated in place: the fresh token's K/V is written
-into its page, and the caller keeps the same pool tensors.
+One skeleton: embed (times sqrt(d) when ``embed_scale``; a VLM prepends
+its stub patch embeddings) -> the layer stack -> final norm -> head
+(the tied, dequantized embedding or ``lm_head``). Each layer is pre-norm
+self-attention (GQA, optional QKV bias and q/k RMS norm, a per-layer
+local window from ``window_pattern``) then the FFN (GLU or plain).
+Layer parameters are stacked on a leading ``L`` axis, as in the
+reference; the stacks run as Python loops over per-layer slices.
+
+Serving caches are updated in place: prefill writes into the cache it is
+given, and a decode step writes the fresh token into its dense row or
+its page. A cache holds its K/V in one of three layouts, told apart by
+its keys (``_kv_layout``): int8 (``k_codes`` + ``k_scales``), fp8
+(float8 ``k`` + ``k_scales``) or float (``k`` alone).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.qlinear import f32_reciprocal
+from ..core.qlinear import embed_lookup, f32_reciprocal
+from ..core.qtensor import QTensor, maybe_dequantize
 from ..kernels.decode_attn import quantize_token_kv as _quantize_token_kv
 from ..kernels.paging import gather_pages, scatter_token
-from .layers import decode_attn_apply, linear, rope
+from ..unported import later
+from .layers import (Ctx, _qk_norm, attention_init, attn_apply, decode_attn_apply,
+                     linear, mlp, mlp_init, normal_init, rms_norm, rope)
 
 __all__ = ["paged_view", "paged_attn", "SCALED_KV", "_quantize_token_kv",
            "_fp8_token_kv", "_token_kv_quantizer", "_dense_kv", "_scatter_tokens",
-           "_commit_decode_position"]
+           "_commit_decode_position", "window_array", "lm_init", "lm_forward",
+           "lm_init_cache", "lm_init_paged_cache", "lm_prefill", "lm_decode_step",
+           "lm_paged_decode_step"]
+
+
+# ---------------------------------------------------------------------------
+# shared helpers: layer slices, positions, the head, cache layouts
+# ---------------------------------------------------------------------------
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return tree.select(i)
+    return tree[i]
+
+
+def _positions(B: int, S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def _head(ctx: Ctx, params, cfg, x):
+    """Logits of the final-normed ``x``: the tied embedding, dequantized,
+    in a plain product outside any kernel (as in the reference), or the
+    ``lm_head`` matmul."""
+    if cfg.tie_embeddings:
+        w = maybe_dequantize(params["embedding"], ctx.compute_dtype)
+        logits = torch.matmul(x.to(ctx.compute_dtype), w.t())
+    else:
+        logits = ctx.dot(x, params["lm_head"], site="head")
+    return logits.to(torch.float32)
+
+
+def _kv_layout(cache) -> str:
+    """"int8" (codes + scales), "fp8" (float8 K/V + scales, no codes) or
+    "float" (bf16 / f32 K/V): the key test every cache reader goes
+    through, so fp8 codes are never read as unscaled K/V."""
+    if "k_codes" in cache:
+        return "int8"
+    return "fp8" if "k_scales" in cache else "float"
+
+
+_KV_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _kv_leaves(prefix: str, L, B, S, Hkv, hd, kv_dtype, device):
+    if kv_dtype in SCALED_KV:
+        dt, sfx, _ = SCALED_KV[kv_dtype]
+        return {f"{prefix}k{sfx}": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
+                f"{prefix}k_scales": torch.zeros((L, B, S, Hkv), device=device),
+                f"{prefix}v{sfx}": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
+                f"{prefix}v_scales": torch.zeros((L, B, S, Hkv), device=device)}
+    if kv_dtype not in _KV_DTYPES:
+        raise ValueError(f"KV cache format must be one of "
+                         f"{sorted(SCALED_KV) + sorted(_KV_DTYPES)}, got {kv_dtype!r}")
+    dt = _KV_DTYPES[kv_dtype]
+    return {f"{prefix}k": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device),
+            f"{prefix}v": torch.zeros((L, B, S, Hkv, hd), dtype=dt, device=device)}
+
+
+def _self_leaves(cache, i: int, layout: str):
+    """Layer ``i``'s self-attention K/V leaves: the cache's own tensors,
+    for in-place writes; (k, v) or (codes, scales, codes, scales)."""
+    if layout == "float":
+        return cache["k"][i], cache["v"][i]
+    sfx = SCALED_KV[layout][1]
+    return (cache[f"k{sfx}"][i], cache["k_scales"][i],
+            cache[f"v{sfx}"][i], cache["v_scales"][i])
+
+
+def _commit_prefill(cache, ks, vs, lens):
+    """Write a prompt's layer-stacked K/V (L, B, S, Hkv, hd) into the
+    dense cache's first S positions (quantized on int8 / fp8 caches), in
+    place, with its positions (-1 past each length) and lengths."""
+    B, S = ks.shape[1], ks.shape[2]
+    layout = _kv_layout(cache)
+    if layout != "float":
+        _, sfx, qfn = SCALED_KV[layout]
+        for name, t in (("k", ks), ("v", vs)):
+            codes, scales = qfn(t)
+            cache[f"{name}{sfx}"][:, :, :S] = codes
+            cache[f"{name}_scales"][:, :, :S] = scales
+    else:
+        cache["k"][:, :, :S] = ks.to(cache["k"].dtype)
+        cache["v"][:, :, :S] = vs.to(cache["v"].dtype)
+    positions = _positions(B, S, ks.device)
+    cache["pos"][:, :S] = torch.where(positions < lens[:, None], positions, -1)
+    cache["len"] = lens.to(torch.int32)
+    return cache
 
 
 def paged_view(cache):
@@ -52,7 +154,7 @@ def _token_kv_quantizer(codes_dtype):
 
 def paged_attn(ctx, ap, x, positions, leaves, view_pos, pid, off, lengths_now,
                tables, *, use_kernel, num_heads, num_kv_heads, head_dim,
-               rope_theta=1e4, site="attn"):
+               window=0, rope_theta=1e4, norm_eps=1e-6, site="attn"):
     """One layer of paged decode self-attention + KV commit.
 
     The gather path attends a dense chain view through decode_attn_apply
@@ -60,13 +162,15 @@ def paged_attn(ctx, ap, x, positions, leaves, view_pos, pid, off, lengths_now,
     path commits first and attends the whole chain in the kernel.
     ``leaves`` is (k, v) for bf16/f32 pages or (codes, scales, codes,
     scales) for int8 / fp8 pages (the codes dtype picks the token
-    quantizer). Returns (attn_out_projection, leaves).
+    quantizer). The kernel has no local-window mask: a caller with a
+    ``window`` passes ``use_kernel=False``. Returns (attn_out_projection,
+    leaves).
     """
     if use_kernel:
         return _paged_attn_kernel_apply(
             ctx, ap, x, positions, leaves, pid, off, lengths_now, tables,
             num_heads=num_heads, num_kv_heads=num_kv_heads,
-            head_dim=head_dim, rope_theta=rope_theta, site=site)
+            head_dim=head_dim, rope_theta=rope_theta, norm_eps=norm_eps, site=site)
     if len(leaves) == 4:                       # int8 / fp8 pages
         kc, ksc, vc, vsc = leaves
         k_dense = _dense_kv(gather_pages(kc, tables), gather_pages(ksc, tables))
@@ -78,7 +182,7 @@ def paged_attn(ctx, ap, x, positions, leaves, view_pos, pid, off, lengths_now,
     y, k_new, v_new = decode_attn_apply(
         ctx, ap, x, positions, k_dense, v_dense, view_pos,
         num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
-        rope_theta=rope_theta, site=site)
+        window=window, rope_theta=rope_theta, norm_eps=norm_eps, site=site)
     _commit_token(leaves, k_new, v_new, pid, off)
     return y, leaves
 
@@ -103,7 +207,7 @@ def _commit_token(leaves, k_new, v_new, pid, off):
 
 def _paged_attn_kernel_apply(ctx, ap, x, positions, leaves, pid, off,
                              lengths_now, tables, *, num_heads, num_kv_heads,
-                             head_dim, rope_theta=1e4, site="attn"):
+                             head_dim, rope_theta=1e4, norm_eps=1e-6, site="attn"):
     """Paged decode attention through the paged-attention kernel.
 
     Write-then-attend: the new token's K/V is committed to its page first
@@ -119,6 +223,7 @@ def _paged_attn_kernel_apply(ctx, ap, x, positions, leaves, pid, off,
     q = linear(ctx, x, ap["wq"], ap.get("bias_q"), site=qkv).reshape(B, 1, H, hd)
     k_new = linear(ctx, x, ap["wk"], ap.get("bias_k"), site=qkv).reshape(B, 1, Hkv, hd)
     v_new = linear(ctx, x, ap["wv"], ap.get("bias_v"), site=qkv).reshape(B, 1, Hkv, hd)
+    q, k_new = _qk_norm(ap, q, k_new, norm_eps)
     q = rope(q, positions, rope_theta)
     k_new = rope(k_new, positions, rope_theta)
     _commit_token(leaves, k_new, v_new, pid, off)
@@ -183,3 +288,200 @@ def _commit_decode_position(new_cache, cache, positions):
         new_cache["pos"] = _scatter_tokens(cache["pos"], pos_val, cache["len"])
         new_cache["len"] = cache["len"] + (active > 0).to(cache["len"].dtype)
     return new_cache
+
+
+# ---------------------------------------------------------------------------
+# the decoder-only LM: init, forward, caches, prefill, decode
+# ---------------------------------------------------------------------------
+
+def _check_family(cfg):
+    if cfg.moe is not None:
+        raise later(f"{cfg.name}: the MoE layers", 4)
+    if cfg.family not in ("dense", "vlm"):
+        raise later(f"{cfg.name}: the {cfg.family!r} LM layers", 4)
+
+
+def window_array(cfg) -> list:
+    """Per-layer attention window (0 = full): gemma3's 5:1 local:global
+    pattern, cycled over the stack."""
+    pat = cfg.window_pattern or (0,)
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
+def lm_init(g, cfg):
+    """Random parameters with the reference's shapes and scales, drawn
+    from the torch.Generator ``g`` on its device."""
+    if isinstance(g, torch.Tensor):
+        raise later(f"{cfg.name}: model.init from a key (the LM training branches)", 4)
+    _check_family(cfg)
+    L, d = cfg.num_layers, cfg.d_model
+
+    def ones(*shape):
+        return torch.ones(shape + (d,), dtype=torch.float32, device=g.device)
+
+    params = {
+        "embedding": normal_init(g, (cfg.vocab_size, d), 0.02),
+        "layers": {"norm1_scale": ones(L), "norm2_scale": ones(L),
+                   "attn": attention_init(g, L, cfg), "mlp": mlp_init(g, L, cfg)},
+        "norm_f_scale": ones(),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(g, (d, cfg.vocab_size), d ** -0.5)
+    return params
+
+
+def _embed(ctx: Ctx, params, cfg, tokens, img_embeds=None):
+    """Token embeddings (times sqrt(d) rounded to the compute dtype, as
+    the reference scales them), after a VLM's patch embeddings."""
+    x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=ctx.compute_dtype))
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(device=x.device, dtype=ctx.compute_dtype), x], dim=1)
+    return x
+
+
+def _lm_head(ctx: Ctx, params, cfg, x):
+    return _head(ctx, params, cfg, rms_norm(x, params["norm_f_scale"], cfg.norm_eps))
+
+
+def _lm_layer(ctx: Ctx, cfg, lp, window, x, positions):
+    h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+    y, kv = attn_apply(ctx, lp["attn"], h, positions, num_heads=cfg.num_heads,
+                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                       causal=True, window=window, rope_theta=cfg.rope_theta,
+                       norm_eps=cfg.norm_eps)
+    x = x + y
+    h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
+    return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act), kv
+
+
+def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
+               remat: bool = False, collect_kv: bool = False):
+    """tokens (B, S) [after img_embeds (B, P, d)] -> (logits (B, P + S, V)
+    f32, aux_loss, (ks, vs) layer-stacked (L, B, P + S, Hkv, hd) | None)."""
+    if remat:
+        raise later(f"{cfg.name}: remat (the LM training branches)", 4)
+    _check_family(cfg)
+    x = _embed(ctx, params, cfg, tokens, img_embeds)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = _positions(B, S, x.device)
+    ks, vs = [], []
+    for i, window in enumerate(window_array(cfg)):
+        x, (k, v) = _lm_layer(ctx, cfg, _layer(params["layers"], i), window, x, positions)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    return _lm_head(ctx, params, cfg, x), aux, kvs
+
+
+def lm_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16", device="cuda"):
+    """Dense serving cache: K/V at ``max_len`` per slot, ``pos`` -1 where
+    empty, ``len`` per slot."""
+    _check_family(cfg)
+    cache = {"pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
+             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    cache.update(_kv_leaves("", cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                            cfg.head_dim, kv_dtype, device))
+    return cache
+
+
+def lm_init_paged_cache(cfg, slots: int, max_pages: int, num_pages: int,
+                        page_size: int, kv_dtype: str = "bf16", device="cuda"):
+    """Block-paged serving cache: a shared page pool (page 0 the reserved
+    trash page) and a block table of ``max_pages`` entries per slot."""
+    from ..serving.paged_cache import TRASH_PAGE, init_paged_kv
+    _check_family(cfg)
+    cache = init_paged_kv(cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+                          cfg.head_dim, kv_dtype, device)
+    cache["block_tables"] = torch.full((slots, max_pages), TRASH_PAGE,
+                                       dtype=torch.int32, device=device)
+    cache["len"] = torch.zeros((slots,), dtype=torch.int32, device=device)
+    cache["active"] = torch.zeros((slots,), dtype=torch.int32, device=device)
+    return cache
+
+
+def lm_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, img_embeds=None,
+               positions=None):
+    """Run the whole prompt (after a VLM's patches) and fill the cache's
+    first P + S positions. Returns (cache, logits (B, P + S, V))."""
+    logits, _, (ks, vs) = lm_forward(ctx, params, cfg, tokens, positions=positions,
+                                     img_embeds=img_embeds, collect_kv=True)
+    B, S_tot = ks.shape[1], ks.shape[2]
+    lens = lengths if lengths is not None else torch.full(
+        (B,), S_tot, dtype=torch.int32, device=ks.device)
+    return _commit_prefill(dict(cache), ks, vs, lens), logits
+
+
+def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
+    """One decode step, tokens (B, 1) -> (cache, logits (B, 1, V)).
+
+    A cache carrying ``block_tables`` routes to the paged step. A dense
+    cache may carry an optional ``active`` (B,) mask (the engine's
+    horizon loop injects it): inactive slots decode into masked positions
+    (``pos`` stays -1) and their ``len`` freezes. The fresh token's K/V is
+    written into the cache in place (quantized on int8 / fp8 caches)."""
+    if "block_tables" in cache:
+        return lm_paged_decode_step(ctx, params, cfg, tokens, cache)
+    layout = _kv_layout(cache)
+    positions = cache["len"][:, None]
+    x = _embed(ctx, params, cfg, tokens)
+    for i, window in enumerate(window_array(cfg)):
+        lp = _layer(params["layers"], i)
+        leaves = _self_leaves(cache, i, layout)
+        if layout == "float":
+            k_dense, v_dense = leaves
+        else:
+            k_dense, v_dense = _dense_kv(*leaves[:2]), _dense_kv(*leaves[2:])
+        h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+        y, k_new, v_new = decode_attn_apply(
+            ctx, lp["attn"], h, positions, k_dense, v_dense, cache["pos"],
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, window=window, rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps)
+        x = x + y
+        h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+        if layout == "float":
+            new = (k_new, v_new)
+        else:
+            qfn = SCALED_KV[layout][2]
+            new = (*qfn(k_new), *qfn(v_new))
+        for leaf, t in zip(leaves, new):
+            _scatter_tokens(leaf, t, cache["len"])
+    logits = _lm_head(ctx, params, cfg, x)
+    return _commit_decode_position(dict(cache), cache, positions), logits
+
+
+def lm_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
+    """One decode step against a block-paged cache, tokens (B, 1). Idle
+    slots write to the trash page and their length stays frozen."""
+    tables, active = cache["block_tables"], cache["active"]
+    layout = _kv_layout(cache)
+    positions = cache["len"][:, None]
+    view_pos, pid, off = paged_view(cache)
+    x = _embed(ctx, params, cfg, tokens)
+    # the paged-attention kernel has no local-window mask, so an arch
+    # with windows (gemma3's 5:1 pattern, llava's sliding window) takes
+    # the gather route whatever the route bundle asks for. This is the
+    # reference's own rule, not a fallback: its paged step does the same.
+    use_kernel = ctx.paged_attn_impl == "kernel" and not cfg.window_pattern
+    lengths_now = torch.where(active > 0, cache["len"] + 1, 0)
+    for i, window in enumerate(window_array(cfg)):
+        lp = _layer(params["layers"], i)
+        h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+        y, _ = paged_attn(ctx, lp["attn"], h, positions, _self_leaves(cache, i, layout),
+                          view_pos, pid, off, lengths_now, tables, use_kernel=use_kernel,
+                          num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                          head_dim=cfg.head_dim, window=window,
+                          rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+        x = x + y
+        h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
+        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+    logits = _lm_head(ctx, params, cfg, x)
+    new = dict(cache)
+    new["len"] = torch.where(active > 0, cache["len"] + 1, cache["len"])
+    return new, logits

@@ -10,6 +10,7 @@ in both packages:
     key = fold_in(key, t)                # jax.random.fold_in(key, t)
     bits = random_bits(key, (V,))        # jax.random.bits(key, (V,))
     tok = categorical(key, logits)       # jax.random.categorical(key, logits)
+    ids = randint(key, (1, 6), 0, V)     # jax.random.randint(key, (1, 6), 0, V)
     keys = split(key, 4)                 # jax.random.split(key, 4)
     w = normal(keys[0], (64, 96))        # jax.random.normal(keys[0], (64, 96))
 
@@ -33,7 +34,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["prng_key", "fold_in", "split", "threefry2x32", "random_bits", "uniform",
-           "normal", "gumbel", "categorical"]
+           "normal", "gumbel", "categorical", "randint"]
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -98,6 +99,22 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     k2 = key[..., 1].reshape(lead + (1,) * len(shape))
     b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & _MASK)
     return b1 ^ b2
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
+    words of bits per element, from the two halves of ``split(key)``,
+    folded into [minval, maxval) with JAX's uint32 arithmetic (products
+    and sums wrap at 2^32). Returns an int32 tensor of ``shape``."""
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError(f"randint bounds [{minval}, {maxval}) exceed int32")
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = (2 ** 16 % span) ** 2 % 2 ** 32 % span
+    off = (((hi % span) * mult & _MASK) + lo % span) & _MASK
+    return (minval + off % span).to(torch.int32)
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,

@@ -120,6 +120,13 @@ from .spec_decode import DraftArm, accept_longest_prefix
 
 __all__ = ["ServeEngine", "greedy_generate", "translate"]
 
+# the families served so far (the others come with port slice 4)
+_SERVED = ("dense", "vlm", "encdec")
+# families safe to prefill right-padded: attention caches with pos / len
+# masking and token-only prompts (a VLM's logits interleave its image
+# patches, so its last real token is not lengths-derived)
+_PAD_SAFE = ("dense", "moe", "encdec", "audio")
+
 
 @dataclasses.dataclass
 class _Slot:
@@ -170,8 +177,16 @@ class ServeEngine:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         if preempt_limit < 0:
             raise ValueError(f"preempt_limit must be >= 0, got {preempt_limit}")
-        if model.cfg.family != "encdec":
-            raise later(f"serving the {model.cfg.family!r} family", 4)
+        fam = model.cfg.family
+        if fam not in _SERVED:
+            raise later(f"serving the {fam!r} family", 4)
+        if draft is not None and fam not in _PAD_SAFE:
+            raise ValueError(f"speculative decoding supports families {_PAD_SAFE}, "
+                             f"got {fam!r} (the draft / verify loops need pos / "
+                             "len-masked attention caches)")
+        if paged and fam not in _PAD_SAFE:
+            raise ValueError(f"paged serving supports families {_PAD_SAFE}, got "
+                             f"{fam!r} (vlm prompt lengths are not lengths-derived)")
         self.model = model
         self.params = params
         self.ctx = ctx
@@ -180,12 +195,21 @@ class ServeEngine:
         self.max_len = max_len
         self.n_slots = slots
         self.horizon = int(horizon)
-        self.enc_cap = int(max_src_len or model.cfg.enc_len)
+        # enc-dec requests carry a source (cross-attention capacity
+        # enc_cap); LM requests a "tokens" prompt, after a VLM's patches
+        self._enc_dec = fam == "encdec"
+        self.enc_cap = int(max_src_len or model.cfg.enc_len) if self._enc_dec else 0
+        self._tkey = "tgt_in" if self._enc_dec else "tokens"
+        self._bucketed = fam in _PAD_SAFE
+        # dense caches take the horizon's "active" mask (an inactive slot's
+        # writes land masked, its len freezes); paged caches keep their own
+        self._mask_active = not paged and fam in _PAD_SAFE
         self.paged = bool(paged)
         self.page_size = int(page_size)
         self.draft = draft
         self.allocator: Optional[PageAllocator] = None
         kvs = [kv_dtype] + ([draft.kv_dtype] if draft is not None else [])
+        cross = {"enc_len": self.enc_cap} if self._enc_dec else {}
         if self.paged:
             self.max_pages = pages_needed(max_len, self.page_size)
             # a draft arm doubles the default pool: both arms hold a chain
@@ -194,11 +218,10 @@ class ServeEngine:
                 else slots * self.max_pages * len(kvs)
             self.allocator = PageAllocator(usable + 1, reserved=1)
             caches = [model.init_paged_cache(slots, self.max_pages, usable + 1,
-                                             self.page_size, kv, enc_len=self.enc_cap)
+                                             self.page_size, kv, **cross)
                       for kv in kvs]
         else:
-            caches = [model.init_cache(slots, max_len, kv, enc_len=self.enc_cap)
-                      for kv in kvs]
+            caches = [model.init_cache(slots, max_len, kv, **cross) for kv in kvs]
         self.cache = caches[0]
         self.draft_cache = caches[1] if draft is not None else None
         self._chains: Dict[int, list] = {}          # request id -> pages
@@ -257,8 +280,9 @@ class ServeEngine:
 
     def submit(self, request, params: Optional[SamplingParams] = None, *,
                on_token: Optional[Callable[[int], None]] = None) -> int:
-        """Enqueue a request (a Request or a B=1 batch dict with
-        ``src_tokens`` and ``tgt_in``); returns its id. A dense engine
+        """Enqueue a request (a Request or a B=1 batch dict: ``src_tokens``
+        and ``tgt_in`` for an enc-dec model, ``tokens`` and a VLM's
+        ``img_embeds`` for an LM); returns its id. A dense engine
         admits it at once when a slot is free (its first token, and
         ``on_token``'s first call, come before submit returns); a paged
         engine admits at the next round, so a burst of submits lands as
@@ -281,16 +305,22 @@ class ServeEngine:
             request = dataclasses.replace(request, on_token=on_token)
         sp = request.params
         inputs = {}
-        for key in ("tgt_in", "src_tokens"):
+        for key in (self._tkey, "src_tokens") if self._enc_dec else (self._tkey,):
             t = torch.as_tensor(request.inputs[key], dtype=torch.int32).cpu()
             inputs[key] = t[None] if t.ndim == 1 else t
-        prompt_len = int(inputs["tgt_in"].shape[1])
-        budget = prompt_len + sp.max_new_tokens
+        if "img_embeds" in request.inputs:
+            inputs["img_embeds"] = torch.as_tensor(request.inputs["img_embeds"]).to(
+                device="cpu", dtype=torch.float32)
+        prompt_len = int(inputs[self._tkey].shape[1])
+        # a VLM's image patches fill cache positions ahead of its prompt
+        patches = int(inputs["img_embeds"].shape[1]) if "img_embeds" in inputs else 0
+        budget = patches + prompt_len + sp.max_new_tokens
         if budget > self.max_len:
             raise ValueError(
-                f"request needs prompt_len + max_new_tokens = {prompt_len} + "
-                f"{sp.max_new_tokens} = {budget} cache positions but the "
-                f"engine was built with max_len={self.max_len}")
+                f"request needs prompt_len + max_new_tokens = "
+                + (f"{patches} image rows + " if patches else "")
+                + f"{prompt_len} + {sp.max_new_tokens} = {budget} cache positions "
+                f"but the engine was built with max_len={self.max_len}")
         request = dataclasses.replace(request, inputs=inputs)
         if self.paged:
             need = self._request_pages(request)
@@ -299,7 +329,7 @@ class ServeEngine:
                 raise ValueError(f"request needs {need} KV pages"
                                  + (" (target + draft arms)" if self.draft else "")
                                  + f" but the pool holds only {usable}")
-        se = int(inputs["src_tokens"].shape[1])
+        se = int(inputs["src_tokens"].shape[1]) if self._enc_dec else 0
         if se > self.enc_cap:
             raise ValueError(f"source length {se} exceeds the engine's "
                              f"cross-attention capacity {self.enc_cap}")
@@ -897,9 +927,10 @@ class ServeEngine:
         for i in range(K):
             # dense caches take the mask for the step only; paged caches
             # keep it
-            cache = dict(cache, active=alive)
+            if self._mask_active or self.paged:
+                cache = dict(cache, active=alive)
             cache, logits = self.model.decode_step(ctx, params, cur, cache)
-            if not self.paged:
+            if self._mask_active:
                 del cache["active"]
             lg = logits[:, -1]
             if poison is not None:
@@ -1147,7 +1178,7 @@ class ServeEngine:
 
     def _pos_cap(self, request: Request) -> int:
         """Most cache positions a request can occupy: prompt + budget."""
-        return min(request.inputs["tgt_in"].shape[1] + request.params.max_new_tokens,
+        return min(request.inputs[self._tkey].shape[1] + request.params.max_new_tokens,
                    self.max_len)
 
     def _note_dispatched(self, K: int) -> None:
@@ -1225,7 +1256,7 @@ class ServeEngine:
         """A request's prefill feed: its prompt, plus all but the last
         stashed token when it resumes (the last becomes the pending
         decode token)."""
-        toks = r.inputs["tgt_in"]
+        toks = r.inputs[self._tkey]
         stash = self._preempted.get(r.id)
         if stash and len(stash) > 1:
             toks = torch.cat([toks, torch.tensor(stash[:-1], dtype=torch.int32)[None]], 1)
@@ -1258,11 +1289,26 @@ class ServeEngine:
         self._offsets[slot_ids] = i[:, 1]
         self._keys[slot_ids] = i[:, 2:]
 
-    def _note_prefill_shape(self, tgt, src, n: int) -> None:
-        """Record a prefill batch shape, keyed as the reference keys its
-        compiled prefills."""
-        self.prefill_shapes.add((("lengths", (n,)), ("src_tokens", tuple(src.shape)),
-                                 ("tgt_in", tuple(tgt.shape))))
+    def _prefill_batch(self, requests, toks: np.ndarray, lengths) -> dict:
+        """The prefill batch of ``requests``: their padded prompts ``toks``,
+        the true ``lengths`` (a bucketed family's), their sources or image
+        embeddings; recorded as a prefill shape, keyed as the reference
+        keys its compiled prefills."""
+        batch = {self._tkey: self._upload(toks)}
+        if self._bucketed:
+            batch["lengths"] = lengths
+        for key in ("src_tokens", "img_embeds"):
+            if key in requests[0].inputs:
+                batch[key] = self._upload(np.concatenate(
+                    [r.inputs[key].numpy() for r in requests]))
+        self.prefill_shapes.add(tuple(sorted((k, tuple(v.shape)) for k, v in batch.items())))
+        return batch
+
+    def _mini_cache(self, n: int, length: int, kv_dtype: str, batch):
+        """A dense prefill cache for ``batch``; an enc-dec one holds the
+        batch's sources."""
+        cross = {"enc_len": batch["src_tokens"].shape[1]} if self._enc_dec else {}
+        return self.model.init_cache(n, length, kv_dtype, **cross)
 
     @torch.no_grad()
     def _admit(self, request: Request) -> None:
@@ -1274,24 +1320,27 @@ class ServeEngine:
         if tr is not None:
             tr.end(request.id + 1, "queued", self._now())
         t0 = time.perf_counter()
-        true_len = request.inputs["tgt_in"].shape[1]
-        tgt = torch.nn.functional.pad(request.inputs["tgt_in"],
-                                      (0, self._bucket(true_len) - true_len))
-        src = request.inputs["src_tokens"]
-        self._note_prefill_shape(tgt, src, 1)
-        batch = {"tgt_in": self._upload(tgt.numpy()), "src_tokens": self._upload(src.numpy()),
-                 "lengths": self._upload(np.array([true_len], np.int32))}
-        one = self.model.init_cache(1, self.max_len, self.kv_dtype, enc_len=src.shape[1])
+        toks = request.inputs[self._tkey]
+        true_len = toks.shape[1]
+        # a bucketed family's prompt is right-padded: its last real token
+        # sits at true_len - 1; a VLM's prompt runs unpadded, after its
+        # image patches, and its last token is the last row
+        if self._bucketed:
+            toks = torch.nn.functional.pad(toks, (0, self._bucket(true_len) - true_len))
+        batch = self._prefill_batch([request], toks.numpy(),
+                                    self._upload(np.array([true_len], np.int32)))
+        one = self._mini_cache(1, self.max_len, self.kv_dtype, batch)
         one, logits = self.model.prefill(self.ctx, self.params, one, batch)
         slot = self._upload(np.array([sid], np.int64))
         self._set_sampling(slot, [request], [1])
-        first = self._first_tokens(logits[:, true_len - 1], [request], slot)
+        last = logits[:, true_len - 1] if self._bucketed else logits[:, -1]
+        first = self._first_tokens(last, [request], slot)
         self._splice(self.cache, one, sid)
         if self.draft is not None:
             # the draft only warms its own cache: the first token is the
             # target's
             d = self.draft
-            d_one = self.model.init_cache(1, self.max_len, d.kv_dtype, enc_len=src.shape[1])
+            d_one = self._mini_cache(1, self.max_len, d.kv_dtype, batch)
             d_one, _ = self.model.prefill(d.ctx, d.params, d_one, batch)
             self._splice(self.draft_cache, d_one, sid)
         self.cur[sid, 0] = first[0]
@@ -1330,7 +1379,7 @@ class ServeEngine:
     def _arm_pages(self, request: Request) -> int:
         """Pages one KV arm reserves under whole-budget reservation
         (draft-armed engines): the full prompt + decode budget."""
-        budget = request.inputs["tgt_in"].shape[1] + request.params.max_new_tokens
+        budget = request.inputs[self._tkey].shape[1] + request.params.max_new_tokens
         return pages_needed(min(budget, self.max_len), self.page_size)
 
     def _request_pages(self, request: Request) -> int:
@@ -1348,9 +1397,10 @@ class ServeEngine:
 
     def _shape_key(self, request: Request):
         """Batched-prefill key: the feed's bucket (prompt, plus replayed
-        tokens on a resume) and the source shape."""
-        return (self._bucket(self._feed_tokens(request).shape[1]),
-                tuple(request.inputs["src_tokens"].shape[1:]))
+        tokens on a resume) and the source or image shape."""
+        return (self._bucket(self._feed_tokens(request).shape[1]),) + tuple(
+            (k, tuple(request.inputs[k].shape[1:])) for k in ("src_tokens", "img_embeds")
+            if k in request.inputs)
 
     def _take_group(self) -> List[Request]:
         """Pop the next batched-prefill group off the queue: same-shaped
@@ -1417,13 +1467,10 @@ class ServeEngine:
             for i, r in enumerate(group):
                 dchains.append(self.allocator.alloc_chain(self._arm_pages(r)))
                 drows[i, :len(dchains[i])] = dchains[i]
-        src = np.concatenate([r.inputs["src_tokens"].numpy() for r in group])
-        self._note_prefill_shape(tgt, src, n)
         stashes = [self._preempted.pop(r.id, None) for r in group]
         lengths = self._upload(np.array(true_lens, np.int32))
-        batch = {"tgt_in": self._upload(tgt), "src_tokens": self._upload(src),
-                 "lengths": lengths}
-        mini = self.model.init_cache(n, pad_to, self.kv_dtype, enc_len=src.shape[1])
+        batch = self._prefill_batch(group, tgt, lengths)
+        mini = self._mini_cache(n, pad_to, self.kv_dtype, batch)
         mini, logits = self.model.prefill(self.ctx, self.params, mini, batch)
         slot_ids = self._upload(np.array(free, np.int64))
         self._set_sampling(slot_ids, group, [len(st) if st else 1 for st in stashes])
@@ -1434,7 +1481,7 @@ class ServeEngine:
             # the draft only warms its own cache: first tokens are the
             # target's
             d = self.draft
-            dmini = self.model.init_cache(n, pad_to, d.kv_dtype, enc_len=src.shape[1])
+            dmini = self._mini_cache(n, pad_to, d.kv_dtype, batch)
             dmini, _ = self.model.prefill(d.ctx, d.params, dmini, batch)
             paged_insert(self.draft_cache, dmini, slot_ids, self._upload(drows), lengths)
         first = first.cpu().tolist()    # admission waits for its first tokens
@@ -1504,7 +1551,7 @@ def _greedy_generate(model, ctx, params, batch, *, steps: int, max_len: int,
                      kv_dtype: str, eos_id: Optional[int], device):
     """One slot per batch row; a row stops at its first EOS and the rest
     of its positions hold ``eos_id`` (0 without one)."""
-    B = batch["tgt_in"].shape[0]
+    B = batch["tgt_in" if model.cfg.family == "encdec" else "tokens"].shape[0]
     eng = ServeEngine(model, params, slots=B, max_len=max_len, kv_dtype=kv_dtype,
                       ctx=ctx, device=device)
     sp = SamplingParams(max_new_tokens=steps, eos_id=eos_id)

@@ -123,9 +123,10 @@ _SELF_KEYS = ("k", "v", "k_codes", "k_scales", "v_codes", "v_scales")
 def paged_insert(cache, mini, slot_ids, page_rows, lengths):
     """Commit a dense prefill mini-cache into the paged batch cache, in
     place: self-attention KV scatters into the page chains named by
-    ``page_rows`` (n, maxp), cross-attention leaves splice into the
-    per-slot dense cross buffers at ``slot_ids`` (n,), and the block
-    table / length / active rows go live."""
+    ``page_rows`` (n, maxp), an enc-dec mini-cache's cross-attention
+    leaves splice into the per-slot dense cross buffers at ``slot_ids``
+    (n,) (an LM's has none), and the block table / length / active rows
+    go live."""
     slots = slot_ids.long()
     for key in _SELF_KEYS:
         if key in cache and key in mini:
@@ -134,7 +135,8 @@ def paged_insert(cache, mini, slot_ids, page_rows, lengths):
         if key in cache and key in mini:
             se = mini[key].shape[2]
             cache[key][:, slots, :se] = mini[key].to(cache[key].dtype)
-    cache["cross_len"][slots] = mini["cross_len"]
+    if "cross_len" in cache:
+        cache["cross_len"][slots] = mini["cross_len"]
     cache["block_tables"][slots] = page_rows.to(torch.int32)
     cache["len"][slots] = lengths.to(torch.int32)
     cache["active"][slots] = 1

@@ -10,6 +10,8 @@
         print(tok)
     pipe = deploy("nllb600m", "int4", draft_spec="nf4")  # speculative decoding
     pipe = deploy("nllb600m", "w8a8", calib_batches=batches)  # static act scales
+    pipe = deploy("qwen2.5-14b", "int4", paged=True)     # a decoder-only LM
+    outs = pipe.generate([prompt_ids, ...], SamplingParams(max_new_tokens=8))
 
 ``deploy`` runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``device="cpu"``); without a card it raises. Kernel
@@ -96,28 +98,43 @@ class TranslationPipeline:
 
     def generate(self, prompts: Sequence[Any],
                  params: Optional[SamplingParams] = None) -> List[RequestOutput]:
-        """Serve a list of B=1 batch dicts (or Requests); outputs come
-        back in input order."""
-        ids = [self.engine.submit(p, params) for p in prompts]
+        """Serve a list of prompts: B=1 batch dicts (or Requests), or, for
+        an LM, 1-D sequences of token ids; outputs come back in input
+        order."""
+        ids = [self.engine.submit(self._prompt(p), params) for p in prompts]
         by_id = {o.request_id: o for o in self.engine.run_until_drained()}
         return [by_id[i] for i in ids]
+
+    def _prompt(self, p):
+        """A batch dict or Request as it is; an LM's 1-D token ids as
+        ``{"tokens": (1, S)}``."""
+        if isinstance(p, (dict, Request)):
+            return p
+        if self.cfg.family == "encdec":
+            raise TypeError("enc-dec prompts must be batch dicts with "
+                            "'src_tokens' and 'tgt_in'")
+        return {"tokens": torch.as_tensor(p, dtype=torch.int32)[None]}
+
+    def _need_encdec(self, what: str, instead: str) -> None:
+        if self.cfg.family != "encdec":
+            raise TypeError(f"{what}() needs an enc-dec model, got family "
+                            f"{self.cfg.family!r}; use {instead}() instead")
 
     def translate(self, src_tokens, tgt_lang: Union[str, int],
                   params: Optional[SamplingParams] = None) -> List[RequestOutput]:
         """Many-to-many NMT: one output per source row. ``tgt_lang`` is a
         name from ``data.LANG_CODES`` or a raw code-token id; the decoder
         is prompted with that code token."""
+        self._need_encdec("translate", "generate")
         return self.generate(_lang_prompts(src_tokens, tgt_lang), params)
 
     def generate_stream(self, prompt: Any,
                         params: Optional[SamplingParams] = None) -> Iterator[int]:
-        """Stream ONE prompt (a B=1 batch dict or a Request): yields token
-        ids as each block lands; the finished RequestOutput is the
-        generator's return value. Other requests keep being served."""
-        if not isinstance(prompt, (dict, Request)):
-            raise TypeError("enc-dec prompts must be batch dicts with "
-                            "'src_tokens' and 'tgt_in'")
-        return self.engine.stream_request(prompt, params)
+        """Stream ONE prompt (a B=1 batch dict or a Request, or an LM's 1-D
+        token ids): yields token ids as each block lands; the finished
+        RequestOutput is the generator's return value. Other requests keep
+        being served."""
+        return self.engine.stream_request(self._prompt(prompt), params)
 
     def translate_stream(self, src_tokens, tgt_lang: Union[str, int],
                          params: Optional[SamplingParams] = None) -> Iterator[int]:
@@ -125,6 +142,7 @@ class TranslationPipeline:
         ids as they arrive (the first at prefill) and returns the
         RequestOutput. Batches loop, or submit through
         ``engine.submit(..., on_token=...)`` for interleaved streams."""
+        self._need_encdec("translate_stream", "generate_stream")
         prompts = _lang_prompts(src_tokens, tgt_lang)
         if len(prompts) != 1:
             raise ValueError(f"translate_stream() streams one source row, got a "
@@ -192,7 +210,8 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  give the same token streams.
     horizon:     decode micro-steps fused per host sync.
     calib_batches: sample batches (``data`` dicts with ``src_tokens`` and
-                 ``tgt_in``) for static activation calibration: when the
+                 ``tgt_in``; an LM's with ``tokens``, a VLM's with
+                 ``img_embeds`` too) for static activation calibration: when the
                  spec quantizes activations (a8 / afp8 / x<fmt>), they run
                  teacher-forced through the quantized model and the
                  per-site scales replace dynamic per-token quantization.

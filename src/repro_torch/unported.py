@@ -5,10 +5,11 @@ A route of the reference that this package does not run yet raises
 ROADMAP.md, queue 1); nothing runs another route in its place.
 """
 
-# slice 2 (the serving features) and slice 3 (the quantization routes:
-# act-quantizing specs, fp8 KV caches, calibration, QLoRA) have landed
+# slice 2 (the serving features), slice 3 (the quantization routes:
+# act-quantizing specs, fp8 KV caches, calibration, QLoRA) and the dense
+# and VLM decoder-only LMs of slice 4 have landed
 SLICES = {
-    4: "the other model families (decoder-only LMs, MoE, SSM, hybrid, audio)",
+    4: "the other model families: MoE, SSM, hybrid, audio, and LM training",
     5: "scale-out: tensor-parallel meshes and replica routing",
 }
 

@@ -46,6 +46,14 @@ def jax_to_torch(tree, device="cpu"):
     return from_numpy_tree(jax_tree_to_numpy(tree), device)
 
 
+def torch_to_jax(tree):
+    """A nested dict of float32 / int tensors -> the same tree of JAX
+    arrays (a port's raw parameter tree for the reference)."""
+    if isinstance(tree, dict):
+        return {k: torch_to_jax(v) for k, v in tree.items()}
+    return jnp.asarray(tree.numpy())
+
+
 def same_bytes(jax_arr, t) -> bool:
     a = np.ascontiguousarray(np.asarray(jax_arr))
     if tuple(a.shape) != tuple(t.shape) or a.dtype.itemsize != t.element_size():
