@@ -88,7 +88,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    versions at every shape its warm-up gave them; each phase checks the
    kernel bundle against the torch bundle, and dense against paged up
    to near ties (a first token may part there at an exact bf16 tie);
-18. a launch-count line, the kernels' JSON line, the card line, and last
+18. the MoE and audio families, whole, int4: olmoe-1b-7b paged and
+   dense ([moe], [moe-dense]; 64 experts top-8, the experts' SiLU
+   through the FASST kernel on 4-D inputs), whisper-base paged and dense
+   on 1500 random frames a request ([audio], [audio-dense]) and
+   nllb600m-moe paged on [serve]'s prompts ([moe-nllb]); each engine
+   holds qmm, the FASST activation and the paged attention at every
+   shape its warm-up gave them, runs twice with every stream repeated
+   bit for bit, meets the kernel bundle within the torch bundle's bound,
+   and parts from the other layout only at near ties (an MoE slot routed
+   to other experts at a router near tie is exempt from then on); the
+   paged attention is timed at the served shapes;
+19. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -1309,9 +1320,18 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
     engines' filters and their Gumbel-max margin is at most twice the
     difference over the temperature, or one sits on the top-k / top-p
     edge within what that difference can move. ``engine_kw`` replaces the
-    fresh engines' served shape (default: [serve]'s). Returns the parting
-    steps."""
+    fresh engines' served shape (default: [serve]'s).
+
+    An MoE model's decode steps are also compared route by route: where
+    the engines send a slot's token to different experts at some layer,
+    that routing must itself be a near tie (the gap between the k-th and
+    the next router probability at most twice the engines' largest
+    router probability difference for the slot). From then on the slot's
+    logits may differ by more than the bound; a later parting of that
+    slot is put down to the router tie, and the other slots keep the
+    bound. Returns the parting steps."""
     from repro_torch import random as prng
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving.sampler import filter_logits
 
     part = {}
@@ -1351,14 +1371,47 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
         knobs = [torch.tensor([getattr(sp, k) for sp in sps], dtype=dt, device=dev)
                  for k, dt in (("temperature", torch.float32), ("top_k", torch.int64),
                                ("top_p", torch.float32))]
+        rerouted = {}                   # slot -> (layer, step) of its router tie
+        real_route = moe_mod.route
         for j in range(steps + 1):
             lgs = prefill if j == 0 else []
+            routes = []
             for eng in engines if j else ():
-                eng.cache, lg = eng.model.decode_step(eng.ctx, eng.params,
-                                                      forced[:, j - 1:j], eng.cache)
+                calls = []
+
+                def rec_route(router, xt, top_k, calls=calls):
+                    out = real_route(router, xt, top_k)
+                    calls.append(out)
+                    return out
+
+                moe_mod.route = rec_route
+                try:
+                    eng.cache, lg = eng.model.decode_step(eng.ctx, eng.params,
+                                                          forced[:, j - 1:j], eng.cache)
+                finally:
+                    moe_mod.route = real_route
                 lgs.append(lg[:, -1].float())
+                routes.append(calls)
+            for layer, ((pp, _, ep), (pd, _, ed)) in enumerate(zip(*routes) if routes else ()):
+                for i in range(len(prompts)):
+                    if i in rerouted or set(ep[i, 0].tolist()) == set(ed[i, 0].tolist()):
+                        continue
+                    k = ep.shape[-1]
+                    top = pp[i, 0].sort(descending=True).values
+                    gap = float(top[k - 1] - top[k])
+                    diff = float((pp[i, 0] - pd[i, 0]).abs().max())
+                    if not gap <= 2 * diff:
+                        raise AssertionError(
+                            f"[{tag}] request {i}, step {j}, layer {layer}: the engines "
+                            f"route to different experts with a router gap {gap:.4g} > "
+                            f"{2 * diff:.4g} (2 x their router difference): not a near tie")
+                    rerouted[i] = (layer, j)
+                    log(f"[{tag}] request {i}, step {j}, layer {layer}: the engines route "
+                        f"to different experts at a router near tie, gap {gap:.4g} <= "
+                        f"{2 * diff:.4g}")
             lp, ld = lgs
-            err = float((lp - ld).abs().max())
+            kept = [i for i in range(len(prompts)) if i not in rerouted]
+            err = float((lp[kept] - ld[kept]).abs().max()) if kept else 0.0
             parting = [i for i, pj in part.items() if pj == j]
             if any(not sps[i].greedy for i in parting):
                 # filter the whole batch, as the engines' sampler does
@@ -1366,6 +1419,10 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
             for i in parting:
                 sp, a, b = sps[i], paged_streams[i][j], dense_streams[i][j]
                 where = f"[{tag}] request {i} parts at token {j} ({a} vs {b})"
+                if i in rerouted:
+                    log(f"{where}: after its router near tie at layer {rerouted[i][0]}, "
+                        f"step {rerouted[i][1]}")
+                    continue
                 # the routes' int8-KV bound of [routes] holds here too
                 if not err < 0.3:
                     raise AssertionError(f"{where}: the engines' logits differ by "
@@ -2802,14 +2859,17 @@ def check_lm_kernels(torch, dev):
 
 @contextlib.contextmanager
 def served_shapes():
-    """While the block runs, wrap ops.qmm and ops.fasst to record the
-    shapes the main path hands them: the first weight of each (rows, K, N,
-    format, sub-block, compute dtype, NAF), and each (shape, dtype, mode,
-    out dtype) of the activation. The wrappers' launch counts are
-    untouched."""
+    """While the block runs, wrap ops.qmm, ops.fasst and
+    ops.paged_decode_attention to record the shapes the main path hands
+    them: the first weight of each (rows, K, N, format, sub-block, compute
+    dtype, NAF), each (shape, dtype, mode, out dtype) of the activation
+    (an MoE layer's experts hand it 4-D (G, E, C, ff) inputs), and each
+    (B, H, Hkv, d, page size, pages a row, page kind, query dtype) of the
+    paged attention. The wrappers' launch counts are untouched."""
+    import torch
     from repro_torch.kernels import ops
-    qmm, fasst = ops.qmm, ops.fasst
-    seen = {"qmm": {}, "fasst_act": set()}
+    qmm, fasst, paged = ops.qmm, ops.fasst, ops.paged_decode_attention
+    seen = {"qmm": {}, "fasst_act": set(), "paged_attn": set()}
 
     def rec_qmm(x, w, **kw):
         k, n = w.shape[-2:]
@@ -2821,19 +2881,31 @@ def served_shapes():
         seen["fasst_act"].add((tuple(x.shape), x.dtype, mode, kw.get("out_dtype")))
         return fasst(x, mode, **kw)
 
-    ops.qmm, ops.fasst = rec_qmm, rec_fasst
+    def rec_paged(q, k_pages, v_pages, tables, lengths, **kw):
+        kind = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}.get(k_pages.dtype, "bf16")
+        seen["paged_attn"].add((*q.shape, k_pages.shape[2], k_pages.shape[1],
+                                tables.shape[1], kind, q.dtype))
+        return paged(q, k_pages, v_pages, tables, lengths, **kw)
+
+    ops.qmm, ops.fasst, ops.paged_decode_attention = rec_qmm, rec_fasst, rec_paged
     try:
         yield seen
     finally:
-        ops.qmm, ops.fasst = qmm, fasst
+        ops.qmm, ops.fasst, ops.paged_decode_attention = qmm, fasst, paged
 
 
 def hold_served(torch, tag, seen, dev):
     """Hold qmm (on the served weights themselves, random f32 rows, f32
-    and bf16 out) and the FASST activation (random inputs) against their
-    plain versions at every shape ``seen`` recorded (served_shapes)."""
+    and bf16 out), the FASST activation (random inputs) and the paged
+    attention (a random pool, ragged lengths up to the served chain)
+    against their plain versions at every shape ``seen`` recorded
+    (served_shapes)."""
     g = torch.Generator(device=dev).manual_seed(SEED + 23)
-    worst = {"qmm": 0.0, "fasst_act": 0.0}
+    worst = {"qmm": 0.0, "fasst_act": 0.0, "paged_attn": 0.0}
+    for B, H, d, Hkv, ps, maxp, kind, q_dt in sorted(seen["paged_attn"], key=str):
+        lens = torch.randint(1, maxp * ps + 1, (B,), generator=g, device=dev).tolist()
+        worst["paged_attn"] = max(worst["paged_attn"], paged_case(
+            torch, g, dev, B, H, Hkv, d, B * maxp + 1, ps, maxp, lens, kind, q_dt))
     for (m, k, *_, naf), w in seen["qmm"].items():
         x = torch.randn((m, k), generator=g, device=dev)
         worst["qmm"] = max(worst["qmm"], qmm_agree(torch, x, w, f"[{tag}] served", naf)[0])
@@ -2844,10 +2916,14 @@ def hold_served(torch, tag, seen, dev):
     rows = sorted({key[0] for key in seen["qmm"]})
     kns = sorted({key[1:3] for key in seen["qmm"]})
     acts = sorted({(s, m) for s, _, m, _ in seen["fasst_act"]})
+    paged = sorted({f"B={B} H={H} Hkv={Hkv} d={d} ps={ps} maxp={maxp} {kind}"
+                    for B, H, d, Hkv, ps, maxp, kind, _ in seen["paged_attn"]})
     log(f"[{tag}] the kernels at every shape the served run gave them agree with their "
         f"plain versions: qmm at {len(seen['qmm'])} (rows, K, N, format) on the served "
         f"weights, rows {rows}, (K, N) {kns}, f32 and bf16 out (max abs err f32 "
-        f"{worst['qmm']:.3g}); fasst_act at {acts} (max abs err {worst['fasst_act']:.3g})")
+        f"{worst['qmm']:.3g}); fasst_act at {acts} (max abs err {worst['fasst_act']:.3g})"
+        + (f"; paged_attn at {paged}, launched twice and bit-identical (max abs err "
+           f"{worst['paged_attn']:.3g})" if paged else ""))
     if not kns or not acts:
         raise AssertionError(f"[{tag}] the served run recorded no qmm or fasst_act shape")
 
@@ -2877,13 +2953,14 @@ def _lm_deploy(torch, tag, arch, paged, max_len, params=None, cut=""):
     return pipe
 
 
-def lm_serve(torch, card, tag, pipe, prompts, expect):
+def lm_serve(torch, card, tag, pipe, prompts, expect, prefill_only=()):
     """Serve ``prompts`` (8 requests x GEN new tokens, greedy) after a
     warm-up on the same prompts that records the shapes the engine hands
     qmm and the FASST activation and holds both there (hold_served), with
     the launch counters set to 0 just before and read just after. ``expect`` gives a decode step's wrapper launches: a kernel
-    with n > 0 launches at least n a step over the run, one with 0 never
-    (the prefill rows add qmm and fasst_act launches). Then a profiled
+    with n > 0 launches at least n a step over the run, one with 0 never,
+    unless it is named in ``prefill_only`` (the prefill rows add qmm and
+    fasst_act launches). Then a profiled
     4-step horizon, which must launch exactly ``expect``. Logs the phase's
     JSON line; returns (outputs, launches)."""
     from repro_torch.kernels import ops
@@ -2916,7 +2993,8 @@ def lm_serve(torch, card, tag, pipe, prompts, expect):
             raise AssertionError(f"[{tag}] {eng.allocator.pages_in_use} pages leaked")
     steps = eng.decode_steps
     for name, n in expect.items():
-        if (n > 0 and launches[name] < n * steps) or (n == 0 and launches[name]):
+        if (n > 0 and launches[name] < n * steps) or (
+                n == 0 and launches[name] and name not in prefill_only):
             raise AssertionError(f"[{tag}] {name}: {launches[name]} launches over "
                                  f"{steps} decode steps; a step launches {n}")
     prof = profile_decode(torch, pipe, prompts, f"{tag}-profile", expect=expect)
@@ -3044,6 +3122,139 @@ def vlm_phase(torch, card):
     return launches
 
 
+def repeat_run(tag, pipe, prompts, outs):
+    """A second greedy run of the same engine on the same prompts must
+    repeat every stream bit for bit: the MoE combine adds a token's rows
+    by gathers in a fixed order, with no atomics."""
+    from repro_torch.serving import SamplingParams
+    again = pipe.generate(prompts, SamplingParams(max_new_tokens=GEN))
+    if [o.token_ids for o in again] != [o.token_ids for o in outs]:
+        raise AssertionError(f"[{tag}] a second run of the engine changed a stream")
+    log(f"[{tag}] a second run of the engine repeats all {len(outs)} streams")
+
+
+def time_paged_served(torch, tag, card, pipe, lens, timed):
+    """The paged attention of one decode step at the served shape (one
+    launch a layer, ``lens`` the cached lengths): kernel, plain, library
+    and bound, as the kernels' [time] lines give them; kept in ``timed``
+    under ``tag`` (the kernels' JSON line carries them as ``<tag>_...``
+    keys of paged_attn)."""
+    c = pipe.cfg
+    g = torch.Generator(device=pipe.engine.device).manual_seed(SEED + 24)
+    fns, (t, by), work = paged_window(torch, g, pipe.engine.device, c.num_heads,
+                                      c.num_kv_heads, c.head_dim, MAX_LEN // PAGE,
+                                      c.num_layers, lens)
+    e = {**times(*fns), "bound_ms": t, "bound_by": by,
+         "work": f"one {c.name} decode step: {work}"}
+    log_time({"name": "paged_attn", **{f"{tag}_{k}": v for k, v in e.items()}}, card,
+             f"{tag}_")
+    timed[tag] = e
+    del fns
+    torch.cuda.empty_cache()
+
+
+def dense_and_paged(torch, card, tag, pipe, pipe_d, prompts, expect, prefill_only=()):
+    """Serve ``prompts`` on the paged engine and on the dense one (same
+    weights): each run held as lm_serve holds it, the paged one repeated
+    bit for bit, the kernel bundle against the torch bundle on live
+    slots, and dense against paged up to near ties. Returns the summed
+    launches of the two measured runs."""
+    from repro_torch.serving import SamplingParams
+    outs, launches = lm_serve(torch, card, tag, pipe, prompts, expect, prefill_only)
+    repeat_run(tag, pipe, prompts, outs)
+    routes_agree(torch, pipe, prompts, f"{tag}-routes")
+    outs_d, launches_d = lm_serve(torch, card, f"{tag}-dense", pipe_d, prompts,
+                                  dict(expect, paged_attn=0), prefill_only)
+    repeat_run(f"{tag}-dense", pipe_d, prompts, outs_d)
+    paged, dense = [o.token_ids for o in outs], [o.token_ids for o in outs_d]
+    part = near_tie_partings(torch, f"{tag}-dense-vs-paged", pipe, prompts,
+                             [SamplingParams(max_new_tokens=GEN)] * len(prompts), paged,
+                             dense, first_token_ties=True)
+    log(f"[{tag}-dense-vs-paged] {sum(a == b for a, b in zip(paged, dense))}/"
+        f"{len(prompts)} streams token-identical, {len(part)} part, each at a near tie")
+    return _add(dict(launches), launches_d)
+
+
+def moe_phase(torch, card, timed):
+    """[moe] / [moe-dense]: olmoe-1b-7b at int4, full width and depth (16
+    layers, 64 experts x SiLU-GLU 1024, top-8, untied 50304 head), paged
+    and dense on the same weights; 8 requests of 32-64 prompt tokens x 32
+    new, greedy. A decode step launches qmm for the attention projections
+    only (the experts are dequantize-then-einsum, as in the reference),
+    the FASST kernel once a layer on the experts' 4-D (G, E, C, ff) gate
+    products, and (paged) the paged-attention kernel once a layer.
+    Returns the launches of the measured runs."""
+    pipe = _lm_deploy(torch, "moe", "olmoe-1b-7b", True, MAX_LEN)
+    L = pipe.cfg.num_layers
+    prompts = _lm_prompts(np.random.default_rng(SEED + 25), pipe.cfg.vocab_size, 32, 64)
+    expect = {"qmm": 4 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}
+    pipe_d = _lm_deploy(torch, "moe-dense", "olmoe-1b-7b", False, MAX_LEN, params=pipe.params)
+    launches = dense_and_paged(torch, card, "moe", pipe, pipe_d, prompts, expect)
+    lens = torch.tensor([p["tokens"].shape[1] + GEN for p in prompts], device=pipe.engine.device)
+    del pipe_d
+    time_paged_served(torch, "moe", card, pipe, lens, timed)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_nllb_phase(torch, card, prompts):
+    """[moe-nllb]: nllb600m-moe at int4, full width and depth (6 + 6
+    layers, 16 experts x ReLU 8192, top-2; the paper's Fig. 3b), paged, on
+    [serve]'s prompts. The encoder and the prefill dispatch with capacity
+    per source row, the decode steps dropless. A decode step launches qmm
+    for the self- and cross-attention projections (6 a layer), the FASST
+    kernel once a layer on the experts' ReLU, and the paged-attention
+    kernel once a layer; a second run repeats every stream. Returns the
+    launches of the measured run."""
+    pipe = _lm_deploy(torch, "moe-nllb", "nllb600m-moe", True, MAX_LEN)
+    L = pipe.cfg.num_layers
+    expect = {"qmm": 6 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}
+    outs, launches = lm_serve(torch, card, "moe-nllb", pipe, prompts, expect)
+    repeat_run("moe-nllb", pipe, prompts, outs)
+    routes_agree(torch, pipe, prompts, "moe-nllb-routes")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _frame_prompts(torch, cfg, dev, n):
+    """``n`` requests of enc_len seeded random frames (the stub conv
+    frontend's output scale) and one prompt token each."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    rng = np.random.default_rng(SEED + 26)
+    return [{"frames": 0.1 * torch.randn((1, cfg.enc_len, cfg.d_model), generator=g,
+                                         device=dev),
+             "tgt_in": rng.integers(0, cfg.vocab_size, (1, 1)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def audio_phase(torch, card, timed):
+    """[audio] / [audio-dense]: whisper-base at int4, full width and depth
+    (6 + 6 layers, d 512, GELU FFNs, tied 51865 head), paged and dense on
+    the same weights; 8 requests of 1500 random frames x 32 new tokens,
+    greedy. Like [serve]: a decode step launches qmm 8 a layer, one of
+    them with the GELU in its epilogue, no FASST kernel (the encoder's
+    prefill rows launch it), and (paged) the paged-attention kernel once a
+    layer. Returns the launches of the measured runs."""
+    pipe = _lm_deploy(torch, "audio", "whisper-base", True, MAX_LEN)
+    L = pipe.cfg.num_layers
+    prompts = _frame_prompts(torch, pipe.cfg, pipe.engine.device, SLOTS)
+    expect = {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L, "fasst_act": 0}
+    pipe_d = _lm_deploy(torch, "audio-dense", "whisper-base", False, MAX_LEN,
+                        params=pipe.params)
+    launches = dense_and_paged(torch, card, "audio", pipe, pipe_d, prompts, expect,
+                               prefill_only=("fasst_act",))
+    if not launches["fasst_act"]:
+        raise AssertionError("[audio] fasst_act: no launch on the encoder's prefill rows")
+    lens = torch.full((SLOTS,), 1 + GEN, device=pipe.engine.device)
+    del pipe_d
+    time_paged_served(torch, "audio", card, pipe, lens, timed)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
 LM_PHASES = (("lm", lm_phase), ("lm-gemma", lm_gemma_phase), ("vlm", vlm_phase))
 
 
@@ -3145,7 +3356,14 @@ def main() -> int:
             e.update(lm_kernels[e["name"]])
             log_time(e, card, "lm_")
     log(f"[lm-kernels] took {time.perf_counter() - t0:.1f} s")
-    for name, phase in LM_PHASES:
+    # the MoE and audio families; paged attention timed at their served
+    # shapes goes into ``timed``
+    timed = {}
+    phases = LM_PHASES + (("moe", lambda torch, card: moe_phase(torch, card, timed)),
+                          ("audio", lambda torch, card: audio_phase(torch, card, timed)),
+                          ("moe-nllb", lambda torch, card: moe_nllb_phase(torch, card,
+                                                                          prompts)))
+    for name, phase in phases:
         t0 = time.perf_counter()
         phase_launches[name] = phase(torch, card)
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
@@ -3153,11 +3371,17 @@ def main() -> int:
     by_run = {**phase_launches["spec"], "faults": phase_launches["faults"],
               "quant": phase_launches["quant"], "train": phase_launches["train"],
               "eval": phase_launches["eval"], "lm": phase_launches["lm"],
-              "lm_gemma": phase_launches["lm-gemma"], "vlm": phase_launches["vlm"]}
+              "lm_gemma": phase_launches["lm-gemma"], "vlm": phase_launches["vlm"],
+              "moe": phase_launches["moe"], "moe_nllb": phase_launches["moe-nllb"],
+              "audio": phase_launches["audio"]}
     for e in entries:
+        if e["name"] == "paged_attn":
+            for tag, t in timed.items():
+                e.update({f"{tag}_{k}": v for k, v in t.items()})
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
-        # spec, spec_dense, faults, quant, train, eval, lm, lm_gemma, vlm
+        # spec, spec_dense, faults, quant, train, eval, lm, lm_gemma, vlm,
+        # moe, moe_nllb, audio
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -3168,14 +3392,18 @@ def main() -> int:
     log("kernels in [lm] / [lm-gemma] / [vlm]: " + ", ".join(
         f"{e['name']}={e['launches_lm']} / {e['launches_lm_gemma']} / {e['launches_vlm']}"
         for e in entries))
+    log("kernels in [moe] / [moe-nllb] / [audio]: " + ", ".join(
+        f"{e['name']}={e['launches_moe']} / {e['launches_moe_nllb']} / "
+        f"{e['launches_audio']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_lm", "launches_lm_gemma", "launches_vlm",
-            "max_abs_err",
+            "launches_moe", "launches_moe_nllb", "launches_audio", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
-                                   if k in keys or k.startswith(("prefill_", "lm_"))}
+                                   if k in keys or k.startswith(("prefill_", "lm_", "moe_",
+                                                                 "audio_"))}
                                   for e in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

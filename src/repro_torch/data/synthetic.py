@@ -148,13 +148,17 @@ def make_batch(cfg, shape_spec, seed: int = 0, batch: Optional[int] = None,
     """One concrete (host) batch for an (arch x shape) cell."""
     B = batch or shape_spec.global_batch
     S = seq or shape_spec.seq_len
-    if cfg.family == "audio":
-        raise later("audio (frame) batches", 4)
+    rng = np.random.default_rng(seed)
     if cfg.family == "vlm":
         raise later("VLM (image-embedding) batches", 4)
-    if cfg.family == "encdec":
+    if cfg.family in ("encdec", "audio"):
         ds = SyntheticTranslation(cfg.vocab_size, S, seed)
         b = ds.sample(B)
+        if cfg.family == "audio":   # the stub conv frontend's output
+            return {"tgt_in": b["tgt_in"], "tgt_out": b["tgt_out"],
+                    "loss_mask": b["loss_mask"],
+                    "frames": rng.standard_normal(
+                        (B, cfg.enc_len, cfg.d_model)).astype(np.float32) * 0.1}
         b["src_tokens"] = b["src_tokens"][:, :cfg.enc_len] if \
             cfg.enc_len < S else b["src_tokens"]
         return b

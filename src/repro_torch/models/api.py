@@ -3,7 +3,8 @@
 build_model(cfg, device) -> ModelAPI with
   init(generator | key)              -> params (a key from random.prng_key(seed)
                                         draws the reference's init for that seed;
-                                        enc-dec only, an LM raises on a key)
+                                        enc-dec and audio only, an LM raises on
+                                        a key)
   forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced)
   init_cache(batch, max_len, kv)     -> dense prefill cache
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
@@ -17,11 +18,12 @@ decode_step dispatches on the cache layout: a cache carrying
 path.
 
 Batches are dicts:
-  LM families (dense, vlm): {"tokens" (B,S)[, "img_embeds" (B,P,d) for
-                             vlm][, "lengths"]}
-  enc-dec:                  {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}
+  LM families (dense, moe, vlm): {"tokens" (B,S)[, "img_embeds" (B,P,d)
+                                  for vlm][, "lengths"]}
+  enc-dec:                       {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}
+  audio:                         {"tgt_in" (B,Sd), "frames" (B,F,d)[, "lengths"]}
 ``forward`` also takes numpy arrays (a ``data`` batch), moved to the
-model's device. The MoE, SSM, hybrid and audio families raise.
+model's device. The SSM and hybrid families raise.
 """
 
 from __future__ import annotations
@@ -98,30 +100,27 @@ def _lm_model(cfg, device) -> ModelAPI:
 
 
 def build_model(cfg, device="cuda") -> ModelAPI:
-    if cfg.family in ("dense", "vlm") and cfg.moe is None:
+    if cfg.family in ("dense", "vlm", "moe"):
         return _lm_model(cfg, device)
-    if cfg.family != "encdec":
+    if cfg.family not in ("encdec", "audio"):
         raise later(f"model family {cfg.family!r}", 4)
 
     def init(generator):
         return ed.encdec_init(generator, cfg)
 
     def forward(ctx, params, batch, remat=False):
-        if "frames" in batch:
-            raise later("audio (frame) encoders", 4)
-        tgt, src = (torch.as_tensor(batch[k], device=device)
-                    for k in ("tgt_in", "src_tokens"))
-        return ed.encdec_forward(ctx, params, cfg, tgt, src, remat=remat)
+        return ed.encdec_forward(ctx, params, cfg, _on(device, batch, "tgt_in"),
+                                 src_tokens=_on(device, batch, "src_tokens"),
+                                 frames=_on(device, batch, "frames"), remat=remat)
 
     def init_cache(batch_size, max_len, kv_dtype="bf16", enc_len=None):
         return ed.encdec_init_cache(cfg, batch_size, max_len,
                                     enc_len or cfg.enc_len, kv_dtype, device)
 
     def prefill(ctx, params, cache, batch):
-        if "frames" in batch:
-            raise later("audio (frame) encoders", 4)
         return ed.encdec_prefill(ctx, params, cfg, cache, batch["tgt_in"],
-                                 batch["src_tokens"], batch.get("lengths"))
+                                 src_tokens=batch.get("src_tokens"),
+                                 frames=batch.get("frames"), lengths=batch.get("lengths"))
 
     def decode_step(ctx, params, tokens, cache):
         return ed.encdec_decode_step(ctx, params, cfg, tokens, cache)

@@ -1,7 +1,15 @@
-"""Encoder-decoder transformer: NLLB-600M (the paper's model).
+"""Encoder-decoder transformer: NLLB-600M (the paper's model), its MoE
+variant, and whisper-base.
 
 Pre-norm residual encoder/decoder stacks with rotary self-attention,
-cross-attention from the decoder, ReLU FFNs and a tied embedding head.
+cross-attention from the decoder, ReLU FFNs (top-k experts in the MoE
+variant, the paper's Fig. 3b) and a tied embedding head. Whisper reuses
+the skeleton with a stub conv frontend: its encoder takes precomputed
+frame embeddings (B, F, d) in place of embedded source tokens.
+
+The MoE layers dispatch with capacity in the encoder, the teacher-forced
+decoder and the prefill, and dropless in the decode steps; the decoder's
+aux losses are summed, the encoder's discarded, as in the reference.
 Layer parameters are stacked on a leading ``L`` axis, as in the
 reference; the stacks run as Python loops over per-layer slices.
 
@@ -19,9 +27,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.qlinear import embed_lookup
 from ..random import normal, split
-from ..unported import later
-from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, mlp,
-                     mlp_init, normal_init, rms_norm)
+from . import moe as moe_mod
+from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, mlp_init,
+                     normal_init, rms_norm)
 from .transformer import (SCALED_KV, _commit_decode_position, _commit_prefill,
                           _dense_kv, _head, _kv_layout, _kv_leaves, _layer,
                           _positions, _scatter_tokens, _self_leaves, paged_attn,
@@ -30,11 +38,6 @@ from .transformer import (SCALED_KV, _commit_decode_position, _commit_prefill,
 __all__ = ["encdec_init", "encdec_encode", "encdec_forward", "encdec_init_cache",
            "encdec_init_paged_cache", "encdec_prefill", "encdec_decode_step",
            "encdec_paged_decode_step"]
-
-
-def _check_family(cfg):
-    if cfg.moe is not None:
-        raise later(f"{cfg.name}: the MoE encoder-decoder", 4)
 
 
 def _init_from_key(key: torch.Tensor, cfg):
@@ -61,15 +64,20 @@ def _init_from_key(key: torch.Tensor, cfg):
         return {"w_in": normal(ks[0], (d, ff)) * d ** -0.5,
                 "w_out": normal(ks[1], (ff, d)) * ff ** -0.5}
 
+    def ffn(k):
+        if cfg.moe is not None:
+            return {"moe": moe_mod.moe_init(k, d, ff, cfg.moe.num_experts, cfg.mlp_act)}
+        return {"mlp": mlp_(k)}
+
     def enc_layer(k):
         k1, k2 = split(k)
         return {"attn": attn(k1), "norm1_scale": ones(), "norm2_scale": ones(),
-                "mlp": mlp_(k2)}
+                **ffn(k2)}
 
     def dec_layer(k):
         k1, k2, k3 = split(k, 3)
         return {"attn": attn(k1), "cross": attn(k2), "norm1_scale": ones(),
-                "norm2_scale": ones(), "norm3_scale": ones(), "mlp": mlp_(k3)}
+                "norm2_scale": ones(), "norm3_scale": ones(), **ffn(k3)}
 
     def stack(layers):
         if isinstance(layers[0], dict):
@@ -93,7 +101,6 @@ def encdec_init(g, cfg):
     """Random parameters with the reference's shapes and scales: drawn from
     a torch.Generator ``g`` on its device, or, for a key from
     ``random.prng_key(seed)``, the reference's own draws for that seed."""
-    _check_family(cfg)
     if isinstance(g, torch.Tensor):
         return _init_from_key(g, cfg)
     Le, Ld, d = cfg.enc_layers, cfg.num_layers, cfg.d_model
@@ -101,17 +108,23 @@ def encdec_init(g, cfg):
     def ones(*shape):
         return torch.ones(shape + (d,), dtype=torch.float32, device=g.device)
 
+    def ffn(L):
+        if cfg.moe is not None:
+            return {"moe": moe_mod.moe_init(g, d, cfg.d_ff, cfg.moe.num_experts,
+                                            cfg.mlp_act, layers=L)}
+        return {"mlp": mlp_init(g, L, cfg)}
+
     params = {
         "embedding": normal_init(g, (cfg.vocab_size, d), 0.02),
         "encoder": {
             "layers": {"attn": attention_init(g, Le, cfg), "norm1_scale": ones(Le),
-                       "norm2_scale": ones(Le), "mlp": mlp_init(g, Le, cfg)},
+                       "norm2_scale": ones(Le), **ffn(Le)},
             "norm_f_scale": ones()},
         "decoder": {
             "layers": {"attn": attention_init(g, Ld, cfg),
                        "cross": attention_init(g, Ld, cfg),
                        "norm1_scale": ones(Ld), "norm2_scale": ones(Ld),
-                       "norm3_scale": ones(Ld), "mlp": mlp_init(g, Ld, cfg)},
+                       "norm3_scale": ones(Ld), **ffn(Ld)},
             "norm_f_scale": ones()},
     }
     if not cfg.tie_embeddings:
@@ -127,10 +140,15 @@ def _remat(body, remat: bool):
     return lambda *a: checkpoint(body, *a, use_reentrant=False)
 
 
-def encdec_encode(ctx: Ctx, params, cfg, src_tokens, remat: bool = False):
-    """Bidirectional encoder over src_tokens (B, Se); ``remat`` recomputes
+def encdec_encode(ctx: Ctx, params, cfg, src_tokens=None, frames=None,
+                  remat: bool = False):
+    """Bidirectional encoder over src_tokens (B, Se), or an audio model's
+    frames (B, F, d) (cast to the compute dtype); ``remat`` recomputes
     each layer's activations in the backward pass."""
-    x = embed_lookup(params["embedding"], src_tokens, ctx.compute_dtype)
+    if frames is not None:
+        x = frames.to(ctx.compute_dtype)
+    else:
+        x = embed_lookup(params["embedding"], src_tokens, ctx.compute_dtype)
     B, Se, _ = x.shape
     positions = _positions(B, Se, x.device)
 
@@ -142,7 +160,7 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens, remat: bool = False):
                           rope_theta=cfg.rope_theta, site="enc.attn")
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-        return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="enc.ffn")
+        return x + moe_mod.layer_ffn(ctx, cfg, lp, h, "enc.ffn")[0]
 
     body_fn = _remat(body, remat)
     for i in range(cfg.enc_layers):
@@ -151,7 +169,8 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens, remat: bool = False):
 
 
 def _dec_layer(ctx, cfg, lp, x, positions, enc_kv):
-    """enc_kv = (k, v, enc_positions) precomputed cross K/V."""
+    """enc_kv = (k, v, enc_positions) precomputed cross K/V. Returns
+    (x, aux (None for a dense FFN), (k, v))."""
     h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
     y, kv = attn_apply(ctx, lp["attn"], h, positions, num_heads=cfg.num_heads,
                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
@@ -164,7 +183,8 @@ def _dec_layer(ctx, cfg, lp, x, positions, enc_kv):
                       site="dec.cross")
     x = x + y
     h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
-    return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="dec.ffn"), kv
+    y, aux = moe_mod.layer_ffn(ctx, cfg, lp, h, "dec.ffn")
+    return x + y, aux, kv
 
 
 def _cross_kv(ctx, lp, cfg, enc_out):
@@ -177,12 +197,13 @@ def _cross_kv(ctx, lp, cfg, enc_out):
     return k, v
 
 
-def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens,
-                   remat: bool = False):
+def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens=None,
+                   frames=None, remat: bool = False):
     """Teacher-forced decoder pass over tgt_tokens (B, Sd) given
-    src_tokens (B, Se). Returns (logits (B, Sd, V), aux_loss); ``remat``
-    recomputes each layer's activations in the backward pass."""
-    enc_out = encdec_encode(ctx, params, cfg, src_tokens, remat)
+    src_tokens (B, Se) or frames (B, F, d). Returns (logits (B, Sd, V),
+    aux_loss: the decoder's MoE aux losses summed, 0 without MoE);
+    ``remat`` recomputes each layer's activations in the backward pass."""
+    enc_out = encdec_encode(ctx, params, cfg, src_tokens, frames, remat)
     B, Sd = tgt_tokens.shape
     Se = enc_out.shape[1]
     dev = enc_out.device
@@ -191,13 +212,17 @@ def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens,
 
     def body(x, lp, enc_out):
         k, v = _cross_kv(ctx, lp, cfg, enc_out)
-        return _dec_layer(ctx, cfg, lp, x, positions, (k, v, enc_pos))[0]
+        x, aux, _ = _dec_layer(ctx, cfg, lp, x, positions, (k, v, enc_pos))
+        return x, aux
 
     body_fn = _remat(body, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(cfg.num_layers):
-        x = body_fn(x, _layer(params["decoder"]["layers"], i), enc_out)
+        x, aux_l = body_fn(x, _layer(params["decoder"]["layers"], i), enc_out)
+        if aux_l is not None:
+            aux = aux + aux_l
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
-    return _head(ctx, params, cfg, x), torch.zeros((), dtype=torch.float32, device=dev)
+    return _head(ctx, params, cfg, x), aux
 
 
 def encdec_init_cache(cfg, batch: int, max_len: int, enc_len: int,
@@ -212,10 +237,11 @@ def encdec_init_cache(cfg, batch: int, max_len: int, enc_len: int,
     return cache
 
 
-def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens,
-                   lengths=None):
-    """Encode the source, run the decoder prompt, fill self + cross caches."""
-    enc_out = encdec_encode(ctx, params, cfg, src_tokens)
+def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens=None,
+                   lengths=None, *, frames=None):
+    """Encode the source (tokens or frames), run the decoder prompt, fill
+    self + cross caches."""
+    enc_out = encdec_encode(ctx, params, cfg, src_tokens, frames)
     B, Sd = tgt_tokens.shape
     Se = enc_out.shape[1]
     dev = enc_out.device
@@ -226,7 +252,7 @@ def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens,
     for i in range(cfg.num_layers):
         lp = _layer(params["decoder"]["layers"], i)
         ck, cv = _cross_kv(ctx, lp, cfg, enc_out)
-        x, (k, v) = _dec_layer(ctx, cfg, lp, x, positions, (ck, cv, enc_pos))
+        x, _, (k, v) = _dec_layer(ctx, cfg, lp, x, positions, (ck, cv, enc_pos))
         ks.append(k), vs.append(v), cks.append(ck), cvs.append(cv)
     ks, vs, cks, cvs = (torch.stack(t) for t in (ks, vs, cks, cvs))
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
@@ -325,7 +351,7 @@ def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
                           use_rope=False, site="dec.cross")
         x = x + y
         h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="dec.ffn")
+        x = x + moe_mod.layer_ffn(ctx, cfg, lp, h, "dec.ffn", dropless=True)[0]
         if layout == "float":
             new = (k_new, v_new)
         else:
@@ -367,7 +393,7 @@ def encdec_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
                           use_rope=False, site="dec.cross")
         x = x + y
         h = rms_norm(x, lp["norm3_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act, site="dec.ffn")
+        x = x + moe_mod.layer_ffn(ctx, cfg, lp, h, "dec.ffn", dropless=True)[0]
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
     logits = _head(ctx, params, cfg, x)
     new = dict(cache)

@@ -1,11 +1,14 @@
-"""Decoder-only LMs (the dense and VLM families), and the paged decode
-self-attention and KV-cache helpers that the decoder families share.
+"""Decoder-only LMs (the dense, MoE and VLM families), and the paged
+decode self-attention and KV-cache helpers that the decoder families
+share.
 
 One skeleton: embed (times sqrt(d) when ``embed_scale``; a VLM prepends
 its stub patch embeddings) -> the layer stack -> final norm -> head
 (the tied, dequantized embedding or ``lm_head``). Each layer is pre-norm
 self-attention (GQA, optional QKV bias and q/k RMS norm, a per-layer
-local window from ``window_pattern``) then the FFN (GLU or plain).
+local window from ``window_pattern``) then the FFN (GLU or plain), or
+top-k experts in an MoE LM: capacity dispatch over the whole sequence
+(forward, prefill; the aux losses summed), dropless in the decode steps.
 Layer parameters are stacked on a leading ``L`` axis, as in the
 reference; the stacks run as Python loops over per-layer slices.
 
@@ -25,8 +28,9 @@ from ..core.qtensor import QTensor, maybe_dequantize
 from ..kernels.decode_attn import quantize_token_kv as _quantize_token_kv
 from ..kernels.paging import gather_pages, scatter_token
 from ..unported import later
+from . import moe as moe_mod
 from .layers import (Ctx, _qk_norm, attention_init, attn_apply, decode_attn_apply,
-                     linear, mlp, mlp_init, normal_init, rms_norm, rope)
+                     linear, mlp_init, normal_init, rms_norm, rope)
 
 __all__ = ["paged_view", "paged_attn", "SCALED_KV", "_quantize_token_kv",
            "_fp8_token_kv", "_token_kv_quantizer", "_dense_kv", "_scatter_tokens",
@@ -295,9 +299,7 @@ def _commit_decode_position(new_cache, cache, positions):
 # ---------------------------------------------------------------------------
 
 def _check_family(cfg):
-    if cfg.moe is not None:
-        raise later(f"{cfg.name}: the MoE layers", 4)
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise later(f"{cfg.name}: the {cfg.family!r} LM layers", 4)
 
 
@@ -319,10 +321,14 @@ def lm_init(g, cfg):
     def ones(*shape):
         return torch.ones(shape + (d,), dtype=torch.float32, device=g.device)
 
+    ffn_params = {"mlp": mlp_init(g, L, cfg)} if cfg.moe is None else {
+        "moe": moe_mod.moe_init(g, d, cfg.d_ff, cfg.moe.num_experts, cfg.mlp_act,
+                                layers=L)}
+
     params = {
         "embedding": normal_init(g, (cfg.vocab_size, d), 0.02),
         "layers": {"norm1_scale": ones(L), "norm2_scale": ones(L),
-                   "attn": attention_init(g, L, cfg), "mlp": mlp_init(g, L, cfg)},
+                   "attn": attention_init(g, L, cfg), **ffn_params},
         "norm_f_scale": ones(),
     }
     if not cfg.tie_embeddings:
@@ -353,13 +359,15 @@ def _lm_layer(ctx: Ctx, cfg, lp, window, x, positions):
                        norm_eps=cfg.norm_eps)
     x = x + y
     h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-    return x + mlp(ctx, lp["mlp"], h, cfg.mlp_act), kv
+    y, aux = moe_mod.layer_ffn(ctx, cfg, lp, h)
+    return x + y, aux, kv
 
 
 def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
                remat: bool = False, collect_kv: bool = False):
     """tokens (B, S) [after img_embeds (B, P, d)] -> (logits (B, P + S, V)
-    f32, aux_loss, (ks, vs) layer-stacked (L, B, P + S, Hkv, hd) | None)."""
+    f32, aux_loss (the MoE layers' summed; 0 without), (ks, vs)
+    layer-stacked (L, B, P + S, Hkv, hd) | None)."""
     if remat:
         raise later(f"{cfg.name}: remat (the LM training branches)", 4)
     _check_family(cfg)
@@ -368,12 +376,15 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
     if positions is None:
         positions = _positions(B, S, x.device)
     ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(window_array(cfg)):
-        x, (k, v) = _lm_layer(ctx, cfg, _layer(params["layers"], i), window, x, positions)
+        x, aux_l, (k, v) = _lm_layer(ctx, cfg, _layer(params["layers"], i), window, x,
+                                     positions)
+        if aux_l is not None:
+            aux = aux + aux_l
         if collect_kv:
             ks.append(k)
             vs.append(v)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return _lm_head(ctx, params, cfg, x), aux, kvs
 
@@ -444,7 +455,7 @@ def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
             norm_eps=cfg.norm_eps)
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+        x = x + moe_mod.layer_ffn(ctx, cfg, lp, h, dropless=True)[0]
         if layout == "float":
             new = (k_new, v_new)
         else:
@@ -480,7 +491,7 @@ def lm_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
                           rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-        x = x + mlp(ctx, lp["mlp"], h, cfg.mlp_act)
+        x = x + moe_mod.layer_ffn(ctx, cfg, lp, h, dropless=True)[0]
     logits = _lm_head(ctx, params, cfg, x)
     new = dict(cache)
     new["len"] = torch.where(active > 0, cache["len"] + 1, cache["len"])

@@ -120,8 +120,10 @@ from .spec_decode import DraftArm, accept_longest_prefix
 
 __all__ = ["ServeEngine", "greedy_generate", "translate"]
 
-# the families served so far (the others come with port slice 4)
-_SERVED = ("dense", "vlm", "encdec")
+# the families served so far (SSM and hybrid come with port slice 4)
+_SERVED = ("dense", "vlm", "moe", "encdec", "audio")
+# an enc-dec request's source: token ids, or an audio model's frames
+_SOURCES = ("src_tokens", "frames")
 # families safe to prefill right-padded: attention caches with pos / len
 # masking and token-only prompts (a VLM's logits interleave its image
 # patches, so its last real token is not lengths-derived)
@@ -195,9 +197,10 @@ class ServeEngine:
         self.max_len = max_len
         self.n_slots = slots
         self.horizon = int(horizon)
-        # enc-dec requests carry a source (cross-attention capacity
-        # enc_cap); LM requests a "tokens" prompt, after a VLM's patches
-        self._enc_dec = fam == "encdec"
+        # enc-dec requests carry a source, tokens or an audio model's
+        # frames (cross-attention capacity enc_cap); LM requests a
+        # "tokens" prompt, after a VLM's patches
+        self._enc_dec = fam in ("encdec", "audio")
         self.enc_cap = int(max_src_len or model.cfg.enc_len) if self._enc_dec else 0
         self._tkey = "tgt_in" if self._enc_dec else "tokens"
         self._bucketed = fam in _PAD_SAFE
@@ -281,7 +284,8 @@ class ServeEngine:
     def submit(self, request, params: Optional[SamplingParams] = None, *,
                on_token: Optional[Callable[[int], None]] = None) -> int:
         """Enqueue a request (a Request or a B=1 batch dict: ``src_tokens``
-        and ``tgt_in`` for an enc-dec model, ``tokens`` and a VLM's
+        (or an audio model's ``frames``) and ``tgt_in`` for an enc-dec
+        model, ``tokens`` and a VLM's
         ``img_embeds`` for an LM); returns its id. A dense engine
         admits it at once when a slot is free (its first token, and
         ``on_token``'s first call, come before submit returns); a paged
@@ -305,12 +309,15 @@ class ServeEngine:
             request = dataclasses.replace(request, on_token=on_token)
         sp = request.params
         inputs = {}
-        for key in (self._tkey, "src_tokens") if self._enc_dec else (self._tkey,):
-            t = torch.as_tensor(request.inputs[key], dtype=torch.int32).cpu()
-            inputs[key] = t[None] if t.ndim == 1 else t
-        if "img_embeds" in request.inputs:
-            inputs["img_embeds"] = torch.as_tensor(request.inputs["img_embeds"]).to(
-                device="cpu", dtype=torch.float32)
+        keys = [(self._tkey, torch.int32), ("img_embeds", torch.float32)]
+        if self._enc_dec:
+            keys += [("src_tokens", torch.int32), ("frames", torch.float32)]
+        for key, dt in keys:
+            if key == self._tkey or key in request.inputs:
+                t = torch.as_tensor(request.inputs[key]).to(device="cpu", dtype=dt)
+                inputs[key] = t[None] if t.ndim == 1 else t
+        if self._enc_dec and not any(k in inputs for k in _SOURCES):
+            raise ValueError(f"an enc-dec request needs one of {_SOURCES}")
         prompt_len = int(inputs[self._tkey].shape[1])
         # a VLM's image patches fill cache positions ahead of its prompt
         patches = int(inputs["img_embeds"].shape[1]) if "img_embeds" in inputs else 0
@@ -329,7 +336,7 @@ class ServeEngine:
                 raise ValueError(f"request needs {need} KV pages"
                                  + (" (target + draft arms)" if self.draft else "")
                                  + f" but the pool holds only {usable}")
-        se = int(inputs["src_tokens"].shape[1]) if self._enc_dec else 0
+        se = self._src_len(inputs)
         if se > self.enc_cap:
             raise ValueError(f"source length {se} exceeds the engine's "
                              f"cross-attention capacity {self.enc_cap}")
@@ -825,6 +832,15 @@ class ServeEngine:
         return max((s.request.params.max_new_tokens - len(s.tokens)
                     for s in self.slots if s.active), default=0)
 
+    @staticmethod
+    def _src_len(inputs) -> int:
+        """Cross-attention source length of a request: its source tokens'
+        or frames' (0 for an LM)."""
+        for key in _SOURCES:
+            if key in inputs:
+                return int(inputs[key].shape[1])
+        return 0
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without a wait on the device: on
         the card through a pinned buffer and a non-blocking copy (the
@@ -1291,13 +1307,13 @@ class ServeEngine:
 
     def _prefill_batch(self, requests, toks: np.ndarray, lengths) -> dict:
         """The prefill batch of ``requests``: their padded prompts ``toks``,
-        the true ``lengths`` (a bucketed family's), their sources or image
-        embeddings; recorded as a prefill shape, keyed as the reference
-        keys its compiled prefills."""
+        the true ``lengths`` (a bucketed family's), their sources (tokens
+        or frames) or image embeddings; recorded as a prefill shape, keyed
+        as the reference keys its compiled prefills."""
         batch = {self._tkey: self._upload(toks)}
         if self._bucketed:
             batch["lengths"] = lengths
-        for key in ("src_tokens", "img_embeds"):
+        for key in _SOURCES + ("img_embeds",):
             if key in requests[0].inputs:
                 batch[key] = self._upload(np.concatenate(
                     [r.inputs[key].numpy() for r in requests]))
@@ -1307,7 +1323,7 @@ class ServeEngine:
     def _mini_cache(self, n: int, length: int, kv_dtype: str, batch):
         """A dense prefill cache for ``batch``; an enc-dec one holds the
         batch's sources."""
-        cross = {"enc_len": batch["src_tokens"].shape[1]} if self._enc_dec else {}
+        cross = {"enc_len": self._src_len(batch)} if self._enc_dec else {}
         return self.model.init_cache(n, length, kv_dtype, **cross)
 
     @torch.no_grad()
@@ -1349,7 +1365,9 @@ class ServeEngine:
         self.prefill_calls += 1
         self.prefill_s += time.perf_counter() - t0
         if tr is not None:
-            p_dur = time.perf_counter() - t0
+            # the span [t0, now] on the engine clock: a duration read after
+            # ``now`` would start it before its request under a slow host
+            p_dur = now - self._skew_s - t0
             tr.complete(request.id + 1, "prefill", now - p_dur, p_dur)
         s.request, s.tokens, s.active = request, [], True
         s.seq = self._admit_seq
@@ -1397,9 +1415,10 @@ class ServeEngine:
 
     def _shape_key(self, request: Request):
         """Batched-prefill key: the feed's bucket (prompt, plus replayed
-        tokens on a resume) and the source or image shape."""
+        tokens on a resume) and the source (tokens or frames) or image
+        shape."""
         return (self._bucket(self._feed_tokens(request).shape[1]),) + tuple(
-            (k, tuple(request.inputs[k].shape[1:])) for k in ("src_tokens", "img_embeds")
+            (k, tuple(request.inputs[k].shape[1:])) for k in _SOURCES + ("img_embeds",)
             if k in request.inputs)
 
     def _take_group(self) -> List[Request]:
@@ -1493,7 +1512,7 @@ class ServeEngine:
         if tr is not None:
             # one batched prefill covers the group; each member gets the
             # same complete event on its own track
-            p_dur = time.perf_counter() - t0
+            p_dur = now - self._skew_s - t0
             for r in group:
                 tr.complete(r.id + 1, "prefill", now - p_dur, p_dur, group=n)
         admitted = []
@@ -1551,7 +1570,7 @@ def _greedy_generate(model, ctx, params, batch, *, steps: int, max_len: int,
                      kv_dtype: str, eos_id: Optional[int], device):
     """One slot per batch row; a row stops at its first EOS and the rest
     of its positions hold ``eos_id`` (0 without one)."""
-    B = batch["tgt_in" if model.cfg.family == "encdec" else "tokens"].shape[0]
+    B = batch["tgt_in" if model.cfg.family in ("encdec", "audio") else "tokens"].shape[0]
     eng = ServeEngine(model, params, slots=B, max_len=max_len, kv_dtype=kv_dtype,
                       ctx=ctx, device=device)
     sp = SamplingParams(max_new_tokens=steps, eos_id=eos_id)

@@ -12,6 +12,9 @@
     pipe = deploy("nllb600m", "w8a8", calib_batches=batches)  # static act scales
     pipe = deploy("qwen2.5-14b", "int4", paged=True)     # a decoder-only LM
     outs = pipe.generate([prompt_ids, ...], SamplingParams(max_new_tokens=8))
+    pipe = deploy("olmoe-1b-7b", "int4", paged=True)     # an MoE LM, the same
+    pipe = deploy("whisper-base", "int4", paged=True)    # audio: frame prompts
+    outs = pipe.generate([{"frames": f, "tgt_in": t}, ...])
 
 ``deploy`` runs on the CUDA device unless the caller passes ``device``
 (the tests pass ``device="cpu"``); without a card it raises. Kernel
@@ -110,13 +113,13 @@ class TranslationPipeline:
         ``{"tokens": (1, S)}``."""
         if isinstance(p, (dict, Request)):
             return p
-        if self.cfg.family == "encdec":
+        if self.cfg.family in ("encdec", "audio"):
             raise TypeError("enc-dec prompts must be batch dicts with "
                             "'src_tokens' and 'tgt_in'")
         return {"tokens": torch.as_tensor(p, dtype=torch.int32)[None]}
 
     def _need_encdec(self, what: str, instead: str) -> None:
-        if self.cfg.family != "encdec":
+        if self.cfg.family not in ("encdec", "audio"):
             raise TypeError(f"{what}() needs an enc-dec model, got family "
                             f"{self.cfg.family!r}; use {instead}() instead")
 

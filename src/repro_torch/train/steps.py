@@ -2,10 +2,10 @@
 
 The reference's ``train/steps.py`` on the port's parameter trees.
 
-Loss: the enc-dec family's teacher-forced cross-entropy against
-``tgt_out`` with label smoothing 0.1 (masked token mean, f32), plus the
-MoE load-balancing term. The LM and VLM losses come with their model
-families.
+Loss: the enc-dec and audio families' teacher-forced cross-entropy
+against ``tgt_out`` with label smoothing 0.1 (masked token mean, f32),
+plus the MoE load-balancing term (nllb600m-moe's decoder aux losses). The
+LM losses come with the LM training branches.
 
 Steps:
   * ``make_train_step`` — full AdamW training with optional microbatch
@@ -57,7 +57,7 @@ def compute_loss(ctx: Ctx, model, params, batch, *, remat: bool = False,
     """(total, {"loss", "aux_loss", "total_loss"}) of one batch dict
     (numpy arrays or tensors; string entries are ignored)."""
     cfg = model.cfg
-    if cfg.family != "encdec":
+    if cfg.family not in ("encdec", "audio"):
         raise later(f"the {cfg.family!r} training loss", 4)
     logits, aux = model.forward(ctx, params, batch, remat=remat)
     labels, mask = (torch.as_tensor(batch[k], device=logits.device)
