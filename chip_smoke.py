@@ -99,7 +99,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and parts from the other layout only at near ties (an MoE slot routed
    to other experts at a router near tie is exempt from then on); the
    paged attention is timed at the served shapes;
-19. a launch-count line, the kernels' JSON line, the card line, and last
+19. the recurrent families, whole, int4, dense (as in the reference:
+   no paged cache, no draft arm): mamba2-780m on 8 prompts of 256-512
+   tokens, one of prime length (one-row SSD chunks) ([ssm]; qmm alone, at
+   the in_proj's N 6448, no multiple of 64, held against its plain
+   version at decode and prefill rows and timed over one decode step),
+   and recurrentgemma-9b on 8 prompts of 2100-2400 tokens, past its
+   2048-token local window, so the rolling KV buffer wraps in prefill and
+   again in decode ([hybrid]; qmm and the FASST activation on the RG-LRU
+   gates and the GELU-GLU); each engine holds its kernels at every shape
+   its warm-up gave them, launches exactly the counts a decode step
+   derives from the model, meets the torch bundle's bound and repeats its
+   8 streams bit for bit on a second run;
+20. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -2894,12 +2906,12 @@ def served_shapes():
         ops.qmm, ops.fasst, ops.paged_decode_attention = qmm, fasst, paged
 
 
-def hold_served(torch, tag, seen, dev):
+def hold_served(torch, tag, seen, dev, need=("qmm", "fasst_act")):
     """Hold qmm (on the served weights themselves, random f32 rows, f32
     and bf16 out), the FASST activation (random inputs) and the paged
     attention (a random pool, ragged lengths up to the served chain)
     against their plain versions at every shape ``seen`` recorded
-    (served_shapes)."""
+    (served_shapes); each kernel in ``need`` must have been given one."""
     g = torch.Generator(device=dev).manual_seed(SEED + 23)
     worst = {"qmm": 0.0, "fasst_act": 0.0, "paged_attn": 0.0}
     for B, H, d, Hkv, ps, maxp, kind, q_dt in sorted(seen["paged_attn"], key=str):
@@ -2924,8 +2936,21 @@ def hold_served(torch, tag, seen, dev):
         f"{worst['qmm']:.3g}); fasst_act at {acts} (max abs err {worst['fasst_act']:.3g})"
         + (f"; paged_attn at {paged}, launched twice and bit-identical (max abs err "
            f"{worst['paged_attn']:.3g})" if paged else ""))
-    if not kns or not acts:
-        raise AssertionError(f"[{tag}] the served run recorded no qmm or fasst_act shape")
+    missing = [k for k in need if not seen[k]]
+    if missing:
+        raise AssertionError(f"[{tag}] the served run recorded no {missing} shape")
+
+
+def _arch_line(c) -> str:
+    """A deployed config's widths, per family."""
+    if c.family == "ssm":
+        s = c.ssm
+        return (f"d {c.d_model}, SSD state {s.state_dim}, {s.expand * c.d_model // s.head_dim} "
+                f"heads of {s.head_dim}, chunk {s.chunk}, no FFN")
+    head = f"{c.num_heads}/{c.num_kv_heads} heads of {c.head_dim}"
+    if c.family == "hybrid":
+        head += f", RG-LRU width {c.d_rec}, local window {c.local_window}"
+    return f"d {c.d_model}, {head}, d_ff {c.d_ff} ({c.mlp_act})"
 
 
 def _lm_deploy(torch, tag, arch, paged, max_len, params=None, cut=""):
@@ -2936,6 +2961,7 @@ def _lm_deploy(torch, tag, arch, paged, max_len, params=None, cut=""):
     cfg = get_config(arch)
     if arch == LM_ARCH:
         cfg = dataclasses.replace(cfg, num_layers=LM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipe = deploy(cfg, "int4", slots=SLOTS, max_len=max_len, horizon=HORIZON,
                   init_seed=SEED, params=params,
@@ -2943,9 +2969,10 @@ def _lm_deploy(torch, tag, arch, paged, max_len, params=None, cut=""):
                   **(dict(paged=True, page_size=PAGE) if paged else {}))
     torch.cuda.synchronize()
     c = pipe.cfg
-    log(f"[{tag}] deployed {arch} int4 ({'paged' if paged else 'dense'} int8 KV, max_len "
-        f"{max_len}) in {time.perf_counter() - t0:.2f} s: d {c.d_model}, {c.num_heads}/"
-        f"{c.num_kv_heads} heads of {c.head_dim}, d_ff {c.d_ff} ({c.mlp_act}), vocab "
+    kv = {"ssm": "recurrent state", "hybrid": "bf16 rolling KV"}.get(c.family, "int8 KV")
+    log(f"[{tag}] deployed {arch} int4 ({'paged' if paged else 'dense'} {kv}, max_len "
+        f"{max_len}) in {time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB: {_arch_line(c)}, vocab "
         f"{c.vocab_size}, {c.num_layers} layers{cut}; "
         + (f"{pipe.fp_bytes / 1e9:.2f} GB f32 -> {pipe.quantized_bytes / 1e9:.2f} GB, "
            f"random weights from seed {SEED}" if params is None else
@@ -2971,7 +2998,8 @@ def lm_serve(torch, card, tag, pipe, prompts, expect, prefill_only=()):
     # every shape it gave them
     with served_shapes() as seen:
         pipe.generate(prompts, SamplingParams(max_new_tokens=4))
-    hold_served(torch, tag, seen, eng.device)
+    hold_served(torch, tag, seen, eng.device,
+                [k for k in ("qmm", "fasst_act") if expect[k] or k in prefill_only])
     eng.reset_metrics()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3255,6 +3283,100 @@ def audio_phase(torch, card, timed):
     return launches
 
 
+SSM_LEN, HYBRID_LEN = 576, 2560
+
+
+def _prime_prompts(rng, vocab, lo, hi):
+    """``_lm_prompts`` with the first prompt's length moved to the largest
+    prime in [lo, hi] (the SSD's worst case: one-row chunks)."""
+    prompts = _lm_prompts(rng, vocab, lo, hi)
+    n = next(n for n in range(hi, lo - 1, -1) if all(n % d for d in range(2, int(n ** 0.5) + 1)))
+    prompts[0] = {"tokens": rng.integers(0, vocab, (1, n)).astype(np.int32)}
+    return prompts
+
+
+def time_qmm_ssm(torch, card, dev):
+    """qmm over one mamba2-780m decode step (48 layers x in_proj 1536x6448,
+    out_proj 3072x1536, int4, M 8), each launch on its own weight as in
+    the model: kernel, plain, library and bound, as the kernels' [time]
+    lines give them; returns the ``ssm_`` keys of the qmm entry."""
+    from repro_torch.core.qtensor import QTensor
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    ws = [QTensor.quantize(torch.randn(kn, generator=g, device=dev) * 0.02, "int4", 64)
+          for _ in range(48) for kn in ((1536, 6448), (3072, 1536))]
+    fns, (t, by) = qmm_window(torch, g, dev, ws, SLOTS)
+    e = {**times(*fns, plain_reps=2), "bound_ms": t, "bound_by": by,
+         "work": f"one mamba2-780m decode step: {len(ws)} int4 launches at M={SLOTS} "
+                 "(in_proj 1536x6448, out_proj 3072x1536)"}
+    log_time({"name": "qmm", **{f"ssm_{k}": v for k, v in e.items()}}, card, "ssm_")
+    del ws, fns
+    torch.cuda.empty_cache()
+    return {f"ssm_{k}": v for k, v in e.items()}
+
+
+def ssm_phase(torch, card, timed):
+    """[ssm]: mamba2-780m whole (48 layers, d 1536, SSD state 128, 48
+    heads of 64, chunk 128, tied 50280 head; 0.78 B parameters drawn and
+    quantized on the card), int4, dense; 8 requests of 256-512 prompt
+    tokens (one of prime length: one-row chunks) x 32 new, greedy. A
+    decode step launches qmm twice a layer (in_proj, out_proj) and nothing
+    else of the port's (the SiLUs are plain PyTorch, as in the
+    reference). qmm is held at the in_proj's N 6448 (= 50 x 128 + 48, no
+    multiple of 64) on the served weight at decode and prefill rows, and
+    timed over one decode step (``timed["qmm"]``). Returns the launches
+    of the measured run."""
+    pipe = _lm_deploy(torch, "ssm", "mamba2-780m", False, SSM_LEN)
+    L, dev = pipe.cfg.num_layers, pipe.engine.device
+    prompts = _prime_prompts(np.random.default_rng(SEED + 28), pipe.cfg.vocab_size,
+                             256, 512)
+    lens = [p["tokens"].shape[1] for p in prompts]
+    w = pipe.params["layers"]["ssm"]["in_proj"].select(0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    errs = [qmm_agree(torch, torch.randn((m, w.shape[-2]), generator=g, device=dev), w,
+                      "[ssm] in_proj")[0] for m in (SLOTS, lens[0])]
+    log(f"[ssm] qmm at the served in_proj (K {w.shape[-2]}, N {w.shape[-1]}) agrees with "
+        f"qmm_plain at M {SLOTS} and M {lens[0]}, f32 and bf16 out, each launched twice and "
+        f"bit-identical; max abs err (f32 out) {max(errs):.3g}; prompt lengths {lens}")
+    expect = {"qmm": 2 * L, "qmm_naf": 0, "paged_attn": 0, "fasst_act": 0}
+    outs, launches = lm_serve(torch, card, "ssm", pipe, prompts, expect)
+    repeat_run("ssm", pipe, prompts, outs)
+    routes_agree(torch, pipe, prompts, "ssm-routes")
+    del pipe
+    torch.cuda.empty_cache()
+    timed["qmm"] = time_qmm_ssm(torch, card, dev)
+    return launches
+
+
+def hybrid_phase(torch, card):
+    """[hybrid]: recurrentgemma-9b whole (12 super-blocks of (RG-LRU,
+    RG-LRU, local attention) and a 2-layer RG-LRU tail, d 4096, MQA 16/1
+    heads of 256, window 2048, GELU-GLU 12288, tied 256000 head; 9.40 B
+    parameters, the 2.18 B of the RG-LRU kept bf16 as the policy exempts
+    them), int4, dense (bf16 rolling KV whatever the spec says, as in the
+    reference), max_len 2560; 8 requests of 2100-2400 prompt tokens x 32
+    new, greedy: the rolling buffer wraps in prefill and again in decode.
+    A decode step launches qmm 3 a recurrent layer (the MLP) and 7 an
+    attention layer (q, k, v, o and the MLP), the FASST kernel twice a
+    recurrent layer (the RG-LRU's output gate, the MLP's GELU) and once an
+    attention layer. Returns the launches of the measured run."""
+    from repro_torch.models.hybrid import hybrid_layout
+    pipe = _lm_deploy(torch, "hybrid", "recurrentgemma-9b", False, HYBRID_LEN)
+    n_super, tail = hybrid_layout(pipe.cfg)
+    rec = 2 * n_super + tail
+    prompts = _lm_prompts(np.random.default_rng(SEED + 30), pipe.cfg.vocab_size, 2100, 2400)
+    log(f"[hybrid] {n_super} super-blocks + {tail} tail layers ({rec} RG-LRU, {n_super} "
+        f"attention); prompts of {sorted(p['tokens'].shape[1] for p in prompts)} tokens "
+        f"against a rolling buffer of {pipe.engine.cache['b_k'].shape[2]} rows")
+    expect = {"qmm": 3 * rec + 7 * n_super, "qmm_naf": 0, "paged_attn": 0,
+              "fasst_act": 2 * rec + n_super}
+    outs, launches = lm_serve(torch, card, "hybrid", pipe, prompts, expect)
+    repeat_run("hybrid", pipe, prompts, outs)
+    routes_agree(torch, pipe, prompts, "hybrid-routes")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
 LM_PHASES = (("lm", lm_phase), ("lm-gemma", lm_gemma_phase), ("vlm", vlm_phase))
 
 
@@ -3362,7 +3484,9 @@ def main() -> int:
     phases = LM_PHASES + (("moe", lambda torch, card: moe_phase(torch, card, timed)),
                           ("audio", lambda torch, card: audio_phase(torch, card, timed)),
                           ("moe-nllb", lambda torch, card: moe_nllb_phase(torch, card,
-                                                                          prompts)))
+                                                                          prompts)),
+                          ("ssm", lambda torch, card: ssm_phase(torch, card, timed)),
+                          ("hybrid", hybrid_phase))
     for name, phase in phases:
         t0 = time.perf_counter()
         phase_launches[name] = phase(torch, card)
@@ -3373,15 +3497,18 @@ def main() -> int:
               "eval": phase_launches["eval"], "lm": phase_launches["lm"],
               "lm_gemma": phase_launches["lm-gemma"], "vlm": phase_launches["vlm"],
               "moe": phase_launches["moe"], "moe_nllb": phase_launches["moe-nllb"],
-              "audio": phase_launches["audio"]}
+              "audio": phase_launches["audio"], "ssm": phase_launches["ssm"],
+              "hybrid": phase_launches["hybrid"]}
     for e in entries:
         if e["name"] == "paged_attn":
-            for tag, t in timed.items():
-                e.update({f"{tag}_{k}": v for k, v in t.items()})
+            for tag in ("moe", "audio"):
+                e.update({f"{tag}_{k}": v for k, v in timed[tag].items()})
+        if e["name"] == "qmm":
+            e.update(timed["qmm"])
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
         # spec, spec_dense, faults, quant, train, eval, lm, lm_gemma, vlm,
-        # moe, moe_nllb, audio
+        # moe, moe_nllb, audio, ssm, hybrid
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -3395,15 +3522,18 @@ def main() -> int:
     log("kernels in [moe] / [moe-nllb] / [audio]: " + ", ".join(
         f"{e['name']}={e['launches_moe']} / {e['launches_moe_nllb']} / "
         f"{e['launches_audio']}" for e in entries))
+    log("kernels in [ssm] / [hybrid]: " + ", ".join(
+        f"{e['name']}={e['launches_ssm']} / {e['launches_hybrid']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_lm", "launches_lm_gemma", "launches_vlm",
-            "launches_moe", "launches_moe_nllb", "launches_audio", "max_abs_err",
+            "launches_moe", "launches_moe_nllb", "launches_audio", "launches_ssm",
+            "launches_hybrid", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k in keys or k.startswith(("prefill_", "lm_", "moe_",
-                                                                 "audio_"))}
+                                                                 "audio_", "ssm_"))}
                                   for e in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,9 @@ build_model(cfg, device) -> ModelAPI with
   forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced)
   init_cache(batch, max_len, kv)     -> dense prefill cache
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
-                                     -> block-paged serving cache
+                                     -> block-paged serving cache (attention
+                                        families; the SSM and hybrid raise
+                                        ValueError)
   prefill(ctx, params, cache, batch) -> (cache, logits)
   decode_step(ctx, params, tok, c)   -> (cache, logits)   (dense or paged)
 decode_block(model, ctx, params, tokens, cache) -> (cache, logits (B, K, V))
@@ -18,12 +20,13 @@ decode_step dispatches on the cache layout: a cache carrying
 path.
 
 Batches are dicts:
-  LM families (dense, moe, vlm): {"tokens" (B,S)[, "img_embeds" (B,P,d)
+  LM families (dense, moe, vlm, ssm, hybrid):
+                                 {"tokens" (B,S)[, "img_embeds" (B,P,d)
                                   for vlm][, "lengths"]}
   enc-dec:                       {"tgt_in" (B,Sd), "src_tokens" (B,Se)[, "lengths"]}
   audio:                         {"tgt_in" (B,Sd), "frames" (B,F,d)[, "lengths"]}
 ``forward`` also takes numpy arrays (a ``data`` batch), moved to the
-model's device. The SSM and hybrid families raise.
+model's device.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from typing import Any, Callable
 
 import torch
 
-from ..unported import later
 from . import encdec as ed
+from . import hybrid as hy
 from . import transformer as tf
 
 __all__ = ["ModelAPI", "build_model", "decode_block"]
@@ -73,6 +76,14 @@ def _on(device, batch, key):
     return None if v is None else torch.as_tensor(v, device=device)
 
 
+def _no_paged_cache(fam: str) -> Callable:
+    def init_paged_cache(*a, **k):
+        raise ValueError(
+            f"family {fam!r} keeps O(1)-per-sequence recurrent state; "
+            "block-paged KV caches apply to attention families only")
+    return init_paged_cache
+
+
 def _lm_model(cfg, device) -> ModelAPI:
     def forward(ctx, params, batch, remat=False):
         logits, aux, _ = tf.lm_forward(ctx, params, cfg, _on(device, batch, "tokens"),
@@ -96,14 +107,35 @@ def _lm_model(cfg, device) -> ModelAPI:
                                       kv_dtype, device)
 
     return ModelAPI(cfg, lambda g: tf.lm_init(g, cfg), forward, init_cache, prefill,
-                    decode_step, init_paged_cache)
+                    decode_step, _no_paged_cache("ssm") if cfg.family == "ssm"
+                    else init_paged_cache)
+
+
+def _hybrid_model(cfg, device) -> ModelAPI:
+    def forward(ctx, params, batch, remat=False):
+        return hy.hybrid_forward(ctx, params, cfg, _on(device, batch, "tokens"), remat=remat)
+
+    def init_cache(batch_size, max_len, kv_dtype="bf16"):
+        return hy.hybrid_init_cache(cfg, batch_size, max_len, kv_dtype, device)
+
+    def prefill(ctx, params, cache, batch):
+        return hy.hybrid_prefill(ctx, params, cfg, batch["tokens"], cache,
+                                 lengths=batch.get("lengths"))
+
+    def decode_step(ctx, params, tokens, cache):
+        return hy.hybrid_decode_step(ctx, params, cfg, tokens, cache)
+
+    return ModelAPI(cfg, lambda g: hy.hybrid_init(g, cfg), forward, init_cache, prefill,
+                    decode_step, _no_paged_cache("hybrid"))
 
 
 def build_model(cfg, device="cuda") -> ModelAPI:
-    if cfg.family in ("dense", "vlm", "moe"):
+    if cfg.family in ("dense", "vlm", "moe", "ssm"):
         return _lm_model(cfg, device)
+    if cfg.family == "hybrid":
+        return _hybrid_model(cfg, device)
     if cfg.family not in ("encdec", "audio"):
-        raise later(f"model family {cfg.family!r}", 4)
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def init(generator):
         return ed.encdec_init(generator, cfg)

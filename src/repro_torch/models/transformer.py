@@ -1,4 +1,4 @@
-"""Decoder-only LMs (the dense, MoE and VLM families), and the paged
+"""Decoder-only LMs (the dense, MoE, VLM and SSM families), and the paged
 decode self-attention and KV-cache helpers that the decoder families
 share.
 
@@ -11,6 +11,10 @@ top-k experts in an MoE LM: capacity dispatch over the whole sequence
 (forward, prefill; the aux losses summed), dropless in the decode steps.
 Layer parameters are stacked on a leading ``L`` axis, as in the
 reference; the stacks run as Python loops over per-layer slices.
+
+An SSM (Mamba-2) layer is pre-norm SSD with no FFN (``models/ssm.py``);
+its serving cache is recurrent, ``conv`` (L, B, 3, conv_dim) bf16 and
+``ssd`` (L, B, nh, hp, ds) f32 states and ``len``, with no paged layout.
 
 Serving caches are updated in place: prefill writes into the cache it is
 given, and a decode step writes the fresh token into its dense row or
@@ -29,6 +33,7 @@ from ..kernels.decode_attn import quantize_token_kv as _quantize_token_kv
 from ..kernels.paging import gather_pages, scatter_token
 from ..unported import later
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (Ctx, _qk_norm, attention_init, attn_apply, decode_attn_apply,
                      linear, mlp_init, normal_init, rms_norm, rope)
 
@@ -299,7 +304,7 @@ def _commit_decode_position(new_cache, cache, positions):
 # ---------------------------------------------------------------------------
 
 def _check_family(cfg):
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         raise later(f"{cfg.name}: the {cfg.family!r} LM layers", 4)
 
 
@@ -321,16 +326,18 @@ def lm_init(g, cfg):
     def ones(*shape):
         return torch.ones(shape + (d,), dtype=torch.float32, device=g.device)
 
-    ffn_params = {"mlp": mlp_init(g, L, cfg)} if cfg.moe is None else {
-        "moe": moe_mod.moe_init(g, d, cfg.d_ff, cfg.moe.num_experts, cfg.mlp_act,
-                                layers=L)}
-
-    params = {
-        "embedding": normal_init(g, (cfg.vocab_size, d), 0.02),
-        "layers": {"norm1_scale": ones(L), "norm2_scale": ones(L),
-                   "attn": attention_init(g, L, cfg), **ffn_params},
-        "norm_f_scale": ones(),
-    }
+    if cfg.family == "ssm":
+        embedding = normal_init(g, (cfg.vocab_size, d), 0.02)
+        layers = {"norm1_scale": ones(L), "ssm": ssm_mod.ssm_init(g, d, cfg.ssm, L)}
+    else:
+        # the draw order of the seeded init: FFN, embedding, attention
+        ffn_params = {"mlp": mlp_init(g, L, cfg)} if cfg.moe is None else {
+            "moe": moe_mod.moe_init(g, d, cfg.d_ff, cfg.moe.num_experts, cfg.mlp_act,
+                                    layers=L)}
+        embedding = normal_init(g, (cfg.vocab_size, d), 0.02)
+        layers = {"norm1_scale": ones(L), "norm2_scale": ones(L),
+                  "attn": attention_init(g, L, cfg), **ffn_params}
+    params = {"embedding": embedding, "layers": layers, "norm_f_scale": ones()}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(g, (d, cfg.vocab_size), d ** -0.5)
     return params
@@ -349,6 +356,18 @@ def _embed(ctx: Ctx, params, cfg, tokens, img_embeds=None):
 
 def _lm_head(ctx: Ctx, params, cfg, x):
     return _head(ctx, params, cfg, rms_norm(x, params["norm_f_scale"], cfg.norm_eps))
+
+
+def _ssm_layer(ctx: Ctx, cfg, lp, x, state=None):
+    """x + SSD(norm(x)) from the zero SSD state; with ``state`` (the
+    cache's conv state) also returns the new (conv, SSD) states."""
+    h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+    if state is None:
+        return x + ssm_mod.ssm_apply(ctx, lp["ssm"], h, d_model=cfg.d_model,
+                                     ssm_cfg=cfg.ssm)
+    y, st = ssm_mod.ssm_apply(ctx, lp["ssm"], h, d_model=cfg.d_model, ssm_cfg=cfg.ssm,
+                              conv_state=state, return_state=True)
+    return x + y, st
 
 
 def _lm_layer(ctx: Ctx, cfg, lp, window, x, positions):
@@ -373,10 +392,14 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
     _check_family(cfg)
     x = _embed(ctx, params, cfg, tokens, img_embeds)
     B, S, _ = x.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            x = _ssm_layer(ctx, cfg, _layer(params["layers"], i), x)
+        return _lm_head(ctx, params, cfg, x), aux, None
     if positions is None:
         positions = _positions(B, S, x.device)
     ks, vs = [], []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(window_array(cfg)):
         x, aux_l, (k, v) = _lm_layer(ctx, cfg, _layer(params["layers"], i), window, x,
                                      positions)
@@ -391,8 +414,14 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
 
 def lm_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16", device="cuda"):
     """Dense serving cache: K/V at ``max_len`` per slot, ``pos`` -1 where
-    empty, ``len`` per slot."""
+    empty, ``len`` per slot; an SSM's recurrent states and ``len``."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        conv, ssd = ssm_mod.ssm_init_state(batch, cfg.d_model, cfg.ssm, device)
+        L = cfg.num_layers
+        return {"conv": conv.expand(L, *conv.shape).clone(),
+                "ssd": ssd.expand(L, *ssd.shape).clone(),
+                "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     cache = {"pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
              "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     cache.update(_kv_leaves("", cfg.num_layers, batch, max_len, cfg.num_kv_heads,
@@ -406,6 +435,9 @@ def lm_init_paged_cache(cfg, slots: int, max_pages: int, num_pages: int,
     trash page) and a block table of ``max_pages`` entries per slot."""
     from ..serving.paged_cache import TRASH_PAGE, init_paged_kv
     _check_family(cfg)
+    if cfg.family == "ssm":
+        raise ValueError("paged KV caches need an attention family; "
+                         "ssm states are O(1) per sequence already")
     cache = init_paged_kv(cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
                           cfg.head_dim, kv_dtype, device)
     cache["block_tables"] = torch.full((slots, max_pages), TRASH_PAGE,
@@ -418,7 +450,24 @@ def lm_init_paged_cache(cfg, slots: int, max_pages: int, num_pages: int,
 def lm_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, img_embeds=None,
                positions=None):
     """Run the whole prompt (after a VLM's patches) and fill the cache's
-    first P + S positions. Returns (cache, logits (B, P + S, V))."""
+    first P + S positions. Returns (cache, logits (B, P + S, V)).
+
+    An SSM runs layer by layer from the cache's states and returns the
+    final ones (the conv state in the compute dtype: a caller that keeps
+    the cache casts it, as the engine's splice does)."""
+    if cfg.family == "ssm":
+        x = _embed(ctx, params, cfg, tokens)
+        convs, ssds = [], []
+        for i in range(cfg.num_layers):
+            x, (conv, ssd) = _ssm_layer(ctx, cfg, _layer(params["layers"], i), x,
+                                        cache["conv"][i])
+            convs.append(conv)
+            ssds.append(ssd)
+        B, S = tokens.shape
+        lens = lengths if lengths is not None else torch.full(
+            (B,), S, dtype=torch.int32, device=x.device)
+        return dict(cache, conv=torch.stack(convs), ssd=torch.stack(ssds),
+                    len=lens), _lm_head(ctx, params, cfg, x)
     logits, _, (ks, vs) = lm_forward(ctx, params, cfg, tokens, positions=positions,
                                      img_embeds=img_embeds, collect_kv=True)
     B, S_tot = ks.shape[1], ks.shape[2]
@@ -437,6 +486,8 @@ def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     written into the cache in place (quantized on int8 / fp8 caches)."""
     if "block_tables" in cache:
         return lm_paged_decode_step(ctx, params, cfg, tokens, cache)
+    if cfg.family == "ssm":
+        return _ssm_decode_step(ctx, params, cfg, tokens, cache)
     layout = _kv_layout(cache)
     positions = cache["len"][:, None]
     x = _embed(ctx, params, cfg, tokens)
@@ -465,6 +516,22 @@ def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
             _scatter_tokens(leaf, t, cache["len"])
     logits = _lm_head(ctx, params, cfg, x)
     return _commit_decode_position(dict(cache), cache, positions), logits
+
+
+def _ssm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
+    """One recurrent step of every SSM layer; the new states are written
+    into the cache in place (the conv state cast to its bf16 leaf)."""
+    x = _embed(ctx, params, cfg, tokens)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
+        y, (conv, ssd) = ssm_mod.ssm_decode_step(
+            ctx, lp["ssm"], h, (cache["conv"][i], cache["ssd"][i]), d_model=cfg.d_model,
+            ssm_cfg=cfg.ssm)
+        x = x + y
+        cache["conv"][i] = conv.to(cache["conv"].dtype)
+        cache["ssd"][i] = ssd
+    return dict(cache, len=cache["len"] + 1), _lm_head(ctx, params, cfg, x)
 
 
 def lm_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):

@@ -120,14 +120,17 @@ from .spec_decode import DraftArm, accept_longest_prefix
 
 __all__ = ["ServeEngine", "greedy_generate", "translate"]
 
-# the families served so far (SSM and hybrid come with port slice 4)
-_SERVED = ("dense", "vlm", "moe", "encdec", "audio")
+# the families served (SSM and hybrid dense only, unbucketed: a
+# recurrent state would absorb pad tokens)
+_SERVED = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "audio")
 # an enc-dec request's source: token ids, or an audio model's frames
 _SOURCES = ("src_tokens", "frames")
 # families safe to prefill right-padded: attention caches with pos / len
 # masking and token-only prompts (a VLM's logits interleave its image
 # patches, so its last real token is not lengths-derived)
 _PAD_SAFE = ("dense", "moe", "encdec", "audio")
+# cache leaves whose first axis is the batch (the others are layer-stacked)
+_BATCH_LEADING = ("pos", "len", "cross_len", "pos_roll")
 
 
 @dataclasses.dataclass
@@ -1379,14 +1382,15 @@ class ServeEngine:
     @staticmethod
     def _splice(cache, one, sid: int) -> None:
         """Write a one-slot cache into batch slot ``sid`` of ``cache``, in
-        place. The
-        cross-attention leaves are zero-padded from the request's source
-        length to the engine's capacity (``cross_len`` masks the rest);
-        ``pos`` / ``len`` / ``cross_len`` carry the batch axis first, the
-        layer-stacked K/V leaves second."""
+        place, cast to the leaf's dtype (a prefilled SSM conv state rounds
+        to its bf16 leaf). The cross-attention leaves are zero-padded from
+        the request's source length to the engine's capacity
+        (``cross_len`` masks the rest); ``pos`` / ``len`` / ``cross_len`` /
+        ``pos_roll`` and every 1-D leaf carry the batch axis first, the
+        layer-stacked K/V and state leaves second."""
         for key, c in cache.items():
             o = one[key].to(c.dtype)
-            if key in ("pos", "len", "cross_len"):
+            if key in _BATCH_LEADING or c.dim() == 1:
                 c[sid] = o[0]
             elif key.startswith("cross_"):
                 c[:, sid] = 0

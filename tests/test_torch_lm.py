@@ -102,9 +102,12 @@ def test_config_mirrors_reference(arch):
     assert all(getattr(cfg, k) == getattr(jcfg, k) for k in cfg.__dict__)
     assert all(getattr(get_config(arch), k) == getattr(REGISTRY[arch], k)
                for k in cfg.__dict__)
-    # the enc-dec, MoE and audio configs: tests/test_torch_moe.py
+    # the enc-dec, MoE and audio configs: tests/test_torch_moe.py; the SSM
+    # and hybrid configs: tests/test_torch_ssm.py
     assert set(T_REGISTRY) == set(ARCHS) | {"nllb600m", "nllb600m-moe", "olmoe-1b-7b",
-                                            "moonshot-v1-16b-a3b", "whisper-base"}
+                                            "moonshot-v1-16b-a3b", "whisper-base",
+                                            "mamba2-780m", "recurrentgemma-9b"}
+    assert list(T_REGISTRY) == list(REGISTRY)
 
 
 def test_reduced_shapes():
@@ -385,11 +388,19 @@ def test_generator_init_has_the_reference_shapes(arch):
 def test_unported_routes_raise(models):
     from repro_torch.configs.base import MoECfg, SSMCfg
     _, cfg, _, _, tp = models["qwen2.5-14b"]
-    for over in (dict(family="ssm", ssm=SSMCfg()), dict(family="hybrid")):
+    # every family is served now (the SSM and hybrid build); an LM of any
+    # family still trains and inits from a key only with the LM training
+    # branches
+    for over in (dict(family="ssm", ssm=SSMCfg(state_dim=16, head_dim=16, chunk=8)),
+                 dict(family="hybrid", d_rec=64, local_window=8)):
+        rec = build_model(dataclasses.replace(cfg, **over), "cpu")
+        assert rec.cfg.family == over["family"]
         with pytest.raises(NotImplementedError, match="slice 4"):
-            build_model(dataclasses.replace(cfg, **over), "cpu")
-    # the MoE and audio families are served now; an MoE LM still trains
-    # and inits from a key only with the LM training branches
+            rec.init(prng_key(0))
+        params = rec.init(torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            rec.forward(CTX_PLAIN, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+                        remat=True)
     moe = build_model(dataclasses.replace(cfg, family="moe", moe=MoECfg(4, 2)), "cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
         moe.init(prng_key(0))

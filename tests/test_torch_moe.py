@@ -303,14 +303,20 @@ def test_quantized_trees_byte_equal(raw_trees, arch, spec):
 
 
 def test_families_still_unported_raise():
-    """SSM and hybrid models, LM init from a key and LM training raise
-    NotImplementedError naming slice 4."""
+    """SSM and hybrid models build now; their init from a key and their
+    training, like every LM's, raise NotImplementedError naming slice 4."""
     from repro_torch.configs.base import SSMCfg
     from repro_torch.train.steps import compute_loss
     cfg = t_reduce_config(get_config("olmoe-1b-7b"))
-    for over in (dict(family="ssm", ssm=SSMCfg(), moe=None), dict(family="hybrid", moe=None)):
+    toks = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    for over in (dict(family="ssm", ssm=SSMCfg(state_dim=16, head_dim=16, chunk=8), moe=None),
+                 dict(family="hybrid", moe=None, d_rec=64, local_window=8)):
+        rec = build_model(dataclasses.replace(cfg, **over), "cpu")
         with pytest.raises(NotImplementedError, match="slice 4"):
-            build_model(dataclasses.replace(cfg, **over), "cpu")
+            rec.init(prng_key(0))
+        params = rec.init(torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            compute_loss(CTX, rec, params, toks)
     model = build_model(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
         model.init(prng_key(0))
