@@ -78,7 +78,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the standalone FASST activation, driven on the dense engine's live
    caches, logits and FFN weights, with the launch counters set to 0
    just before and read just after ([api]);
-17. the decoder-only LMs, each deploy freed before the next: qmm and
+17. LM training ([train-lm]): one f32 AdamW step with remat of each LM
+   family's reduced config on the card against the CPU (qwen2.5-14b,
+   gemma3-1b, llava-next-mistral-7b with image rows, olmoe-1b-7b,
+   mamba2-780m, recurrentgemma-9b); then full width, TRAIN_STEPS steps
+   each with the loss falling: gemma3-1b whole (f32 AdamW, remat, two
+   microbatches, 4 x 640 tokens past its 512-token windows), mamba2-780m
+   whole (8 x 256, two SSD chunks) and olmoe-1b-7b cut to 3 of its 16
+   layers (8 x 64, the aux loss finite), then 8-bit AdamW on that cut
+   (the loss finite); step ms, tokens/s, peak memory, one profiled step
+   each, and no kernel launch;
+18. the decoder-only LMs, each deploy freed before the next: qmm and
    paged attention at qwen2.5-14b's served shapes against their plain
    versions; qwen2.5-14b at full width, 24 of its 48 layers, int4 paged
    and dense ([lm]); gemma3-1b whole, paged and dense, prompts past its
@@ -88,7 +98,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    versions at every shape its warm-up gave them; each phase checks the
    kernel bundle against the torch bundle, and dense against paged up
    to near ties (a first token may part there at an exact bf16 tie);
-18. the MoE and audio families, whole, int4: olmoe-1b-7b paged and
+19. the MoE and audio families, whole, int4: olmoe-1b-7b paged and
    dense ([moe], [moe-dense]; 64 experts top-8, the experts' SiLU
    through the FASST kernel on 4-D inputs), whisper-base paged and dense
    on 1500 random frames a request ([audio], [audio-dense]) and
@@ -99,7 +109,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and parts from the other layout only at near ties (an MoE slot routed
    to other experts at a router near tie is exempt from then on); the
    paged attention is timed at the served shapes;
-19. the recurrent families, whole, int4, dense (as in the reference:
+20. the recurrent families, whole, int4, dense (as in the reference:
    no paged cache, no draft arm): mamba2-780m on 8 prompts of 256-512
    tokens, one of prime length (one-row SSD chunks) ([ssm]; qmm alone, at
    the in_proj's N 6448, no multiple of 64, held against its plain
@@ -111,7 +121,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its warm-up gave them, launches exactly the counts a decode step
    derives from the model, meets the torch bundle's bound and repeats its
    8 streams bit for bit on a second run;
-20. a launch-count line, the kernels' JSON line, the card line, and last
+21. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -2323,15 +2333,16 @@ def _params_leaves(torch, tree):
     return {k: v for k, v in leaves_with_path(tree) if isinstance(v, torch.Tensor)}
 
 
-def train_parity(torch, dev):
-    """One f32 train step of the reduced config (AdamW, constant lr
-    TRAIN_LR) on the card and on the CPU from the same parameters
-    (``random.prng_key(SEED)``, the reference's init) and batch. TF32 is
-    off. Bounds: loss within 1e-5 relative; every gradient leaf within
-    1e-4 of its largest element; the updated parameters within 1e-6 at
-    99.9% of elements and everywhere within 2 lr (Adam's first step is
-    g / (|g| + eps) per element, so a gradient that is zero within
-    rounding may take either sign)."""
+def train_parity(torch, dev, arch="nllb600m", batch_of=None, remat=False, tag="[train]"):
+    """One f32 train step of ``arch``'s reduced config (AdamW, constant lr
+    TRAIN_LR; ``remat`` recomputes each layer in the backward pass) on the
+    card and on the CPU from the same parameters (``random.prng_key(SEED)``,
+    the reference's init) and batch: ``batch_of(cfg)``, by default 8
+    SyntheticTranslation rows. TF32 is off. Bounds: loss within 1e-5
+    relative; every gradient leaf within 1e-4 of its largest element; the
+    updated parameters within 1e-6 at 99.9% of elements and everywhere
+    within 2 lr (Adam's first step is g / (|g| + eps) per element, so a
+    gradient that is zero within rounding may take either sign)."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.data import SyntheticTranslation
     from repro_torch.models import Ctx, build_model
@@ -2339,21 +2350,27 @@ def train_parity(torch, dev):
     from repro_torch.train import compute_loss, make_train_step
     from repro_torch.tree import leaves_with_path, map_like
 
-    cfg = reduce_config(get_config("nllb600m"))
+    cfg = reduce_config(get_config(arch))
     ctx = Ctx(compute_dtype=torch.float32)
-    batch = {k: v for k, v in SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=SEED)
-             .sample(8).items() if not isinstance(v, str)}
+    if batch_of is None:
+        batch = {k: v for k, v in SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=SEED)
+                 .sample(8).items() if not isinstance(v, str)}
+    else:
+        batch = batch_of(cfg)
     init_cpu = build_model(cfg, "cpu").init(prng_key(SEED))
     runs = {}
     for d in ("cpu", dev):
         model = build_model(cfg, d)
         params = map_like(lambda t: t.to(d), init_cpu)
         live = map_like(lambda t: t.detach().clone().requires_grad_(), params)
-        loss, _ = compute_loss(ctx, model, live, batch)
-        grads = torch.autograd.grad(loss, [v for _, v in leaves_with_path(live)])
-        init, step = make_train_step(model, lr_fn=lambda s: TRAIN_LR, ctx=ctx)
+        leaves = [v for _, v in leaves_with_path(live)]
+        loss, _ = compute_loss(ctx, model, live, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        init, step = make_train_step(model, lr_fn=lambda s: TRAIN_LR, ctx=ctx, remat=remat)
         state, _ = step(init(params), batch)
-        runs[str(d)] = (float(loss.detach()), [g.cpu() for g in grads],
+        runs[str(d)] = (float(loss.detach()),
+                        [(torch.zeros_like(v) if g is None else g).cpu()
+                         for v, g in zip(leaves, grads)],
                         [v.cpu() for _, v in leaves_with_path(state["params"])])
     (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs[str(dev)]
     g_err = max(float((a - b).abs().max() / a.abs().max().clamp(min=1e-30))
@@ -2362,19 +2379,20 @@ def train_parity(torch, dev):
     close = float((diffs <= 1e-6).float().mean())
     if not (abs(lg - lc) <= 1e-5 * abs(lc) and g_err <= 1e-4 and close >= 0.999
             and float(diffs.max()) <= 2 * TRAIN_LR):
-        raise AssertionError(f"[train] card vs CPU: loss {lg!r} vs {lc!r}, gradient err "
-                             f"{g_err:.3g} of each leaf's max, params within 1e-6 at "
+        raise AssertionError(f"{tag} {arch} card vs CPU: loss {lg!r} vs {lc!r}, gradient "
+                             f"err {g_err:.3g} of each leaf's max, params within 1e-6 at "
                              f"{close:.5f}, max {float(diffs.max()):.3g}")
-    log(f"[train] parity, reduced config one f32 step (TF32 off): loss card {lg!r} vs CPU "
-        f"{lc!r}; {len(gc)} gradient leaves, largest difference {g_err:.3g} of the leaf's "
-        f"max (bound 1e-4); updated params within 1e-6 at {100 * close:.3f}% of "
-        f"{diffs.numel()} elements (bound 99.9%), max {float(diffs.max()):.3g} "
-        f"(bound 2 lr = {2 * TRAIN_LR:g})")
+    log(f"{tag} parity, {cfg.name} one f32 step{' with remat' if remat else ''} (TF32 off): "
+        f"loss card {lg!r} vs CPU {lc!r}; {len(gc)} gradient leaves, largest difference "
+        f"{g_err:.3g} of the leaf's max (bound 1e-4); updated params within 1e-6 at "
+        f"{100 * close:.3f}% of {diffs.numel()} elements (bound 99.9%), max "
+        f"{float(diffs.max()):.3g} (bound 2 lr = {2 * TRAIN_LR:g})")
 
 
-def _train_run(torch, step, state, batches, n, tag, card, n_params, extra=()):
+def _train_run(torch, step, state, batches, n, tag, card, n_params, extra=(),
+               tokens=TRAIN_BATCH * TRAIN_SEQ, phase="train"):
     """``n`` steps of ``step``, each timed on the host clock to its one host
-    read (the loss); returns (state, losses, stats)."""
+    read (the loss), ``tokens`` a step; returns (state, losses, stats)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
@@ -2385,16 +2403,16 @@ def _train_run(torch, step, state, batches, n, tag, card, n_params, extra=()):
         losses.append(float(met["loss"]))
         times.append(time.perf_counter() - t0)
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"[train] {tag}: non-finite loss in {losses}")
+        raise AssertionError(f"[{phase}] {tag}: non-finite loss in {losses}")
     step_s = float(np.median(times[1:]))        # the first step warms cuBLAS up
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     stats = {"steps": n, "step_ms": 1e3 * step_s, "first_step_ms": 1e3 * times[0],
              "tokens_per_s": tokens / step_s,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
              "model_tflops_per_s": 6 * n_params * tokens / step_s / 1e12,
              "share_of_bf16_peak": 6 * n_params * tokens / step_s / (BF16_FLOPS_PER_MS * 1e3),
-             "loss_first": losses[0], "loss_last": losses[-1], "card": card}
-    log(f"[train] {tag}: " + json.dumps(stats))
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "aux_loss_last": float(met.get("aux_loss", 0.0)), "card": card}
+    log(f"[{phase}] {tag}: " + json.dumps(stats))
     return state, losses, stats
 
 
@@ -2520,6 +2538,95 @@ def train_phase(torch, card, dev):
     log(f"[train] kernel launches over the phase: {launches} (training runs the plain "
         "torch routes: the kernels have no backward)")
     return launches, params
+
+
+# [train-lm]: the reduced configs held card against CPU, then the full-width
+# runs: (arch, layers kept (None: all), state bits, remat, microbatches,
+# batch, seq, steps). The 8-bit run is the last: the reference's 8-bit
+# AdamW diverges on the MoE (ROADMAP queue 3), so its loss is only held
+# finite, as [train]'s 8-bit run's is.
+TRAIN_LM_PARITY = ("qwen2.5-14b", "gemma3-1b", "llava-next-mistral-7b", "olmoe-1b-7b",
+                   "mamba2-780m", "recurrentgemma-9b")
+TRAIN_LM_RUNS = (("gemma3-1b", None, 32, True, 2, 4, 640, TRAIN_STEPS),
+                 ("mamba2-780m", None, 32, True, 1, 8, 256, TRAIN_STEPS),
+                 ("olmoe-1b-7b", 3, 32, False, 1, 8, 64, TRAIN_STEPS),
+                 ("olmoe-1b-7b", 3, 8, False, 1, 8, 64, TRAIN_STEPS_8BIT))
+
+
+def _lm_parity_batch(cfg):
+    """The reduced parity batch: make_batch's 4 rows of 24 positions (a
+    VLM's 20 tokens after its 4 image rows), past the 8-token windows
+    and SSD chunks of the reduced configs."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import make_batch
+    return make_batch(cfg, ShapeSpec("train-lm", 24, 4, "train"), seed=SEED)
+
+
+def train_lm_phase(torch, card, dev):
+    """[train-lm]: the LM training path on the card. One f32 AdamW step
+    with remat of each family's reduced config against the CPU
+    (train_parity: qwen2.5-14b's QKV bias, gemma3-1b's windows, tied head
+    and embedding scale, llava-next-mistral-7b's image rows, olmoe-1b-7b's
+    aux loss, mamba2-780m's SSD and recurrentgemma-9b's RG-LRU); then
+    TRAIN_LM_RUNS at full width, random weights from seed SEED, f32
+    parameters, bf16 compute, batches from launch.train.batches_for and a
+    warmup-cosine lr (peak TRAIN_LR): a _train_run JSON line and one
+    profiled step each; over TRAIN_STEPS steps the mean loss of the last
+    5 falls below the first; an MoE's aux loss is finite. olmoe-1b-7b
+    keeps 3 of its 16 layers: f32 AdamW state is 16 bytes a parameter,
+    and a step holds the old state and the new one. No kernel launches
+    (training runs the plain routes). Returns the launches of the
+    phase."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import batches_for
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import make_train_step
+
+    ops.reset_launches()
+    for arch in TRAIN_LM_PARITY:
+        train_parity(torch, dev, arch, _lm_parity_batch, remat=True, tag="[train-lm]")
+    ctx = Ctx(compute_dtype=torch.bfloat16)
+    for arch, layers, bits, remat, mb, batch, seq, steps in TRAIN_LM_RUNS:
+        whole = get_config(arch)
+        cfg = whole if layers is None else dataclasses.replace(whole, num_layers=layers)
+        model = build_model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+        n_params = sum(v.numel() for v in _params_leaves(torch, params).values())
+        cut = ("whole" if layers is None else
+               f"depth cut to {layers} of {whole.num_layers} layers (the whole model's "
+               f"{param_count(whole) / 1e9:.2f} B parameters would need "
+               f"{16 * param_count(whole) / 1e9:.0f} GB of f32 AdamW state)")
+        tag = f"{arch} {'8-bit' if bits == 8 else 'f32'} AdamW"
+        log(f"[train-lm] {arch} full width, {cut}: {n_params} parameters, f32, bf16 "
+            f"compute; batches {batch} x {seq}, remat {remat}, microbatches {mb}")
+        init, step = make_train_step(
+            model, ctx=ctx, state_bits=bits, remat=remat, microbatches=mb,
+            lr_fn=lambda s: warmup_cosine(s, peak_lr=TRAIN_LR, warmup=5, total=TRAIN_STEPS))
+        batches = batches_for(cfg, batch, seq, seed=SEED, device=dev)
+        state, losses, stats = _train_run(torch, step, init(params), batches, steps, tag,
+                                          card, n_params, tokens=batch * seq, phase="train-lm")
+        if steps == TRAIN_STEPS and not np.mean(losses[-5:]) < losses[0]:
+            raise AssertionError(f"[train-lm] {tag}: the loss did not fall: {losses}")
+        log(f"[train-lm] {tag} losses: {[round(x, 4) for x in losses]}")
+        if cfg.moe is not None and not (np.isfinite(stats["aux_loss_last"])
+                                        and stats["aux_loss_last"] > 0):
+            raise AssertionError(f"[train-lm] {tag}: aux loss {stats['aux_loss_last']}")
+        b = next(batches)
+        profiled_train_step(torch, lambda: float(step(state, b)[1]["loss"]),
+                            f"[train-lm] {tag}", card)
+        del model, params, state, init, step
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"[train-lm] kernels launched in training: {launches}")
+    log(f"[train-lm] kernel launches over the phase: {launches} (training runs the plain "
+        "torch routes: the kernels have no backward)")
+    return launches
 
 
 def _qtensors(tree):
@@ -3468,6 +3575,9 @@ def main() -> int:
     api_launches = api_path(torch, pipe_d)
     del pipe, pipe_d, runs
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_launches["train-lm"] = train_lm_phase(torch, card, dev)
+    log(f"[train-lm] phase took {time.perf_counter() - t0:.1f} s")
 
     # the decoder-only LMs: the kernels at qwen2.5-14b's served shapes,
     # then one deploy at a time, each freed before the next
@@ -3494,7 +3604,8 @@ def main() -> int:
 
     by_run = {**phase_launches["spec"], "faults": phase_launches["faults"],
               "quant": phase_launches["quant"], "train": phase_launches["train"],
-              "eval": phase_launches["eval"], "lm": phase_launches["lm"],
+              "eval": phase_launches["eval"], "train_lm": phase_launches["train-lm"],
+              "lm": phase_launches["lm"],
               "lm_gemma": phase_launches["lm-gemma"], "vlm": phase_launches["vlm"],
               "moe": phase_launches["moe"], "moe_nllb": phase_launches["moe-nllb"],
               "audio": phase_launches["audio"], "ssm": phase_launches["ssm"],
@@ -3507,15 +3618,16 @@ def main() -> int:
             e.update(timed["qmm"])
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
-        # spec, spec_dense, faults, quant, train, eval, lm, lm_gemma, vlm,
-        # moe, moe_nllb, audio, ssm, hybrid
+        # spec, spec_dense, faults, quant, train, eval, train_lm, lm,
+        # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     log("kernels: " + ", ".join(f"{e['name']}={e['launches']} ({e['path']})"
                                 for e in entries))
-    log("kernels in [train] / [eval]: " + ", ".join(
-        f"{e['name']}={e['launches_train']} / {e['launches_eval']}" for e in entries))
+    log("kernels in [train] / [eval] / [train-lm]: " + ", ".join(
+        f"{e['name']}={e['launches_train']} / {e['launches_eval']} / {e['launches_train_lm']}"
+        for e in entries))
     log("kernels in [lm] / [lm-gemma] / [vlm]: " + ", ".join(
         f"{e['name']}={e['launches_lm']} / {e['launches_lm_gemma']} / {e['launches_vlm']}"
         for e in entries))
@@ -3526,7 +3638,7 @@ def main() -> int:
         f"{e['name']}={e['launches_ssm']} / {e['launches_hybrid']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
-            "launches_eval", "launches_lm", "launches_lm_gemma", "launches_vlm",
+            "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
             "launches_moe", "launches_moe_nllb", "launches_audio", "launches_ssm",
             "launches_hybrid", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",

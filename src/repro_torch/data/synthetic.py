@@ -8,8 +8,8 @@ token. Token ids 1..N are reserved as target-language codes: the
 decoder is prompted with the code of the language to translate into.
 The same seed draws the same batches as the reference, byte for byte.
 ``SyntheticLM`` (a Zipf-ish autoregressive stream with lagged copies),
-``make_batch`` and ``batch_iterator`` are copies too; the audio and VLM
-batches of ``make_batch`` come with their model families.
+``make_batch`` (the audio model's frames and the VLM's image embeddings
+included) and ``batch_iterator`` are copies too.
 """
 
 from __future__ import annotations
@@ -17,8 +17,6 @@ from __future__ import annotations
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
-
-from ..unported import later
 
 __all__ = ["LANG_CODES", "INDIC_LANGS", "OVERSEAS_LANGS", "pairs",
            "SyntheticTranslation", "SyntheticLM", "make_batch",
@@ -149,8 +147,6 @@ def make_batch(cfg, shape_spec, seed: int = 0, batch: Optional[int] = None,
     B = batch or shape_spec.global_batch
     S = seq or shape_spec.seq_len
     rng = np.random.default_rng(seed)
-    if cfg.family == "vlm":
-        raise later("VLM (image-embedding) batches", 4)
     if cfg.family in ("encdec", "audio"):
         ds = SyntheticTranslation(cfg.vocab_size, S, seed)
         b = ds.sample(B)
@@ -162,7 +158,12 @@ def make_batch(cfg, shape_spec, seed: int = 0, batch: Optional[int] = None,
         b["src_tokens"] = b["src_tokens"][:, :cfg.enc_len] if \
             cfg.enc_len < S else b["src_tokens"]
         return b
-    return SyntheticLM(cfg.vocab_size, S, seed).sample(B)
+    b = SyntheticLM(cfg.vocab_size, S, seed).sample(B)
+    if cfg.family == "vlm":     # the stub vision frontend's patch embeddings
+        P, keep = cfg.num_patches, max(S - cfg.num_patches, 8)
+        b["tokens"], b["loss_mask"] = b["tokens"][:, :keep], b["loss_mask"][:, :keep]
+        b["img_embeds"] = rng.standard_normal((B, P, cfg.d_model)).astype(np.float32) * 0.1
+    return b
 
 
 def batch_iterator(cfg, shape_spec, seed: int = 0, batch=None,

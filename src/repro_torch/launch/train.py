@@ -1,13 +1,16 @@
-"""Training launcher: the enc-dec model on the synthetic translation task.
+"""Training launcher: any arch of the registry on synthetic data (the
+enc-dec and audio families on the translation task, the LMs on the
+``SyntheticLM`` stream).
 
   python -m repro_torch.launch.train --steps 200 --batch 8 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 20 --ckpt-dir build/train_ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b --smoke \\
+      --device cpu --steps 3
 
 The reference launcher's flags plus ``--device`` (default ``cuda``, which
 raises without a card). The step runs the plain torch routes (the
-kernels have no backward); the other model families come with port
-slice 4.
+kernels have no backward).
 """
 
 from __future__ import annotations
@@ -19,12 +22,11 @@ import tempfile
 import torch
 
 from ..configs import REGISTRY, get_config, reduce_config
-from ..data import SyntheticTranslation
+from ..data import SyntheticLM, SyntheticTranslation
 from ..models import Ctx, build_model
 from ..optim import warmup_cosine
 from ..random import prng_key
 from ..train import TrainLoop, make_train_step
-from ..unported import later
 
 __all__ = ["main", "batches_for", "training_device"]
 
@@ -38,20 +40,23 @@ def training_device(device) -> torch.device:
 
 
 def batches_for(cfg, batch: int, seq: int, seed: int = 0, device="cpu"):
-    """Endless SyntheticTranslation batches as tensors on ``device``."""
-    if cfg.family != "encdec":
-        raise later(f"{cfg.family!r} training batches", 4)
-    ds = SyntheticTranslation(cfg.vocab_size, min(seq, cfg.enc_len or seq), seed)
+    """Endless batches as tensors on ``device``: SyntheticTranslation for
+    the enc-dec and audio families, ``{"tokens"}`` from SyntheticLM for
+    an LM, as the reference's launcher yields them."""
+    if cfg.family in ("encdec", "audio"):
+        ds = SyntheticTranslation(cfg.vocab_size, min(seq, cfg.enc_len or seq), seed)
+        while True:
+            b = ds.sample(batch)
+            yield {k: torch.as_tensor(v, device=device) for k, v in b.items()
+                   if not isinstance(v, str)}
+    lm = SyntheticLM(cfg.vocab_size, seq, seed)
     while True:
-        b = ds.sample(batch)
-        yield {k: torch.as_tensor(v, device=device) for k, v in b.items()
-               if not isinstance(v, str)}
+        yield {"tokens": torch.as_tensor(lm.sample(batch)["tokens"], device=device)}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="nllb600m",
-                    help=f"architecture; the port's registry holds {sorted(REGISTRY)}")
+    ap.add_argument("--arch", default="nllb600m", choices=sorted(REGISTRY))
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config, f32 compute (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=200)
@@ -68,8 +73,6 @@ def main(argv=None):
                     help="torch device to train on (the tests pass cpu)")
     args = ap.parse_args(argv)
 
-    if args.arch not in REGISTRY:
-        raise later(f"--arch {args.arch}", 4)
     dev = training_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -2,10 +2,9 @@
 
 build_model(cfg, device) -> ModelAPI with
   init(generator | key)              -> params (a key from random.prng_key(seed)
-                                        draws the reference's init for that seed;
-                                        enc-dec and audio only, an LM raises on
-                                        a key)
-  forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced)
+                                        draws the reference's init for that seed)
+  forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced;
+                                        remat recomputes each layer in backward)
   init_cache(batch, max_len, kv)     -> dense prefill cache
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
                                      -> block-paged serving cache (attention

@@ -23,16 +23,14 @@ its keys (``_kv_layout``): int8 (``k_codes`` + ``k_scales``), fp8
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
-
 from ..core.qlinear import embed_lookup
-from ..random import normal, split
+from ..random import split
 from . import moe as moe_mod
 from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, mlp_init,
-                     normal_init, rms_norm)
+                     normal_init, remat as _remat, rms_norm, stack_layers)
 from .transformer import (SCALED_KV, _commit_decode_position, _commit_prefill,
                           _dense_kv, _head, _kv_layout, _kv_leaves, _layer,
-                          _positions, _scatter_tokens, _self_leaves, paged_attn,
+                          _layers, _positions, _scatter_tokens, _self_leaves, paged_attn,
                           paged_view)
 
 __all__ = ["encdec_init", "encdec_encode", "encdec_forward", "encdec_init_cache",
@@ -45,55 +43,37 @@ def _init_from_key(key: torch.Tensor, cfg):
     for key: the same splits and normal draws (``repro_torch.random``), so
     each parameter is within two float32 ulps of the reference's (one from
     the normal draw, one from its scale)."""
-    d, H, Hkv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                         cfg.head_dim, cfg.d_ff)
+    d = cfg.d_model
 
     def ones():
         return torch.ones((d,), dtype=torch.float32, device=key.device)
 
-    def attn(k):
-        ks = split(k, 4)
-        s = d ** -0.5
-        return {"wq": normal(ks[0], (d, H * hd)) * s,
-                "wk": normal(ks[1], (d, Hkv * hd)) * s,
-                "wv": normal(ks[2], (d, Hkv * hd)) * s,
-                "wo": normal(ks[3], (H * hd, d)) * (H * hd) ** -0.5}
-
-    def mlp_(k):
-        ks = split(k, 3)
-        return {"w_in": normal(ks[0], (d, ff)) * d ** -0.5,
-                "w_out": normal(ks[1], (ff, d)) * ff ** -0.5}
-
     def ffn(k):
         if cfg.moe is not None:
-            return {"moe": moe_mod.moe_init(k, d, ff, cfg.moe.num_experts, cfg.mlp_act)}
-        return {"mlp": mlp_(k)}
+            return {"moe": moe_mod.moe_init(k, d, cfg.d_ff, cfg.moe.num_experts, cfg.mlp_act)}
+        return {"mlp": mlp_init(k, None, cfg)}
 
     def enc_layer(k):
         k1, k2 = split(k)
-        return {"attn": attn(k1), "norm1_scale": ones(), "norm2_scale": ones(),
-                **ffn(k2)}
+        return {"attn": attention_init(k1, None, cfg, extras=False), "norm1_scale": ones(),
+                "norm2_scale": ones(), **ffn(k2)}
 
     def dec_layer(k):
         k1, k2, k3 = split(k, 3)
-        return {"attn": attn(k1), "cross": attn(k2), "norm1_scale": ones(),
+        return {"attn": attention_init(k1, None, cfg, extras=False),
+                "cross": attention_init(k2, None, cfg, extras=False), "norm1_scale": ones(),
                 "norm2_scale": ones(), "norm3_scale": ones(), **ffn(k3)}
-
-    def stack(layers):
-        if isinstance(layers[0], dict):
-            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
-        return torch.stack(layers)
 
     ke, k1, k2, kh = split(key, 4)
     params = {
-        "embedding": normal(ke, (cfg.vocab_size, d)) * 0.02,
-        "encoder": {"layers": stack([enc_layer(k) for k in split(k1, cfg.enc_layers)]),
+        "embedding": normal_init(ke, (cfg.vocab_size, d), 0.02),
+        "encoder": {"layers": stack_layers([enc_layer(k) for k in split(k1, cfg.enc_layers)]),
                     "norm_f_scale": ones()},
-        "decoder": {"layers": stack([dec_layer(k) for k in split(k2, cfg.num_layers)]),
+        "decoder": {"layers": stack_layers([dec_layer(k) for k in split(k2, cfg.num_layers)]),
                     "norm_f_scale": ones()},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal(kh, (d, cfg.vocab_size)) * d ** -0.5
+        params["lm_head"] = normal_init(kh, (d, cfg.vocab_size), d ** -0.5)
     return params
 
 
@@ -132,14 +112,6 @@ def encdec_init(g, cfg):
     return params
 
 
-def _remat(body, remat: bool):
-    """``body`` recomputed in the backward pass when ``remat`` (the
-    counterpart of the reference's ``jax.checkpoint(body)``)."""
-    if not remat:
-        return body
-    return lambda *a: checkpoint(body, *a, use_reentrant=False)
-
-
 def encdec_encode(ctx: Ctx, params, cfg, src_tokens=None, frames=None,
                   remat: bool = False):
     """Bidirectional encoder over src_tokens (B, Se), or an audio model's
@@ -163,8 +135,8 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens=None, frames=None,
         return x + moe_mod.layer_ffn(ctx, cfg, lp, h, "enc.ffn")[0]
 
     body_fn = _remat(body, remat)
-    for i in range(cfg.enc_layers):
-        x = body_fn(x, _layer(params["encoder"]["layers"], i))
+    for lp in _layers(params["encoder"]["layers"], cfg.enc_layers):
+        x = body_fn(x, lp)
     return rms_norm(x, params["encoder"]["norm_f_scale"], cfg.norm_eps)
 
 
@@ -217,8 +189,8 @@ def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens=None,
 
     body_fn = _remat(body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for i in range(cfg.num_layers):
-        x, aux_l = body_fn(x, _layer(params["decoder"]["layers"], i), enc_out)
+    for lp in _layers(params["decoder"]["layers"], cfg.num_layers):
+        x, aux_l = body_fn(x, lp, enc_out)
         if aux_l is not None:
             aux = aux + aux_l
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)

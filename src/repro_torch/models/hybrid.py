@@ -19,11 +19,12 @@ from __future__ import annotations
 
 import torch
 
-from ..unported import later
-from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, mlp,
-                     mlp_init, normal_init, rms_norm)
+from ..random import split
+from ..tree import map_like
+from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, draw_sources,
+                     mlp, mlp_init, normal_init, remat as _remat, rms_norm, stack_layers)
 from .rglru import rglru_apply, rglru_decode_step, rglru_init, rglru_init_state
-from .transformer import _embed, _layer, _lm_head, _positions
+from .transformer import _embed, _layer, _layers, _lm_head, _positions
 
 __all__ = ["hybrid_init", "hybrid_forward", "hybrid_init_cache", "hybrid_prefill",
            "hybrid_decode_step", "hybrid_layout"]
@@ -35,28 +36,64 @@ def hybrid_layout(cfg):
     return n_super, cfg.num_layers - 3 * n_super
 
 
-def _mixer_block_init(g, cfg, kind: str, n: int):
+def _mixer_block_init(g, cfg, kind: str, n=None):
+    """One (mixer + MLP) block, stacked on ``n`` (unstacked for None): from
+    a torch.Generator, or from a key split in 2 as the reference's
+    ``_mixer_block_init`` (k1 the mixer, k2 the MLP). The attention has
+    no bias and no q / k norm, as in the reference."""
     d = cfg.d_model
-    p = {"norm_t_scale": torch.ones((n, d), device=g.device),
-         "norm_m_scale": torch.ones((n, d), device=g.device),
-         "mlp": mlp_init(g, n, cfg)}
+    lead = () if n is None else (n,)
+    k1, k2 = draw_sources(g, 2)
+    p = {"norm_t_scale": torch.ones(lead + (d,), device=g.device),
+         "norm_m_scale": torch.ones(lead + (d,), device=g.device),
+         "mlp": mlp_init(k2, n, cfg)}
     if kind == "rglru":
-        p["rglru"] = rglru_init(g, d, cfg.d_rec, (n,))
+        p["rglru"] = rglru_init(k1, d, cfg.d_rec, lead)
     else:
-        p["attn"] = attention_init(g, n, cfg)
+        p["attn"] = attention_init(k1, n, cfg, extras=False)
     return p
 
 
+_SUPER = (("r1", "rglru"), ("r2", "rglru"), ("at", "attn"))
+
+
+def _hybrid_init_from_key(key, cfg):
+    """The reference's ``hybrid_init(jax.random.PRNGKey(seed), cfg)``, key
+    for key: split 4 (embedding, super-blocks, tail, head), each
+    super-block's key split 3 (r1, r2, at)."""
+    n_super, tail = hybrid_layout(cfg)
+    ke, kb, kt, kh = split(key, 4)
+
+    def super_init(k):
+        return {name: _mixer_block_init(kk, cfg, kind)
+                for (name, kind), kk in zip(_SUPER, split(k, 3))}
+
+    params = {
+        "embedding": normal_init(ke, (cfg.vocab_size, cfg.d_model), 0.02),
+        # the reference's vmap over no keys gives empty stacks
+        "blocks": map_like(lambda t: t[:n_super], stack_layers(
+            [super_init(k) for k in split(kb, max(n_super, 1))])),
+        "norm_f_scale": torch.ones((cfg.d_model,), device=key.device),
+    }
+    if tail:
+        params["tail"] = stack_layers([_mixer_block_init(k, cfg, "rglru")
+                                       for k in split(kt, tail)])
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(kh, (cfg.d_model, cfg.vocab_size),
+                                        cfg.d_model ** -0.5)
+    return params
+
+
 def hybrid_init(g, cfg):
-    """Random parameters with the reference's shapes and scales, drawn
-    from the torch.Generator ``g`` on its device."""
+    """Random parameters with the reference's shapes and scales: drawn
+    from the torch.Generator ``g`` on its device, or, for a key from
+    ``random.prng_key(seed)``, the reference's own draws for that seed."""
     if isinstance(g, torch.Tensor):
-        raise later(f"{cfg.name}: model.init from a key (the LM training branches)", 4)
+        return _hybrid_init_from_key(g, cfg)
     n_super, tail = hybrid_layout(cfg)
     params = {
         "embedding": normal_init(g, (cfg.vocab_size, cfg.d_model), 0.02),
-        "blocks": {name: _mixer_block_init(g, cfg, kind, n_super)
-                   for name, kind in (("r1", "rglru"), ("r2", "rglru"), ("at", "attn"))},
+        "blocks": {name: _mixer_block_init(g, cfg, kind, n_super) for name, kind in _SUPER},
         "norm_f_scale": torch.ones((cfg.d_model,), device=g.device),
     }
     if tail:
@@ -88,18 +125,27 @@ def _residual_mixer(ctx: Ctx, cfg, bp, x, positions, kind: str, state=None):
 
 
 def hybrid_forward(ctx: Ctx, params, cfg, tokens, remat: bool = False):
-    """Full-sequence forward, tokens (B, S). Returns (logits f32, aux=0)."""
-    if remat:
-        raise later(f"{cfg.name}: remat (the LM training branches)", 4)
+    """Full-sequence forward, tokens (B, S). Returns (logits f32, aux=0).
+    ``remat`` recomputes each super-block's and each tail layer's
+    activations in the backward pass, as the reference's checkpointed
+    scans do."""
     n_super, tail = hybrid_layout(cfg)
     x = _embed(ctx, params, cfg, tokens)
     positions = _positions(*tokens.shape, x.device)
-    for i in range(n_super):
-        bp = _layer(params["blocks"], i)
-        for name, kind in (("r1", "rglru"), ("r2", "rglru"), ("at", "attn")):
+
+    def block(x, bp):
+        for name, kind in _SUPER:
             x, _ = _residual_mixer(ctx, cfg, bp[name], x, positions, kind)
-    for i in range(tail):
-        x, _ = _residual_mixer(ctx, cfg, _layer(params["tail"], i), x, positions, "rglru")
+        return x
+
+    def tail_layer(x, bp):
+        return _residual_mixer(ctx, cfg, bp, x, positions, "rglru")[0]
+
+    block, tail_layer = _remat(block, remat), _remat(tail_layer, remat)
+    for bp in _layers(params["blocks"], n_super):
+        x = block(x, bp)
+    for bp in _layers(params["tail"], tail) if tail else ():
+        x = tail_layer(x, bp)
     return _lm_head(ctx, params, cfg, x), torch.zeros((), device=x.device)
 
 

@@ -14,15 +14,17 @@ import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.qlinear import (act_quant_eligible, qmatmul, qmm_route,
                             quantize_activations, static_scale)
 from ..kernels.fasst import _naf
 from ..kernels.qmm import DECODE_MAX_M
+from ..random import normal, split
 
 __all__ = ["Ctx", "rms_norm", "rope", "linear", "mlp", "fuses_naf", "attn_apply",
-           "decode_attn_apply", "GLU_ACTS", "PLAIN_ACTS", "normal_init",
-           "attention_init", "mlp_init"]
+           "decode_attn_apply", "GLU_ACTS", "PLAIN_ACTS", "normal_init", "draw_sources",
+           "stack_layers", "remat", "attention_init", "mlp_init"]
 
 _MATMUL_IMPLS = ("torch", "kernel")
 _PAGED_ATTN_IMPLS = ("gather", "kernel")
@@ -168,40 +170,76 @@ PLAIN_ACTS = {"squared_relu": "squared_relu", "gelu": "gelu", "relu": "relu",
 
 
 def normal_init(g, shape, scale):
-    """A float32 normal draw from the torch.Generator ``g``, on its device,
-    times ``scale``."""
+    """A float32 normal draw times ``scale``: from the torch.Generator
+    ``g`` on its device, or, for a key from ``random.prng_key`` /
+    ``random.split``, ``jax.random.normal(key, shape) * scale``."""
+    if isinstance(g, torch.Tensor):
+        return normal(g, shape) * scale
     return torch.randn(shape, generator=g, device=g.device, dtype=torch.float32) * scale
 
 
-def attention_init(g, L: int, cfg):
-    """Stacked (L, ...) attention weights with the reference's shapes and
-    scales (zero QKV biases with ``qkv_bias``, unit q / k norm scales with
-    ``qk_norm``), drawn from the torch.Generator ``g``."""
+def draw_sources(g, n: int):
+    """What an init draws its ``n`` weights from: the reference's
+    ``jax.random.split(key, n)`` for a key, the generator ``n`` times over
+    (its draws in call order) for a torch.Generator."""
+    return split(g, n) if isinstance(g, torch.Tensor) else [g] * n
+
+
+def stack_layers(layers: list):
+    """Per-layer parameter trees stacked on a leading ``L`` axis: the
+    counterpart of the reference's ``jax.vmap`` of a layer init over the
+    split layer keys (the draws of each key are the same)."""
+    if isinstance(layers[0], dict):
+        return {k: stack_layers([lp[k] for lp in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def remat(body, on: bool):
+    """``body`` recomputed in the backward pass when ``on`` (the
+    counterpart of the reference's ``jax.checkpoint(body)``)."""
+    if not on:
+        return body
+    return lambda *a: checkpoint(body, *a, use_reentrant=False)
+
+
+def attention_init(g, L, cfg, extras: bool = True):
+    """Attention weights with the reference's shapes and scales, stacked
+    on a leading ``L`` axis (unstacked for ``L`` None), drawn from a
+    torch.Generator or, one layer (``L`` None), from a key as the
+    reference's ``attention_init`` draws it. ``extras``: the config's
+    zero QKV biases (``qkv_bias``) and unit q / k norm scales
+    (``qk_norm``); the reference's enc-dec and hybrid attention take
+    neither."""
     d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    lead = () if L is None else (L,)
+    ks = draw_sources(g, 4)
     s = d ** -0.5
-    p = {"wq": normal_init(g, (L, d, H * hd), s),
-         "wk": normal_init(g, (L, d, Hkv * hd), s),
-         "wv": normal_init(g, (L, d, Hkv * hd), s),
-         "wo": normal_init(g, (L, H * hd, d), (H * hd) ** -0.5)}
-    if cfg.qkv_bias:
+    p = {"wq": normal_init(ks[0], lead + (d, H * hd), s),
+         "wk": normal_init(ks[1], lead + (d, Hkv * hd), s),
+         "wv": normal_init(ks[2], lead + (d, Hkv * hd), s),
+         "wo": normal_init(ks[3], lead + (H * hd, d), (H * hd) ** -0.5)}
+    if extras and cfg.qkv_bias:
         for name, width in (("q", H * hd), ("k", Hkv * hd), ("v", Hkv * hd)):
-            p[f"bias_{name}"] = torch.zeros((L, width), device=g.device)
-    if cfg.qk_norm:
-        p["q_norm_scale"] = torch.ones((L, hd), device=g.device)
-        p["k_norm_scale"] = torch.ones((L, hd), device=g.device)
+            p[f"bias_{name}"] = torch.zeros(lead + (width,), device=g.device)
+    if extras and cfg.qk_norm:
+        p["q_norm_scale"] = torch.ones(lead + (hd,), device=g.device)
+        p["k_norm_scale"] = torch.ones(lead + (hd,), device=g.device)
     return p
 
 
-def mlp_init(g, L: int, cfg):
-    """Stacked (L, ...) FFN weights: w_gate / w_up / w_down for a GLU
-    activation, w_in / w_out otherwise."""
+def mlp_init(g, L, cfg):
+    """FFN weights (w_gate / w_up / w_down for a GLU activation, w_in /
+    w_out otherwise), stacked on ``L`` as ``attention_init``'s; a key
+    splits in 3 as in the reference."""
     d, ff = cfg.d_model, cfg.d_ff
+    lead = () if L is None else (L,)
+    ks = draw_sources(g, 3)
     if cfg.mlp_act in GLU_ACTS:
-        return {"w_gate": normal_init(g, (L, d, ff), d ** -0.5),
-                "w_up": normal_init(g, (L, d, ff), d ** -0.5),
-                "w_down": normal_init(g, (L, ff, d), ff ** -0.5)}
-    return {"w_in": normal_init(g, (L, d, ff), d ** -0.5),
-            "w_out": normal_init(g, (L, ff, d), ff ** -0.5)}
+        return {"w_gate": normal_init(ks[0], lead + (d, ff), d ** -0.5),
+                "w_up": normal_init(ks[1], lead + (d, ff), d ** -0.5),
+                "w_down": normal_init(ks[2], lead + (ff, d), ff ** -0.5)}
+    return {"w_in": normal_init(ks[0], lead + (d, ff), d ** -0.5),
+            "w_out": normal_init(ks[1], lead + (ff, d), ff ** -0.5)}
 
 
 def fuses_naf(ctx: Ctx, w, x) -> bool:

@@ -31,37 +31,32 @@ from __future__ import annotations
 import torch
 
 from ..core.qtensor import maybe_dequantize
-from ..random import normal, split
-from .layers import GLU_ACTS, Ctx, mlp, normal_init
+from .layers import GLU_ACTS, Ctx, draw_sources, mlp, normal_init
 
 __all__ = ["moe_init", "moe_apply", "route", "capacity", "layer_ffn"]
 
 _PARALLEL_MODES = ("expert", "tensor")
 
 
-def moe_init(g, d_model: int, d_ff: int, num_experts: int, act: str, layers: int = 0):
+def moe_init(g, d_model: int, d_ff: int, num_experts: int, act: str, layers=None):
     """MoE parameters with the reference's shapes and scales: ``router``
-    (d, E) f32 and the expert stacks (E, d, ff) / (E, ff, d).
+    (d, E) f32 and the expert stacks (E, d, ff) / (E, ff, d), stacked on
+    a leading ``layers`` axis (unstacked for None).
 
-    ``g`` is a torch.Generator (draws on its device, stacked on a leading
-    ``layers`` axis when ``layers`` > 0), or a key from
+    ``g`` is a torch.Generator (draws on its device) or a key from
     ``random.prng_key`` / ``random.split``: the reference's own 4-way
-    split and normal draws for that key, unstacked."""
+    split and normal draws for that key, one layer."""
     E, d, ff = num_experts, d_model, d_ff
     s_in, s_out = d ** -0.5, ff ** -0.5
     glu = act in GLU_ACTS
     names = ("w_gate", "w_up", "w_down") if glu else ("w_in", "w_out")
     shapes = [(E, d, ff)] * (len(names) - 1) + [(E, ff, d)]
     scales = [s_in] * (len(names) - 1) + [s_out]
-    if isinstance(g, torch.Tensor):
-        k1, *ks = split(g, 4)
-        return {"router": normal(k1, (d, E)) * s_in,
-                "experts": {n: normal(k, sh) * s for n, k, sh, s
-                            in zip(names, ks, shapes, scales)}}
-    lead = (layers,) if layers else ()
-    return {"router": normal_init(g, lead + (d, E), s_in),
-            "experts": {n: normal_init(g, lead + sh, s)
-                        for n, sh, s in zip(names, shapes, scales)}}
+    lead = () if layers is None else (layers,)
+    k1, *ks = draw_sources(g, 4)
+    return {"router": normal_init(k1, lead + (d, E), s_in),
+            "experts": {n: normal_init(k, lead + sh, s)
+                        for n, k, sh, s in zip(names, ks, shapes, scales)}}
 
 
 def _expert_ffn(ctx: Ctx, experts, buf, act: str):

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import Ctx, normal_init
+from .layers import Ctx, draw_sources, normal_init
 
 __all__ = ["rglru_init", "rglru_apply", "rglru_decode_step", "rglru_init_state",
            "linear_scan"]
@@ -30,20 +30,22 @@ _C = 8.0
 _CONV_W = 4
 
 
-def rglru_init(g, d_model: int, d_rec: int, lead: tuple):
+def rglru_init(g, d_model: int, d_rec: int, lead: tuple = ()):
     """Parameters stacked on the ``lead`` axes with the reference's shapes
-    and scales, drawn from the torch.Generator ``g``."""
+    and scales, drawn from a torch.Generator or, one layer (``lead`` ()),
+    from a key as the reference's ``rglru_init`` draws it (split 6)."""
     s, sr = d_model ** -0.5, d_rec ** -0.5
     dev = g.device
+    ks = draw_sources(g, 6)
     return {
-        "gate_proj": normal_init(g, lead + (d_model, d_rec), s),
-        "in_proj": normal_init(g, lead + (d_model, d_rec), s),
-        "conv_w": normal_init(g, lead + (_CONV_W, d_rec), 0.2),
+        "gate_proj": normal_init(ks[0], lead + (d_model, d_rec), s),
+        "in_proj": normal_init(ks[1], lead + (d_model, d_rec), s),
+        "conv_w": normal_init(ks[2], lead + (_CONV_W, d_rec), 0.2),
         "conv_bias": torch.zeros(lead + (d_rec,), device=dev),
-        "w_rg": normal_init(g, lead + (d_rec, d_rec), sr),
-        "w_ig": normal_init(g, lead + (d_rec, d_rec), sr),
+        "w_rg": normal_init(ks[3], lead + (d_rec, d_rec), sr),
+        "w_ig": normal_init(ks[4], lead + (d_rec, d_rec), sr),
         "a_param": torch.full(lead + (d_rec,), -4.0, device=dev),   # a ~ 0.95 at r=0.5
-        "out_proj": normal_init(g, lead + (d_rec, d_model), sr),
+        "out_proj": normal_init(ks[5], lead + (d_rec, d_model), sr),
     }
 
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import Ctx, normal_init, rms_norm
+from .layers import Ctx, draw_sources, normal_init, rms_norm
 
 __all__ = ["ssm_init", "ssm_apply", "ssm_decode_step", "ssm_init_state",
            "ssm_naive_ref"]
@@ -33,22 +33,43 @@ def _dims(d_model, ssm_cfg):
     return d_inner, nh, ds, conv_dim, d_in_proj
 
 
-def ssm_init(g, d_model: int, ssm_cfg, layers: int):
-    """Layer-stacked (``layers``, ...) parameters with the reference's
-    shapes and scales, drawn from the torch.Generator ``g``."""
+def _linspace(start: float, stop: float, num: int, device):
+    """``jnp.linspace(start, stop, num)`` in f32 (num >= 2) as the
+    reference's compiled linspace computes it, bit for bit: start *
+    (1 - i / (num - 1)), the division a product with the f32 reciprocal,
+    plus i times stop / (num - 1) in one fused multiply-add; then stop."""
+    f32, f64 = torch.float32, torch.float64
+    i = torch.arange(num - 1, dtype=f32, device=device)
+    r = torch.tensor(1.0, dtype=f32) / (num - 1)
+    head = (start * (1.0 - i * r)).to(f64) + i.to(f64) * float(stop * r)
+    return torch.cat([head.to(f32), torch.full((1,), stop, dtype=f32, device=device)])
+
+
+def _a_log(nh: int, device):
+    """log(linspace(1, 16, nh)) in f32, the log rounded once from f64 so
+    the CPU and the card agree (XLA's CPU log is not correctly rounded: it
+    may lie one ulp away)."""
+    return torch.log(_linspace(1.0, 16.0, nh, device).to(torch.float64)).to(torch.float32)
+
+
+def ssm_init(g, d_model: int, ssm_cfg, layers=None):
+    """Parameters with the reference's shapes and scales, stacked on a
+    leading ``layers`` axis (unstacked for None), drawn from a
+    torch.Generator or, one layer, from a key as the reference's
+    ``ssm_init`` draws it (split 4)."""
     d_inner, nh, ds, conv_dim, d_in_proj = _dims(d_model, ssm_cfg)
-    L, dev = layers, g.device
+    lead, dev = (() if layers is None else (layers,)), g.device
+    ks = draw_sources(g, 4)
 
     def full(value, n):
-        return torch.full((L, n), value, dtype=torch.float32, device=dev)
+        return torch.full(lead + (n,), value, dtype=torch.float32, device=dev)
 
-    a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32, device=dev))
     return {
-        "in_proj": normal_init(g, (L, d_model, d_in_proj), d_model ** -0.5),
-        "out_proj": normal_init(g, (L, d_inner, d_model), d_inner ** -0.5),
-        "conv_w": normal_init(g, (L, _CONV_W, conv_dim), 0.2),
+        "in_proj": normal_init(ks[0], lead + (d_model, d_in_proj), d_model ** -0.5),
+        "out_proj": normal_init(ks[1], lead + (d_inner, d_model), d_inner ** -0.5),
+        "conv_w": normal_init(ks[2], lead + (_CONV_W, conv_dim), 0.2),
         "conv_bias": full(0.0, conv_dim),
-        "a_log": a_log.expand(L, nh).clone(),
+        "a_log": _a_log(nh, dev).expand(lead + (nh,)).clone(),
         "dt_bias": full(0.0, nh),
         "D": full(1.0, nh),
         "norm_scale": full(1.0, d_inner),

@@ -31,11 +31,12 @@ from ..core.qlinear import embed_lookup, f32_reciprocal
 from ..core.qtensor import QTensor, maybe_dequantize
 from ..kernels.decode_attn import quantize_token_kv as _quantize_token_kv
 from ..kernels.paging import gather_pages, scatter_token
-from ..unported import later
+from ..random import split
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (Ctx, _qk_norm, attention_init, attn_apply, decode_attn_apply,
-                     linear, mlp_init, normal_init, rms_norm, rope)
+                     linear, mlp_init, normal_init, remat as _remat, rms_norm, rope,
+                     stack_layers)
 
 __all__ = ["paged_view", "paged_attn", "SCALED_KV", "_quantize_token_kv",
            "_fp8_token_kv", "_token_kv_quantizer", "_dense_kv", "_scatter_tokens",
@@ -55,6 +56,19 @@ def _layer(tree, i: int):
     if isinstance(tree, QTensor):
         return tree.select(i)
     return tree[i]
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` layer slices of a layer-stacked tree at once. A tensor
+    leaf is unbound: its backward stacks the ``n`` gradients in one node,
+    where ``n`` separate selects would each add a zero-filled full-stack
+    gradient (O(n^2) bytes over a training step)."""
+    if isinstance(tree, dict):
+        parts = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, QTensor):
+        return [tree.select(i) for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _positions(B: int, S: int, device):
@@ -305,7 +319,7 @@ def _commit_decode_position(new_cache, cache, positions):
 
 def _check_family(cfg):
     if cfg.family not in ("dense", "vlm", "moe", "ssm"):
-        raise later(f"{cfg.name}: the {cfg.family!r} LM layers", 4)
+        raise ValueError(f"{cfg.name}: unknown decoder-only LM family {cfg.family!r}")
 
 
 def window_array(cfg) -> list:
@@ -315,18 +329,41 @@ def window_array(cfg) -> list:
     return [pat[i % len(pat)] for i in range(cfg.num_layers)]
 
 
+def _layer_init(key, cfg):
+    """One layer's parameters from its key, as the reference's
+    ``_layer_init`` draws them: ``k1`` the mixer (attention or SSD),
+    ``k2`` the FFN; an SSM layer has no FFN and no ``norm2_scale``."""
+    k1, k2 = split(key)
+    ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=key.device)
+    if cfg.family == "ssm":
+        return {"norm1_scale": ones, "ssm": ssm_mod.ssm_init(k1, cfg.d_model, cfg.ssm)}
+    p = {"norm1_scale": ones, "norm2_scale": ones,
+         "attn": attention_init(k1, None, cfg)}
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.moe_init(k2, cfg.d_model, cfg.d_ff, cfg.moe.num_experts,
+                                    cfg.mlp_act)
+    else:
+        p["mlp"] = mlp_init(k2, None, cfg)
+    return p
+
+
 def lm_init(g, cfg):
-    """Random parameters with the reference's shapes and scales, drawn
-    from the torch.Generator ``g`` on its device."""
-    if isinstance(g, torch.Tensor):
-        raise later(f"{cfg.name}: model.init from a key (the LM training branches)", 4)
+    """Random parameters with the reference's shapes and scales: drawn
+    from the torch.Generator ``g`` on its device, or, for a key from
+    ``random.prng_key(seed)``, the reference's own ``lm_init`` draws for
+    that seed (each layer from its key of ``split(kl, L)``, stacked)."""
     _check_family(cfg)
     L, d = cfg.num_layers, cfg.d_model
 
     def ones(*shape):
         return torch.ones(shape + (d,), dtype=torch.float32, device=g.device)
 
-    if cfg.family == "ssm":
+    kh = g
+    if isinstance(g, torch.Tensor):
+        ke, kl, kh = split(g, 3)
+        embedding = normal_init(ke, (cfg.vocab_size, d), 0.02)
+        layers = stack_layers([_layer_init(k, cfg) for k in split(kl, L)])
+    elif cfg.family == "ssm":
         embedding = normal_init(g, (cfg.vocab_size, d), 0.02)
         layers = {"norm1_scale": ones(L), "ssm": ssm_mod.ssm_init(g, d, cfg.ssm, L)}
     else:
@@ -339,7 +376,7 @@ def lm_init(g, cfg):
                   "attn": attention_init(g, L, cfg), **ffn_params}
     params = {"embedding": embedding, "layers": layers, "norm_f_scale": ones()}
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal_init(g, (d, cfg.vocab_size), d ** -0.5)
+        params["lm_head"] = normal_init(kh, (d, cfg.vocab_size), d ** -0.5)
     return params
 
 
@@ -386,23 +423,25 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
                remat: bool = False, collect_kv: bool = False):
     """tokens (B, S) [after img_embeds (B, P, d)] -> (logits (B, P + S, V)
     f32, aux_loss (the MoE layers' summed; 0 without), (ks, vs)
-    layer-stacked (L, B, P + S, Hkv, hd) | None)."""
-    if remat:
-        raise later(f"{cfg.name}: remat (the LM training branches)", 4)
+    layer-stacked (L, B, P + S, Hkv, hd) | None). ``remat`` recomputes
+    each layer's activations in the backward pass (the reference's
+    grouped remat scan is a memory plan over the same function)."""
     _check_family(cfg)
     x = _embed(ctx, params, cfg, tokens, img_embeds)
     B, S, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            x = _ssm_layer(ctx, cfg, _layer(params["layers"], i), x)
+        body = _remat(lambda x, lp: _ssm_layer(ctx, cfg, lp, x), remat)
+        for lp in _layers(params["layers"], cfg.num_layers):
+            x = body(x, lp)
         return _lm_head(ctx, params, cfg, x), aux, None
     if positions is None:
         positions = _positions(B, S, x.device)
     ks, vs = [], []
-    for i, window in enumerate(window_array(cfg)):
-        x, aux_l, (k, v) = _lm_layer(ctx, cfg, _layer(params["layers"], i), window, x,
-                                     positions)
+    for lp, window in zip(_layers(params["layers"], cfg.num_layers), window_array(cfg)):
+        body = _remat(lambda x, lp, w=window: _lm_layer(ctx, cfg, lp, w, x, positions),
+                      remat)
+        x, aux_l, (k, v) = body(x, lp)
         if aux_l is not None:
             aux = aux + aux_l
         if collect_kv:

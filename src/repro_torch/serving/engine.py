@@ -110,7 +110,6 @@ from .. import random as prng
 from ..obs import PHASES, SCHED_TID, Histogram, TraceConfig, Tracer
 from ..obs.metrics import render_prometheus
 from ..models.api import decode_block
-from ..unported import later
 from .metrics import EngineMetrics, SLAController, SLATarget
 from .paged_cache import TRASH_PAGE, PageAllocator, paged_insert, pages_needed
 from .params import (GREEDY, EngineSaturated, Request, RequestOutput, RequestStats,
@@ -184,7 +183,7 @@ class ServeEngine:
             raise ValueError(f"preempt_limit must be >= 0, got {preempt_limit}")
         fam = model.cfg.family
         if fam not in _SERVED:
-            raise later(f"serving the {fam!r} family", 4)
+            raise ValueError(f"unknown family {fam!r}; the engine serves {_SERVED}")
         if draft is not None and fam not in _PAD_SAFE:
             raise ValueError(f"speculative decoding supports families {_PAD_SAFE}, "
                              f"got {fam!r} (the draft / verify loops need pos / "

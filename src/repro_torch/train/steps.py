@@ -3,9 +3,12 @@
 The reference's ``train/steps.py`` on the port's parameter trees.
 
 Loss: the enc-dec and audio families' teacher-forced cross-entropy
-against ``tgt_out`` with label smoothing 0.1 (masked token mean, f32),
-plus the MoE load-balancing term (nllb600m-moe's decoder aux losses). The
-LM losses come with the LM training branches.
+against ``tgt_out`` with label smoothing 0.1; the LM families'
+next-token cross-entropy (logits[:, :-1] against tokens[:, 1:], label
+smoothing 0; a VLM with image embeddings scores the text-aligned slice
+logits[:, P - 1:P + S - 1] against its unshifted tokens); each a masked
+token mean in f32, plus the MoE load-balancing term weighted by
+``cfg.moe.aux_loss_weight``.
 
 Steps:
   * ``make_train_step`` — full AdamW training with optional microbatch
@@ -34,7 +37,6 @@ from ..core.qlora import extract_adapters, inject_adapters
 from ..models.layers import Ctx
 from ..optim import adamw_init, adamw_update
 from ..tree import map_like
-from ..unported import later
 
 __all__ = ["compute_loss", "make_train_step", "make_qlora_step"]
 
@@ -55,15 +57,29 @@ def _xent(logits, labels, mask, label_smoothing: float = 0.0):
 def compute_loss(ctx: Ctx, model, params, batch, *, remat: bool = False,
                  label_smoothing: Optional[float] = None):
     """(total, {"loss", "aux_loss", "total_loss"}) of one batch dict
-    (numpy arrays or tensors; string entries are ignored)."""
+    (numpy arrays or tensors; string entries are ignored). An LM batch's
+    ``loss_mask`` defaults to ones."""
     cfg = model.cfg
-    if cfg.family not in ("encdec", "audio"):
-        raise later(f"the {cfg.family!r} training loss", 4)
     logits, aux = model.forward(ctx, params, batch, remat=remat)
-    labels, mask = (torch.as_tensor(batch[k], device=logits.device)
-                    for k in ("tgt_out", "loss_mask"))
-    ls = 0.1 if label_smoothing is None else label_smoothing
-    loss = _xent(logits, labels, mask, ls)
+
+    def on(key):
+        return torch.as_tensor(batch[key], device=logits.device)
+
+    if cfg.family in ("encdec", "audio"):
+        ls = 0.1 if label_smoothing is None else label_smoothing
+        loss = _xent(logits, on("tgt_out"), on("loss_mask"), ls)
+    else:
+        tokens = on("tokens")
+        mask = on("loss_mask") if "loss_mask" in batch else torch.ones_like(
+            tokens, dtype=torch.float32)
+        if cfg.family == "vlm" and "img_embeds" in batch:
+            P, S = batch["img_embeds"].shape[1], tokens.shape[1]
+            # position P - 1 + i predicts text token i: already shifted
+            logits = logits[:, P - 1:P + S - 1]
+        else:
+            logits, tokens, mask = logits[:, :-1], tokens[:, 1:], mask[:, 1:]
+        ls = 0.0 if label_smoothing is None else label_smoothing
+        loss = _xent(logits, tokens, mask, ls)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
     total = loss + aux_w * aux
     return total, {"loss": loss, "aux_loss": aux, "total_loss": total}

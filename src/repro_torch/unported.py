@@ -6,10 +6,9 @@ ROADMAP.md, queue 1); nothing runs another route in its place.
 """
 
 # slice 2 (the serving features), slice 3 (the quantization routes:
-# act-quantizing specs, fp8 KV caches, calibration, QLoRA) and, of slice
-# 4, every model family's serving have landed
+# act-quantizing specs, fp8 KV caches, calibration, QLoRA) and slice 4
+# (every model family, served and trained) have landed
 SLICES = {
-    4: "the LM training branches",
     5: "scale-out: tensor-parallel meshes and replica routing",
 }
 

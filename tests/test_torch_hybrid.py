@@ -159,8 +159,9 @@ def test_hybrid_forward_matches_reference(trees):
     tl, aux = thy.hybrid_forward(ctx, tp, cfg, _t(toks))
     assert tl.dtype == torch.float32 and float(aux) == 0.0
     _close(tl.numpy(), jl)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        thy.hybrid_forward(CTX, tp, cfg, _t(toks), remat=True)
+    # remat recomputes each super-block and tail layer: the same logits
+    rematted, _ = thy.hybrid_forward(ctx, tp, cfg, _t(toks), remat=True)
+    assert torch.equal(rematted, tl)
 
 
 def _cache_equal(tc, jc):

@@ -386,30 +386,34 @@ def test_generator_init_has_the_reference_shapes(arch):
 
 
 def test_unported_routes_raise(models):
+    """Only scale-out (port slice 5) is left unported. Every LM family
+    inits from a key and recomputes its layers under ``remat``: qwen's key
+    init is the reference's (3e-7 relative, two f32 ulps), and for qwen
+    and the MoE, SSM and hybrid variants of its config ``remat`` gives
+    the same logits and the LM loss is finite. A family the LM stack does
+    not know raises ValueError."""
+    from repro_torch import unported
     from repro_torch.configs.base import MoECfg, SSMCfg
-    _, cfg, _, _, tp = models["qwen2.5-14b"]
-    # every family is served now (the SSM and hybrid build); an LM of any
-    # family still trains and inits from a key only with the LM training
-    # branches
-    for over in (dict(family="ssm", ssm=SSMCfg(state_dim=16, head_dim=16, chunk=8)),
-                 dict(family="hybrid", d_rec=64, local_window=8)):
-        rec = build_model(dataclasses.replace(cfg, **over), "cpu")
-        assert rec.cfg.family == over["family"]
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            rec.init(prng_key(0))
-        params = rec.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            rec.forward(CTX_PLAIN, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                        remat=True)
-    moe = build_model(dataclasses.replace(cfg, family="moe", moe=MoECfg(4, 2)), "cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        moe.init(prng_key(0))
-    model = build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        model.init(prng_key(0))
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        model.forward(CTX, tp, {"tokens": toks}, remat=True)
     from repro_torch.train.steps import compute_loss
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        compute_loss(CTX_PLAIN, model, tp, {"tokens": toks})
+    from repro_torch.tree import leaves_with_path
+    assert sorted(unported.SLICES) == [5]
+    _, cfg, raw, _, _ = models["qwen2.5-14b"]
+    want = dict(leaves_with_path(jax_to_torch(raw)))
+    got = dict(leaves_with_path(build_model(cfg, "cpu").init(prng_key(0))))
+    assert sorted(want) == sorted(got)
+    for k, w in want.items():
+        assert float(((w - got[k]).abs() / w.abs().clamp(min=1e-30)).max()) <= 3e-7, k
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)),
+                           dtype=torch.int32)
+    for over in (dict(), dict(family="moe", moe=MoECfg(4, 2)),
+                 dict(family="ssm", ssm=SSMCfg(state_dim=16, head_dim=16, chunk=8)),
+                 dict(family="hybrid", d_rec=64, local_window=8)):
+        model = build_model(dataclasses.replace(cfg, **over), "cpu")
+        params = model.init(prng_key(0))
+        plain, _ = model.forward(CTX_PLAIN, params, {"tokens": toks})
+        rematted, _ = model.forward(CTX_PLAIN, params, {"tokens": toks}, remat=True)
+        assert torch.equal(plain, rematted), over
+        loss, _ = compute_loss(CTX_PLAIN, model, params, {"tokens": toks})
+        assert torch.isfinite(loss), over
+    with pytest.raises(ValueError, match="unknown decoder-only LM family"):
+        ttf.lm_init(prng_key(0), dataclasses.replace(cfg, family="hybrid"))

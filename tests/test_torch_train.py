@@ -36,6 +36,7 @@ from repro.core import resolve_spec as j_resolve  # noqa: E402
 from repro.data import SyntheticLM as JSyntheticLM  # noqa: E402
 from repro.data import SyntheticTranslation  # noqa: E402
 from repro.data import batch_iterator as j_batch_iterator  # noqa: E402
+from repro.data import make_batch as j_make_batch  # noqa: E402
 from repro.models import Ctx as JCtx  # noqa: E402
 from repro.models import build_model as j_build_model  # noqa: E402
 from repro.optim import warmup_cosine as j_warmup_cosine  # noqa: E402
@@ -136,9 +137,15 @@ def test_configs_and_batches_match_reference():
         assert sorted(x) == sorted(y)
         for k in x:
             np.testing.assert_array_equal(x[k], y[k])
-    # audio batches: tests/test_torch_audio.py; VLM batches still raise
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        make_batch(CFG.__class__(**{**CFG.__dict__, "family": "vlm"}), spec, batch=2, seq=8)
+    # audio batches: tests/test_torch_audio.py; VLM batches (tokens cut to
+    # max(S - P, 8) after the image rows) equal the reference's byte for byte
+    vlm = reduce_config(get_config("llava-next-mistral-7b"))
+    want = j_make_batch(j_reduce(REGISTRY["llava-next-mistral-7b"]), spec, seed=2, batch=2,
+                        seq=8)
+    got = make_batch(vlm, spec, seed=2, batch=2, seq=8)
+    assert sorted(want) == sorted(got) == ["img_embeds", "loss_mask", "tokens"]
+    for k in want:
+        assert want[k].dtype == got[k].dtype and want[k].tobytes() == got[k].tobytes(), k
 
 
 def test_key_init_draws_the_reference_init(jparams):
