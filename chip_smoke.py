@@ -98,7 +98,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    versions at every shape its warm-up gave them; each phase checks the
    kernel bundle against the torch bundle, and dense against paged up
    to near ties (a first token may part there at an exact bf16 tie);
-19. the MoE and audio families, whole, int4: olmoe-1b-7b paged and
+19. the MoE and audio families, int4: olmoe-1b-7b (8 of 16 layers) paged and
    dense ([moe], [moe-dense]; 64 experts top-8, the experts' SiLU
    through the FASST kernel on 4-D inputs), whisper-base paged and dense
    on 1500 random frames a request ([audio], [audio-dense]) and
@@ -121,7 +121,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its warm-up gave them, launches exactly the counts a decode step
    derives from the model, meets the torch bundle's bound and repeats its
    8 streams bit for bit on a second run;
-21. a launch-count line, the kernels' JSON line, the card line, and last
+21. scale-out on [serve]'s prompts and weights: two tensor-parallel
+   ranks sharing the card over gloo (``cluster.launch_ranks``; NCCL
+   refuses two ranks on one device), each deploy(mesh=tp_mesh(2)) of
+   full-width nllb600m int4, paged ([tp]) then dense ([tp-dense]): both
+   ranks' streams equal, the single-device engine's up to near ties
+   replayed on both sides, qmm, the FASST activation and the paged
+   attention held at every shard shape, a decode step's launches exactly
+   one device's, each rank's resident bytes and deploy peak printed
+   beside the single device's; inside the same ranks the int8
+   compressed all-reduce on the card byte-equal to the CPU's
+   ([compress]); then two routed replicas on the card
+   (deploy_replicas, [dp]): each replica's streams a lone engine's bit
+   for bit, [serve]'s up to near ties, the merged metrics the sums;
+22. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 It needs a CUDA device and the repository's ``src/repro_torch``; without
@@ -131,6 +144,7 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -181,19 +195,22 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def device_ms(fn, reps: int = 10):
     """Device time of one ``fn()`` alone: the self device time of every
     kernel that ``torch.profiler`` records over ``reps`` calls, per call
-    (host gaps between launches left out). None where the profiler
-    records no device time."""
+    (host gaps between launches left out). None where two profiles in a
+    row record no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / reps if total > 0 else None
+    for _ in range(2):          # a profile now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    return None
 
 
 def times(kernel, plain, library, plain_reps: int = 5) -> dict:
@@ -1270,9 +1287,12 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False, expect=No
 
 
 def _fresh_engine(pipe, paged: bool, **kw):
-    """An idle engine of the given layout on ``pipe``'s model and weights;
-    ``kw`` sets engine options (pool, overlap, preempt_limit, trace) and
-    may replace the served shape (slots, max_len, page_size, horizon)."""
+    """An idle engine of the given layout on ``pipe``'s model and weights.
+    A tensor-parallel pipe's model, weights and ctx are the rank's local
+    model, its shard and the ctx carrying the group: the fresh engine
+    serves them as they are (every rank builds it). ``kw`` sets engine
+    options (pool, overlap, preempt_limit, trace) and may replace the
+    served shape (slots, max_len, page_size, horizon)."""
     from repro_torch.serving import ServeEngine
     shape = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, horizon=HORIZON)
     shape.update(kw)
@@ -1327,8 +1347,86 @@ def _sampled_parting(torch, prng, lp, fp, fd, sp, j, a, b, err):
     return what
 
 
+def _partings(tag, a_streams, b_streams, first_token_ties=False):
+    """Request index -> the first token where two stream sets part."""
+    part = {}
+    for i, (a, b) in enumerate(zip(a_streams, b_streams)):
+        j = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]), None)
+        if j is None and len(a) != len(b):
+            raise AssertionError(f"[{tag}] request {i}: streams of {len(a)} and "
+                                 f"{len(b)} tokens share every token")
+        if j == 0 and not first_token_ties:
+            raise AssertionError(f"[{tag}] request {i}: the prefill tokens differ")
+        if j is not None:
+            part[i] = j
+    return part
+
+
+def _side_admit(torch, tag, side, prompts, sps, steps):
+    """Admit a replay side's prompts (each engine its own, in order, the
+    same prefill calls as the served run) and grow paged chains over the
+    forced steps; returns the logits each first token is sampled from,
+    (prompts, V) by prompt index."""
+    rows = {}
+    for eng, idx in side:
+        got = {}
+
+        def record(logits, requests, slots, real=eng._first_tokens, got=got):
+            got.update((r.id, lg.float()) for r, lg in zip(requests, logits))
+            return real(logits, requests, slots)
+
+        eng._first_tokens = record
+        for i in idx:
+            eng.submit(prompts[i], sps[i])
+        eng._admit_pending()
+        del eng._first_tokens
+        if [s.request.id for s in eng.slots[:len(idx)]] != list(range(len(idx))):
+            raise AssertionError(f"[{tag}] admission placed requests out of order")
+        if eng.paged:           # on-demand chains: cover the forced steps
+            eng._grow_chains(steps)
+        rows.update((i, got[k]) for k, i in enumerate(idx))
+    return torch.stack([rows[i] for i in range(len(prompts))])
+
+
+def _side_step(torch, side, forced, j, n):
+    """One teacher-forced decode step of every engine of a replay side
+    (token ``j - 1`` of the forced streams); returns (logits (n, V) by
+    prompt index, each engine's router calls)."""
+    rows, routes = {}, []
+    from repro_torch.models import moe as moe_mod
+    real_route = moe_mod.route
+    for eng, idx in side:
+        calls = []
+
+        def rec_route(router, xt, top_k, calls=calls):
+            out = real_route(router, xt, top_k)
+            calls.append(out)
+            return out
+
+        toks = torch.zeros((eng.n_slots, 1), dtype=torch.int32, device=eng.device)
+        toks[:len(idx)] = forced[idx, j - 1:j].to(eng.device)
+        moe_mod.route = rec_route
+        try:
+            eng.cache, lg = eng.model.decode_step(eng.ctx, eng.params, toks, eng.cache)
+        finally:
+            moe_mod.route = real_route
+        rows.update((i, lg[k, -1].float()) for k, i in enumerate(idx))
+        routes.append(calls)
+    return torch.stack([rows[i] for i in range(n)]), routes
+
+
+def tp_follow_replay(torch, side, prompts, sps, forced_streams, steps):
+    """What a tensor-parallel rank other than 0 runs while rank 0 checks
+    its partings: the same admission and forced steps on its own shard
+    of the replay side, so that every collective meets its peers."""
+    _side_admit(torch, "tp-follow", side, prompts, sps, steps)
+    forced = torch.tensor([t[:steps] for t in forced_streams], dtype=torch.int32)
+    for j in range(1, steps + 1):
+        _side_step(torch, side, forced, j, len(prompts))
+
+
 def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_streams,
-                      engine_kw=None, first_token_ties=False):
+                      engine_kw=None, first_token_ties=False, sides=None):
     """Where a dense and a paged stream part, show that the step was a
     near tie. Both layouts replay the common prefix teacher-forced in
     fresh engines of the same slots. A parting at the first token fails,
@@ -1342,7 +1440,11 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
     engines' filters and their Gumbel-max margin is at most twice the
     difference over the temperature, or one sits on the top-k / top-p
     edge within what that difference can move. ``engine_kw`` replaces the
-    fresh engines' served shape (default: [serve]'s).
+    fresh engines' served shape (default: [serve]'s). ``sides`` replaces
+    the two fresh engines by two replay sides, each a list of (engine,
+    prompt indices), the first standing where the paged engine stands:
+    a tensor-parallel engine against one device, a router's replicas
+    against a lone engine.
 
     An MoE model's decode steps are also compared route by route: where
     the engines send a slot's token to different experts at some layer,
@@ -1353,69 +1455,31 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
     slot is put down to the router tie, and the other slots keep the
     bound. Returns the parting steps."""
     from repro_torch import random as prng
-    from repro_torch.models import moe as moe_mod
     from repro_torch.serving.sampler import filter_logits
 
-    part = {}
-    for i, (a, b) in enumerate(zip(paged_streams, dense_streams)):
-        j = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]), None)
-        if j is None and len(a) != len(b):
-            raise AssertionError(f"[{tag}] request {i}: streams of {len(a)} and "
-                                 f"{len(b)} tokens share every token")
-        if j == 0 and not first_token_ties:
-            raise AssertionError(f"[{tag}] request {i}: the prefill tokens differ")
-        if j is not None:
-            part[i] = j
+    part = _partings(tag, paged_streams, dense_streams, first_token_ties)
     steps = max(list(part.values()) + [3])
-    engines = [_fresh_engine(pipe, paged, **(engine_kw or {})) for paged in (True, False)]
-    prefill = []
+    n = len(prompts)
+    if sides is None:
+        sides = [[(_fresh_engine(pipe, paged, **(engine_kw or {})), list(range(n)))]
+                 for paged in (True, False)]
     with torch.no_grad():
-        for eng in engines:
-            rows = {}
-
-            def record(logits, requests, slots, real=eng._first_tokens, rows=rows):
-                rows.update((r.id, lg.float()) for r, lg in zip(requests, logits))
-                return real(logits, requests, slots)
-
-            eng._first_tokens = record
-            for p, sp in zip(prompts, sps):
-                eng.submit(p, sp)
-            eng._admit_pending()
-            del eng._first_tokens
-            prefill.append(torch.stack([rows[i] for i in range(len(prompts))]))
-            if [s.request.id for s in eng.slots] != list(range(len(prompts))):
-                raise AssertionError(f"[{tag}] admission placed requests out of order")
-            if eng.paged:       # on-demand chains: cover the forced steps
-                eng._grow_chains(steps)
-        dev = engines[0].device
+        prefill = [_side_admit(torch, tag, side, prompts, sps, steps) for side in sides]
+        dev = prefill[0].device
         forced = torch.tensor([t[:steps] for t in paged_streams], dtype=torch.int32,
                               device=dev)
         knobs = [torch.tensor([getattr(sp, k) for sp in sps], dtype=dt, device=dev)
                  for k, dt in (("temperature", torch.float32), ("top_k", torch.int64),
                                ("top_p", torch.float32))]
         rerouted = {}                   # slot -> (layer, step) of its router tie
-        real_route = moe_mod.route
         for j in range(steps + 1):
-            lgs = prefill if j == 0 else []
-            routes = []
-            for eng in engines if j else ():
-                calls = []
-
-                def rec_route(router, xt, top_k, calls=calls):
-                    out = real_route(router, xt, top_k)
-                    calls.append(out)
-                    return out
-
-                moe_mod.route = rec_route
-                try:
-                    eng.cache, lg = eng.model.decode_step(eng.ctx, eng.params,
-                                                          forced[:, j - 1:j], eng.cache)
-                finally:
-                    moe_mod.route = real_route
-                lgs.append(lg[:, -1].float())
-                routes.append(calls)
+            lgs, routes = (prefill, []) if j == 0 else ([], [])
+            for side in sides if j else ():
+                lg, calls = _side_step(torch, side, forced, j, n)
+                lgs.append(lg)
+                routes.append(calls[0] if len(side) == 1 else [])
             for layer, ((pp, _, ep), (pd, _, ed)) in enumerate(zip(*routes) if routes else ()):
-                for i in range(len(prompts)):
+                for i in range(n):
                     if i in rerouted or set(ep[i, 0].tolist()) == set(ed[i, 0].tolist()):
                         continue
                     k = ep.shape[-1]
@@ -1432,7 +1496,7 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
                         f"to different experts at a router near tie, gap {gap:.4g} <= "
                         f"{2 * diff:.4g}")
             lp, ld = lgs
-            kept = [i for i in range(len(prompts)) if i not in rerouted]
+            kept = [i for i in range(n) if i not in rerouted]
             err = float((lp[kept] - ld[kept]).abs().max()) if kept else 0.0
             parting = [i for i, pj in part.items() if pj == j]
             if any(not sps[i].greedy for i in parting):
@@ -2898,6 +2962,11 @@ def api_path(torch, pipe):
 # temporaries of the stacked (48, 5120, 13824) gate and up leaves would
 # pass 80 GB; 24 layers are 32.7 GB
 LM_ARCH, LM_LAYERS = "qwen2.5-14b", 24
+# served depth cuts: qwen2.5-14b's 48-layer f32 init and quantization do
+# not fit the card; olmoe-1b-7b keeps 8 of its 16 layers for the script's
+# time limit (with all 16 the script ran 1070.5 s of its 1200 on an
+# "NVIDIA H100 80GB HBM3, 700.00 W" host)
+DEPTH_CUTS = {LM_ARCH: LM_LAYERS, "olmoe-1b-7b": 8}
 LM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120))
 LM_HEAD_KN = (5120, 152064)
 LONG_LEN = 768          # [lm-gemma] and [vlm] cache length
@@ -3066,8 +3135,8 @@ def _lm_deploy(torch, tag, arch, paged, max_len, params=None, cut=""):
     from repro_torch.serving import deploy
     import dataclasses
     cfg = get_config(arch)
-    if arch == LM_ARCH:
-        cfg = dataclasses.replace(cfg, num_layers=LM_LAYERS)
+    if arch in DEPTH_CUTS:
+        cfg = dataclasses.replace(cfg, num_layers=DEPTH_CUTS[arch])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     pipe = deploy(cfg, "int4", slots=SLOTS, max_len=max_len, horizon=HORIZON,
@@ -3311,19 +3380,22 @@ def dense_and_paged(torch, card, tag, pipe, pipe_d, prompts, expect, prefill_onl
 
 
 def moe_phase(torch, card, timed):
-    """[moe] / [moe-dense]: olmoe-1b-7b at int4, full width and depth (16
-    layers, 64 experts x SiLU-GLU 1024, top-8, untied 50304 head), paged
+    """[moe] / [moe-dense]: olmoe-1b-7b at int4, full width, 8 of its 16
+    layers (64 experts x SiLU-GLU 1024, top-8, untied 50304 head), paged
     and dense on the same weights; 8 requests of 32-64 prompt tokens x 32
     new, greedy. A decode step launches qmm for the attention projections
     only (the experts are dequantize-then-einsum, as in the reference),
     the FASST kernel once a layer on the experts' 4-D (G, E, C, ff) gate
     products, and (paged) the paged-attention kernel once a layer.
     Returns the launches of the measured runs."""
-    pipe = _lm_deploy(torch, "moe", "olmoe-1b-7b", True, MAX_LEN)
+    from repro_torch.configs import get_config
+    cut = f" (of {get_config('olmoe-1b-7b').num_layers}: the script's time limit)"
+    pipe = _lm_deploy(torch, "moe", "olmoe-1b-7b", True, MAX_LEN, cut=cut)
     L = pipe.cfg.num_layers
     prompts = _lm_prompts(np.random.default_rng(SEED + 25), pipe.cfg.vocab_size, 32, 64)
     expect = {"qmm": 4 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}
-    pipe_d = _lm_deploy(torch, "moe-dense", "olmoe-1b-7b", False, MAX_LEN, params=pipe.params)
+    pipe_d = _lm_deploy(torch, "moe-dense", "olmoe-1b-7b", False, MAX_LEN, params=pipe.params,
+                        cut=cut)
     launches = dense_and_paged(torch, card, "moe", pipe, pipe_d, prompts, expect)
     lens = torch.tensor([p["tokens"].shape[1] + GEN for p in prompts], device=pipe.engine.device)
     del pipe_d
@@ -3487,6 +3559,330 @@ def hybrid_phase(torch, card):
 LM_PHASES = (("lm", lm_phase), ("lm-gemma", lm_gemma_phase), ("vlm", vlm_phase))
 
 
+# ---------------------------------------------------------------------------
+# scale-out: tensor-parallel ranks, the compressed all-reduce, replicas
+# ---------------------------------------------------------------------------
+
+TP = 2
+COMPRESS_SHAPES = {"w_in": (1024, 8192), "wo": (1024, 1024), "bias": (1000,)}
+
+
+def compress_check(torch, rank, device):
+    """[compress]: ``compressed_psum`` of this rank's seeded gradient tree
+    (a full-width FFN-in and attention-out gradient, a ragged bias and a
+    None leaf) on the card, over the ranks' gloo group, byte-equal to the
+    same call on CPU tensors; its error against the plain f32 sum; its
+    time on the card."""
+    import torch.distributed as dist
+    from repro_torch.optim import compressed_psum
+    g = torch.Generator().manual_seed(SEED + 31 + rank)
+    tree = {k: torch.randn(shape, generator=g) * 10 ** (-i)
+            for i, (k, shape) in enumerate(COMPRESS_SHAPES.items())}
+    tree["none"] = None
+    cpu = compressed_psum(tree)
+    dev_tree = {k: None if v is None else v.to(device) for k, v in tree.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compressed_psum(dev_tree)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    worst = 0.0
+    for k, v in tree.items():
+        if v is None:
+            if got[k] is not None:
+                raise AssertionError(f"[compress] the None leaf {k} came back")
+            continue
+        if not torch.equal(got[k].cpu().view(torch.int32), cpu[k].view(torch.int32)):
+            raise AssertionError(f"[compress] {k}: the card's sum is not the CPU's, "
+                                 "byte for byte")
+        plain = v.to(device).clone()
+        dist.all_reduce(plain)
+        worst = max(worst, float((got[k] - plain).abs().max() / plain.abs().max()))
+    if not worst < 0.02:
+        raise AssertionError(f"[compress] relative error {worst:.3g} against the f32 sum")
+    n = sum(v.numel() for v in tree.values() if v is not None)
+    return {"values": n, "ms": ms, "max_rel_err_vs_f32_sum": worst,
+            "byte_equal_to_cpu": True}
+
+
+def engine_memory(torch, device, build):
+    """``build()``'s device memory on this process: what stays allocated
+    after it (the engine's weights, KV storage and buffers) and its peak
+    above what was allocated before it. Returns those bytes and what
+    ``build`` returned under ``built``."""
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    built = build()
+    torch.cuda.synchronize(device)
+    return {"resident": torch.cuda.memory_allocated(device) - before,
+            "build_peak": torch.cuda.max_memory_allocated(device) - before,
+            "built": built}
+
+
+def _mem_line(mem):
+    return (f"resident {mem['resident'] / 1e9:.3f} GB after the deploy, peak "
+            f"{mem['build_peak'] / 1e9:.3f} GB during it (above the raw weights)")
+
+
+def tp_rank(rank, world, device, prompts):
+    """[tp], [tp-dense] and [compress] on one of ``world`` ranks that share
+    the one card over gloo (launch_ranks): full-width nllb600m int4 with
+    deploy(mesh=tp_mesh(world)), paged (page 16) then dense, horizon 16,
+    [serve]'s prompts. Every rank serves; rank 0 prints, holds qmm and
+    the FASST activation (and the paged attention) at every shard shape
+    the warm-up gave them, builds the single-device engine of the same
+    weights and holds the ranks' streams against it, up to near ties
+    replayed on both sides (the other ranks follow the replay). Returns
+    each phase's launches and numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.cluster import tp_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree_nbytes
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serving import SamplingParams, deploy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lead = rank == 0
+    say = log if lead else (lambda *a: None)
+    mesh = tp_mesh(world)
+    say(f"[tp] {world} ranks on {device} of one {torch.cuda.get_device_name(device)}, "
+        f"{mesh!r}: the ranks share the card, so a rank's times include the other's work")
+    out = {"compress": compress_check(torch, rank, device)}
+    say(f"[compress] {json.dumps(out['compress'])}")
+    raw = build_model(get_config("nllb600m"), device).init(
+        torch.Generator(device=device).manual_seed(SEED))
+    n = len(prompts)
+    sp = SamplingParams(max_new_tokens=GEN)
+    for tag, paged in (("tp", True), ("tp-dense", False)):
+        t_phase = time.perf_counter()
+        kw = dict(slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON, params=raw, device=device,
+                  ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True),
+                  **(dict(paged=True, page_size=PAGE) if paged else {}))
+        mem = engine_memory(torch, device, lambda: deploy("nllb600m", "int4", mesh=mesh, **kw))
+        pipe = mem.pop("built")
+        lc = pipe.engine.model.cfg
+        say(f"[{tag}] deployed nllb600m int4 on tp{world} ({'paged' if paged else 'dense'} "
+            f"int8 KV): each rank {lc.num_heads}/{lc.num_kv_heads} heads, d_ff {lc.d_ff}, "
+            f"vocab slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
+            f"{tree_nbytes(pipe.params) / 1e9:.3f} GB of weights (of "
+            f"{pipe.quantized_bytes / 1e9:.3f} GB); {_mem_line(mem)}")
+        with served_shapes() as seen:
+            pipe.generate(prompts, SamplingParams(max_new_tokens=4))
+        if lead:
+            hold_served(torch, tag, seen, device,
+                        ("qmm", "fasst_act") + (("paged_attn",) if paged else ()))
+        eng = pipe.engine
+        eng.reset_metrics()
+        torch.cuda.synchronize()
+        dist.barrier()
+        # the launches of the run's decode steps alone (its prefills launch
+        # at other shapes and counts), to hold them per step exactly
+        in_decode, real_loop = dict.fromkeys(ops.LAUNCHES, 0), eng._decode_loop
+
+        def counted_loop(*a, **kw):
+            before = dict(ops.LAUNCHES)
+            got = real_loop(*a, **kw)
+            for k, v in ops.LAUNCHES.items():
+                in_decode[k] += v - before[k]
+            return got
+
+        eng._decode_loop = counted_loop
+        steps0 = eng.decode_steps
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        outs = pipe.generate(prompts, sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        del eng._decode_loop
+        streams = [o.token_ids for o in outs]
+        if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+            raise AssertionError(f"[{tag}] not every request retired on length")
+        _check_vocab(pipe, outs)
+        every = [None] * world
+        dist.all_gather_object(every, (streams, launches))
+        if any(s != streams for s, _ in every):
+            raise AssertionError(f"[{tag}] the ranks' streams differ")
+        # a decode step: 8 qmm a layer (q, k, v, o, cross q, cross o, FFN
+        # in with the activation in its epilogue, FFN out), one paged
+        # attention a layer on a paged cache, no FASST launch of its own;
+        # the prefills take the FASST kernel at their rows
+        L, steps_run = lc.num_layers, eng.decode_steps - steps0
+        per_step = {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L if paged else 0,
+                    "fasst_act": 0}
+        if not steps_run or any(in_decode[k] != n * steps_run for k, n in per_step.items()):
+            raise AssertionError(f"[{tag}] {steps_run} decode steps launched {in_decode}; "
+                                 f"a step launches {per_step}")
+        if not launches["fasst_act"] > in_decode["fasst_act"]:
+            raise AssertionError(f"[{tag}] the prefills launched no FASST kernel: {launches}")
+        part, single_streams = {}, None
+        if lead:
+            smem = engine_memory(torch, device, lambda: deploy("nllb600m", "int4", **kw))
+            single = smem.pop("built")
+            say(f"[{tag}] the single-device engine: {_mem_line(smem)}")
+            single.generate(prompts[:2], SamplingParams(max_new_tokens=4))
+            single_streams = [o.token_ids for o in single.generate(prompts, sp)]
+            part = _partings(tag, streams, single_streams, first_token_ties=True)
+        steps = [max(list(part.values()) + [3]) if part else 0]
+        dist.broadcast_object_list(steps, src=0)
+        if steps[0]:
+            side = [(_fresh_engine(pipe, paged), list(range(n)))]
+            if lead:
+                near_tie_partings(torch, tag, pipe, prompts, [sp] * n, streams,
+                                  single_streams, first_token_ties=True,
+                                  sides=[side, [(_fresh_engine(single, paged),
+                                                 list(range(n)))]])
+            else:
+                tp_follow_replay(torch, side, prompts, [sp] * n, streams, steps[0])
+        tokens = sum(len(t) for t in streams)
+        stats = {"requests": n, "tokens": tokens, "wall_s": wall,
+                 "tokens_per_s": tokens / wall, "decode_steps": eng.decode_steps,
+                 "decode_ms_per_step": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
+                 "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
+                 "same_as_single_device": n - len(part), "near_tie_partings": len(part),
+                 "launches_per_rank": [c for _, c in every],
+                 "rank_memory_gb": {k: v / 1e9 for k, v in mem.items()},
+                 **({"single_device_memory_gb": {k: v / 1e9 for k, v in smem.items()}}
+                    if lead else {}),
+                 "note": f"{world} ranks share one card over gloo"}
+        say(f"[{tag}] {json.dumps(stats)}")
+        say(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
+        out[tag] = {"launches": launches, "streams": streams, "stats": stats}
+        del pipe
+        if lead:
+            del single
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_tp_kernels(torch, card, dev):
+    """qmm and paged attention over one tp2 rank's NLLB decode step, timed
+    on the card alone (no other rank running): qmm at the shard shapes
+    (6 decoder layers x q, k, v, cross q 1024x512; o, cross o 512x1024;
+    FFN in 1024x4096, out 4096x1024; int4, M 8: 48 launches, each on its
+    own weight), paged attention at the rank's 8 of 16 heads (6 launches,
+    d 64, int8 pages of 16, lengths as row 2's). Returns the ``tp_`` keys
+    of the qmm and paged_attn entries."""
+    from repro_torch.core.qtensor import QTensor
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    layer = [(1024, 512)] * 4 + [(512, 1024)] * 2 + [(1024, 4096), (4096, 1024)]
+    ws = [QTensor.quantize(torch.randn(kn, generator=g, device=dev) * 0.02, "int4", 64)
+          for _ in range(6) for kn in layer]
+    fns, (t, by) = qmm_window(torch, g, dev, ws, SLOTS)
+    out = {"qmm": {**times(*fns, plain_reps=2), "bound_ms": t, "bound_by": by,
+                   "work": f"one tp{TP} rank's nllb600m decode step: {len(ws)} int4 launches "
+                           f"at M={SLOTS} (q, k, v, cross q 1024x512; o, cross o 512x1024; "
+                           "FFN 1024x4096, 4096x1024)"}}
+    del ws, fns
+    lens = torch.randint(1, 257, (SLOTS,), generator=g, device=dev)
+    fns, (t, by), work = paged_window(torch, g, dev, 16 // TP, 16 // TP, 64, 16, 6, lens)
+    out["paged_attn"] = {**times(*fns), "bound_ms": t, "bound_by": by,
+                         "work": f"one tp{TP} rank's nllb600m decode step: {work}"}
+    del fns
+    torch.cuda.empty_cache()
+    for name, e in out.items():
+        log_time({"name": name, **{f"tp_{k}": v for k, v in e.items()}}, card, "tp_")
+    return {name: {f"tp_{k}": v for k, v in e.items()} for name, e in out.items()}
+
+
+def tp_phase(card, prompts):
+    """[tp] / [tp-dense] / [compress] on TP ranks sharing the card."""
+    from repro_torch.cluster import launch_ranks, rank_backend
+    backend = rank_backend("cuda", TP)
+    if backend != "gloo":
+        raise AssertionError(f"{TP} ranks on one card must take gloo, got {backend}")
+    t0 = time.perf_counter()
+    results = launch_ranks(tp_rank, TP, device="cuda", args=(prompts,))
+    log(f"[tp] {TP} ranks over {backend} on {card} took {time.perf_counter() - t0:.1f} s "
+        "(process start, deploys and both layouts)")
+    return results[0]
+
+
+def dp_phase(torch, card, prompts, serve_pipe, serve_outs):
+    """[dp]: deploy_replicas(replicas=2) on the one card, [serve]'s engine
+    shape, weights (seed) and prompts, routed by the ReplicaRouter. Each
+    replica's streams equal a lone engine serving that replica's requests
+    alone, bit for bit (replicas share nothing); against [serve]'s
+    streams, a parting must be a near tie (the replicas prefill their
+    halves in smaller groups, so their rows take other qmm tile plans);
+    the merged counters and histograms are the replicas' sums, and the
+    Prometheus text carries both sections. Returns the launches."""
+    from repro_torch.cluster import ReplicaRouter, deploy_replicas
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx
+    from repro_torch.serving import SamplingParams
+    t0 = time.perf_counter()
+    pipe = deploy_replicas("nllb600m", "int4", replicas=2, slots=SLOTS, max_len=MAX_LEN,
+                           horizon=HORIZON, init_seed=SEED, paged=True, page_size=PAGE,
+                           ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True))
+    torch.cuda.synchronize()
+    router = pipe.engine
+    if not isinstance(router, ReplicaRouter):
+        raise AssertionError("deploy_replicas returned no router")
+    devs = [str(e.device) for e in router.replicas]
+    log(f"[dp] deployed 2 replicas of nllb600m int4 (paged) on {devs} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sp = SamplingParams(max_new_tokens=GEN)
+    pipe.generate(prompts[:2], SamplingParams(max_new_tokens=4))
+    router.reset_metrics()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    gids = [router.submit(p, sp) for p in prompts]
+    placed = [router._owner[g][0] for g in gids]
+    by_id = {o.request_id: o for o in router.run_until_drained()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    outs = [by_id[g] for g in gids]
+    if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+        raise AssertionError("[dp] not every request retired on length")
+    streams = [o.token_ids for o in outs]
+    # replicas share nothing: each serves its requests as a lone engine would
+    for r, eng in enumerate(router.replicas):
+        idx = [i for i, p in enumerate(placed) if p == r]
+        lone = _fresh_engine(dataclasses.replace(pipe, engine=eng), True)
+        ids = [lone.submit(prompts[i], sp) for i in idx]
+        got = {o.request_id: o.token_ids for o in lone.run_until_drained()}
+        if [got[i] for i in ids] != [streams[i] for i in idx]:
+            raise AssertionError(f"[dp] replica {r}'s streams are not a lone engine's")
+    serve_streams = [o.token_ids for o in serve_outs]
+    part = _partings("dp", streams, serve_streams, first_token_ties=True)
+    if part:
+        side = [(_fresh_engine(dataclasses.replace(pipe, engine=eng), True),
+                 [i for i, p in enumerate(placed) if p == r])
+                for r, eng in enumerate(router.replicas)]
+        near_tie_partings(torch, "dp", pipe, prompts, [sp] * len(prompts), streams,
+                          serve_streams, first_token_ties=True,
+                          sides=[side, [(_fresh_engine(serve_pipe, True),
+                                         list(range(len(prompts))))]])
+    m = router.metrics()
+    per = [e.metrics() for e in router.replicas]
+    for field in ("synced_tokens", "decode_syncs", "decode_steps", "kv_cache_bytes"):
+        if getattr(m, field) != sum(getattr(p, field) for p in per):
+            raise AssertionError(f"[dp] merged {field} is not the replicas' sum")
+    hist = router.merged_latency_histograms()["ttft_ms"]
+    if hist.count != sum(e.latency_histograms()["ttft_ms"].count for e in router.replicas):
+        raise AssertionError("[dp] the merged TTFT histogram is not the replicas' sum")
+    prom = router.prometheus()
+    if 'repro_cluster_replica_synced_tokens{replica="1"}' not in prom \
+            or "repro_cluster_ttft_ms_bucket" not in prom:
+        raise AssertionError("[dp] prometheus() lacks the merged or per-replica section")
+    tokens = sum(len(t) for t in streams)
+    stats = {"requests": len(outs), "placements": placed, "tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall, "same_as_serve": len(outs) - len(part),
+             "near_tie_partings": len(part), "merged_synced_tokens": m.synced_tokens,
+             "ttft_p95_ms": m.ttft_p95_ms, "launches": launches, "card": card}
+    log(f"[dp] {json.dumps(stats)}")
+    del pipe, router
+    torch.cuda.empty_cache()
+    return launches
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3523,9 +3919,12 @@ def main() -> int:
             log(f"[ptxas {name}] {fn}: {line}")
     log_sass("qmm", build.library_path("qmm"))
 
+    t0 = time.perf_counter()
     entries = [check_qmm(torch, dev), check_qmm_naf(torch, dev, card),
                check_paged_attn(torch, dev), check_fasst(torch, dev),
                check_decode_attn(torch, dev), check_fasst_softmax(torch, dev)]
+    log(f"[kernels] the six kernel checks and their times took "
+        f"{time.perf_counter() - t0:.1f} s")
     for e in entries:
         log_time(e, card)
     q = entries[0]
@@ -3537,6 +3936,7 @@ def main() -> int:
             f"{fmt_ms(q['prefill_library_device_ms'][m])}; on {card}")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
     pipe, launches, prompts, paged_outs, paged_stats = serve(torch, card, paged=True)
     routes_agree(torch, pipe, prompts)
     profile_decode(torch, pipe, prompts)
@@ -3546,6 +3946,7 @@ def main() -> int:
     profile_decode(torch, pipe_d, prompts, "profile-dense-sampled", sampled=True)
     dense_vs_paged(torch, pipe, prompts, paged_outs, dense_outs)
     sampled(torch, pipe, pipe_d, prompts)
+    log(f"[serve] [serve] to [sampled] took {time.perf_counter() - t0:.1f} s")
     for name, phase in (("serve-preempt", lambda: serve_preempt(torch, card, pipe, prompts,
                                                                 paged_outs)),
                         ("overlap", lambda: overlap_phase(torch, card, pipe, pipe_d, prompts)),
@@ -3564,6 +3965,19 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_launches[name] = phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+    # scale-out: TP ranks sharing the card (their own processes), then two
+    # routed replicas in this one, both on [serve]'s prompts and weights
+    t0 = time.perf_counter()
+    tp_kernels = time_tp_kernels(torch, card, dev)
+    for e in entries:
+        e.update(tp_kernels.get(e["name"], {}))
+    tp_out = tp_phase(card, prompts)
+    phase_launches["tp"] = tp_out["tp"]["launches"]
+    phase_launches["tp-dense"] = tp_out["tp-dense"]["launches"]
+    log(f"[tp] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_launches["dp"] = dp_phase(torch, card, prompts, pipe, paged_outs)
+    log(f"[dp] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_launches["train"], trained = train_phase(torch, card, dev)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
@@ -3609,7 +4023,8 @@ def main() -> int:
               "lm_gemma": phase_launches["lm-gemma"], "vlm": phase_launches["vlm"],
               "moe": phase_launches["moe"], "moe_nllb": phase_launches["moe-nllb"],
               "audio": phase_launches["audio"], "ssm": phase_launches["ssm"],
-              "hybrid": phase_launches["hybrid"]}
+              "hybrid": phase_launches["hybrid"], "tp": phase_launches["tp"],
+              "tp_dense": phase_launches["tp-dense"], "dp": phase_launches["dp"]}
     for e in entries:
         if e["name"] == "paged_attn":
             for tag in ("moe", "audio"):
@@ -3619,7 +4034,8 @@ def main() -> int:
         served = e.setdefault("path", "served") == "served"
         e["launches"] = (launches if served else api_launches)[e["name"]]
         # spec, spec_dense, faults, quant, train, eval, train_lm, lm,
-        # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid
+        # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid, tp (rank 0),
+        # tp_dense (rank 0), dp
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -3636,16 +4052,20 @@ def main() -> int:
         f"{e['launches_audio']}" for e in entries))
     log("kernels in [ssm] / [hybrid]: " + ", ".join(
         f"{e['name']}={e['launches_ssm']} / {e['launches_hybrid']}" for e in entries))
+    log("kernels in [tp] (rank 0 of 2) / [tp-dense] (rank 0 of 2) / [dp]: " + ", ".join(
+        f"{e['name']}={e['launches_tp']} / {e['launches_tp_dense']} / {e['launches_dp']}"
+        for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
             "launches_moe", "launches_moe_nllb", "launches_audio", "launches_ssm",
-            "launches_hybrid", "max_abs_err",
+            "launches_hybrid", "launches_tp", "launches_tp_dense", "launches_dp",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k in keys or k.startswith(("prefill_", "lm_", "moe_",
-                                                                 "audio_", "ssm_"))}
+                                                                 "audio_", "ssm_", "tp_"))}
                                   for e in entries]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,25 +33,12 @@ import torch
 
 from ..convert import from_raw, to_raw
 from ..core.qtensor import QTensor
-from ..tree import keystr
-from ..unported import later
+from ..parallel.sharding import shard_tree
+from ..tree import flat_leaves, keystr
 
 __all__ = ["save_tree", "restore_tree", "latest_step", "CheckpointManager"]
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
-
-
-def _flatten(tree, path: str = ""):
-    """(path, leaf) in JAX's flattening order; None leaves dropped."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten(tree[k], path + keystr((k,)))
-    elif isinstance(tree, QTensor):
-        for name in QTensor._CHILDREN:
-            if getattr(tree, name) is not None:
-                yield f"{path}.{name}", getattr(tree, name)
-    elif tree is not None:
-        yield path, tree
 
 
 def _rebuild(template, leaves: dict, path: str = ""):
@@ -66,7 +53,7 @@ def _rebuild(template, leaves: dict, path: str = ""):
 
 def _host(tree):
     """[(path, raw numpy array, dtype name)] — the host copy a save writes."""
-    return [(p, *to_raw(leaf)) for p, leaf in _flatten(tree)]
+    return [(p, *to_raw(leaf)) for p, leaf in flat_leaves(tree)]
 
 
 def _write(path: str, host_leaves, step: int, extra: Optional[dict]):
@@ -97,9 +84,9 @@ def save_tree(path: str, tree: Any, step: int, extra: Optional[dict] = None):
 def restore_tree(path: str, template: Any, step: Optional[int] = None,
                  shardings: Any = None):
     """Restore into ``template``'s structure, each leaf on the device of
-    the template's leaf at its path. Returns (tree, step, extra)."""
-    if shardings is not None:
-        raise later("restoring into shardings", 5)
+    the template's leaf at its path. Returns (tree, step, extra).
+    ``shardings`` = ``(specs, rank, mesh)`` reshards on restore: the tree
+    is one rank's shard (``parallel.shard_tree``) of the checkpoint."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -107,7 +94,7 @@ def restore_tree(path: str, template: Any, step: Optional[int] = None,
     d = os.path.join(path, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    flat = list(_flatten(template))
+    flat = list(flat_leaves(template))
     if len(flat) != len(manifest["leaves"]):
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, template "
@@ -121,7 +108,11 @@ def restore_tree(path: str, template: Any, step: Optional[int] = None,
         arr = np.load(os.path.join(d, meta["file"]))
         dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
         leaves[kp] = from_raw(arr, meta["dtype"], dev)
-    return _rebuild(template, leaves), manifest["step"], manifest["extra"]
+    tree = _rebuild(template, leaves)
+    if shardings is not None:
+        specs, rank, mesh = shardings
+        tree = shard_tree(tree, specs, rank, mesh)
+    return tree, manifest["step"], manifest["extra"]
 
 
 def latest_step(path: str) -> Optional[int]:

@@ -1,0 +1,197 @@
+"""Cluster serving: tensor-parallel engines and data-parallel routing.
+
+Two scale-out layers over the single serving engine:
+
+* **Tensor parallel** — ``deploy(..., mesh=tp_mesh(K))`` on each of K
+  ranks that :func:`launch_ranks` started: every rank serves the same
+  requests on its shard of the weights and KV storage, and the model sums
+  its row-parallel products over the ranks (``parallel/tp.py``).
+* **Data parallel** — :class:`ReplicaRouter` balances requests over N
+  independent engine replicas; :func:`deploy_replicas` builds them
+  behind the ordinary ``TranslationPipeline`` surface, replica ``i`` on
+  ``cuda:i`` where the process sees N cards, else all on one device.
+
+Both keep the engine's standing invariant: routed and sharded token
+streams are those of a single-device engine serving the same requests.
+
+The backend follows the device layout: NCCL when every rank has a card of
+its own, gloo when ranks share one card (NCCL refuses two ranks on one
+device) or run on the CPU. Under gloo the tensors stay on the card; the
+backend only carries the collectives. The mesh's repr names it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import re
+import tempfile
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+
+from ..unported import later
+from .router import ReplicaRouter
+
+__all__ = ["ReplicaRouter", "deploy_replicas", "parse_mesh_spec", "tp_mesh",
+           "launch_ranks", "rank_backend"]
+
+
+def parse_mesh_spec(spec: str) -> Tuple[int, int]:
+    """Parse the CLI mesh convention ``"dp2,tp2"`` -> ``(dp, tp)``:
+    comma-separated ``dp<N>`` / ``tp<N>`` factors in either order, an
+    omitted factor 1. dp is the replica count, tp the per-replica mesh
+    width."""
+    dp = tp = 1
+    seen = set()
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        m = re.fullmatch(r"(dp|tp)(\d+)", part)
+        if m is None:
+            raise ValueError(f"bad mesh factor {part!r} in {spec!r}; expected "
+                             "comma-separated dp<N>/tp<N>, e.g. 'dp2,tp2'")
+        axis, n = m.group(1), int(m.group(2))
+        if axis in seen:
+            raise ValueError(f"duplicate {axis!r} factor in {spec!r}")
+        seen.add(axis)
+        if n < 1:
+            raise ValueError(f"mesh factor {part!r} must be >= 1")
+        if axis == "dp":
+            dp = n
+        else:
+            tp = n
+    return dp, tp
+
+
+def rank_backend(device, world: int) -> str:
+    """NCCL when each of ``world`` ranks gets a card of its own, gloo when
+    they would share one card or run on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def _rank_main(rank: int, world: int, fn: Callable, args: tuple, device: str,
+               backend: str, tmpdir: str) -> None:
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else (dev.index or 0))
+        torch.cuda.set_device(dev)
+    else:
+        # the ranks share the host's cores, and idle OpenMP threads
+        # spinning beside a rank that waits in a collective slow every
+        # rank several-fold: one intra-op thread a rank
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(tmpdir, 'store')}",
+                            world_size=world, rank=rank)
+    try:
+        out = fn(rank, world, dev, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmpdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def launch_ranks(fn: Callable, world: int, *, device="cuda", args: tuple = (),
+                 tmpdir: Optional[str] = None) -> List[Any]:
+    """Run ``fn(rank, world, device, *args)`` on ``world`` processes of a
+    fresh process group and return each rank's result, in rank order.
+
+    The processes start with ``torch.multiprocessing``'s spawn method
+    and meet through a ``file://`` store in a temporary directory (under
+    ``tmpdir`` when given), so no TCP port is claimed. The backend is
+    :func:`rank_backend`'s: NCCL with rank r on ``cuda:r`` when the
+    process sees ``world`` cards, else gloo with every rank on ``device``.
+    ``fn`` must be importable by name (a module-level function); its
+    result is pickled back. A rank that raises stops the others, and the
+    error is raised here.
+    """
+    import torch.multiprocessing as mp
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    backend = rank_backend(device, world)
+    with tempfile.TemporaryDirectory(dir=tmpdir) as tmp:
+        mp.start_processes(_rank_main, args=(world, fn, args, str(device), backend, tmp),
+                           nprocs=world, join=True, start_method="spawn")
+        out = []
+        for rank in range(world):
+            with open(os.path.join(tmp, f"rank{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def tp_mesh(tp: int):
+    """A ``("model",)`` DeviceMesh over the ``tp`` ranks of the process
+    group this process has joined (``launch_ranks``): the serving
+    engine's tensor-parallel domain. Raises when no group is up or its
+    world size is not ``tp``; it never falls back to one device."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(f"tp_mesh({tp}) needs a process group of {tp} ranks: run "
+                           "the caller inside cluster.launch_ranks(fn, world=tp)")
+    world = dist.get_world_size()
+    if world != tp:
+        raise ValueError(f"tensor parallelism tp={tp} needs a process group of {tp} "
+                         f"ranks, this one has {world}")
+
+    class TPMesh(DeviceMesh):
+        def __repr__(self) -> str:
+            return f"{super().__repr__()} over {dist.get_backend()}"
+
+    # a rank on a card has set its device (launch_ranks), which starts CUDA
+    on_card = dist.get_backend() == "nccl" or (torch.cuda.is_available()
+                                                 and torch.cuda.is_initialized())
+    return TPMesh("cuda" if on_card else "cpu", list(range(tp)), mesh_dim_names=("model",))
+
+
+def _to_device(tree, dev):
+    from ..core.qtensor import QTensor
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return dataclasses.replace(tree, **{n: getattr(tree, n).to(dev)
+                                            for n in QTensor._CHILDREN
+                                            if getattr(tree, n) is not None})
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def deploy_replicas(arch_or_cfg, policy="int4", *, replicas: int = 2, tp: int = 1,
+                    device=None, **deploy_kwargs):
+    """Deploy ``replicas`` independent engines behind a ReplicaRouter.
+
+    Each replica is a full ``serving.deploy`` of the same config and spec
+    (``params=`` shares one checkpoint; otherwise ``init_seed`` makes
+    every replica initialize alike). Replica ``i`` sits on ``cuda:i``
+    when ``device`` is the CUDA default (None or "cuda") and the process
+    sees at least ``replicas`` cards; otherwise every replica sits on
+    ``device`` (routing and backpressure still apply, device concurrency
+    is lost). ``tp > 1`` raises (a later slice): a tensor-parallel engine
+    is ``deploy(mesh=tp_mesh(tp))`` inside the ranks of ``launch_ranks``.
+
+    Returns a ``TranslationPipeline`` whose ``engine`` is the router;
+    ``translate`` / ``generate`` fan over replicas (``translate_stream``
+    needs a single-engine pipeline). The engines stay reachable through
+    ``pipe.engine.replicas``.
+    """
+    from ..serving import deploy
+    if replicas < 1:
+        raise ValueError(f"replicas must be >= 1, got {replicas}")
+    if tp > 1:
+        raise later(f"replicas of a tp{tp} mesh (dp{replicas},tp{tp}: a replicated "
+                    "control plane over the replica groups)", 6)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None \
+            and torch.cuda.device_count() >= replicas:
+        devs = [torch.device("cuda", i) for i in range(replicas)]
+    else:
+        devs = [dev] * replicas
+    params = deploy_kwargs.pop("params", None)
+    pipes = [deploy(arch_or_cfg, policy, device=d, **deploy_kwargs,
+                    params=None if params is None else _to_device(params, d))
+             for d in devs]
+    router = ReplicaRouter([p.engine for p in pipes])
+    return dataclasses.replace(pipes[0], engine=router)

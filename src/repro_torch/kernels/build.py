@@ -2,12 +2,13 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, under ``build/repro_torch/``
-at the repository root. The library name carries a hash of its source
-and of the ``csrc/`` headers it includes (``#include "..."``, followed
-through the headers), so an edited kernel or header rebuilds the
-libraries that use it, and a built one is reused. Builds of
-several sources run in parallel (one ``nvcc`` process each). A failed
-build raises with the compiler's output; nothing falls back.
+at the repository root. The library name carries a hash of its source,
+of the ``csrc/`` headers it includes (``#include "..."``, followed
+through the headers) and of the compiler flags, so an edited kernel,
+header or flag rebuilds the libraries that use it, and a built one is
+reused. Builds of several sources run in parallel (one ``nvcc`` process
+each). A failed build raises with the compiler's output; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -46,8 +47,21 @@ def _nvcc() -> str:
     return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
 
 
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# qmm.cu holds 80 kernel instances: -split-compile=0 optimizes them on
+# every core, and ptxas gives each the registers and tensor-core
+# instructions of the one-process build. paged_attn.cu's kernels took
+# other registers and ran slower split, so the other sources stay whole.
+_SOURCE_FLAGS = {"qmm": ("-split-compile=0",)}
+
+
+def _flags(name: str) -> tuple:
+    return _FLAGS + _SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256()
+    h = hashlib.sha256("\0".join(_flags(name)).encode() + b"\0")
     todo, seen = [f"{name}.cu"], set()
     while todo:                       # the source, then the headers it names
         file = todo.pop(0)
@@ -69,9 +83,7 @@ def build(names: Iterable[str] = SOURCES) -> None:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

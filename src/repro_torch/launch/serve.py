@@ -22,9 +22,16 @@ Observability: ``--trace-out FILE`` dumps Chrome/Perfetto trace JSON,
 act-quantizing and fp8-KV ones included (``w8a8``, ``fp8e2e``,
 ``w4a8kv8``); an act-quantizing spec warns that it quantizes dynamically
 per token, since the launcher calibrates nothing. ``--draft-spec`` adds a
-quantized speculative draft arm (greedy output unchanged). ``--mesh dp<N>,tp<K>`` keeps the reference's grammar; a
-factor above 1 raises until the scale-out slice. ``--device`` (default
-``cuda``) picks the device; the CPU runs the kernels' plain versions.
+quantized speculative draft arm (greedy output unchanged).
+
+Scale-out: ``--mesh tp<K>`` runs the launcher's body on K ranks
+(``cluster.launch_ranks``: NCCL when each rank has a card of its own,
+gloo when they share one or run on the CPU), each deploying with
+``mesh=tp_mesh(K)`` and serving the same requests; rank 0 prints.
+``--mesh dp<N>`` serves through ``deploy_replicas`` (N engines behind the
+replica router). A composed ``dp<N>,tp<K>`` with both above 1 raises (a
+later port slice). ``--device`` (default ``cuda``) picks the device; the
+CPU runs the kernels' plain versions.
 
   python -m repro_torch.launch.serve --arch nllb600m --policy int4 \\
       --paged --draft-spec nf4 --requests 8 --gen 16 --max-len 128
@@ -32,18 +39,20 @@ factor above 1 raises until the scale-out slice. ``--device`` (default
       --policy int4 --requests 6 --gen 8 --temperature 0.7 --top-p 0.9
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --smoke \\
       --device cpu --paged --requests 3 --gen 8 --max-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --paged --mesh tp2 --requests 4 --gen 8
 """
 
 from __future__ import annotations
 
 import argparse
-import re
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 from .. import random as prng
+from ..cluster import deploy_replicas, launch_ranks, parse_mesh_spec, tp_mesh
 from ..configs import REGISTRY
-from ..core import ALIASES, resolve_spec
+from ..core import ALIASES, resolve_spec, tree_nbytes
 from ..data import SyntheticTranslation
 from ..obs import MetricsServer
 from ..serving import (DEFAULT_IMPL, IMPL_CHOICES, EngineSaturated, SamplingParams,
@@ -51,30 +60,6 @@ from ..serving import (DEFAULT_IMPL, IMPL_CHOICES, EngineSaturated, SamplingPara
 from ..unported import later
 
 __all__ = ["main", "parse_mesh_spec"]
-
-
-def parse_mesh_spec(spec: str) -> Tuple[int, int]:
-    """Parse the CLI mesh convention ``"dp2,tp2"`` -> ``(dp, tp)``:
-    comma-separated ``dp<N>`` / ``tp<N>`` factors in either order, an
-    omitted factor 1."""
-    dp = tp = 1
-    seen = set()
-    for part in filter(None, (p.strip() for p in spec.split(","))):
-        m = re.fullmatch(r"(dp|tp)(\d+)", part)
-        if m is None:
-            raise ValueError(f"bad mesh factor {part!r} in {spec!r}; expected "
-                             "comma-separated dp<N>/tp<N>, e.g. 'dp2,tp2'")
-        axis, n = m.group(1), int(m.group(2))
-        if axis in seen:
-            raise ValueError(f"duplicate {axis!r} factor in {spec!r}")
-        seen.add(axis)
-        if n < 1:
-            raise ValueError(f"mesh factor {part!r} must be >= 1")
-        if axis == "dp":
-            dp = n
-        else:
-            tp = n
-    return dp, tp
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -125,8 +110,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="serve the live exposition at "
                          "http://127.0.0.1:N/metrics (0 = ephemeral)")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
-                    help="scale-out spec 'dp<N>,tp<K>' (a factor above 1 "
-                         "comes with the scale-out slice)")
+                    help="scale-out spec 'dp<N>,tp<K>': tp<K> serves on K "
+                         "tensor-parallel ranks, dp<N> through N routed "
+                         "replicas (both above 1 comes with a later slice)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -139,25 +125,53 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.draft_spec is not None:
         resolve_spec(args.draft_spec)
     dp, tp = parse_mesh_spec(args.mesh) if args.mesh else (1, 1)
-    if dp > 1 or tp > 1:
-        raise later(f"--mesh {args.mesh} (dp{dp} replicas x tp{tp})", 5)
+    if dp > 1 and tp > 1:
+        raise later(f"--mesh {args.mesh} (dp{dp} replicas x tp{tp}: a replicated "
+                    "control plane over the replica groups)", 6)
+    if tp > 1:
+        launch_ranks(_serve_rank, tp, device=args.device, args=(args,))
+    else:
+        _serve(args, dp)
+
+
+def _quiet(*_a, **_k) -> None:
+    pass
+
+
+def _serve_rank(rank: int, world: int, device, args) -> None:
+    """One rank of ``--mesh tp<K>``: the launcher's body on the rank's
+    device and the ``("model",)`` mesh; rank 0 prints and writes."""
+    _serve(args, 1, mesh=tp_mesh(world), device=device, lead=rank == 0)
+
+
+def _serve(args, dp: int, mesh=None, device=None, lead: bool = True) -> None:
+    echo = print if lead else _quiet
     sla = None
     if args.sla_ttft_ms is not None or args.sla_tpot_ms is not None:
         sla = SLATarget(p95_ttft_ms=args.sla_ttft_ms, p95_tpot_ms=args.sla_tpot_ms,
                         window=max(args.requests // 2, 1))
-    pipe = deploy(args.arch, args.policy, slots=args.slots, max_len=args.max_len,
-                  smoke=args.smoke, paged=args.paged, page_size=args.page_size,
-                  num_pages=args.num_pages, horizon=args.horizon,
-                  draft_spec=args.draft_spec, draft_lookahead=args.draft_lookahead,
-                  overlap=not args.no_overlap, sla=sla, max_pending=args.max_pending,
-                  trace=TraceConfig() if args.trace_out else None,
-                  device=args.device, **impl_routes(args.impl))
-    print(f"model bytes {pipe.fp_bytes/2**20:.1f} MB -> "
-          f"{pipe.quantized_bytes/2**20:.1f} MB "
-          f"({args.policy} = {pipe.spec_str}, {pipe.compression:.2f}x)")
+    kw = dict(slots=args.slots, max_len=args.max_len, smoke=args.smoke, paged=args.paged,
+              page_size=args.page_size, num_pages=args.num_pages, horizon=args.horizon,
+              draft_spec=args.draft_spec, draft_lookahead=args.draft_lookahead,
+              overlap=not args.no_overlap, sla=sla, max_pending=args.max_pending,
+              trace=TraceConfig() if args.trace_out else None, **impl_routes(args.impl))
+    if dp > 1:
+        pipe = deploy_replicas(args.arch, args.policy, replicas=dp, device=args.device,
+                               **kw)
+        devs = sorted({str(e.device) for e in pipe.engine.replicas})
+        echo(f"cluster: {dp} replicas x tp1 over {len(devs)} device(s) {devs}")
+    else:
+        pipe = deploy(args.arch, args.policy, mesh=mesh,
+                      device=args.device if device is None else device, **kw)
+        if mesh is not None:
+            echo(f"tensor parallel: tp{mesh.size()} ('model',) mesh, {mesh!r}; rank 0 "
+                 f"holds {tree_nbytes(pipe.params)/2**20:.1f} MB of the weights")
+    echo(f"model bytes {pipe.fp_bytes/2**20:.1f} MB -> "
+         f"{pipe.quantized_bytes/2**20:.1f} MB "
+         f"({args.policy} = {pipe.spec_str}, {pipe.compression:.2f}x)")
     if args.draft_spec is not None:
-        print(f"speculative draft arm: {args.draft_spec} = "
-              f"{pipe.draft_spec_str}, lookahead {args.draft_lookahead}")
+        echo(f"speculative draft arm: {args.draft_spec} = "
+             f"{pipe.draft_spec_str}, lookahead {args.draft_lookahead}")
 
     cfg = pipe.cfg
     # sources up to the engine's cross capacity (default enc_len); the
@@ -166,10 +180,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if cfg.family == "encdec" else None
 
     metrics_srv = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and lead:
         metrics_srv = MetricsServer(pipe.engine.prometheus,
                                     port=args.metrics_port).start()
-        print(f"metrics: live at {metrics_srv.url}")
+        echo(f"metrics: live at {metrics_srv.url}")
 
     t0 = time.perf_counter()
     for i in range(args.requests):
@@ -193,21 +207,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 rid = pipe.engine.submit(req, sp)
                 break
             except EngineSaturated as exc:
-                print(f"saturated ({exc.pending}/{exc.limit} pending), "
-                      f"stepping + retrying in {backoff*1e3:.0f} ms")
+                echo(f"saturated ({exc.pending}/{exc.limit} pending), "
+                     f"stepping + retrying in {backoff*1e3:.0f} ms")
                 pipe.engine.step()
                 time.sleep(backoff)
                 backoff = min(backoff * 2, 0.5)
-        print(f"[req {rid}] queued (pending={pipe.engine.num_pending}, "
-              f"active={pipe.engine.num_active})")
+        echo(f"[req {rid}] queued (pending={pipe.engine.num_pending}, "
+             f"active={pipe.engine.num_active})")
 
     # outputs stream back as each request finishes, not at the drain
     outs = []
     for o in pipe.engine.stream():
         outs.append(o)
-        print(f"[req {o.request_id}] slot {o.slot} {o.finish_reason:6s} "
-              f"ttft {o.ttft_ms:6.1f} ms tpot {o.tpot_ms:5.2f} ms: "
-              f"{o.token_ids}")
+        echo(f"[req {o.request_id}] slot {o.slot} {o.finish_reason:6s} "
+             f"ttft {o.ttft_ms:6.1f} ms tpot {o.tpot_ms:5.2f} ms: "
+             f"{o.token_ids}")
     dt = time.perf_counter() - t0
     done_tokens = sum(o.num_generated for o in outs)
     m = pipe.engine.metrics()
@@ -225,36 +239,36 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         line += (f", acceptance {m.acceptance_rate:.2f} "
                  f"({m.accepted_tokens}/{m.drafted_tokens} drafted, "
                  f"{m.verify_calls} verify rounds)")
-    print(line + ")")
-    print(f"latency: ttft p50/p95 {m.ttft_p50_ms:.1f}/{m.ttft_p95_ms:.1f} "
-          f"ms, tpot p50/p95 {m.tpot_p50_ms:.2f}/{m.tpot_p95_ms:.2f} ms")
+    echo(line + ")")
+    echo(f"latency: ttft p50/p95 {m.ttft_p50_ms:.1f}/{m.ttft_p95_ms:.1f} "
+         f"ms, tpot p50/p95 {m.tpot_p50_ms:.2f}/{m.tpot_p95_ms:.2f} ms")
     # shutdown fault summary: zero across the board on a healthy run
-    print(f"faults: {m.preemptions} preemptions "
-          f"({m.resumed_requests} resumed), "
-          f"{m.deadline_expirations} deadline expirations, "
-          f"{m.admission_rejections} admission rejections, "
-          f"{m.slot_errors} slot errors")
-    if args.trace_out:
-        print(f"phases: admit {m.phase_admit_ms:.1f} ms, dispatch "
-              f"{m.phase_dispatch_ms:.1f} ms, sync {m.phase_sync_ms:.1f} "
-              f"ms, walk {m.phase_walk_ms:.1f} ms")
+    echo(f"faults: {m.preemptions} preemptions "
+         f"({m.resumed_requests} resumed), "
+         f"{m.deadline_expirations} deadline expirations, "
+         f"{m.admission_rejections} admission rejections, "
+         f"{m.slot_errors} slot errors")
+    if args.trace_out and lead:
+        echo(f"phases: admit {m.phase_admit_ms:.1f} ms, dispatch "
+             f"{m.phase_dispatch_ms:.1f} ms, sync {m.phase_sync_ms:.1f} "
+             f"ms, walk {m.phase_walk_ms:.1f} ms")
         pipe.tracer.dump_json(args.trace_out)
-        print(f"trace: {len(pipe.tracer)} events "
-              f"({pipe.tracer.dropped} dropped) -> {args.trace_out}")
-    if args.metrics_out:
+        echo(f"trace: {len(pipe.tracer)} events "
+             f"({pipe.tracer.dropped} dropped) -> {args.trace_out}")
+    if args.metrics_out and lead:
         with open(args.metrics_out, "w") as f:
             f.write(pipe.engine.prometheus())
-        print(f"metrics: prometheus text -> {args.metrics_out}")
+        echo(f"metrics: prometheus text -> {args.metrics_out}")
     if metrics_srv is not None:
         metrics_srv.close()
-        print("metrics: endpoint closed")
-    if pipe.engine.sla is not None:
+        echo("metrics: endpoint closed")
+    if getattr(pipe.engine, "sla", None) is not None:
         ctl = pipe.engine.sla
         held = ctl.holding()
-        print(f"sla: target ttft_p95 {args.sla_ttft_ms} ms / tpot_p95 "
-              f"{args.sla_tpot_ms} ms -> horizon {ctl.horizon}, "
-              f"prefill cap {ctl.prefill_cap}, {ctl.retunes} retunes, "
-              f"held={'n/a' if held is None else held}")
+        echo(f"sla: target ttft_p95 {args.sla_ttft_ms} ms / tpot_p95 "
+             f"{args.sla_tpot_ms} ms -> horizon {ctl.horizon}, "
+             f"prefill cap {ctl.prefill_cap}, {ctl.retunes} retunes, "
+             f"held={'n/a' if held is None else held}")
 
 
 if __name__ == "__main__":

@@ -23,13 +23,12 @@ its keys (``_kv_layout``): int8 (``k_codes`` + ``k_scales``), fp8
 from __future__ import annotations
 
 import torch
-from ..core.qlinear import embed_lookup
 from ..random import split
 from . import moe as moe_mod
 from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, mlp_init,
                      normal_init, remat as _remat, rms_norm, stack_layers)
 from .transformer import (SCALED_KV, _commit_decode_position, _commit_prefill,
-                          _dense_kv, _head, _kv_layout, _kv_leaves, _layer,
+                          _dense_kv, _embed_rows, _head, _kv_layout, _kv_leaves, _layer,
                           _layers, _positions, _scatter_tokens, _self_leaves, paged_attn,
                           paged_view)
 
@@ -120,7 +119,7 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens=None, frames=None,
     if frames is not None:
         x = frames.to(ctx.compute_dtype)
     else:
-        x = embed_lookup(params["embedding"], src_tokens, ctx.compute_dtype)
+        x = _embed_rows(ctx, params, cfg, src_tokens)
     B, Se, _ = x.shape
     positions = _positions(B, Se, x.device)
 
@@ -179,7 +178,7 @@ def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens=None,
     B, Sd = tgt_tokens.shape
     Se = enc_out.shape[1]
     dev = enc_out.device
-    x = embed_lookup(params["embedding"], tgt_tokens, ctx.compute_dtype)
+    x = _embed_rows(ctx, params, cfg, tgt_tokens)
     positions, enc_pos = _positions(B, Sd, dev), _positions(B, Se, dev)
 
     def body(x, lp, enc_out):
@@ -217,7 +216,7 @@ def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens=None,
     B, Sd = tgt_tokens.shape
     Se = enc_out.shape[1]
     dev = enc_out.device
-    x = embed_lookup(params["embedding"], tgt_tokens, ctx.compute_dtype)
+    x = _embed_rows(ctx, params, cfg, tgt_tokens)
     positions = _positions(B, Sd, dev)
     enc_pos = _positions(B, Se, dev)
     ks, vs, cks, cvs = [], [], [], []
@@ -301,7 +300,7 @@ def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     layout = _kv_layout(cache)
     B = tokens.shape[0]
     positions = cache["len"][:, None]
-    x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
+    x = _embed_rows(ctx, params, cfg, tokens)
     enc_pos = _enc_positions(cache, B, _cross_len(cache, layout), x.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["decoder"]["layers"], i)
@@ -344,7 +343,7 @@ def encdec_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     B = tokens.shape[0]
     positions = cache["len"][:, None]
     view_pos, pid, off = paged_view(cache)
-    x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
+    x = _embed_rows(ctx, params, cfg, tokens)
     enc_pos = _enc_positions(cache, B, _cross_len(cache, layout), x.device)
     use_kernel = ctx.paged_attn_impl == "kernel"
     lengths_now = torch.where(active > 0, cache["len"] + 1, 0)

@@ -56,6 +56,11 @@ class Ctx:
                      activation entering a quantized-weight matmul (and
                      each x<fmt> attention operand) reports its absmax
                      under its site label. Not part of eq / hash.
+    tp:              a tensor-parallel engine's ``parallel.tp.TPGroup``:
+                     every row-parallel product (a site ending in ".out")
+                     is summed over its ranks, and a vocabulary-split
+                     embedding and head gather over them. None on one
+                     device. Not part of eq / hash.
     """
     compute_dtype: Any = torch.bfloat16
     act_fmt: str = "bf16"
@@ -65,6 +70,7 @@ class Ctx:
     use_fasst_kernel: bool = False
     act_scales: Any = None
     act_collector: Any = dataclasses.field(default=None, compare=False, repr=False)
+    tp: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.matmul_impl not in _MATMUL_IMPLS:
@@ -98,12 +104,17 @@ class Ctx:
         """x @ w with the context's activation route. ``site`` is the
         matmul's calibration label (e.g. "dec.ffn.in"): the collector
         files absmax observations under it, and the static-scale registry
-        is keyed by it; unlabelled sites stay dynamic."""
+        is keyed by it; unlabelled sites stay dynamic. Under ``tp`` a
+        row-parallel site (".out") sums its partial products over the
+        ranks."""
         if self.act_collector is not None and act_quant_eligible(w):
             self.act_collector.observe(site, x)
-        return qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
-                       impl=self.matmul_impl, naf=naf,
-                       act_scale=self.scale_for(site, x.device))
+        y = qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
+                    impl=self.matmul_impl, naf=naf,
+                    act_scale=self.scale_for(site, x.device))
+        if self.tp is not None and site is not None and site.endswith(".out"):
+            y = self.tp.all_reduce(y)
+        return y
 
     def _attn_fq(self, x, site):
         """Fake-quantize one f32 attention operand at the attention format:

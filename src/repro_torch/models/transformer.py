@@ -78,13 +78,27 @@ def _positions(B: int, S: int, device):
 def _head(ctx: Ctx, params, cfg, x):
     """Logits of the final-normed ``x``: the tied embedding, dequantized,
     in a plain product outside any kernel (as in the reference), or the
-    ``lm_head`` matmul."""
+    ``lm_head`` matmul. A tensor-parallel rank holding a vocabulary slice
+    gathers the slices (``Ctx.tp``)."""
     if cfg.tie_embeddings:
         w = maybe_dequantize(params["embedding"], ctx.compute_dtype)
         logits = torch.matmul(x.to(ctx.compute_dtype), w.t())
     else:
         logits = ctx.dot(x, params["lm_head"], site="head")
-    return logits.to(torch.float32)
+    logits = logits.to(torch.float32)
+    if ctx.tp is not None and logits.shape[-1] != cfg.vocab_size:
+        logits = ctx.tp.gather_last(logits)
+    return logits
+
+
+def _embed_rows(ctx: Ctx, params, cfg, ids):
+    """Embedding rows of ``ids`` (dequantized rows of an int8 table); a
+    tensor-parallel rank holding a vocabulary slice sums the slices'
+    rows over the ranks (``Ctx.tp``)."""
+    table = params["embedding"]
+    if ctx.tp is not None and table.shape[0] != cfg.vocab_size:
+        return ctx.tp.embed(table, ids, ctx.compute_dtype)
+    return embed_lookup(table, ids, ctx.compute_dtype)
 
 
 def _kv_layout(cache) -> str:

@@ -93,6 +93,16 @@ per-request lifecycle spans and scheduler phase spans (admit, dispatch,
 sync, walk); every emission sits behind ``if self.trace is not None``.
 ``sla=SLATarget(...)`` retunes the effective horizon and the paged
 prefill-group cap against the measured p95s.
+
+Tensor parallelism (``mesh=tp_mesh(K)``)
+----------------------------------------
+Every rank of the mesh builds the engine on the same full weights and
+serves the same requests; the engine keeps the rank's shard and a model
+of the rank's local widths (``parallel/tp.py``). The logits every rank
+samples from are the same bits, and no scheduling decision reads a clock
+or polls the device, so every rank retires, pages and admits alike with
+no control channel. What reads a clock (``sla``, ``faults``, a
+request's ``deadline_ms``) raises under a mesh.
 """
 
 from __future__ import annotations
@@ -110,6 +120,8 @@ from .. import random as prng
 from ..obs import PHASES, SCHED_TID, Histogram, TraceConfig, Tracer
 from ..obs.metrics import render_prometheus
 from ..models.api import decode_block
+from ..parallel.tp import tp_engine_parts
+from ..unported import later
 from .metrics import EngineMetrics, SLAController, SLATarget
 from .paged_cache import TRASH_PAGE, PageAllocator, paged_insert, pages_needed
 from .params import (GREEDY, EngineSaturated, Request, RequestOutput, RequestStats,
@@ -174,13 +186,22 @@ class ServeEngine:
                  max_src_len: Optional[int] = None, horizon: int = 1,
                  draft: Optional[DraftArm] = None, overlap: bool = True,
                  sla: Optional[SLATarget] = None, max_pending: Optional[int] = None,
-                 preempt_limit: int = 3, faults=None, trace=None, device="cuda"):
+                 preempt_limit: int = 3, faults=None, trace=None, device="cuda",
+                 mesh=None):
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         if max_pending is not None and max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         if preempt_limit < 0:
             raise ValueError(f"preempt_limit must be >= 0, got {preempt_limit}")
+        # a rank of a tensor-parallel mesh serves the model of its local
+        # widths over its shard of the weights, placed once here; its ctx
+        # carries the group the row-parallel sums and the vocabulary
+        # gathers run over (parallel/tp.py)
+        self.mesh = mesh
+        if mesh is not None:
+            model, params, ctx = tp_engine_parts(model, params, ctx, mesh, device,
+                                                 draft=draft, sla=sla, faults=faults)
         fam = model.cfg.family
         if fam not in _SERVED:
             raise ValueError(f"unknown family {fam!r}; the engine serves {_SERVED}")
@@ -310,6 +331,9 @@ class ServeEngine:
         if on_token is not None:
             request = dataclasses.replace(request, on_token=on_token)
         sp = request.params
+        if self.mesh is not None and sp.deadline_ms is not None:
+            raise later("a request's deadline_ms under a mesh (it reads the clock, "
+                        "and the ranks' clocks differ)", 6)
         inputs = {}
         keys = [(self._tkey, torch.int32), ("img_embeds", torch.float32)]
         if self._enc_dec:

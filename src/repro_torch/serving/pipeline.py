@@ -10,6 +10,7 @@
         print(tok)
     pipe = deploy("nllb600m", "int4", draft_spec="nf4")  # speculative decoding
     pipe = deploy("nllb600m", "w8a8", calib_batches=batches)  # static act scales
+    pipe = deploy("nllb600m", "int4", mesh=tp_mesh(2))   # on each of 2 ranks
     pipe = deploy("qwen2.5-14b", "int4", paged=True)     # a decoder-only LM
     outs = pipe.generate([prompt_ids, ...], SamplingParams(max_new_tokens=8))
     pipe = deploy("olmoe-1b-7b", "int4", paged=True)     # an MoE LM, the same
@@ -37,7 +38,7 @@ from ..core import QuantSpec, calibrated_ctx, quantize_tree, resolve_spec, tree_
 from ..data import LANG_CODES
 from ..models import Ctx, build_model
 from ..obs import TraceConfig, Tracer
-from ..unported import later
+from ..parallel.tp import refuse_under_mesh
 from .engine import ServeEngine
 from .metrics import SLATarget
 from .params import Request, RequestOutput, SamplingParams
@@ -63,7 +64,12 @@ def impl_routes(impl: str) -> dict:
 
 @dataclasses.dataclass
 class TranslationPipeline:
-    """A deployed model + scheduler-owned engine behind two calls."""
+    """A deployed model + scheduler-owned engine behind two calls.
+
+    ``model``, ``params`` and ``ctx`` are what the engine serves: under a
+    tensor-parallel mesh, the rank's local model, its shard of the weights
+    and the ctx that carries the group (no whole quantized tree is kept
+    beside the shard)."""
 
     cfg: Any
     model: Any
@@ -72,6 +78,7 @@ class TranslationPipeline:
     ctx: Ctx
     policy: str                   # the spec as the caller named it
     fp_bytes: int                 # parameter bytes before quantization
+    quantized_bytes: int          # the whole model's bytes after it (every rank's)
     spec: QuantSpec               # the resolved quantization spec
     draft_spec: Optional[QuantSpec] = None   # the speculative draft arm's
 
@@ -84,10 +91,6 @@ class TranslationPipeline:
     def draft_spec_str(self) -> Optional[str]:
         """Canonical spelling of the draft spec (None without a draft arm)."""
         return str(self.draft_spec) if self.draft_spec is not None else None
-
-    @property
-    def quantized_bytes(self) -> int:
-        return tree_nbytes(self.params)
 
     @property
     def compression(self) -> float:
@@ -250,16 +253,30 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     trace:       a TraceConfig (or a Tracer): per-request lifecycle and
                  scheduler phase tracing, read back through
                  ``pipe.tracer``. None adds no clock read to the loop.
+    mesh:        a ``("model",)`` mesh from ``cluster.tp_mesh(K)``, inside the
+                 ranks of ``cluster.launch_ranks``: every rank calls deploy()
+                 with the same arguments and serves the same requests; the
+                 engine keeps the rank's shard of the quantized weights and
+                 KV storage and sums its row-parallel products over the
+                 ranks. The streams are the single-device engine's. The
+                 text enc-dec family at every weight-only spec, dense or
+                 paged; act-quantizing specs, ``calib_batches``, adapters,
+                 a draft arm, ``sla``, ``faults``, a request's
+                 ``deadline_ms`` and every other family raise
+                 (NotImplementedError, a later port slice).
     device:      None = "cuda" (raises without a card).
     """
-    if mesh is not None:
-        raise later("deploy(mesh=...)", 5)
     spec = resolve_spec(policy)
-    kv = kv_dtype or spec.kv
-    dev = _device(device)
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) else arch_or_cfg
     if smoke:
         cfg = reduce_config(cfg)
+    if mesh is not None:            # refuse before any build work
+        refuse_under_mesh(cfg, act_fmt=spec.act, attn_fmt=spec.attn,
+                          calibrated=calib_batches is not None,
+                          draft=draft_spec is not None, sla=sla is not None,
+                          faults=faults is not None)
+    kv = kv_dtype or spec.kv
+    dev = _device(device)
     model = build_model(cfg, dev)
     if ctx is None:
         ctx = Ctx(compute_dtype=torch.float32 if smoke else torch.bfloat16)
@@ -296,7 +313,10 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                          num_pages=num_pages, max_src_len=max_src_len,
                          horizon=horizon, draft=draft, overlap=overlap, sla=sla,
                          max_pending=max_pending, preempt_limit=preempt_limit,
-                         faults=faults, trace=trace, device=dev)
+                         faults=faults, trace=trace, device=dev, mesh=mesh)
+    q_bytes = tree_nbytes(params)
+    if mesh is not None:            # the engine holds the shard: drop the whole tree
+        model, params, ctx = engine.model, engine.params, engine.ctx
     name = policy if isinstance(policy, str) else str(spec)
-    return TranslationPipeline(cfg, model, params, engine, ctx, name, fp_bytes, spec,
-                               draft_spec=draft.spec if draft else None)
+    return TranslationPipeline(cfg, model, params, engine, ctx, name, fp_bytes, q_bytes,
+                               spec, draft_spec=draft.spec if draft else None)

@@ -1,15 +1,17 @@
 """Parameter trees: nested dicts whose leaves are tensors, QTensors or None.
 
 Paths are spelled as ``jax.tree_util.keystr`` spells them
-(``['decoder']['layers']['attn']['wq']``), so a path names the same leaf
-in both packages.
+(``['decoder']['layers']['attn']['wq']``, a QTensor's children as
+``...['wq'].data``), so a path names the same leaf in both packages.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Iterator, Tuple
 
-__all__ = ["keystr", "leaves_with_path", "map_like"]
+from .core.qtensor import QTensor
+
+__all__ = ["keystr", "leaves_with_path", "flat_leaves", "map_like"]
 
 
 def keystr(keys: Tuple[str, ...]) -> str:
@@ -23,6 +25,21 @@ def leaves_with_path(tree: Any, keys: Tuple[str, ...] = ()) -> Iterator[Tuple[Tu
             yield from leaves_with_path(v, keys + (k,))
     else:
         yield keys, tree
+
+
+def flat_leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
+    """(path, tensor) of every tensor in JAX's flattening order (dict keys
+    sorted): a QTensor's children as ``path.child``; None leaves and None
+    children dropped."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_leaves(tree[k], path + keystr((k,)))
+    elif isinstance(tree, QTensor):
+        for name in QTensor._CHILDREN:
+            if getattr(tree, name) is not None:
+                yield f"{path}.{name}", getattr(tree, name)
+    elif tree is not None:
+        yield path, tree
 
 
 def map_like(fn: Callable, tree: Any, *others: Any) -> Any:

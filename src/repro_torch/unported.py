@@ -6,10 +6,14 @@ ROADMAP.md, queue 1); nothing runs another route in its place.
 """
 
 # slice 2 (the serving features), slice 3 (the quantization routes:
-# act-quantizing specs, fp8 KV caches, calibration, QLoRA) and slice 4
-# (every model family, served and trained) have landed
+# act-quantizing specs, fp8 KV caches, calibration, QLoRA), slice 4
+# (every model family, served and trained) and slice 5 (scale-out:
+# tensor-parallel text enc-dec engines, replica routing, the compressed
+# all-reduce, sharded restore) have landed
 SLICES = {
-    5: "scale-out: tensor-parallel meshes and replica routing",
+    6: ("scale-out, second part: composed dp x tp stacks, a mesh for every "
+        "family but the text enc-dec, and act-quantizing, adapter, draft and "
+        "clock-driven arms under a mesh"),
 }
 
 

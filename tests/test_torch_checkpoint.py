@@ -3,7 +3,7 @@ CPU): a train state written by either package restores in the other,
 leaf for leaf and byte for byte (bf16 parameters, f32 moments and master
 copies, 8-bit moment codes and scales, the int32 step, quantized
 QTensors); the manager's atomic publish, keep-k and step discovery
-behave as the reference's.
+behave as the reference's; a restore into shardings is one rank's shard.
 """
 
 import json
@@ -33,8 +33,10 @@ from repro_torch.checkpoint import (CheckpointManager, latest_step,  # noqa: E40
                                     restore_tree, save_tree)
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.convert import from_numpy_tree  # noqa: E402
+from repro_torch.core import quantize_tree, resolve_spec  # noqa: E402
 from repro_torch.core.qtensor import QTensor  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
+from repro_torch.parallel import param_specs, shard_tree  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
 from repro_torch.tree import leaves_with_path  # noqa: E402
 
@@ -177,5 +179,15 @@ def test_async_save_restore_and_errors(tmp_path):
         restore_tree(str(tmp_path), {"w": torch.zeros(1)})
     with pytest.raises(FileNotFoundError):
         restore_tree(str(tmp_path / "empty"), t)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        restore_tree(str(tmp_path), t, shardings=object())
+    # restoring into shardings = (specs, rank, mesh): each rank's shard of
+    # the checkpoint is shard_tree of the full restore (nf4, tp2: decoded
+    # scales, a cut inside w_out's one K block)
+    qt = quantize_tree(build_model(CFG, "cpu").init(torch.Generator().manual_seed(0)),
+                       resolve_spec("nf4").policy())
+    save_tree(str(tmp_path / "q"), qt, step=1)
+    specs = param_specs(qt, {"model": 2}, fsdp_scope="none")
+    for rank in range(2):
+        shard, step, _ = restore_tree(str(tmp_path / "q"), qt,
+                                      shardings=(specs, rank, {"model": 2}))
+        _assert_same(shard, shard_tree(qt, specs, rank, {"model": 2}))
+        assert shard["decoder"]["layers"]["mlp"]["w_out"].shape[-2] == CFG.d_ff // 2

@@ -72,3 +72,22 @@ def test_kernel_calls_refuse_cpu_tensors():
         paged_attn_call(q, pages, None, pages, None,
                         torch.zeros(1, 1, dtype=torch.int32),
                         torch.ones(1, dtype=torch.int32), sm_scale=1.0)
+
+
+def test_scale_out_modules_stand_alone_and_never_fall_back(monkeypatch):
+    """The scale-out modules are among the files checked above; a mesh
+    needs a process group of its width (no quiet single-device serving),
+    and the backend follows the device layout: NCCL when every rank has
+    a card of its own, gloo when ranks share one or run on the CPU."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    assert {"parallel/sharding.py", "parallel/tp.py", "cluster/__init__.py",
+            "cluster/router.py"} <= names
+    from repro_torch.cluster import rank_backend, tp_mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        tp_mesh(2)
+    assert rank_backend("cpu", 2) == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert rank_backend("cuda", 2) == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert rank_backend("cuda", 2) == "nccl"
+    assert rank_backend("cuda:0", 2) == "gloo"     # pinned to one card: shared

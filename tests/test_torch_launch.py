@@ -9,8 +9,9 @@ differ, since each package draws its own random weights); its
 ``[req N]`` streams are the streams of the same requests served through
 ``deploy()``; ``--max-pending`` prints ``saturated`` lines and counts the
 rejections; act-quantizing and fp8 specs serve as ``--policy`` and
-``--draft-spec``; ``--mesh`` keeps the reference's grammar and raises for
-scale-out, which comes with its own slice.
+``--draft-spec``; ``--mesh`` keeps the reference's grammar: tp2 serves
+on two ranks and dp2 through the replica router, with the single
+engine's streams, and a composed dp2,tp2 raises (a later slice).
 """
 
 import json
@@ -148,9 +149,25 @@ def test_launcher_serves_act_and_fp8_specs(capsys, flags):
 
 
 @pytest.mark.parametrize("mesh", ["tp2", "dp2", "dp2,tp2"])
-def test_launcher_scale_out_raises(capsys, mesh):
-    with pytest.raises(NotImplementedError, match="port slice 5"):
-        run_port(capsys, "--mesh", mesh)
+def test_launcher_scale_out_raises(capfd, mesh):
+    """``--mesh tp2`` serves on two gloo CPU ranks (rank 0 prints) and
+    ``--mesh dp2`` through two routed replicas: the same [req N] streams
+    as the single engine; a composed dp2,tp2 raises, naming slice 6."""
+    argv = [*SMOKE, "--impl", "torch", "--device", "cpu", "--paged"]
+    if mesh == "dp2,tp2":
+        with pytest.raises(NotImplementedError, match="port slice 6"):
+            serve.main([*argv, "--mesh", mesh])
+        return
+    serve.main(argv)
+    want = streams(capfd.readouterr().out.splitlines())
+    serve.main([*argv, "--mesh", mesh])
+    lines = capfd.readouterr().out.splitlines()
+    assert streams(lines) == want and len(want) == 4
+    head = "tensor parallel: tp2 ('model',) mesh" if mesh == "tp2" else "cluster: 2 replicas"
+    assert any(line.startswith(head) for line in lines), lines[:3]
+    if mesh == "tp2":
+        assert any("over gloo" in line for line in lines)
+    assert sum(line.startswith("served 4 requests") for line in lines) == 1
 
 
 def test_launcher_unit_mesh_and_bad_specs(capsys):

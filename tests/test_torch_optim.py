@@ -20,6 +20,7 @@ from test_torch_bridge import jax_tree_to_numpy  # noqa: E402
 from repro.optim import adamw_init as j_adamw_init  # noqa: E402
 from repro.optim import adamw_update as j_adamw_update  # noqa: E402
 from repro.optim import quantize_grads_int8 as j_quantize_grads_int8  # noqa: E402
+from repro.optim.compression import compressed_psum as j_compressed_psum  # noqa: E402
 from repro.optim import warmup_cosine as j_warmup_cosine  # noqa: E402
 from repro.optim import warmup_linear as j_warmup_linear  # noqa: E402
 from repro_torch.convert import from_numpy_tree  # noqa: E402
@@ -119,7 +120,12 @@ def test_adamw_init_layout_matches_reference():
                     assert w[k].dtype == t[k].dtype and torch.equal(w[k], t[k]), (name, k)
 
 
-def test_quantize_grads_int8_byte_equal():
+def test_quantize_grads_int8_byte_equal(tmp_path):
+    """The gradient codes and scales byte-equal the compiled reference's;
+    ``compressed_psum`` over a one-rank gloo group (the two-rank case is
+    in tests/test_torch_tp.py) is the reference's under ``jax.vmap`` with
+    a one-member named axis, byte for byte."""
+    import torch.distributed as dist
     rng = np.random.default_rng(0)
     g = (rng.standard_normal((4097,)) * rng.uniform(0.01, 10, (4097,))).astype(np.float32)
     g[:256] = 0.0                                    # an all-zero block takes scale 1
@@ -127,5 +133,13 @@ def test_quantize_grads_int8_byte_equal():
     tc, ts = quantize_grads_int8(torch.from_numpy(g))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     assert ts.numpy().tobytes() == np.asarray(js).tobytes()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        compressed_psum({"g": torch.from_numpy(g)}, "dp")
+    want = jax.vmap(lambda t: j_compressed_psum(t, "dp"), axis_name="dp")(
+        {"g": jnp.asarray(g)[None]})["g"][0]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        got = compressed_psum({"g": torch.from_numpy(g), "none": None})
+    finally:
+        dist.destroy_process_group()
+    assert got["none"] is None
+    assert got["g"].numpy().tobytes() == np.asarray(want).tobytes()

@@ -25,7 +25,7 @@ from repro.serving import SamplingParams as JSamplingParams  # noqa: E402
 from repro.serving import deploy as j_deploy  # noqa: E402
 from repro.serving import impl_routes as j_impl_routes  # noqa: E402
 from repro_torch.core import resolve_spec  # noqa: E402
-from repro_torch.serving import SamplingParams, deploy, impl_routes  # noqa: E402
+from repro_torch.serving import SLATarget, SamplingParams, deploy, impl_routes  # noqa: E402
 
 SPECS = ["int4", "fp4", "nf4"]
 SRC_LENS = [5, 9, 12, 5, 7]
@@ -186,20 +186,26 @@ def test_translate_surface(torch_params):
     dict(policy="w16x8"), dict(policy="fp8"), dict(kv_dtype="fp8"),
     dict(draft_spec="wfp4a8"), dict(draft_spec="w4kvfp8"), dict(calib_batches=[]),
     dict(calib_batches=[], paged=False), dict(kv_dtype="fp8", paged=False),
-    dict(mesh=object()), dict(mesh=object(), paged=False)])
+    dict(mesh=object(), policy="w8a8"), dict(mesh=object(), draft_spec="nf4", paged=False),
+    dict(mesh=object(), sla=SLATarget(p95_ttft_ms=50.0)),
+    dict(mesh=object(), arch="gemma3-1b"), dict(mesh=object(), calib_batches=[])])
 def test_unported_routes_raise(kwargs):
-    """Routes outside the ported slices raise, naming their slice: a mesh
-    (slice 5). The quantization routes (slice 3) deploy: act-quantizing
-    and fp8-KV specs and drafts and ``calib_batches`` build engines whose
-    Ctx carries the spec's activation formats and whose caches the KV
-    format (tests/test_torch_quant_routes.py, tests/test_torch_fp8_kv.py);
-    SLA admission, tracing, overlapped rounds, faults, max_pending and
-    draft arms are ported too."""
+    """Routes outside the ported slices raise, naming their slice: under a
+    mesh (slice 6) an act-quantizing spec, a draft arm, SLA admission,
+    calibration and every family but the text enc-dec, before any build
+    work (tensor-parallel serving itself: tests/test_torch_tp.py). The
+    quantization routes (slice 3) deploy: act-quantizing and fp8-KV specs
+    and drafts and ``calib_batches`` build engines whose Ctx carries the
+    spec's activation formats and whose caches the KV format
+    (tests/test_torch_quant_routes.py, tests/test_torch_fp8_kv.py); SLA
+    admission, tracing, overlapped rounds, faults, max_pending and draft
+    arms are ported too."""
     kw = dict(KW, **kwargs)
     policy = kw.pop("policy", "int4")
+    arch = kw.pop("arch", "nllb600m")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="port slice 5"):
-            deploy("nllb600m", policy, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="port slice 6"):
+            deploy(arch, policy, device="cpu", **kw)
         return
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")          # uncalibrated act specs warn
