@@ -131,9 +131,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one device's, each rank's resident bytes and deploy peak printed
    beside the single device's; inside the same ranks the int8
    compressed all-reduce on the card byte-equal to the CPU's
-   ([compress]); then two routed replicas on the card
-   (deploy_replicas, [dp]): each replica's streams a lone engine's bit
-   for bit, [serve]'s up to near ties, the merged metrics the sums;
+   ([compress]); in the same two ranks, gemma3-1b whole (its one KV head
+   copied on both ranks), paged ([tp-lm]) then dense ([tp-lm-dense]), on
+   [lm-gemma]'s prompts past its 512-token windows, and qwen2.5-14b at
+   full width cut to 8 of its 48 layers, paged ([tp-qwen]; the single
+   device's streams served before the spawn), each held as [tp] is; then
+   two routed replicas on the card (deploy_replicas, [dp]): each
+   replica's streams a lone engine's bit for bit, [serve]'s up to near
+   ties, the merged metrics the sums; then the composed stack on four
+   ranks sharing the card over gloo (deploy_replicas(replicas=2, tp=2),
+   [dp-tp]): every rank's outputs equal, the placements [dp]'s, each
+   replica a lone tp2 engine's bit for bit and one device's up to near
+   ties, a decode step's launches a tp2 rank's, the merged metrics the
+   sums;
 22. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -3564,6 +3574,7 @@ LM_PHASES = (("lm", lm_phase), ("lm-gemma", lm_gemma_phase), ("vlm", vlm_phase))
 # ---------------------------------------------------------------------------
 
 TP = 2
+TP_QWEN_LAYERS = 8      # [tp-qwen]: qwen2.5-14b cut to 8 of its 48 layers (15 GB f32 a rank)
 COMPRESS_SHAPES = {"w_in": (1024, 8192), "wo": (1024, 1024), "bias": (1000,)}
 
 
@@ -3625,24 +3636,181 @@ def _mem_line(mem):
             f"{mem['build_peak'] / 1e9:.3f} GB during it (above the raw weights)")
 
 
-def tp_rank(rank, world, device, prompts):
-    """[tp], [tp-dense] and [compress] on one of ``world`` ranks that share
-    the one card over gloo (launch_ranks): full-width nllb600m int4 with
-    deploy(mesh=tp_mesh(world)), paged (page 16) then dense, horizon 16,
-    [serve]'s prompts. Every rank serves; rank 0 prints, holds qmm and
-    the FASST activation (and the paged attention) at every shard shape
-    the warm-up gave them, builds the single-device engine of the same
-    weights and holds the ranks' streams against it, up to near ties
-    replayed on both sides (the other ranks follow the replay). Returns
-    each phase's launches and numbers."""
+def _group_gather(grp, obj):
+    """``obj`` of every rank of the tensor-parallel group ``grp`` (a
+    ``parallel.tp.TPGroup``), in group rank order."""
+    import torch.distributed as dist
+    every = [None] * grp.size
+    dist.all_gather_object(every, obj, group=grp.group)
+    return every
+
+
+def _group_bcast(grp, obj):
+    """``obj`` of the group's rank 0, on every rank of the group."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(grp.group, 0), group=grp.group)
+    return box[0]
+
+
+def counted_decode(eng):
+    """Count the wrapper launches made inside ``eng``'s decode loop (the
+    run's decode steps alone: its prefills launch at other shapes and
+    counts). Returns the counts, filled as the engine runs; ``del
+    eng._decode_loop`` ends the count."""
+    from repro_torch.kernels import ops
+    in_decode, real_loop = dict.fromkeys(ops.LAUNCHES, 0), eng._decode_loop
+
+    def counted_loop(*a, **kw):
+        before = dict(ops.LAUNCHES)
+        got = real_loop(*a, **kw)
+        for k, v in ops.LAUNCHES.items():
+            in_decode[k] += v - before[k]
+        return got
+
+    eng._decode_loop = counted_loop
+    return in_decode
+
+
+def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=None):
+    """Hold a tensor-parallel engine's greedy ``streams`` against one
+    device's, on every rank of the engine's group: group rank 0 takes the
+    single device's streams from ``single["streams"]``, or serves them on
+    the pipe ``single["build"]()`` deploys; where they part, the common
+    prefix is replayed teacher-forced on both sides, a fresh engine of
+    the tensor-parallel pipe (every rank of the group) against a fresh
+    single-device one (group rank 0, built then if it was not), and the
+    parting must be a near tie (near_tie_partings). Returns (partings,
+    the single device's deploy memory or None)."""
+    lead = grp.rank == 0
+    n, part, smem, spipe = len(prompts), {}, None, None
+    kw = engine_kw or {}
+
+    def build():
+        mem = engine_memory(torch, pipe.engine.device, single["build"])
+        log(f"[{tag}] the single-device engine: {_mem_line(mem)}")
+        return mem.pop("built"), mem
+
+    if lead:
+        want = single.get("streams")
+        if want is None:
+            spipe, smem = build()
+            spipe.generate(prompts[:2], type(sp)(max_new_tokens=4))
+            want = [o.token_ids for o in spipe.generate(prompts, sp)]
+        part = _partings(tag, streams, want, first_token_ties=True)
+    steps = _group_bcast(grp, max(list(part.values()) + [3]) if part else 0)
+    if steps:
+        side = [(_fresh_engine(pipe, pipe.engine.paged, **kw), list(range(n)))]
+        if lead:
+            if spipe is None:
+                spipe, smem = build()
+            near_tie_partings(torch, tag, pipe, prompts, [sp] * n, streams, want,
+                              first_token_ties=True,
+                              sides=[side, [(_fresh_engine(spipe, pipe.engine.paged, **kw),
+                                             list(range(n)))]])
+        else:
+            tp_follow_replay(torch, side, prompts, [sp] * n, streams, steps)
+    del spipe
+    torch.cuda.empty_cache()
+    return part, smem
+
+
+def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engine_kw=None):
+    """One tensor-parallel engine's served run, called alike on every rank
+    of its mesh; rank 0 prints. A warm-up on the same prompts whose
+    shapes rank 0 holds ``need``'s kernels at (hold_served); the measured
+    greedy run with the launch counters set to 0 just before and read
+    just after; every rank's streams and launches equal; a decode step
+    launching exactly ``per_step`` and the prefills the FASST kernel;
+    the streams against one device's up to near ties (tp_vs_single).
+    Returns the launches, streams and numbers."""
+    import torch.distributed as dist
+    from repro_torch.core import tree_nbytes
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SamplingParams
+    t_phase = time.perf_counter()
+    eng = pipe.engine
+    grp, lc = eng.ctx.tp, eng.model.cfg
+    lead = grp.rank == 0
+    say = log if lead else (lambda *a: None)
+    say(f"[{tag}] deployed {pipe.cfg.name} int4, {pipe.cfg.num_layers} layers, on "
+        f"tp{grp.size} ({'paged' if eng.paged else 'dense'} int8 KV): each rank "
+        f"{lc.num_heads}/{lc.num_kv_heads} heads of {lc.head_dim}, d_ff {lc.d_ff}, vocab "
+        f"slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
+        f"{tree_nbytes(pipe.params) / 1e9:.3f} GB of weights (of "
+        f"{pipe.quantized_bytes / 1e9:.3f} GB); {_mem_line(mem)}")
+    n = len(prompts)
+    sp = SamplingParams(max_new_tokens=GEN)
+    with served_shapes() as seen:
+        pipe.generate(prompts, SamplingParams(max_new_tokens=4))
+    if lead:
+        hold_served(torch, tag, seen, eng.device, need)
+    eng.reset_metrics()
+    torch.cuda.synchronize()
+    dist.barrier(group=grp.group)
+    in_decode = counted_decode(eng)
+    steps0 = eng.decode_steps
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    outs = pipe.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    del eng._decode_loop
+    streams = [o.token_ids for o in outs]
+    if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+        raise AssertionError(f"[{tag}] not every request retired on length")
+    _check_vocab(pipe, outs)
+    if eng.paged:
+        eng.allocator.check()
+        if eng.allocator.pages_in_use:
+            raise AssertionError(f"[{tag}] {eng.allocator.pages_in_use} pages leaked")
+    every = _group_gather(grp, (streams, launches))
+    if any(s != streams for s, _ in every):
+        raise AssertionError(f"[{tag}] the ranks' streams differ")
+    steps_run = eng.decode_steps - steps0
+    if not steps_run or any(in_decode[k] != c * steps_run for k, c in per_step.items()):
+        raise AssertionError(f"[{tag}] {steps_run} decode steps launched {in_decode}; "
+                             f"a step launches {per_step}")
+    if not launches["fasst_act"] > in_decode["fasst_act"]:
+        raise AssertionError(f"[{tag}] the prefills launched no FASST kernel: {launches}")
+    part, smem = tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw)
+    tokens = sum(len(t) for t in streams)
+    stats = {"arch": pipe.cfg.name, "layers": pipe.cfg.num_layers, "requests": n,
+             "tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall, "decode_steps": eng.decode_steps,
+             "decode_ms_per_step": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
+             "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
+             "launches_per_step": per_step,
+             "same_as_single_device": n - len(part), "near_tie_partings": len(part),
+             "launches_per_rank": [c for _, c in every],
+             "rank_memory_gb": {k: v / 1e9 for k, v in mem.items()},
+             **({"single_device_memory_gb": {k: v / 1e9 for k, v in smem.items()}}
+                if smem else {}),
+             "note": f"{grp.size} ranks share one card over {grp.backend}", "card": card}
+    say(f"[{tag}] {json.dumps(stats)}")
+    say(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "streams": streams, "stats": stats}
+
+
+def tp_rank(rank, world, device, prompts, lm):
+    """[tp], [tp-dense], [compress], [tp-lm], [tp-lm-dense] and [tp-qwen]
+    on one of ``world`` ranks that share the one card over gloo
+    (launch_ranks), each engine a deploy(mesh=tp_mesh(world)) served by
+    tp_serve: full-width nllb600m int4, paged (page 16) then dense,
+    horizon 16, [serve]'s prompts; gemma3-1b whole (one KV head, a copy
+    on each rank), paged then dense, on [lm-gemma]'s prompts past its
+    512-token windows; qwen2.5-14b at full width cut to ``lm["qwen_layers"]``
+    of its 48 layers, paged, on [lm]'s prompts, against the single
+    device's streams that the parent served before the spawn (the ranks
+    draw and quantize the whole cut one after the other). Returns each
+    phase's launches and numbers."""
     import torch
     import torch.distributed as dist
     from repro_torch.cluster import tp_mesh
     from repro_torch.configs import get_config
-    from repro_torch.core import tree_nbytes
-    from repro_torch.kernels import ops
     from repro_torch.models import Ctx, build_model
-    from repro_torch.serving import SamplingParams, deploy
+    from repro_torch.serving import deploy
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lead = rank == 0
@@ -3652,110 +3820,98 @@ def tp_rank(rank, world, device, prompts):
         f"{mesh!r}: the ranks share the card, so a rank's times include the other's work")
     out = {"compress": compress_check(torch, rank, device)}
     say(f"[compress] {json.dumps(out['compress'])}")
+    ctx = Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True)
+
+    def paging(paged):
+        return dict(paged=True, page_size=PAGE) if paged else {}
+
+    # [tp] / [tp-dense]: a decode step launches 8 qmm a layer (q, k, v, o,
+    # cross q, cross o, FFN in with the activation in its epilogue, FFN
+    # out), one paged attention a layer on a paged cache, no FASST launch
+    # of its own; the prefills take the FASST kernel at their rows
     raw = build_model(get_config("nllb600m"), device).init(
         torch.Generator(device=device).manual_seed(SEED))
-    n = len(prompts)
-    sp = SamplingParams(max_new_tokens=GEN)
     for tag, paged in (("tp", True), ("tp-dense", False)):
-        t_phase = time.perf_counter()
         kw = dict(slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON, params=raw, device=device,
-                  ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True),
-                  **(dict(paged=True, page_size=PAGE) if paged else {}))
+                  ctx=ctx, **paging(paged))
         mem = engine_memory(torch, device, lambda: deploy("nllb600m", "int4", mesh=mesh, **kw))
         pipe = mem.pop("built")
-        lc = pipe.engine.model.cfg
-        say(f"[{tag}] deployed nllb600m int4 on tp{world} ({'paged' if paged else 'dense'} "
-            f"int8 KV): each rank {lc.num_heads}/{lc.num_kv_heads} heads, d_ff {lc.d_ff}, "
-            f"vocab slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
-            f"{tree_nbytes(pipe.params) / 1e9:.3f} GB of weights (of "
-            f"{pipe.quantized_bytes / 1e9:.3f} GB); {_mem_line(mem)}")
-        with served_shapes() as seen:
-            pipe.generate(prompts, SamplingParams(max_new_tokens=4))
-        if lead:
-            hold_served(torch, tag, seen, device,
-                        ("qmm", "fasst_act") + (("paged_attn",) if paged else ()))
-        eng = pipe.engine
-        eng.reset_metrics()
-        torch.cuda.synchronize()
-        dist.barrier()
-        # the launches of the run's decode steps alone (its prefills launch
-        # at other shapes and counts), to hold them per step exactly
-        in_decode, real_loop = dict.fromkeys(ops.LAUNCHES, 0), eng._decode_loop
-
-        def counted_loop(*a, **kw):
-            before = dict(ops.LAUNCHES)
-            got = real_loop(*a, **kw)
-            for k, v in ops.LAUNCHES.items():
-                in_decode[k] += v - before[k]
-            return got
-
-        eng._decode_loop = counted_loop
-        steps0 = eng.decode_steps
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        outs = pipe.generate(prompts, sp)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(ops.LAUNCHES)
-        del eng._decode_loop
-        streams = [o.token_ids for o in outs]
-        if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
-            raise AssertionError(f"[{tag}] not every request retired on length")
-        _check_vocab(pipe, outs)
-        every = [None] * world
-        dist.all_gather_object(every, (streams, launches))
-        if any(s != streams for s, _ in every):
-            raise AssertionError(f"[{tag}] the ranks' streams differ")
-        # a decode step: 8 qmm a layer (q, k, v, o, cross q, cross o, FFN
-        # in with the activation in its epilogue, FFN out), one paged
-        # attention a layer on a paged cache, no FASST launch of its own;
-        # the prefills take the FASST kernel at their rows
-        L, steps_run = lc.num_layers, eng.decode_steps - steps0
-        per_step = {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L if paged else 0,
-                    "fasst_act": 0}
-        if not steps_run or any(in_decode[k] != n * steps_run for k, n in per_step.items()):
-            raise AssertionError(f"[{tag}] {steps_run} decode steps launched {in_decode}; "
-                                 f"a step launches {per_step}")
-        if not launches["fasst_act"] > in_decode["fasst_act"]:
-            raise AssertionError(f"[{tag}] the prefills launched no FASST kernel: {launches}")
-        part, single_streams = {}, None
-        if lead:
-            smem = engine_memory(torch, device, lambda: deploy("nllb600m", "int4", **kw))
-            single = smem.pop("built")
-            say(f"[{tag}] the single-device engine: {_mem_line(smem)}")
-            single.generate(prompts[:2], SamplingParams(max_new_tokens=4))
-            single_streams = [o.token_ids for o in single.generate(prompts, sp)]
-            part = _partings(tag, streams, single_streams, first_token_ties=True)
-        steps = [max(list(part.values()) + [3]) if part else 0]
-        dist.broadcast_object_list(steps, src=0)
-        if steps[0]:
-            side = [(_fresh_engine(pipe, paged), list(range(n)))]
-            if lead:
-                near_tie_partings(torch, tag, pipe, prompts, [sp] * n, streams,
-                                  single_streams, first_token_ties=True,
-                                  sides=[side, [(_fresh_engine(single, paged),
-                                                 list(range(n)))]])
-            else:
-                tp_follow_replay(torch, side, prompts, [sp] * n, streams, steps[0])
-        tokens = sum(len(t) for t in streams)
-        stats = {"requests": n, "tokens": tokens, "wall_s": wall,
-                 "tokens_per_s": tokens / wall, "decode_steps": eng.decode_steps,
-                 "decode_ms_per_step": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
-                 "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
-                 "same_as_single_device": n - len(part), "near_tie_partings": len(part),
-                 "launches_per_rank": [c for _, c in every],
-                 "rank_memory_gb": {k: v / 1e9 for k, v in mem.items()},
-                 **({"single_device_memory_gb": {k: v / 1e9 for k, v in smem.items()}}
-                    if lead else {}),
-                 "note": f"{world} ranks share one card over gloo"}
-        say(f"[{tag}] {json.dumps(stats)}")
-        say(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
-        out[tag] = {"launches": launches, "streams": streams, "stats": stats}
+        L = pipe.cfg.num_layers
+        out[tag] = tp_serve(
+            torch, tag, lm["card"], pipe, mem, prompts,
+            {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L if paged else 0, "fasst_act": 0},
+            {"build": lambda: deploy("nllb600m", "int4", **kw)},
+            ("qmm", "fasst_act") + (("paged_attn",) if paged else ()))
         del pipe
-        if lead:
-            del single
         torch.cuda.empty_cache()
+    del raw
+    torch.cuda.empty_cache()
+
+    # [tp-lm] / [tp-lm-dense]: gemma3-1b, a step 7 qmm and one FASST GLU
+    # gate a layer, no paged attention (its windows take the gather route)
+    for tag, paged in (("tp-lm", True), ("tp-lm-dense", False)):
+        kw = dict(slots=SLOTS, max_len=LONG_LEN, horizon=HORIZON, init_seed=SEED,
+                  device=device, ctx=ctx, **paging(paged))
+        mem = engine_memory(torch, device, lambda: deploy("gemma3-1b", "int4", mesh=mesh,
+                                                          **kw))
+        pipe = mem.pop("built")
+        L = pipe.cfg.num_layers
+        out[tag] = tp_serve(torch, tag, lm["card"], pipe, mem, lm["gemma_prompts"],
+                            {"qmm": 7 * L, "qmm_naf": 0, "paged_attn": 0, "fasst_act": L},
+                            {"build": lambda: deploy("gemma3-1b", "int4", **kw)},
+                            ("qmm", "fasst_act"), dict(max_len=LONG_LEN))
+        del pipe
+        torch.cuda.empty_cache()
+
+    # [tp-qwen]: the paged attention at the rank's 20 of 40 heads and 4 of
+    # 8 KV heads; the ranks draw the 15 GB f32 cut in turn
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=lm["qwen_layers"])
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON, init_seed=SEED, device=device,
+              ctx=ctx, **paging(True))
+    for turn in range(world):
+        if rank == turn:
+            mem = engine_memory(torch, device, lambda: deploy(cfg, "int4", mesh=mesh, **kw))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    pipe = mem.pop("built")
+    L = cfg.num_layers
+    out["tp-qwen"] = tp_serve(torch, "tp-qwen", lm["card"], pipe, mem, lm["qwen_prompts"],
+                              {"qmm": 7 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L},
+                              {"streams": lm["qwen_streams"],
+                               "build": lambda: deploy(cfg, "int4", **kw)},
+                              ("qmm", "fasst_act", "paged_attn"))
+    del pipe
+    torch.cuda.empty_cache()
     return out
+
+
+def tp_lm_inputs(torch, card):
+    """The LM inputs of the tp spawn: [lm-gemma]'s and [lm]'s prompts, and
+    the single device's greedy streams of [tp-qwen]'s cut (qwen2.5-14b,
+    TP_QWEN_LAYERS of its 48 layers, int4 paged), served here before the
+    spawn and freed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Ctx
+    from repro_torch.serving import SamplingParams, deploy
+    qcfg = get_config(LM_ARCH)
+    gemma = _lm_prompts(np.random.default_rng(SEED + 21), get_config("gemma3-1b").vocab_size,
+                        520, 700)
+    qwen = _lm_prompts(np.random.default_rng(SEED + 20), qcfg.vocab_size, 32, 64)
+    t0 = time.perf_counter()
+    mem = engine_memory(torch, torch.device("cuda"), lambda: deploy(
+        dataclasses.replace(qcfg, num_layers=TP_QWEN_LAYERS), "int4", slots=SLOTS,
+        max_len=MAX_LEN, horizon=HORIZON, init_seed=SEED, paged=True, page_size=PAGE,
+        ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True)))
+    pipe = mem.pop("built")
+    pipe.generate(qwen[:2], SamplingParams(max_new_tokens=4))
+    streams = [o.token_ids for o in pipe.generate(qwen, SamplingParams(max_new_tokens=GEN))]
+    log(f"[tp-qwen] the single device's streams of {LM_ARCH} cut to {TP_QWEN_LAYERS} of 48 "
+        f"layers (int4 paged), served before the spawn in {time.perf_counter() - t0:.1f} s: "
+        f"{_mem_line(mem)}")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"gemma_prompts": gemma, "qwen_prompts": qwen, "qwen_streams": streams,
+            "qwen_layers": TP_QWEN_LAYERS, "card": card}
 
 
 def time_tp_kernels(torch, card, dev):
@@ -3764,8 +3920,11 @@ def time_tp_kernels(torch, card, dev):
     (6 decoder layers x q, k, v, cross q 1024x512; o, cross o 512x1024;
     FFN in 1024x4096, out 4096x1024; int4, M 8: 48 launches, each on its
     own weight), paged attention at the rank's 8 of 16 heads (6 launches,
-    d 64, int8 pages of 16, lengths as row 2's). Returns the ``tp_`` keys
-    of the qmm and paged_attn entries."""
+    d 64, int8 pages of 16, lengths as row 2's); then the same over one
+    tp2 rank's qwen2.5-14b decode step at [tp-qwen]'s cut (TP_QWEN_LAYERS
+    layers x 7 int4 launches at the shard shapes; paged attention at 20 of
+    40 heads, 4 of 8 KV heads, d 128). Returns the ``tp_`` and
+    ``tp_qwen_`` keys of the qmm and paged_attn entries."""
     from repro_torch.core.qtensor import QTensor
     g = torch.Generator(device=dev).manual_seed(SEED + 33)
     layer = [(1024, 512)] * 4 + [(512, 1024)] * 2 + [(1024, 4096), (4096, 1024)]
@@ -3783,21 +3942,49 @@ def time_tp_kernels(torch, card, dev):
                          "work": f"one tp{TP} rank's nllb600m decode step: {work}"}
     del fns
     torch.cuda.empty_cache()
-    for name, e in out.items():
-        log_time({"name": name, **{f"tp_{k}": v for k, v in e.items()}}, card, "tp_")
-    return {name: {f"tp_{k}": v for k, v in e.items()} for name, e in out.items()}
+    # one tp2 rank's qwen2.5-14b decode step at [tp-qwen]'s cut: qmm at the
+    # shard shapes (q 5120x2560; k, v 5120x512; o 2560x5120; gate, up
+    # 5120x6912; down 6912x5120), paged attention at 20 of 40 heads, 4 of
+    # 8 KV heads (d 128, int8 pages of 16)
+    layer = ([(5120, 2560)] + [(5120, 512)] * 2 + [(2560, 5120)] + [(5120, 6912)] * 2
+             + [(6912, 5120)])
+    ws = [QTensor.quantize(torch.randn(kn, generator=g, device=dev) * 0.02, "int4", 64)
+          for _ in range(TP_QWEN_LAYERS) for kn in layer]
+    fns, (t, by) = qmm_window(torch, g, dev, ws, SLOTS)
+    qwen = {"qmm": {**times(*fns, plain_reps=2), "bound_ms": t, "bound_by": by,
+                    "work": f"one tp{TP} rank's {LM_ARCH} decode step ({TP_QWEN_LAYERS} "
+                            f"layers): {len(ws)} int4 launches at M={SLOTS} (q 5120x2560; k, v "
+                            "5120x512; o 2560x5120; gate, up 5120x6912; down 6912x5120)"}}
+    del ws, fns
+    torch.cuda.empty_cache()
+    lens = torch.randint(1, MAX_LEN + 1, (SLOTS,), generator=g, device=dev)
+    fns, (t, by), work = paged_window(torch, g, dev, 40 // TP, 8 // TP, 128, MAX_LEN // PAGE,
+                                      TP_QWEN_LAYERS, lens)
+    qwen["paged_attn"] = {**times(*fns), "bound_ms": t, "bound_by": by,
+                          "work": f"one tp{TP} rank's {LM_ARCH} decode step: {work}"}
+    del fns
+    torch.cuda.empty_cache()
+    keyed = {name: {f"tp_{k}": v for k, v in e.items()} for name, e in out.items()}
+    for name, e in qwen.items():
+        keyed[name].update({f"tp_qwen_{k}": v for k, v in e.items()})
+    for name, e in keyed.items():
+        log_time({"name": name, **e}, card, "tp_")
+        log_time({"name": name, **e}, card, "tp_qwen_")
+    return keyed
 
 
-def tp_phase(card, prompts):
-    """[tp] / [tp-dense] / [compress] on TP ranks sharing the card."""
+def tp_phase(card, prompts, lm):
+    """[tp] / [tp-dense] / [compress] / [tp-lm] / [tp-lm-dense] / [tp-qwen]
+    on TP ranks sharing the card."""
     from repro_torch.cluster import launch_ranks, rank_backend
     backend = rank_backend("cuda", TP)
     if backend != "gloo":
         raise AssertionError(f"{TP} ranks on one card must take gloo, got {backend}")
     t0 = time.perf_counter()
-    results = launch_ranks(tp_rank, TP, device="cuda", args=(prompts,))
+    results = launch_ranks(tp_rank, TP, device="cuda", args=(prompts, lm))
     log(f"[tp] {TP} ranks over {backend} on {card} took {time.perf_counter() - t0:.1f} s "
-        "(process start, deploys and both layouts)")
+        "(process start, deploys, nllb600m's two layouts, gemma3-1b's two and qwen2.5-14b's "
+        "cut)")
     return results[0]
 
 
@@ -3879,7 +4066,142 @@ def dp_phase(torch, card, prompts, serve_pipe, serve_outs):
     log(f"[dp] {json.dumps(stats)}")
     del pipe, router
     torch.cuda.empty_cache()
-    return launches
+    return launches, placed, [m.synced_tokens for m in per]
+
+
+def dp_tp_rank(rank, world, device, prompts, card):
+    """[dp-tp] on one of the 4 ranks sharing the card over gloo:
+    deploy_replicas("nllb600m", "int4", replicas=2, tp=2) of [serve]'s
+    engine shape and weights (seed), [serve]'s prompts routed by the
+    replicated GroupRouter. Every rank returns the same outputs; each
+    group's rank 0 holds the kernels at the shard shapes its warm-up gave
+    them; a decode step of each rank's engine launches exactly a tp2
+    rank's; each replica's streams equal a lone tensor-parallel engine of
+    its group serving its requests alone, bit for bit, and one device's
+    serving them up to near ties replayed on both sides (tp_vs_single);
+    the merged counters and histograms are the replicas' sums. Returns the
+    placements, streams, launches and numbers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.cluster import GroupRouter, deploy_replicas
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx
+    from repro_torch.serving import SamplingParams, deploy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON, init_seed=SEED, paged=True,
+              page_size=PAGE, ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True),
+              device=device)
+    mem = engine_memory(torch, device, lambda: deploy_replicas(
+        "nllb600m", "int4", replicas=2, tp=2, **kw))
+    pipe = mem.pop("built")
+    router = pipe.engine
+    if not isinstance(router, GroupRouter):
+        raise AssertionError("[dp-tp] deploy_replicas(tp=2) returned no GroupRouter")
+    eng = router.own
+    grp, lc = eng.ctx.tp, eng.model.cfg
+    glead = grp.rank == 0
+    say = log if rank == 0 else (lambda *a: None)
+    say(f"[dp-tp] deployed 2 replicas x tp2 of nllb600m int4 (paged) on {world} ranks of "
+        f"one {torch.cuda.get_device_name(device)} over {grp.backend}: each rank "
+        f"{lc.num_heads}/{lc.num_kv_heads} heads, d_ff {lc.d_ff}; {_mem_line(mem)}")
+    sp = SamplingParams(max_new_tokens=GEN)
+    with served_shapes() as seen:
+        pipe.generate(prompts, SamplingParams(max_new_tokens=4))
+    if glead:
+        hold_served(torch, f"dp-tp group {router.group}", seen, device,
+                    ("qmm", "fasst_act", "paged_attn"))
+    router.reset_metrics()
+    torch.cuda.synchronize()
+    dist.barrier()
+    in_decode = counted_decode(eng)
+    steps0 = eng.decode_steps
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    gids = [router.submit(p, sp) for p in prompts]
+    placed = [router._owner[g][0] for g in gids]
+    by_id = {o.request_id: o for o in router.run_until_drained()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    del eng._decode_loop
+    outs = [by_id[g] for g in gids]
+    if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+        raise AssertionError("[dp-tp] not every request retired on length")
+    streams = [o.token_ids for o in outs]
+    every = [None] * world
+    dist.all_gather_object(every, (streams, placed, [o.ttft_ms for o in outs]))
+    if any(e != every[0] for e in every):
+        raise AssertionError("[dp-tp] the ranks' outputs or placements differ")
+    L = lc.num_layers
+    per_step = {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L, "fasst_act": 0}
+    steps_run = eng.decode_steps - steps0
+    if not steps_run or any(in_decode[k] != c * steps_run for k, c in per_step.items()):
+        raise AssertionError(f"[dp-tp] {steps_run} decode steps launched {in_decode}; a "
+                             f"step launches {per_step}")
+    m = router.metrics()
+    per = [e.metrics() for e in router.replicas]
+    for field in ("synced_tokens", "decode_syncs", "decode_steps", "kv_cache_bytes"):
+        if getattr(m, field) != sum(getattr(p, field) for p in per):
+            raise AssertionError(f"[dp-tp] merged {field} is not the replicas' sum")
+    hists = [e.latency_histograms()["ttft_ms"].count for e in router.replicas]
+    if router.merged_latency_histograms()["ttft_ms"].count != sum(hists):
+        raise AssertionError("[dp-tp] the merged TTFT histogram is not the replicas' sum")
+    prom = router.prometheus()
+    if 'repro_cluster_replica_synced_tokens{replica="1"}' not in prom:
+        raise AssertionError("[dp-tp] prometheus() lacks the per-replica section")
+    # each replica as a lone tensor-parallel engine of its group, and
+    # against one device, on its own requests
+    idx = [i for i, r in enumerate(placed) if r == router.group]
+    mine = [prompts[i] for i in idx]
+    lone = _fresh_engine(dataclasses.replace(pipe, engine=eng), True)
+    ids = [lone.submit(p, sp) for p in mine]
+    got = {o.request_id: o.token_ids for o in lone.run_until_drained()}
+    if [got[i] for i in ids] != [streams[i] for i in idx]:
+        raise AssertionError(f"[dp-tp] replica {router.group}'s streams are not a lone tp2 "
+                             "engine's")
+    tp_pipe = dataclasses.replace(pipe, engine=eng)
+    kw.pop("device")
+    part, smem = tp_vs_single(torch, f"dp-tp group {router.group}", grp, tp_pipe, mine, sp,
+                              [streams[i] for i in idx],
+                              {"build": lambda: deploy("nllb600m", "int4", device=device,
+                                                       **kw)})
+    parts = [None] * world
+    dist.all_gather_object(parts, len(part) if glead else None)
+    tokens = sum(len(t) for t in streams)
+    stats = {"requests": len(outs), "placements": placed, "tokens": tokens, "wall_s": wall,
+             "tokens_per_s": tokens / wall,
+             "near_tie_partings_vs_single_device": [parts[0], parts[2]],
+             "merged_synced_tokens": m.synced_tokens,
+             "replica_synced_tokens": [p.synced_tokens for p in per],
+             "ttft_p95_ms": m.ttft_p95_ms, "launches_per_step": per_step,
+             "rank_memory_gb": {k: v / 1e9 for k, v in mem.items()},
+             "note": f"{world} ranks share one card over {grp.backend}", "card": card}
+    say(f"[dp-tp] {json.dumps(stats)}")
+    say(f"[dp-tp] phase took {time.perf_counter() - t_phase:.1f} s in the ranks")
+    del pipe, router, eng, lone, tp_pipe
+    torch.cuda.empty_cache()
+    return {"launches": launches, "placements": placed, "streams": streams,
+            "replica_synced_tokens": stats["replica_synced_tokens"]}
+
+
+def dp_tp_phase(card, prompts, dp_placed):
+    """[dp-tp]: the composed stack on 4 ranks sharing the card; its
+    placements must be [dp]'s (the same router over replicas of the same
+    shape). Returns rank 0's launches."""
+    from repro_torch.cluster import launch_ranks, rank_backend
+    backend = rank_backend("cuda", 4)
+    if backend != "gloo":
+        raise AssertionError(f"4 ranks on one card must take gloo, got {backend}")
+    t0 = time.perf_counter()
+    results = launch_ranks(dp_tp_rank, 4, device="cuda", args=(prompts, card))
+    if results[0]["placements"] != dp_placed:
+        raise AssertionError(f"[dp-tp] placements {results[0]['placements']} are not "
+                             f"[dp]'s {dp_placed}")
+    log(f"[dp-tp] placements equal [dp]'s {dp_placed}; 4 ranks over {backend} on {card} "
+        f"took {time.perf_counter() - t0:.1f} s (process start, deploys and the run)")
+    return results[0]["launches"]
 
 
 
@@ -3971,13 +4293,19 @@ def main() -> int:
     tp_kernels = time_tp_kernels(torch, card, dev)
     for e in entries:
         e.update(tp_kernels.get(e["name"], {}))
-    tp_out = tp_phase(card, prompts)
+    tp_out = tp_phase(card, prompts, tp_lm_inputs(torch, card))
     phase_launches["tp"] = tp_out["tp"]["launches"]
     phase_launches["tp-dense"] = tp_out["tp-dense"]["launches"]
+    phase_launches["tp-lm"] = _add(dict(tp_out["tp-lm"]["launches"]),
+                                   tp_out["tp-lm-dense"]["launches"])
+    phase_launches["tp-qwen"] = tp_out["tp-qwen"]["launches"]
     log(f"[tp] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_launches["dp"] = dp_phase(torch, card, prompts, pipe, paged_outs)
+    phase_launches["dp"], dp_placed, _ = dp_phase(torch, card, prompts, pipe, paged_outs)
     log(f"[dp] phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_launches["dp-tp"] = dp_tp_phase(card, prompts, dp_placed)
+    log(f"[dp-tp] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_launches["train"], trained = train_phase(torch, card, dev)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
@@ -4024,7 +4352,9 @@ def main() -> int:
               "moe": phase_launches["moe"], "moe_nllb": phase_launches["moe-nllb"],
               "audio": phase_launches["audio"], "ssm": phase_launches["ssm"],
               "hybrid": phase_launches["hybrid"], "tp": phase_launches["tp"],
-              "tp_dense": phase_launches["tp-dense"], "dp": phase_launches["dp"]}
+              "tp_dense": phase_launches["tp-dense"], "dp": phase_launches["dp"],
+              "tp_lm": phase_launches["tp-lm"], "tp_qwen": phase_launches["tp-qwen"],
+              "dp_tp": phase_launches["dp-tp"]}
     for e in entries:
         if e["name"] == "paged_attn":
             for tag in ("moe", "audio"):
@@ -4035,7 +4365,8 @@ def main() -> int:
         e["launches"] = (launches if served else api_launches)[e["name"]]
         # spec, spec_dense, faults, quant, train, eval, train_lm, lm,
         # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid, tp (rank 0),
-        # tp_dense (rank 0), dp
+        # tp_dense (rank 0), dp, tp_lm (rank 0, paged + dense), tp_qwen
+        # (rank 0), dp_tp (rank 0)
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -4055,11 +4386,16 @@ def main() -> int:
     log("kernels in [tp] (rank 0 of 2) / [tp-dense] (rank 0 of 2) / [dp]: " + ", ".join(
         f"{e['name']}={e['launches_tp']} / {e['launches_tp_dense']} / {e['launches_dp']}"
         for e in entries))
+    log("kernels in [tp-lm] + [tp-lm-dense] (rank 0 of 2) / [tp-qwen] (rank 0 of 2) / "
+        "[dp-tp] (rank 0 of 4): " + ", ".join(
+            f"{e['name']}={e['launches_tp_lm']} / {e['launches_tp_qwen']} / "
+            f"{e['launches_dp_tp']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
             "launches_moe", "launches_moe_nllb", "launches_audio", "launches_ssm",
             "launches_hybrid", "launches_tp", "launches_tp_dense", "launches_dp",
+            "launches_tp_lm", "launches_tp_qwen", "launches_dp_tp",
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")

@@ -1,17 +1,25 @@
 """Cluster serving: tensor-parallel engines and data-parallel routing.
 
-Two scale-out layers over the single serving engine:
+Two scale-out layers over the single serving engine, and their
+composition:
 
 * **Tensor parallel** — ``deploy(..., mesh=tp_mesh(K))`` on each of K
   ranks that :func:`launch_ranks` started: every rank serves the same
   requests on its shard of the weights and KV storage, and the model sums
-  its row-parallel products over the ranks (``parallel/tp.py``).
+  its row-parallel products over the ranks (``parallel/tp.py``). The text
+  enc-dec and the dense and VLM LM families.
 * **Data parallel** — :class:`ReplicaRouter` balances requests over N
   independent engine replicas; :func:`deploy_replicas` builds them
   behind the ordinary ``TranslationPipeline`` surface, replica ``i`` on
   ``cuda:i`` where the process sees N cards, else all on one device.
+* **dp x tp** — ``deploy_replicas(replicas=N, tp=K)`` on each of the N·K
+  ranks of ``launch_ranks(fn, world=N*K)``: rank r deploys replica
+  ``r // K``'s tensor-parallel engine on the ``("model",)`` row of a
+  ``("dp", "model")`` mesh, and every rank runs the same
+  :class:`GroupRouter` over the N replicas (its own engine and mirrors
+  of the others, kept in step by small host records; ``router.py``).
 
-Both keep the engine's standing invariant: routed and sharded token
+All keep the engine's standing invariant: routed and sharded token
 streams are those of a single-device engine serving the same requests.
 
 The backend follows the device layout: NCCL when every rank has a card of
@@ -31,10 +39,9 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from ..unported import later
-from .router import ReplicaRouter
+from .router import GroupReplica, GroupRouter, ReplicaRouter
 
-__all__ = ["ReplicaRouter", "deploy_replicas", "parse_mesh_spec", "tp_mesh",
+__all__ = ["ReplicaRouter", "GroupRouter", "deploy_replicas", "parse_mesh_spec", "tp_mesh",
            "launch_ranks", "rank_backend"]
 
 
@@ -123,20 +130,21 @@ def launch_ranks(fn: Callable, world: int, *, device="cuda", args: tuple = (),
         return out
 
 
-def tp_mesh(tp: int):
-    """A ``("model",)`` DeviceMesh over the ``tp`` ranks of the process
-    group this process has joined (``launch_ranks``): the serving
-    engine's tensor-parallel domain. Raises when no group is up or its
-    world size is not ``tp``; it never falls back to one device."""
+def _need_world(world: int, what: str) -> None:
+    import torch.distributed as dist
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(f"{what} needs a process group of {world} ranks: run the "
+                           f"caller inside cluster.launch_ranks(fn, world={world})")
+    if dist.get_world_size() != world:
+        raise ValueError(f"{what} needs a process group of {world} ranks, this one "
+                         f"has {dist.get_world_size()}")
+
+
+def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """A DeviceMesh of ``shape`` over the ranks of the process group, in
+    rank order; its repr names the backend."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
-    if not dist.is_available() or not dist.is_initialized():
-        raise RuntimeError(f"tp_mesh({tp}) needs a process group of {tp} ranks: run "
-                           "the caller inside cluster.launch_ranks(fn, world=tp)")
-    world = dist.get_world_size()
-    if world != tp:
-        raise ValueError(f"tensor parallelism tp={tp} needs a process group of {tp} "
-                         f"ranks, this one has {world}")
 
     class TPMesh(DeviceMesh):
         def __repr__(self) -> str:
@@ -145,7 +153,17 @@ def tp_mesh(tp: int):
     # a rank on a card has set its device (launch_ranks), which starts CUDA
     on_card = dist.get_backend() == "nccl" or (torch.cuda.is_available()
                                                  and torch.cuda.is_initialized())
-    return TPMesh("cuda" if on_card else "cpu", list(range(tp)), mesh_dim_names=("model",))
+    ranks = torch.arange(dist.get_world_size()).reshape(shape).tolist()
+    return TPMesh("cuda" if on_card else "cpu", ranks, mesh_dim_names=names)
+
+
+def tp_mesh(tp: int):
+    """A ``("model",)`` DeviceMesh over the ``tp`` ranks of the process
+    group this process has joined (``launch_ranks``): the serving
+    engine's tensor-parallel domain. Raises when no group is up or its
+    world size is not ``tp``; it never falls back to one device."""
+    _need_world(tp, f"tensor parallelism tp={tp}")
+    return _device_mesh((tp,), ("model",))
 
 
 def _to_device(tree, dev):
@@ -165,24 +183,31 @@ def deploy_replicas(arch_or_cfg, policy="int4", *, replicas: int = 2, tp: int = 
 
     Each replica is a full ``serving.deploy`` of the same config and spec
     (``params=`` shares one checkpoint; otherwise ``init_seed`` makes
-    every replica initialize alike). Replica ``i`` sits on ``cuda:i``
-    when ``device`` is the CUDA default (None or "cuda") and the process
-    sees at least ``replicas`` cards; otherwise every replica sits on
-    ``device`` (routing and backpressure still apply, device concurrency
-    is lost). ``tp > 1`` raises (a later slice): a tensor-parallel engine
-    is ``deploy(mesh=tp_mesh(tp))`` inside the ranks of ``launch_ranks``.
+    every replica initialize alike). With ``tp == 1``, replica ``i`` sits
+    on ``cuda:i`` when ``device`` is the CUDA default (None or "cuda") and
+    the process sees at least ``replicas`` cards; otherwise every replica
+    sits on ``device`` (routing and backpressure still apply, device
+    concurrency is lost).
+
+    ``tp > 1`` is the composed stack, called on each of the
+    ``replicas * tp`` ranks of ``launch_ranks`` (it raises outside such a
+    process group): replica ``i`` is the tensor-parallel engine of ranks
+    ``[i*tp, (i+1)*tp)`` on the ``("model",)`` row of a ``("dp",
+    "model")`` mesh, each rank deploys only its own group's engine, on
+    ``device`` (None: the rank's current card), and the router is a
+    :class:`GroupRouter` that every rank runs alike.
 
     Returns a ``TranslationPipeline`` whose ``engine`` is the router;
     ``translate`` / ``generate`` fan over replicas (``translate_stream``
     needs a single-engine pipeline). The engines stay reachable through
-    ``pipe.engine.replicas``.
+    ``pipe.engine.replicas`` (a composed stack's as handles; this rank's
+    own engine is ``pipe.engine.own``).
     """
     from ..serving import deploy
     if replicas < 1:
         raise ValueError(f"replicas must be >= 1, got {replicas}")
     if tp > 1:
-        raise later(f"replicas of a tp{tp} mesh (dp{replicas},tp{tp}: a replicated "
-                    "control plane over the replica groups)", 6)
+        return _deploy_groups(arch_or_cfg, policy, replicas, tp, device, deploy_kwargs)
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and dev.index is None \
             and torch.cuda.device_count() >= replicas:
@@ -195,3 +220,20 @@ def deploy_replicas(arch_or_cfg, policy="int4", *, replicas: int = 2, tp: int = 
              for d in devs]
     router = ReplicaRouter([p.engine for p in pipes])
     return dataclasses.replace(pipes[0], engine=router)
+
+
+def _deploy_groups(arch_or_cfg, policy, replicas: int, tp: int, device, deploy_kwargs):
+    """This rank's share of a dp x tp stack (``deploy_replicas``)."""
+    import torch.distributed as dist
+    from ..serving import deploy
+    _need_world(replicas * tp, f"dp{replicas},tp{tp}")
+    rank = dist.get_rank()
+    group = rank // tp
+    mesh = _device_mesh((replicas, tp), ("dp", "model"))["model"]
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    pipe = deploy(arch_or_cfg, policy, mesh=mesh, device=device, **deploy_kwargs)
+    eng = pipe.engine
+    handles = [GroupReplica(i * tp, eng if i == group else None, eng.max_len,
+                            eng.max_pending) for i in range(replicas)]
+    return dataclasses.replace(pipe, engine=GroupRouter(handles, group))

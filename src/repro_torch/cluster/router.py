@@ -39,6 +39,22 @@ merged histograms, never from averaging per-replica percentiles);
 ``prometheus()`` renders the merged cluster snapshot plus a per-replica
 section labelled ``{replica="i"}``. The router is host code only: the
 reference's ``cluster/router.py`` line for line.
+
+Composed dp x tp stacks
+-----------------------
+Under ``deploy_replicas(tp=K)`` each replica is a tensor-parallel engine
+on its own group of K ranks, and no process holds every replica. The
+control plane is replicated instead: every one of the N·K ranks runs a
+:class:`GroupRouter`, the same placement rules over N
+:class:`GroupReplica` handles, its own group's engine and N-1 mirrors of
+the others. Each call that changes a replica (a submit, an abort) ends in
+one broadcast from that replica group's rank 0 of its outcome and its
+engine's queue and slot counts; each cluster round runs the rank's own
+engine one round, then gathers every group's record (whether its round
+loop ended, its counts, its finished outputs). So every rank's router
+sees the same counts, places the next request alike and returns the
+same outputs, timings included (group rank 0's); routing stays
+host-only and deterministic, and only these records cross groups.
 """
 
 from __future__ import annotations
@@ -50,8 +66,9 @@ from ..obs import Histogram
 from ..obs.metrics import render_prometheus, render_prometheus_labeled
 from ..serving.metrics import EngineMetrics, merge_metrics
 from ..serving.params import EngineSaturated, Request, RequestOutput, SamplingParams
+from ..unported import later
 
-__all__ = ["ReplicaRouter"]
+__all__ = ["ReplicaRouter", "GroupReplica", "GroupRouter"]
 
 
 class ReplicaRouter:
@@ -252,3 +269,181 @@ class ReplicaRouter:
     def reset_metrics(self) -> None:
         for eng in self.replicas:
             eng.reset_metrics()
+
+
+# ---------------------------------------------------------------------------
+# composed dp x tp stacks: a replicated control plane over replica groups
+# ---------------------------------------------------------------------------
+
+def _broadcast(obj, src: int):
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+class GroupReplica:
+    """One replica of a composed dp x tp stack as one rank sees it: its
+    own group's tensor-parallel engine (``engine``), or a mirror of
+    another group's (``engine`` None). ``lead`` is the global rank of the
+    replica group's rank 0, whose broadcasts every handle of this replica
+    replays. Every rank calls its handles in the same order (the
+    :class:`GroupRouter` is replicated), so each collective meets its
+    peers. The counts are the engine's as of the last broadcast."""
+
+    def __init__(self, lead: int, engine, max_len: int, max_pending: Optional[int]):
+        self.lead, self.engine = lead, engine
+        self.max_len, self.max_pending = max_len, max_pending
+        self.num_pending = self.num_active = 0
+        self._finished: List[RequestOutput] = []
+
+    def _counts(self):
+        e = self.engine
+        return None if e is None else (e.num_pending, e.num_active)
+
+    def _settle(self, value, counts):
+        self.num_pending, self.num_active = counts
+        return value
+
+    def submit(self, request, params: Optional[SamplingParams] = None, *,
+               on_token: Optional[Callable[[int], None]] = None) -> int:
+        """The engine's submit on the replica's own group, then the lead's
+        outcome on every rank: its local id, or the error it raised (the
+        typed EngineSaturated, a validation error) raised alike."""
+        if on_token is not None:
+            raise later("on_token callbacks over a composed dp x tp stack (the "
+                        "mirrors see a request's tokens when it finishes)", 6)
+        outcome = None
+        if self.engine is not None:
+            try:
+                outcome = ("ok", self.engine.submit(request, params))
+            except EngineSaturated as exc:
+                outcome = ("saturated", (exc.pending, exc.limit))
+            except (ValueError, TypeError, NotImplementedError) as exc:
+                outcome = ("error", exc)
+        kind, value, counts = _broadcast(outcome and outcome + (self._counts(),),
+                                         self.lead)
+        self._settle(None, counts)
+        if kind == "saturated":
+            raise EngineSaturated(*value)
+        if kind == "error":
+            raise value
+        return value
+
+    def abort(self, request_id: int) -> Optional[RequestOutput]:
+        out = None if self.engine is None else self.engine.abort(request_id)
+        return self._settle(*_broadcast((out, self._counts()), self.lead))
+
+    def take_finished(self) -> List[RequestOutput]:
+        """The lead's outputs of the replica gathered by the last cluster
+        round."""
+        out, self._finished = self._finished, []
+        return out
+
+    def metrics(self):
+        return _broadcast(None if self.engine is None else self.engine.metrics(),
+                          self.lead)
+
+    def latency_histograms(self):
+        return _broadcast(None if self.engine is None
+                          else self.engine.latency_histograms(), self.lead)
+
+    def reset_metrics(self) -> None:
+        if self.engine is not None:
+            self.engine.reset_metrics()
+
+    @property
+    def device(self):
+        return None if self.engine is None else self.engine.device
+
+    @property
+    def trace(self):
+        return None if self.engine is None else self.engine.trace
+
+
+class GroupRouter(ReplicaRouter):
+    """The replicated control plane of a composed dp x tp stack (module
+    docstring): :class:`ReplicaRouter`'s placement over
+    :class:`GroupReplica` handles, ``group`` the index of this rank's own
+    replica. A cluster round runs this rank's engine one round, then
+    gathers every group lead's record over the world group; the claims
+    follow in replica order, as the in-process router makes them."""
+
+    def __init__(self, replicas: Sequence[GroupReplica], group: int):
+        super().__init__(replicas)
+        self.group = group
+
+    @property
+    def own(self):
+        """This rank's own replica engine (its group's tensor-parallel
+        engine)."""
+        return self.replicas[self.group].engine
+
+    def _exchange(self, ended: bool, outs=()) -> set:
+        """Every group lead's record of the round (its round loop ended,
+        its queue and slot counts, its finished outputs) to every rank;
+        returns the replicas whose round loop ended."""
+        import torch.distributed as dist
+        eng, mine = self.own, self.replicas[self.group]
+        finished = list(outs) + eng.take_finished()
+        rec = None
+        if dist.get_rank() == mine.lead:
+            rec = (ended, eng.num_pending, eng.num_active, finished)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, rec)
+        done = set()
+        for i, h in enumerate(self.replicas):
+            ended_i, h.num_pending, h.num_active, got = every[h.lead]
+            h._finished.extend(got)
+            if ended_i:
+                done.add(i)
+        return done
+
+    def _claim_all(self) -> List[RequestOutput]:
+        return [o for i in range(len(self.replicas)) for o in self._claim(i)]
+
+    def step(self, horizon: Optional[int] = None) -> List[RequestOutput]:
+        h = self.replicas[self.group]
+        outs = self.own.step(horizon) if h.num_pending or h.num_active else []
+        self._exchange(False, outs)
+        return self._claim_all()
+
+    def stream(self, horizon: Optional[int] = None,
+               on_round: Optional[Callable[[], None]] = None,
+               max_rounds: int = 1_000_000) -> Iterator[RequestOutput]:
+        self._exchange(False)
+        yield from self._claim_all()
+        live: set = set()
+        own = None
+        try:
+            for _ in range(max_rounds):
+                for i, h in enumerate(self.replicas):
+                    if i not in live and (h.num_pending or h.num_active):
+                        live.add(i)
+                        if i == self.group:
+                            own = self.own.serve_rounds(horizon)
+                if not live:
+                    break
+                ended = False
+                if self.group in live:
+                    try:
+                        next(own)
+                    except StopIteration:
+                        ended = True
+                done = self._exchange(ended)
+                for i in sorted(live):
+                    if i in done:
+                        live.discard(i)
+                    yield from self._claim(i)
+                if on_round is not None:
+                    on_round()
+        finally:
+            if own is not None:
+                own.close()     # walks any dispatched-ahead block
+        self._exchange(False)
+        yield from self._claim_all()
+
+    @property
+    def trace(self):
+        """This rank's own engine's tracer."""
+        return self.own.trace

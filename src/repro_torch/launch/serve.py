@@ -27,11 +27,15 @@ quantized speculative draft arm (greedy output unchanged).
 Scale-out: ``--mesh tp<K>`` runs the launcher's body on K ranks
 (``cluster.launch_ranks``: NCCL when each rank has a card of its own,
 gloo when they share one or run on the CPU), each deploying with
-``mesh=tp_mesh(K)`` and serving the same requests; rank 0 prints.
-``--mesh dp<N>`` serves through ``deploy_replicas`` (N engines behind the
-replica router). A composed ``dp<N>,tp<K>`` with both above 1 raises (a
-later port slice). ``--device`` (default ``cuda``) picks the device; the
-CPU runs the kernels' plain versions.
+``mesh=tp_mesh(K)`` and serving the same requests (any ``--arch`` of the
+text enc-dec, dense or VLM families); rank 0 prints. ``--mesh dp<N>``
+serves through ``deploy_replicas`` (N engines behind the replica
+router). ``--mesh dp<N>,tp<K>`` runs the body on N·K ranks, each calling
+``deploy_replicas(replicas=N, tp=K)``: N tensor-parallel replicas behind
+a router that every rank runs alike; rank 0 prints (a live
+``--metrics-port`` raises there: a scrape would be a collective).
+``--device`` (default ``cuda``) picks the device; the CPU runs the
+kernels' plain versions.
 
   python -m repro_torch.launch.serve --arch nllb600m --policy int4 \\
       --paged --draft-spec nf4 --requests 8 --gen 16 --max-len 128
@@ -41,6 +45,8 @@ CPU runs the kernels' plain versions.
       --device cpu --paged --requests 3 --gen 8 --max-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --paged --mesh tp2 --requests 4 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --paged --mesh dp2,tp2 --requests 4 --gen 8
 """
 
 from __future__ import annotations
@@ -112,7 +118,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--mesh", default=None, metavar="SPEC",
                     help="scale-out spec 'dp<N>,tp<K>': tp<K> serves on K "
                          "tensor-parallel ranks, dp<N> through N routed "
-                         "replicas (both above 1 comes with a later slice)")
+                         "replicas, both on N*K ranks")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -125,11 +131,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.draft_spec is not None:
         resolve_spec(args.draft_spec)
     dp, tp = parse_mesh_spec(args.mesh) if args.mesh else (1, 1)
-    if dp > 1 and tp > 1:
-        raise later(f"--mesh {args.mesh} (dp{dp} replicas x tp{tp}: a replicated "
-                    "control plane over the replica groups)", 6)
+    if dp > 1 and tp > 1 and args.metrics_port is not None:
+        raise later(f"--metrics-port over --mesh {args.mesh} (a scrape of the composed "
+                    "stack's merged metrics is a collective of every rank)", 6)
     if tp > 1:
-        launch_ranks(_serve_rank, tp, device=args.device, args=(args,))
+        launch_ranks(_serve_rank, dp * tp, device=args.device, args=(args, dp))
     else:
         _serve(args, dp)
 
@@ -138,13 +144,17 @@ def _quiet(*_a, **_k) -> None:
     pass
 
 
-def _serve_rank(rank: int, world: int, device, args) -> None:
-    """One rank of ``--mesh tp<K>``: the launcher's body on the rank's
-    device and the ``("model",)`` mesh; rank 0 prints and writes."""
-    _serve(args, 1, mesh=tp_mesh(world), device=device, lead=rank == 0)
+def _serve_rank(rank: int, world: int, device, args, dp: int) -> None:
+    """One rank of ``--mesh tp<K>`` (the ``("model",)`` mesh) or
+    ``dp<N>,tp<K>`` (``deploy_replicas(tp=K)``): the launcher's body on
+    the rank's device; rank 0 prints and writes."""
+    if dp > 1:
+        _serve(args, dp, tp=world // dp, device=device, lead=rank == 0)
+    else:
+        _serve(args, 1, mesh=tp_mesh(world), device=device, lead=rank == 0)
 
 
-def _serve(args, dp: int, mesh=None, device=None, lead: bool = True) -> None:
+def _serve(args, dp: int, mesh=None, device=None, lead: bool = True, tp: int = 1) -> None:
     echo = print if lead else _quiet
     sla = None
     if args.sla_ttft_ms is not None or args.sla_tpot_ms is not None:
@@ -155,7 +165,13 @@ def _serve(args, dp: int, mesh=None, device=None, lead: bool = True) -> None:
               draft_spec=args.draft_spec, draft_lookahead=args.draft_lookahead,
               overlap=not args.no_overlap, sla=sla, max_pending=args.max_pending,
               trace=TraceConfig() if args.trace_out else None, **impl_routes(args.impl))
-    if dp > 1:
+    if dp > 1 and tp > 1:
+        pipe = deploy_replicas(args.arch, args.policy, replicas=dp, tp=tp, device=device,
+                               **kw)
+        echo(f"cluster: {dp} replicas x tp{tp} over {dp * tp} ranks, each replica a "
+             f"('model',) row of a ('dp', 'model') mesh over {pipe.ctx.tp.backend}; "
+             f"rank 0 holds {tree_nbytes(pipe.params)/2**20:.1f} MB of the weights")
+    elif dp > 1:
         pipe = deploy_replicas(args.arch, args.policy, replicas=dp, device=args.device,
                                **kw)
         devs = sorted({str(e.device) for e in pipe.engine.replicas})
@@ -255,9 +271,11 @@ def _serve(args, dp: int, mesh=None, device=None, lead: bool = True) -> None:
         pipe.tracer.dump_json(args.trace_out)
         echo(f"trace: {len(pipe.tracer)} events "
              f"({pipe.tracer.dropped} dropped) -> {args.trace_out}")
-    if args.metrics_out and lead:
-        with open(args.metrics_out, "w") as f:
-            f.write(pipe.engine.prometheus())
+    if args.metrics_out:
+        text = pipe.engine.prometheus()     # every rank: a composed stack's is a collective
+        if lead:
+            with open(args.metrics_out, "w") as f:
+                f.write(text)
         echo(f"metrics: prometheus text -> {args.metrics_out}")
     if metrics_srv is not None:
         metrics_srv.close()

@@ -11,6 +11,8 @@ build_model(cfg, device) -> ModelAPI with
                                         families; the SSM and hybrid raise
                                         ValueError)
   prefill(ctx, params, cache, batch) -> (cache, logits)
+                                     (a decoder-only LM's takes ``read=`` (B,):
+                                      then logits (B, V), one position a row)
   decode_step(ctx, params, tok, c)   -> (cache, logits)   (dense or paged)
 decode_block(model, ctx, params, tokens, cache) -> (cache, logits (B, K, V))
 
@@ -93,10 +95,10 @@ def _lm_model(cfg, device) -> ModelAPI:
     def init_cache(batch_size, max_len, kv_dtype="bf16"):
         return tf.lm_init_cache(cfg, batch_size, max_len, kv_dtype, device)
 
-    def prefill(ctx, params, cache, batch):
+    def prefill(ctx, params, cache, batch, read=None):
         return tf.lm_prefill(ctx, params, cfg, batch["tokens"], cache,
                              lengths=batch.get("lengths"),
-                             img_embeds=batch.get("img_embeds"))
+                             img_embeds=batch.get("img_embeds"), read=read)
 
     def decode_step(ctx, params, tokens, cache):
         return tf.lm_decode_step(ctx, params, cfg, tokens, cache)

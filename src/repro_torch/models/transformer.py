@@ -75,17 +75,22 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def _head(ctx: Ctx, params, cfg, x):
+def _head(ctx: Ctx, params, cfg, x, read=None):
     """Logits of the final-normed ``x``: the tied embedding, dequantized,
     in a plain product outside any kernel (as in the reference), or the
-    ``lm_head`` matmul. A tensor-parallel rank holding a vocabulary slice
-    gathers the slices (``Ctx.tp``)."""
+    ``lm_head`` matmul. ``read`` (B,) keeps one row a batch entry, (B, V)
+    (a negative index counts from the end): the rows of the logits the
+    caller samples from, picked after the product, so every product keeps
+    its rows. A tensor-parallel rank holding a vocabulary slice gathers
+    the slices (``Ctx.tp``), the picked rows only."""
     if cfg.tie_embeddings:
         w = maybe_dequantize(params["embedding"], ctx.compute_dtype)
         logits = torch.matmul(x.to(ctx.compute_dtype), w.t())
     else:
         logits = ctx.dot(x, params["lm_head"], site="head")
     logits = logits.to(torch.float32)
+    if read is not None:
+        logits = logits[torch.arange(logits.shape[0], device=logits.device), read.long()]
     if ctx.tp is not None and logits.shape[-1] != cfg.vocab_size:
         logits = ctx.tp.gather_last(logits)
     return logits
@@ -396,8 +401,9 @@ def lm_init(g, cfg):
 
 def _embed(ctx: Ctx, params, cfg, tokens, img_embeds=None):
     """Token embeddings (times sqrt(d) rounded to the compute dtype, as
-    the reference scales them), after a VLM's patch embeddings."""
-    x = embed_lookup(params["embedding"], tokens, ctx.compute_dtype)
+    the reference scales them; a tensor-parallel rank's rows summed over
+    the ranks first), after a VLM's patch embeddings."""
+    x = _embed_rows(ctx, params, cfg, tokens)
     if cfg.embed_scale:
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=ctx.compute_dtype))
     if img_embeds is not None:
@@ -405,8 +411,8 @@ def _embed(ctx: Ctx, params, cfg, tokens, img_embeds=None):
     return x
 
 
-def _lm_head(ctx: Ctx, params, cfg, x):
-    return _head(ctx, params, cfg, rms_norm(x, params["norm_f_scale"], cfg.norm_eps))
+def _lm_head(ctx: Ctx, params, cfg, x, read=None):
+    return _head(ctx, params, cfg, rms_norm(x, params["norm_f_scale"], cfg.norm_eps), read)
 
 
 def _ssm_layer(ctx: Ctx, cfg, lp, x, state=None):
@@ -434,12 +440,13 @@ def _lm_layer(ctx: Ctx, cfg, lp, window, x, positions):
 
 
 def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
-               remat: bool = False, collect_kv: bool = False):
+               remat: bool = False, collect_kv: bool = False, read=None):
     """tokens (B, S) [after img_embeds (B, P, d)] -> (logits (B, P + S, V)
     f32, aux_loss (the MoE layers' summed; 0 without), (ks, vs)
     layer-stacked (L, B, P + S, Hkv, hd) | None). ``remat`` recomputes
     each layer's activations in the backward pass (the reference's
-    grouped remat scan is a memory plan over the same function)."""
+    grouped remat scan is a memory plan over the same function). ``read``
+    (B,) returns the logits (B, V) of one position a row (``_head``)."""
     _check_family(cfg)
     x = _embed(ctx, params, cfg, tokens, img_embeds)
     B, S, _ = x.shape
@@ -448,7 +455,7 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
         body = _remat(lambda x, lp: _ssm_layer(ctx, cfg, lp, x), remat)
         for lp in _layers(params["layers"], cfg.num_layers):
             x = body(x, lp)
-        return _lm_head(ctx, params, cfg, x), aux, None
+        return _lm_head(ctx, params, cfg, x, read), aux, None
     if positions is None:
         positions = _positions(B, S, x.device)
     ks, vs = [], []
@@ -462,7 +469,7 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
             ks.append(k)
             vs.append(v)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return _lm_head(ctx, params, cfg, x), aux, kvs
+    return _lm_head(ctx, params, cfg, x, read), aux, kvs
 
 
 def lm_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16", device="cuda"):
@@ -501,9 +508,11 @@ def lm_init_paged_cache(cfg, slots: int, max_pages: int, num_pages: int,
 
 
 def lm_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, img_embeds=None,
-               positions=None):
+               positions=None, read=None):
     """Run the whole prompt (after a VLM's patches) and fill the cache's
-    first P + S positions. Returns (cache, logits (B, P + S, V)).
+    first P + S positions. Returns (cache, logits (B, P + S, V)), or with
+    ``read`` (B,) the logits (B, V) of one position a row: the rows a
+    tensor-parallel rank gathers (``_head``).
 
     An SSM runs layer by layer from the cache's states and returns the
     final ones (the conv state in the compute dtype: a caller that keeps
@@ -520,9 +529,9 @@ def lm_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, img_embeds=No
         lens = lengths if lengths is not None else torch.full(
             (B,), S, dtype=torch.int32, device=x.device)
         return dict(cache, conv=torch.stack(convs), ssd=torch.stack(ssds),
-                    len=lens), _lm_head(ctx, params, cfg, x)
+                    len=lens), _lm_head(ctx, params, cfg, x, read)
     logits, _, (ks, vs) = lm_forward(ctx, params, cfg, tokens, positions=positions,
-                                     img_embeds=img_embeds, collect_kv=True)
+                                     img_embeds=img_embeds, collect_kv=True, read=read)
     B, S_tot = ks.shape[1], ks.shape[2]
     lens = lengths if lengths is not None else torch.full(
         (B,), S_tot, dtype=torch.int32, device=ks.device)

@@ -21,7 +21,7 @@ row-parallel products over the ranks where they are computed. So the
 reference's ``set_mesh`` / ``hint`` / ``hint_pick`` (GSPMD constraints
 inside model code) have no counterpart here.
 
-:func:`shard_tree` slices one rank's shard by these specs. Three layouts
+:func:`shard_tree` slices one rank's shard by these specs. Four layouts
 differ from the reference's on purpose:
 
 (a) A QTensor's scales (and QLoRA adapters) and a projection's bias
@@ -38,6 +38,13 @@ differ from the reference's on purpose:
     256-value chunks that no split respects. Its scales are decoded once
     to f32 (``QTensor.block_scales()``) before slicing, so the shard holds
     f32 scales: 4 bytes a block where the packed scales took about 1.
+(d) KV-head replication (``kv_replicas`` > 1: ``Hkv`` divides tp and is
+    smaller, e.g. gemma3's one KV head). ``wk`` and ``wv``, their scales
+    and ``bias_k`` / ``bias_v`` give rank r the columns of KV head
+    ``r // kv_replicas`` whole, where the reference's even column split
+    would cut a head across ranks; ``kv_replicas`` ranks hold each head
+    (``parallel.tp``). ``q_norm`` / ``k_norm`` (``(head_dim,)``) replicate,
+    as every 1-D leaf does.
 """
 
 from __future__ import annotations
@@ -284,13 +291,15 @@ def _full(spec: Spec, ndim: int) -> Spec:
     return tuple(spec) + (None,) * (ndim - len(spec))
 
 
-def _slice(t: torch.Tensor, spec: Spec, axes, coords) -> torch.Tensor:
+def _slice(t: torch.Tensor, spec: Spec, axes, coords, last=None) -> torch.Tensor:
     """The rank's piece of ``t``: a copy where a dim splits (a view would
     keep the whole tensor's storage alive beside the shard), ``t`` itself
-    where it replicates."""
+    where it replicates. ``last`` = (piece, pieces) overrides the last
+    dim's split (layout (d))."""
     split = False
-    for d, ax in enumerate(_full(spec, t.ndim)):
-        idx, n = _part(axes, coords, ax)
+    spec = _full(spec, t.ndim)
+    for d, ax in enumerate(spec):
+        idx, n = last if last is not None and d == t.ndim - 1 else _part(axes, coords, ax)
         if n > 1:
             if t.shape[d] % n:
                 raise ValueError(f"dim {d} of {tuple(t.shape)} does not split {n} ways")
@@ -310,17 +319,18 @@ def _block_scales(qt: QTensor) -> torch.Tensor:
     return torch.stack([qt.select(i).block_scales() for i in range(qt.data.shape[0])])
 
 
-def _shard_qtensor(qt: QTensor, spec: Spec, axes, coords) -> QTensor:
+def _shard_qtensor(qt: QTensor, spec: Spec, axes, coords, last=None) -> QTensor:
     """A QTensor's shard by its codes' spec: scales and adapters follow
     the split (a), a cut inside a block takes sub-blocks (b), and
-    double-quantized scales are decoded first (c)."""
+    double-quantized scales are decoded first (c); ``last`` as in
+    :func:`_slice` (d)."""
     nd = qt.data.ndim
     spec = _full(spec, nd)
     q = qt.q_axis % nd
     scales = _block_scales(qt).to(torch.float32)
     shape = list(qt.shape)
     for d, ax in enumerate(spec):
-        n = _part(axes, coords, ax)[1]
+        n = last[1] if last is not None and d == nd - 1 else _part(axes, coords, ax)[1]
         if n == 1:
             continue
         shape[d] //= n
@@ -335,9 +345,9 @@ def _shard_qtensor(qt: QTensor, spec: Spec, axes, coords) -> QTensor:
     lora_a = lora_b = None
     if qt.lora_a is not None:
         lora_a = _slice(qt.lora_a, spec[:-1] + (None,), axes, coords)
-        lora_b = _slice(qt.lora_b, spec[:-2] + (None, spec[-1]), axes, coords)
-    scales = _slice(scales, spec, axes, coords)
-    return QTensor(_slice(qt.data, spec, axes, coords), scales, lora_a=lora_a,
+        lora_b = _slice(qt.lora_b, spec[:-2] + (None, spec[-1]), axes, coords, last)
+    scales = _slice(scales, spec, axes, coords, last)
+    return QTensor(_slice(qt.data, spec, axes, coords, last), scales, lora_a=lora_a,
                    lora_b=lora_b, fmt=qt.fmt, q_axis=qt.q_axis, shape=tuple(shape),
                    scales_shape=tuple(scales.shape), lora_alpha=qt.lora_alpha)
 
@@ -347,28 +357,37 @@ def _spec_of(specs: Mapping[str, Spec], keys: Tuple[str, ...], node) -> Spec:
     return specs.get(path + ".data" if isinstance(node, QTensor) else path, ())
 
 
-def shard_tree(tree: Any, specs: Mapping[str, Spec], rank: int, mesh) -> Any:
+def shard_tree(tree: Any, specs: Mapping[str, Spec], rank: int, mesh,
+               kv_replicas: int = 1) -> Any:
     """Rank ``rank``'s shard of ``tree`` under ``specs`` (path -> spec, as
     :func:`param_specs` / :func:`cache_specs` give them): every split dim
-    sliced to the rank's contiguous piece, with the layouts (a)-(c) of the
-    module docstring. A path absent from ``specs`` replicates."""
+    sliced to the rank's contiguous piece, with the layouts (a)-(d) of the
+    module docstring (``kv_replicas`` > 1 turns on (d): that many ranks of
+    the "model" axis hold each KV head). A path absent from ``specs``
+    replicates."""
     axes = mesh_axes(mesh)
     coords = _coords(axes, rank)
+    kv_last = None
+    if kv_replicas > 1:
+        tp = axes["model"]
+        kv_last = (coords["model"] // kv_replicas, tp // kv_replicas)
 
     def walk(node, keys, parent):
         if isinstance(node, dict):
             return {k: walk(v, keys + (k,), node) for k, v in node.items()}
         if node is None:
             return None
+        name = keys[-1] if keys else None
+        last = kv_last if name in ("wk", "wv", "bias_k", "bias_v") else None
         if isinstance(node, QTensor):
-            return _shard_qtensor(node, _spec_of(specs, keys, node), axes, coords)
+            return _shard_qtensor(node, _spec_of(specs, keys, node), axes, coords, last)
         spec = specs.get(keystr(keys), ())
-        m = re.fullmatch(r"bias_(\w+)", keys[-1]) if keys else None
+        m = re.fullmatch(r"bias_(\w+)", name) if keys else None
         weight = parent.get(f"w{m.group(1)}") if m and parent is not None else None
         if weight is not None:           # (a) a bias follows its weight's columns
             wspec = _full(_spec_of(specs, keys[:-1] + (f"w{m.group(1)}",), weight),
                           len(weight.shape))
             spec = (None,) * (node.ndim - 1) + (wspec[-1],)
-        return _slice(node, spec, axes, coords)
+        return _slice(node, spec, axes, coords, last)
 
     return walk(tree, (), None)

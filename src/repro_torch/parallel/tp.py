@@ -2,9 +2,11 @@
 
 The design is SPMD: every rank of a ``("model",)`` mesh runs the same
 host scheduler on the same requests, with a model of its own local
-widths (``H / tp`` heads, ``Hkv / tp`` KV heads, ``d_ff / tp`` FFN
-columns; ``d_model`` and the vocabulary unchanged) over its shard of the
-quantized weights. Only three places talk to the other ranks:
+widths (``H / tp`` query heads, ``d_ff / tp`` FFN columns; ``d_model``
+and the vocabulary unchanged) over its shard of the quantized weights.
+It serves the text enc-dec family and the decoder-only dense and VLM
+families (gemma3, qwen2.5, internlm2, nemotron-4, llava-next). Only three
+places talk to the other ranks:
 
 * every row-parallel product (a matmul site ending in ``.out``: the
   attention and FFN output projections) is summed over the ranks
@@ -14,7 +16,23 @@ quantized weights. Only three places talk to the other ranks:
 * the head computes the logits of the rank's vocabulary slice and
   gathers them by an all-reduce into a zero-filled buffer (exact: one
   term of each sum is nonzero; gloo's CUDA support covers all-reduce,
-  not all-gather, so one path serves every backend).
+  not all-gather, so one path serves every backend). A prefill gathers
+  only the rows the engine samples from (one a request), never the
+  whole ``(B, S, V)``.
+
+KV heads. Where tp divides ``Hkv`` a rank keeps ``Hkv / tp`` of them.
+Where ``Hkv`` divides tp (gemma3's one KV head at any tp, the reduced
+configs' one KV head) each rank keeps the one KV head its query heads
+read, and ``tp / Hkv`` ranks hold a copy of it: rank r's query heads
+``[r H/tp, (r+1) H/tp)`` lie in one GQA group (``G = H / Hkv`` is a
+multiple of ``H / tp``), the group of KV head ``r // (tp / Hkv)``
+(``parallel.sharding`` layout (d)). Attention then runs unchanged on the
+local model with no collective, and the result is exact. The reference's
+GSPMD layout splits such a dense cache's sequence (a paged pool's head
+dim) instead; the port does not, since its gate is the streams and the
+sequence split would add a cross-rank softmax combine to every layer.
+Any other ``Hkv`` (neither divides the other) raises, naming the later
+slice that brings the sequence split.
 
 After the gather every rank holds logits with the same bits, so the
 sampler, retirement and paging decisions agree with no control channel.
@@ -37,7 +55,7 @@ from ..core.qtensor import QTensor
 from ..unported import later
 from .sharding import param_specs, shard_tree
 
-__all__ = ["TPGroup", "tp_engine_parts", "refuse_under_mesh"]
+__all__ = ["TPGroup", "tp_engine_parts", "refuse_under_mesh", "local_config", "kv_replicas"]
 
 
 class TPGroup:
@@ -88,19 +106,27 @@ class TPGroup:
         return self.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
 
 
-def refuse_under_mesh(cfg, *, act_fmt: str = "bf16", attn_fmt: str = "bf16",
-                      calibrated: bool = False, adapters: bool = False,
-                      draft: bool = False, sla: bool = False, faults: bool = False) -> None:
+_MESH_FAMILIES = ("encdec", "dense", "vlm")
+
+
+def refuse_under_mesh(cfg, *, tp: Optional[int] = None, act_fmt: str = "bf16",
+                      attn_fmt: str = "bf16", calibrated: bool = False,
+                      adapters: bool = False, draft: bool = False, sla: bool = False,
+                      faults: bool = False) -> None:
     """Raise, naming the later slice, for what a mesh does not serve yet:
-    a family other than the text enc-dec, act-quantizing specs and
-    calibration (a per-token absmax over a split K needs an all-reduce
-    max), QLoRA adapters (their ``lora_a`` K splits too), a draft arm,
-    and what reads a clock (SLA admission, fault injection: the ranks'
-    clocks differ)."""
-    if cfg.family != "encdec" or cfg.moe is not None:
+    a family other than the text enc-dec and the dense and VLM LMs (MoE
+    expert parallelism, the SSM, hybrid and audio meshes), a KV-head
+    count that neither divides ``tp`` nor is divided by it (when ``tp``
+    is given), act-quantizing specs and calibration (a per-token absmax
+    over a split K needs an all-reduce max), QLoRA adapters (their
+    ``lora_a`` K splits too), a draft arm, and what reads a clock (SLA
+    admission, fault injection: the ranks' clocks differ)."""
+    if cfg.family not in _MESH_FAMILIES or cfg.moe is not None:
         what = f"{cfg.name} ({cfg.family}{', MoE' if cfg.moe else ''})"
-        raise later(f"a tensor-parallel mesh for {what}: this slice shards the "
-                    "text enc-dec family only", 6)
+        raise later(f"a tensor-parallel mesh for {what}: the port shards the text "
+                    "enc-dec and the dense and VLM LM families", 6)
+    if tp is not None:
+        local_config(cfg, tp)
     for on, what in ((act_fmt != "bf16" or attn_fmt != "bf16",
                       "an act-quantizing spec under a mesh (its per-token absmax "
                       "over a split K needs an all-reduce max)"),
@@ -115,15 +141,28 @@ def refuse_under_mesh(cfg, *, act_fmt: str = "bf16", attn_fmt: str = "bf16",
             raise later(what, 6)
 
 
+def kv_replicas(cfg, tp: int) -> int:
+    """How many ranks hold a copy of each KV head: 1 where tp divides
+    ``Hkv`` (each rank its ``Hkv / tp``), ``tp / Hkv`` where ``Hkv``
+    divides tp (each rank the one head its query heads read)."""
+    hkv = cfg.num_kv_heads
+    return tp // hkv if hkv < tp and tp % hkv == 0 else 1
+
+
 def local_config(cfg, tp: int):
-    """The rank-local config: heads, KV heads and FFN width over ``tp``."""
-    for name in ("num_heads", "num_kv_heads", "d_ff"):
+    """The rank-local config: query heads and FFN width over ``tp``; KV
+    heads over ``tp``, or the one KV head a rank's query heads read
+    where ``Hkv`` divides tp (the module docstring)."""
+    for name in ("num_heads", "d_ff"):
         if getattr(cfg, name) % tp:
             raise later(f"{cfg.name}'s {name} {getattr(cfg, name)} over tp{tp}, which "
-                        "does not divide it (the reference's sequence split for "
-                        "Hkv % tp != 0)", 6)
+                        "does not divide it", 6)
+    hkv = cfg.num_kv_heads
+    if hkv % tp and tp % hkv:
+        raise later(f"{cfg.name}'s num_kv_heads {hkv} over tp{tp} (neither divides the "
+                    "other: the reference's sequence split)", 6)
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=cfg.num_kv_heads // tp, d_ff=cfg.d_ff // tp)
+                               num_kv_heads=max(hkv // tp, 1), d_ff=cfg.d_ff // tp)
 
 
 def _has_adapters(params) -> bool:
@@ -146,7 +185,8 @@ def tp_engine_parts(model, params, ctx, mesh, device, draft=None, sla=None, faul
     group = TPGroup.of(mesh)
     local = local_config(cfg, group.size)
     specs = param_specs(params, {"model": group.size}, fsdp_scope="none")
-    shard = shard_tree(params, specs, group.rank, {"model": group.size})
+    shard = shard_tree(params, specs, group.rank, {"model": group.size},
+                       kv_replicas=kv_replicas(cfg, group.size))
     lmodel = build_model(local, device)
     _check_widths(shard, lmodel, cfg)
     return lmodel, shard, dataclasses.replace(ctx, tp=group)

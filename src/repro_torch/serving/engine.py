@@ -98,11 +98,13 @@ Tensor parallelism (``mesh=tp_mesh(K)``)
 ----------------------------------------
 Every rank of the mesh builds the engine on the same full weights and
 serves the same requests; the engine keeps the rank's shard and a model
-of the rank's local widths (``parallel/tp.py``). The logits every rank
-samples from are the same bits, and no scheduling decision reads a clock
-or polls the device, so every rank retires, pages and admits alike with
-no control channel. What reads a clock (``sla``, ``faults``, a
-request's ``deadline_ms``) raises under a mesh.
+of the rank's local widths (``parallel/tp.py``), and builds its caches
+from that model. The logits every rank samples from are the same bits,
+and no scheduling decision reads a clock or polls the device, so every
+rank retires, pages and admits alike with no control channel. A
+decoder-only LM's prefill gathers only the rows the engine samples from.
+What reads a clock (``sla``, ``faults``, a request's ``deadline_ms``)
+raises under a mesh.
 """
 
 from __future__ import annotations
@@ -1346,6 +1348,17 @@ class ServeEngine:
         self.prefill_shapes.add(tuple(sorted((k, tuple(v.shape)) for k, v in batch.items())))
         return batch
 
+    def _prefill(self, cache, batch, read: torch.Tensor):
+        """One target prefill into ``cache``: (cache, the logits (B, V) of
+        position ``read`` (B,) of each row, -1 the last). A decoder-only
+        LM's rank of a mesh gathers those rows only (``lm_prefill(read=)``:
+        the whole (B, S, V) would cross the ranks); elsewhere they are
+        read from the whole logits."""
+        if self.mesh is not None and not self._enc_dec:
+            return self.model.prefill(self.ctx, self.params, cache, batch, read=read)
+        cache, logits = self.model.prefill(self.ctx, self.params, cache, batch)
+        return cache, logits[torch.arange(read.shape[0], device=logits.device), read]
+
     def _mini_cache(self, n: int, length: int, kv_dtype: str, batch):
         """A dense prefill cache for ``batch``; an enc-dec one holds the
         batch's sources."""
@@ -1372,10 +1385,10 @@ class ServeEngine:
         batch = self._prefill_batch([request], toks.numpy(),
                                     self._upload(np.array([true_len], np.int32)))
         one = self._mini_cache(1, self.max_len, self.kv_dtype, batch)
-        one, logits = self.model.prefill(self.ctx, self.params, one, batch)
+        one, last = self._prefill(one, batch, self._upload(
+            np.array([true_len - 1 if self._bucketed else -1], np.int64)))
         slot = self._upload(np.array([sid], np.int64))
         self._set_sampling(slot, [request], [1])
-        last = logits[:, true_len - 1] if self._bucketed else logits[:, -1]
         first = self._first_tokens(last, [request], slot)
         self._splice(self.cache, one, sid)
         if self.draft is not None:
@@ -1517,11 +1530,10 @@ class ServeEngine:
         lengths = self._upload(np.array(true_lens, np.int32))
         batch = self._prefill_batch(group, tgt, lengths)
         mini = self._mini_cache(n, pad_to, self.kv_dtype, batch)
-        mini, logits = self.model.prefill(self.ctx, self.params, mini, batch)
+        mini, last = self._prefill(mini, batch, lengths.long() - 1)
         slot_ids = self._upload(np.array(free, np.int64))
         self._set_sampling(slot_ids, group, [len(st) if st else 1 for st in stashes])
-        first = self._first_tokens(
-            logits[torch.arange(n, device=self.device), lengths.long() - 1], group, slot_ids)
+        first = self._first_tokens(last, group, slot_ids)
         paged_insert(self.cache, mini, slot_ids, self._upload(rows), lengths)
         if self.draft is not None:
             # the draft only warms its own cache: first tokens are the

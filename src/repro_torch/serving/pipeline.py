@@ -259,10 +259,12 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  engine keeps the rank's shard of the quantized weights and
                  KV storage and sums its row-parallel products over the
                  ranks. The streams are the single-device engine's. The
-                 text enc-dec family at every weight-only spec, dense or
-                 paged; act-quantizing specs, ``calib_batches``, adapters,
-                 a draft arm, ``sla``, ``faults``, a request's
-                 ``deadline_ms`` and every other family raise
+                 text enc-dec and the dense and VLM LM families at every
+                 weight-only spec, dense or paged; act-quantizing specs,
+                 ``calib_batches``, adapters, a draft arm, ``sla``,
+                 ``faults``, a request's ``deadline_ms``, a KV-head count
+                 that neither divides tp nor is divided by it, and the
+                 MoE, SSM, hybrid and audio families raise
                  (NotImplementedError, a later port slice).
     device:      None = "cuda" (raises without a card).
     """
@@ -271,7 +273,9 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     if smoke:
         cfg = reduce_config(cfg)
     if mesh is not None:            # refuse before any build work
-        refuse_under_mesh(cfg, act_fmt=spec.act, attn_fmt=spec.attn,
+        size = getattr(mesh, "size", None)
+        refuse_under_mesh(cfg, tp=size() if callable(size) else None,
+                          act_fmt=spec.act, attn_fmt=spec.attn,
                           calibrated=calib_batches is not None,
                           draft=draft_spec is not None, sla=sla is not None,
                           faults=faults is not None)

@@ -7,13 +7,15 @@ ROADMAP.md, queue 1); nothing runs another route in its place.
 
 # slice 2 (the serving features), slice 3 (the quantization routes:
 # act-quantizing specs, fp8 KV caches, calibration, QLoRA), slice 4
-# (every model family, served and trained) and slice 5 (scale-out:
+# (every model family, served and trained), slice 5 (scale-out:
 # tensor-parallel text enc-dec engines, replica routing, the compressed
-# all-reduce, sharded restore) have landed
+# all-reduce, sharded restore) and the first part of slice 6 (meshes for
+# the dense and VLM LMs, composed dp x tp stacks) have landed
 SLICES = {
-    6: ("scale-out, second part: composed dp x tp stacks, a mesh for every "
-        "family but the text enc-dec, and act-quantizing, adapter, draft and "
-        "clock-driven arms under a mesh"),
+    6: ("scale-out, the rest: MoE expert parallelism, the SSM, hybrid and "
+        "audio meshes, the sequence split for a KV-head count that tp does "
+        "not divide, act-quantizing, calibrated, adapter, draft and "
+        "clock-driven arms under a mesh, and a shard-first deploy"),
 }
 
 

@@ -6,6 +6,16 @@ into the nested-dict-of-numpy form that ``repro_torch.convert`` reads;
 ``exact_fp8_reference`` runs the reference with its f32 -> float8 e4m3
 conversions rounded once (see there). The tests here check the bridge
 itself.
+
+A pytest run of the port's tests imports this module while it collects
+(most port test files import it, and each pytest-xdist worker of a whole
+run collects every test file), so it also sets torch's intra-op threads
+to one for the process: the port's CPU tests run on tiny tensors in
+several worker processes that share the host's cores, and torch's
+default of a thread a core leaves each worker's idle OpenMP threads
+spinning beside the other workers' JAX compiles and port runs (the
+port's rank processes run one thread for the same reason,
+``cluster.launch_ranks``).
 """
 
 import contextlib
@@ -21,6 +31,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import QTensor as JQTensor  # noqa: E402
 from repro_torch.convert import from_numpy_tree, to_torch  # noqa: E402
 from repro_torch.core.qtensor import QTensor  # noqa: E402
+
+torch.set_num_threads(1)
 
 _QT_FIELDS = ("data", "scales", "scales_q", "scales_cscale", "scales_offset",
               "lora_a", "lora_b")

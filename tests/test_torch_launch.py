@@ -10,8 +10,8 @@ differ, since each package draws its own random weights); its
 ``deploy()``; ``--max-pending`` prints ``saturated`` lines and counts the
 rejections; act-quantizing and fp8 specs serve as ``--policy`` and
 ``--draft-spec``; ``--mesh`` keeps the reference's grammar: tp2 serves
-on two ranks and dp2 through the replica router, with the single
-engine's streams, and a composed dp2,tp2 raises (a later slice).
+on two ranks, dp2 through the replica router and dp2,tp2 on four ranks,
+each with the single engine's streams.
 """
 
 import json
@@ -150,22 +150,20 @@ def test_launcher_serves_act_and_fp8_specs(capsys, flags):
 
 @pytest.mark.parametrize("mesh", ["tp2", "dp2", "dp2,tp2"])
 def test_launcher_scale_out_raises(capfd, mesh):
-    """``--mesh tp2`` serves on two gloo CPU ranks (rank 0 prints) and
-    ``--mesh dp2`` through two routed replicas: the same [req N] streams
-    as the single engine; a composed dp2,tp2 raises, naming slice 6."""
+    """``--mesh tp2`` serves on two gloo CPU ranks (rank 0 prints),
+    ``--mesh dp2`` through two routed replicas and ``--mesh dp2,tp2`` on
+    four ranks, two tensor-parallel replicas behind the replicated router:
+    the same [req N] streams as the single engine."""
     argv = [*SMOKE, "--impl", "torch", "--device", "cpu", "--paged"]
-    if mesh == "dp2,tp2":
-        with pytest.raises(NotImplementedError, match="port slice 6"):
-            serve.main([*argv, "--mesh", mesh])
-        return
     serve.main(argv)
     want = streams(capfd.readouterr().out.splitlines())
     serve.main([*argv, "--mesh", mesh])
     lines = capfd.readouterr().out.splitlines()
     assert streams(lines) == want and len(want) == 4
-    head = "tensor parallel: tp2 ('model',) mesh" if mesh == "tp2" else "cluster: 2 replicas"
+    head = {"tp2": "tensor parallel: tp2 ('model',) mesh", "dp2": "cluster: 2 replicas x tp1",
+            "dp2,tp2": "cluster: 2 replicas x tp2 over 4 ranks"}[mesh]
     assert any(line.startswith(head) for line in lines), lines[:3]
-    if mesh == "tp2":
+    if mesh != "dp2":
         assert any("over gloo" in line for line in lines)
     assert sum(line.startswith("served 4 requests") for line in lines) == 1
 

@@ -202,8 +202,13 @@ def test_merged_metrics_are_the_replica_sums(cluster):
 
 
 def test_deploy_replicas_refuses_composed_stacks():
+    """A composed stack (tp > 1) runs on the replicas x tp ranks of
+    ``launch_ranks`` (tests/test_torch_tp_lm.py): outside such a process
+    group it raises before any build work; no replica count is refused
+    but 0."""
     for replicas in (1, 2):
-        with pytest.raises(NotImplementedError, match="port slice 6"):
+        with pytest.raises(RuntimeError, match=f"needs a process group of {2 * replicas} "
+                                               "ranks"):
             deploy_replicas("nllb600m", "int8", replicas=replicas, tp=2, smoke=True,
                             device="cpu")
     with pytest.raises(ValueError, match="replicas must be"):

@@ -57,11 +57,13 @@ def raw_params():
 @pytest.fixture(scope="module")
 def reference(raw_params):
     """JAX engine streams per spec and cache layout, computed once
-    (horizon 16; the JAX invariant makes every horizon identical)."""
+    (horizon 1: the JAX invariant makes every horizon identical, and one
+    decode program compiles where a horizon of 16 compiles one for each
+    power of two it shrinks to as the requests end)."""
     out = {}
     for spec in SPECS:
         for name, kw in ((spec, KW), (f"dense-{spec}", DENSE_KW)):
-            pipe = j_deploy("nllb600m", spec, params=raw_params, horizon=16, **kw,
+            pipe = j_deploy("nllb600m", spec, params=raw_params, horizon=1, **kw,
                             **j_impl_routes("pallas"))
             outs = pipe.generate([{k: jnp.asarray(v) for k, v in p.items()}
                                   for p in _prompts()],
@@ -70,7 +72,7 @@ def reference(raw_params):
             if spec == "int4":
                 outs = _serve_mid_stream(pipe, _sampled(JSamplingParams), jnp.asarray)
                 out[f"sampled-{name}"] = [list(o.token_ids) for o in outs]
-    pipe = j_deploy("nllb600m", "int4", params=raw_params, horizon=16, **KW,
+    pipe = j_deploy("nllb600m", "int4", params=raw_params, horizon=1, **KW,
                     **j_impl_routes("xla"))
     outs = pipe.generate([{k: jnp.asarray(v) for k, v in p.items()}
                           for p in _prompts()], JSamplingParams(max_new_tokens=GEN))
@@ -188,12 +190,13 @@ def test_translate_surface(torch_params):
     dict(calib_batches=[], paged=False), dict(kv_dtype="fp8", paged=False),
     dict(mesh=object(), policy="w8a8"), dict(mesh=object(), draft_spec="nf4", paged=False),
     dict(mesh=object(), sla=SLATarget(p95_ttft_ms=50.0)),
-    dict(mesh=object(), arch="gemma3-1b"), dict(mesh=object(), calib_batches=[])])
+    dict(mesh=object(), arch="olmoe-1b-7b"), dict(mesh=object(), calib_batches=[])])
 def test_unported_routes_raise(kwargs):
     """Routes outside the ported slices raise, naming their slice: under a
     mesh (slice 6) an act-quantizing spec, a draft arm, SLA admission,
-    calibration and every family but the text enc-dec, before any build
-    work (tensor-parallel serving itself: tests/test_torch_tp.py). The
+    calibration and an MoE family, before any build work
+    (tensor-parallel serving itself: tests/test_torch_tp.py and, the
+    dense and VLM LMs, tests/test_torch_tp_lm.py). The
     quantization routes (slice 3) deploy: act-quantizing and fp8-KV specs
     and drafts and ``calib_batches`` build engines whose Ctx carries the
     spec's activation formats and whose caches the KV format

@@ -1,14 +1,20 @@
-"""Rank bodies for the tensor-parallel tests (tests/test_torch_tp.py).
+"""Rank bodies for the tensor-parallel tests (tests/test_torch_tp.py,
+tests/test_torch_tp_lm.py).
 
 They run in processes that ``repro_torch.cluster.launch_ranks`` spawns,
 so they live in a module of their own that imports torch and the port
-only (no JAX): each rank deploys the reduced nllb600m on its shard of the
-same weights and serves the reference TP test's grids.
+only (no JAX): each rank deploys a reduced model on its shard of the
+same weights and serves the reference TP test's grids (nllb600m), the
+LM grids (gemma3-1b, qwen2.5-14b, llava-next-mistral-7b), or its share
+of a composed dp x tp stack.
 """
+
+import dataclasses
 
 import torch
 
-from repro_torch.cluster import tp_mesh
+from repro_torch.cluster import deploy_replicas, tp_mesh
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import from_numpy_tree
 from repro_torch.core import tree_nbytes
 from repro_torch.models import Ctx
@@ -68,3 +74,89 @@ def tp_grid(rank, world, device, params_np, cases, src, grads):
                        for k, v in compressed_psum(tree, mesh).items()}
     return out
 
+
+
+LM_KW = dict(slots=2, max_len=32, ctx=CTX, page_size=4)
+
+
+def lm_config(arch: str, kv_heads=None):
+    """The reduced config of ``arch``; ``kv_heads`` overrides its KV-head
+    count (the reduced configs keep one)."""
+    cfg = reduce_config(get_config(arch))
+    return cfg if kv_heads is None else dataclasses.replace(cfg, num_kv_heads=kv_heads)
+
+
+def lm_prompts(batches):
+    """Numpy batch dicts ({"tokens" (1, n)[, "img_embeds"]}) as tensors."""
+    return [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+
+
+def lm_grids(pipe, prompts):
+    """The greedy grid and the seeded sampled grid of ``prompts``."""
+    return ([(o.token_ids, o.finish_reason) for o in pipe.generate(prompts, GREEDY)],
+            [(o.token_ids, o.finish_reason) for o in pipe.generate(prompts, SAMPLED)])
+
+
+def lm_prefill_logits(pipe, batch):
+    """One prefill's whole logits (1, S, V) through the engine's own
+    (rank-local) model, shard and ctx."""
+    eng = pipe.engine
+    cache = eng.model.init_cache(1, LM_KW["max_len"], eng.kv_dtype)
+    with torch.no_grad():
+        return eng.model.prefill(eng.ctx, eng.params, cache, dict(batch))[1].numpy()
+
+
+def lm_grid(rank, world, device, params_np, cases, batches, stack):
+    """Every LM case (arch, kv_heads, spec, paged, horizon) deployed with
+    ``mesh=tp_mesh(world)`` on this rank's shard of ``params_np[arch]``
+    and its grids served on ``batches[arch]``; the first case's local
+    widths and one prefill's logits through the rank's model. Then, with
+    ``stack`` (spec, replicas, tp, nllb600m's params, sources), the
+    composed ``deploy_replicas(tp=...)`` of the reduced nllb600m: its
+    grids, its placements and its merged and per-replica metrics."""
+    out = {"grids": {}}
+    if cases:
+        mesh = tp_mesh(world)
+        out["mesh"] = repr(mesh)
+    for arch, kv_heads, spec, paged, horizon in cases:
+        params = from_numpy_tree(params_np[arch], "cpu")
+        prompts = lm_prompts(batches[arch])
+        pipe = deploy(lm_config(arch, kv_heads), spec, params=params, mesh=mesh,
+                      device=device, paged=paged, horizon=horizon, **LM_KW)
+        out["grids"][arch, spec, paged, horizon] = lm_grids(pipe, prompts)
+        if "logits" not in out:
+            lc = pipe.engine.model.cfg
+            out["local"] = (lc.num_heads, lc.num_kv_heads, lc.d_ff)
+            out["logits"] = lm_prefill_logits(pipe, prompts[0])
+    if stack is not None:
+        out["stack"] = stack_grids(device, *stack)
+    return out
+
+
+def stack_grids(device, spec, replicas, tp, params_np, src):
+    """This rank's view of ``deploy_replicas(..., replicas, tp)`` over the
+    reduced nllb600m: the greedy and sampled grids, the placements of a
+    routed submit of every source row, and the merged and per-replica
+    counters and TTFT counts."""
+    params = from_numpy_tree(params_np, "cpu")
+    pipe = deploy_replicas("nllb600m", spec, replicas=replicas, tp=tp, params=params,
+                           device=device, **common(True, 16))
+    router = pipe.engine
+    out = {"grids": grids(pipe, src), "group": router.group,
+           "local_heads": router.own.model.cfg.num_heads}
+    m = router.metrics()
+    per = [e.metrics() for e in router.replicas]
+    hists = [e.latency_histograms()["ttft_ms"].count for e in router.replicas]
+    out["metrics"] = {
+        "merged": {k: getattr(m, k) for k in ("synced_tokens", "decode_syncs", "decode_steps")},
+        "per": [{k: getattr(p, k) for k in ("synced_tokens", "decode_syncs", "decode_steps")}
+                for p in per],
+        "ttft_count": router.merged_latency_histograms()["ttft_ms"].count,
+        "ttft_per": hists, "prometheus": router.prometheus()}
+    prompts = [{"src_tokens": torch.as_tensor(src[i:i + 1]),
+                "tgt_in": torch.full((1, 1), 7, dtype=torch.int32)} for i in range(len(src))]
+    gids = [router.submit(p, GREEDY) for p in prompts]
+    out["placements"] = [router._owner[g][0] for g in gids]
+    by_id = {o.request_id: o.token_ids for o in router.run_until_drained()}
+    out["routed"] = [by_id[g] for g in gids]
+    return out
