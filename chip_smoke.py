@@ -98,7 +98,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    versions at every shape its warm-up gave them; each phase checks the
    kernel bundle against the torch bundle, and dense against paged up
    to near ties (a first token may part there at an exact bf16 tie);
-19. the MoE and audio families, int4: olmoe-1b-7b (8 of 16 layers) paged and
+19. (run right after [quant], before the scale-out phases, which hold
+   their ranks to these streams) the MoE and audio families, int4:
+   olmoe-1b-7b (8 of 16 layers) paged and
    dense ([moe], [moe-dense]; 64 experts top-8, the experts' SiLU
    through the FASST kernel on 4-D inputs), whisper-base paged and dense
    on 1500 random frames a request ([audio], [audio-dense]) and
@@ -135,7 +137,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    copied on both ranks), paged ([tp-lm]) then dense ([tp-lm-dense]), on
    [lm-gemma]'s prompts past its 512-token windows, and qwen2.5-14b at
    full width cut to 8 of its 48 layers, paged ([tp-qwen]; the single
-   device's streams served before the spawn), each held as [tp] is; then
+   device's streams served before the spawn), each held as [tp] is;
+   then expert parallelism and the audio mesh, paged: nllb600m-moe
+   whole on [serve]'s prompts ([tp-moe], 8 of 16 experts a rank) and
+   whisper-base whole, its vocabulary replicated ([tp-audio]), against
+   the streams of 19, and olmoe-1b-7b cut to 4 of its 16 layers on
+   [moe]'s prompts ([tp-olmoe], 32 of 64 experts a rank), against a
+   single-device engine of that cut served in the spawn; each MoE engine
+   run twice with the same bits; then
    two routed replicas on the card (deploy_replicas, [dp]): each
    replica's streams a lone engine's bit for bit, [serve]'s up to near
    ties, the merged metrics the sums; then the composed stack on four
@@ -1376,26 +1385,99 @@ def _side_admit(torch, tag, side, prompts, sps, steps):
     """Admit a replay side's prompts (each engine its own, in order, the
     same prefill calls as the served run) and grow paged chains over the
     forced steps; returns the logits each first token is sampled from,
-    (prompts, V) by prompt index."""
-    rows = {}
+    (prompts, V) by prompt index, and each prompt's router calls in its
+    prefill (an MoE model's encoder and decoder layers, in order: its
+    row's router probabilities (T, E) and experts (T, k), pad tokens
+    included; a prefill call's groups are its rows)."""
+    from repro_torch.models import moe as moe_mod
+    real_route = moe_mod.route
+    rows, routed = {}, {}
     for eng, idx in side:
-        got = {}
+        got, calls, by_id = {}, [], {}
 
-        def record(logits, requests, slots, real=eng._first_tokens, got=got):
+        def rec_route(router, xt, top_k, calls=calls):
+            out = real_route(router, xt, top_k)
+            calls.append(out)
+            return out
+
+        def record(logits, requests, slots, real=eng._first_tokens, got=got, calls=calls,
+                   by_id=by_id):
             got.update((r.id, lg.float()) for r, lg in zip(requests, logits))
+            by_id.update((r.id, [(p[row], e[row]) for p, _, e in calls])
+                         for row, r in enumerate(requests))
+            calls.clear()
             return real(logits, requests, slots)
 
         eng._first_tokens = record
-        for i in idx:
-            eng.submit(prompts[i], sps[i])
-        eng._admit_pending()
+        moe_mod.route = rec_route
+        try:
+            for i in idx:
+                eng.submit(prompts[i], sps[i])
+            eng._admit_pending()
+        finally:
+            moe_mod.route = real_route
         del eng._first_tokens
         if [s.request.id for s in eng.slots[:len(idx)]] != list(range(len(idx))):
             raise AssertionError(f"[{tag}] admission placed requests out of order")
         if eng.paged:           # on-demand chains: cover the forced steps
             eng._grow_chains(steps)
         rows.update((i, got[k]) for k, i in enumerate(idx))
-    return torch.stack([rows[i] for i in range(len(prompts))])
+        routed.update((i, by_id[k]) for k, i in enumerate(idx))
+    return torch.stack([rows[i] for i in range(len(prompts))]), [routed[i] for i in
+                                                                 range(len(prompts))]
+
+
+# where two sides first route a token to different experts, the largest
+# difference of its router probabilities: before that router call both
+# sides took the same routes, so only the order of their f32 sums moves
+# the probabilities (on an H100, this script's tp2 and dense-vs-paged MoE
+# phases: at most 0.0023); a wrong expert slice or gather order moves
+# them far more
+ROUTER_TOL = 0.005
+
+
+def _router_tie(tag, where, gap, diff):
+    """Hold a first rerouting to ROUTER_TOL; ``gap`` (the k-th minus the
+    next router probability) is logged, never held: where two top-k sets
+    differ it is at most twice ``diff`` whatever the cause."""
+    if not diff <= ROUTER_TOL:
+        raise AssertionError(
+            f"[{tag}] {where}: the sides route to different experts with router "
+            f"probabilities {diff:.4g} apart, past the {ROUTER_TOL} that rounding order "
+            "gives: not a near tie")
+    log(f"[{tag}] {where}: the sides route to different experts at a router near tie, "
+        f"probabilities {diff:.4g} <= {ROUTER_TOL} apart, gap {gap:.4g}")
+
+
+def _prefill_reroutes(tag, routes_a, routes_b):
+    """Prompt index -> (router call, token) where two sides' prefills first
+    send a token of the prompt's row to different experts (over the tokens
+    both rows have). Up to that call the rows took the same routes, so
+    there the rerouted tokens' router probabilities must agree to
+    ROUTER_TOL (_router_tie), else this raises; the prompt's later calls
+    are not compared (a rerouted token moves what its row attends to)."""
+    out = {}
+    for i, (ra, rb) in enumerate(zip(routes_a, routes_b)):
+        if len(ra) != len(rb):
+            raise AssertionError(f"[{tag}] request {i}: {len(ra)} and {len(rb)} router "
+                                 "calls in the two prefills")
+        for c, ((pa, ea), (pb, eb)) in enumerate(zip(ra, rb)):
+            T = min(len(ea), len(eb))   # a dense prefill's bucket may be another length
+            pa, ea, pb, eb = pa[:T], ea[:T], pb[:T], eb[:T]
+            differ = (ea.sort(-1).values != eb.sort(-1).values).any(-1)
+            if not bool(differ.any()):
+                continue
+            k = ea.shape[-1]
+            top = pa.sort(-1, descending=True).values
+            gap = top[:, k - 1] - top[:, k]
+            # the rerouted token whose probabilities part most
+            diff = (pa - pb).abs().amax(-1).masked_fill(~differ, float("-inf"))
+            t = int(diff.argmax())
+            out[i] = (c, t)
+            _router_tie(tag, f"request {i}, prefill router call {c}, token {t}",
+                        float(gap[t]), float(diff[t]))
+            break
+    return out
 
 
 def _side_step(torch, side, forced, j, n):
@@ -1457,10 +1539,12 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
     against a lone engine.
 
     An MoE model's decode steps are also compared route by route: where
-    the engines send a slot's token to different experts at some layer,
-    that routing must itself be a near tie (the gap between the k-th and
-    the next router probability at most twice the engines' largest
-    router probability difference for the slot). From then on the slot's
+    the engines first send a slot's token to different experts at some
+    layer, that routing must itself be a near tie (the slot's router
+    probabilities at most ROUTER_TOL apart, _router_tie), and so must the
+    first routing in which the two prefills of a prompt differ, token by
+    token (a tensor-parallel rank's prefill sums its products in another
+    order, so its router can tip). From then on the slot's
     logits may differ by more than the bound; a later parting of that
     slot is put down to the router tie, and the other slots keep the
     bound. Returns the parting steps."""
@@ -1474,14 +1558,18 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
         sides = [[(_fresh_engine(pipe, paged, **(engine_kw or {})), list(range(n)))]
                  for paged in (True, False)]
     with torch.no_grad():
-        prefill = [_side_admit(torch, tag, side, prompts, sps, steps) for side in sides]
+        admitted = [_side_admit(torch, tag, side, prompts, sps, steps) for side in sides]
+        prefill = [lg for lg, _ in admitted]
         dev = prefill[0].device
         forced = torch.tensor([t[:steps] for t in paged_streams], dtype=torch.int32,
                               device=dev)
         knobs = [torch.tensor([getattr(sp, k) for sp in sps], dtype=dt, device=dev)
                  for k, dt in (("temperature", torch.float32), ("top_k", torch.int64),
                                ("top_p", torch.float32))]
-        rerouted = {}                   # slot -> (layer, step) of its router tie
+        # slot -> (layer, step) of its router tie; the prefill's (router
+        # call, step 0)
+        rerouted = {i: (c, 0) for i, (c, _) in
+                    _prefill_reroutes(tag, *(r for _, r in admitted)).items()}
         for j in range(steps + 1):
             lgs, routes = (prefill, []) if j == 0 else ([], [])
             for side in sides if j else ():
@@ -1494,17 +1582,10 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
                         continue
                     k = ep.shape[-1]
                     top = pp[i, 0].sort(descending=True).values
-                    gap = float(top[k - 1] - top[k])
-                    diff = float((pp[i, 0] - pd[i, 0]).abs().max())
-                    if not gap <= 2 * diff:
-                        raise AssertionError(
-                            f"[{tag}] request {i}, step {j}, layer {layer}: the engines "
-                            f"route to different experts with a router gap {gap:.4g} > "
-                            f"{2 * diff:.4g} (2 x their router difference): not a near tie")
                     rerouted[i] = (layer, j)
-                    log(f"[{tag}] request {i}, step {j}, layer {layer}: the engines route "
-                        f"to different experts at a router near tie, gap {gap:.4g} <= "
-                        f"{2 * diff:.4g}")
+                    _router_tie(tag, f"request {i}, step {j}, layer {layer}",
+                                float(top[k - 1] - top[k]),
+                                float((pp[i, 0] - pd[i, 0]).abs().max()))
             lp, ld = lgs
             kept = [i for i in range(n) if i not in rerouted]
             err = float((lp[kept] - ld[kept]).abs().max()) if kept else 0.0
@@ -3372,7 +3453,7 @@ def dense_and_paged(torch, card, tag, pipe, pipe_d, prompts, expect, prefill_onl
     weights): each run held as lm_serve holds it, the paged one repeated
     bit for bit, the kernel bundle against the torch bundle on live
     slots, and dense against paged up to near ties. Returns the summed
-    launches of the two measured runs."""
+    launches of the two measured runs and the paged run's streams."""
     from repro_torch.serving import SamplingParams
     outs, launches = lm_serve(torch, card, tag, pipe, prompts, expect, prefill_only)
     repeat_run(tag, pipe, prompts, outs)
@@ -3386,17 +3467,18 @@ def dense_and_paged(torch, card, tag, pipe, pipe_d, prompts, expect, prefill_onl
                              dense, first_token_ties=True)
     log(f"[{tag}-dense-vs-paged] {sum(a == b for a, b in zip(paged, dense))}/"
         f"{len(prompts)} streams token-identical, {len(part)} part, each at a near tie")
-    return _add(dict(launches), launches_d)
+    return _add(dict(launches), launches_d), paged
 
 
-def moe_phase(torch, card, timed):
+def moe_phase(torch, card, timed, single):
     """[moe] / [moe-dense]: olmoe-1b-7b at int4, full width, 8 of its 16
     layers (64 experts x SiLU-GLU 1024, top-8, untied 50304 head), paged
     and dense on the same weights; 8 requests of 32-64 prompt tokens x 32
     new, greedy. A decode step launches qmm for the attention projections
     only (the experts are dequantize-then-einsum, as in the reference),
     the FASST kernel once a layer on the experts' 4-D (G, E, C, ff) gate
-    products, and (paged) the paged-attention kernel once a layer.
+    products, and (paged) the paged-attention kernel once a layer. Keeps
+    the prompts in ``single["moe-prompts"]`` ([tp-olmoe] serves them).
     Returns the launches of the measured runs."""
     from repro_torch.configs import get_config
     cut = f" (of {get_config('olmoe-1b-7b').num_layers}: the script's time limit)"
@@ -3406,7 +3488,8 @@ def moe_phase(torch, card, timed):
     expect = {"qmm": 4 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}
     pipe_d = _lm_deploy(torch, "moe-dense", "olmoe-1b-7b", False, MAX_LEN, params=pipe.params,
                         cut=cut)
-    launches = dense_and_paged(torch, card, "moe", pipe, pipe_d, prompts, expect)
+    launches, _ = dense_and_paged(torch, card, "moe", pipe, pipe_d, prompts, expect)
+    single["moe-prompts"] = prompts
     lens = torch.tensor([p["tokens"].shape[1] + GEN for p in prompts], device=pipe.engine.device)
     del pipe_d
     time_paged_served(torch, "moe", card, pipe, lens, timed)
@@ -3415,19 +3498,21 @@ def moe_phase(torch, card, timed):
     return launches
 
 
-def moe_nllb_phase(torch, card, prompts):
+def moe_nllb_phase(torch, card, prompts, single):
     """[moe-nllb]: nllb600m-moe at int4, full width and depth (6 + 6
     layers, 16 experts x ReLU 8192, top-2; the paper's Fig. 3b), paged, on
     [serve]'s prompts. The encoder and the prefill dispatch with capacity
     per source row, the decode steps dropless. A decode step launches qmm
     for the self- and cross-attention projections (6 a layer), the FASST
     kernel once a layer on the experts' ReLU, and the paged-attention
-    kernel once a layer; a second run repeats every stream. Returns the
-    launches of the measured run."""
+    kernel once a layer; a second run repeats every stream. Keeps the
+    streams in ``single["moe-nllb"]`` ([tp-moe] holds its ranks to them).
+    Returns the launches of the measured run."""
     pipe = _lm_deploy(torch, "moe-nllb", "nllb600m-moe", True, MAX_LEN)
     L = pipe.cfg.num_layers
     expect = {"qmm": 6 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}
     outs, launches = lm_serve(torch, card, "moe-nllb", pipe, prompts, expect)
+    single["moe-nllb"] = [o.token_ids for o in outs]
     repeat_run("moe-nllb", pipe, prompts, outs)
     routes_agree(torch, pipe, prompts, "moe-nllb-routes")
     del pipe
@@ -3446,22 +3531,24 @@ def _frame_prompts(torch, cfg, dev, n):
             for _ in range(n)]
 
 
-def audio_phase(torch, card, timed):
+def audio_phase(torch, card, timed, single):
     """[audio] / [audio-dense]: whisper-base at int4, full width and depth
     (6 + 6 layers, d 512, GELU FFNs, tied 51865 head), paged and dense on
     the same weights; 8 requests of 1500 random frames x 32 new tokens,
     greedy. Like [serve]: a decode step launches qmm 8 a layer, one of
     them with the GELU in its epilogue, no FASST kernel (the encoder's
     prefill rows launch it), and (paged) the paged-attention kernel once a
-    layer. Returns the launches of the measured runs."""
+    layer. Keeps the paged streams in ``single["audio"]`` ([tp-audio]
+    holds its ranks to them). Returns the launches of the measured
+    runs."""
     pipe = _lm_deploy(torch, "audio", "whisper-base", True, MAX_LEN)
     L = pipe.cfg.num_layers
     prompts = _frame_prompts(torch, pipe.cfg, pipe.engine.device, SLOTS)
     expect = {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L, "fasst_act": 0}
     pipe_d = _lm_deploy(torch, "audio-dense", "whisper-base", False, MAX_LEN,
                         params=pipe.params)
-    launches = dense_and_paged(torch, card, "audio", pipe, pipe_d, prompts, expect,
-                               prefill_only=("fasst_act",))
+    launches, single["audio"] = dense_and_paged(torch, card, "audio", pipe, pipe_d, prompts,
+                                                expect, prefill_only=("fasst_act",))
     if not launches["fasst_act"]:
         raise AssertionError("[audio] fasst_act: no launch on the encoder's prefill rows")
     lens = torch.full((SLOTS,), 1 + GEN, device=pipe.engine.device)
@@ -3575,6 +3662,10 @@ LM_PHASES = (("lm", lm_phase), ("lm-gemma", lm_gemma_phase), ("vlm", vlm_phase))
 
 TP = 2
 TP_QWEN_LAYERS = 8      # [tp-qwen]: qwen2.5-14b cut to 8 of its 48 layers (15 GB f32 a rank)
+# [tp-olmoe]: olmoe-1b-7b cut to 4 of its 16 layers for the script's time
+# limit ([moe] serves 8: with [tp-olmoe] at 8 too the script ran 1048.0 s
+# of its 1200 on an "NVIDIA H100 80GB HBM3, 700.00 W" host)
+TP_OLMOE_LAYERS = 4
 COMPRESS_SHAPES = {"w_in": (1024, 8192), "wo": (1024, 1024), "bias": (1000,)}
 
 
@@ -3656,20 +3747,52 @@ def _group_bcast(grp, obj):
 def counted_decode(eng):
     """Count the wrapper launches made inside ``eng``'s decode loop (the
     run's decode steps alone: its prefills launch at other shapes and
-    counts). Returns the counts, filled as the engine runs; ``del
-    eng._decode_loop`` ends the count."""
+    counts) and, on a tensor-parallel rank, its collectives: every f32
+    sum of its group (``collectives`` and the buffers' bytes) and, among
+    them, the experts' gathers along E (``expert_gathers`` and bytes).
+    Returns the counts, filled as the engine runs; end_count(eng) ends
+    the count."""
     from repro_torch.kernels import ops
     in_decode, real_loop = dict.fromkeys(ops.LAUNCHES, 0), eng._decode_loop
+    sums = dict.fromkeys(("collectives", "collective_bytes", "expert_gathers",
+                          "expert_gather_bytes"), 0)
+    grp = eng.ctx.tp
+    if grp is not None:
+        real_sum, real_gather = grp._sum, grp.gather
+
+        def counted_sum(y):
+            sums["collectives"] += 1
+            sums["collective_bytes"] += y.numel() * y.element_size()
+            return real_sum(y)
+
+        def counted_gather(x, dim):
+            if dim == 1:                # an MoE layer's experts, along E
+                sums["expert_gathers"] += 1
+                sums["expert_gather_bytes"] += x.numel() * grp.size * 4
+            return real_gather(x, dim)
+
+        grp._sum, grp.gather = counted_sum, counted_gather
+        in_decode.update(sums)
 
     def counted_loop(*a, **kw):
-        before = dict(ops.LAUNCHES)
+        before, sums0 = dict(ops.LAUNCHES), dict(sums)
         got = real_loop(*a, **kw)
         for k, v in ops.LAUNCHES.items():
             in_decode[k] += v - before[k]
+        if grp is not None:
+            for k, v in sums.items():
+                in_decode[k] += v - sums0[k]
         return got
 
     eng._decode_loop = counted_loop
     return in_decode
+
+
+def end_count(eng):
+    """Undo counted_decode's wrappers."""
+    del eng._decode_loop
+    if eng.ctx.tp is not None:
+        del eng.ctx.tp._sum, eng.ctx.tp.gather
 
 
 def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=None):
@@ -3715,6 +3838,15 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
     return part, smem
 
 
+def _experts_held(tree):
+    """The experts an MoE tree's stacks hold (their E dim), or None."""
+    if not isinstance(tree, dict):
+        return None
+    if "experts" in tree:
+        return next(iter(tree["experts"].values())).shape[-3]
+    return next((e for e in map(_experts_held, tree.values()) if e is not None), None)
+
+
 def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engine_kw=None):
     """One tensor-parallel engine's served run, called alike on every rank
     of its mesh; rank 0 prints. A warm-up on the same prompts whose
@@ -3722,8 +3854,12 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     greedy run with the launch counters set to 0 just before and read
     just after; every rank's streams and launches equal; a decode step
     launching exactly ``per_step`` and the prefills the FASST kernel;
-    the streams against one device's up to near ties (tp_vs_single).
-    Returns the launches, streams and numbers."""
+    the streams against one device's up to near ties (tp_vs_single). An
+    MoE rank must hold fewer weight bytes than the whole quantized tree.
+    Rank 0 prints one line per rank: tokens/s, decode ms a step, the
+    collectives a step (and the experts' gathers among them), its
+    weights against the whole tree's and its resident memory against
+    the deploy's peak. Returns the launches, streams and numbers."""
     import torch.distributed as dist
     from repro_torch.core import tree_nbytes
     from repro_torch.kernels import ops
@@ -3733,10 +3869,12 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     grp, lc = eng.ctx.tp, eng.model.cfg
     lead = grp.rank == 0
     say = log if lead else (lambda *a: None)
+    held = _experts_held(pipe.params)
+    experts = "" if held is None else f", {held} of {lc.moe.num_experts} experts"
     say(f"[{tag}] deployed {pipe.cfg.name} int4, {pipe.cfg.num_layers} layers, on "
         f"tp{grp.size} ({'paged' if eng.paged else 'dense'} int8 KV): each rank "
-        f"{lc.num_heads}/{lc.num_kv_heads} heads of {lc.head_dim}, d_ff {lc.d_ff}, vocab "
-        f"slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
+        f"{lc.num_heads}/{lc.num_kv_heads} heads of {lc.head_dim}, d_ff {lc.d_ff}{experts}, "
+        f"vocab slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
         f"{tree_nbytes(pipe.params) / 1e9:.3f} GB of weights (of "
         f"{pipe.quantized_bytes / 1e9:.3f} GB); {_mem_line(mem)}")
     n = len(prompts)
@@ -3756,7 +3894,7 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    del eng._decode_loop
+    end_count(eng)
     streams = [o.token_ids for o in outs]
     if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
         raise AssertionError(f"[{tag}] not every request retired on length")
@@ -3776,6 +3914,20 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
         raise AssertionError(f"[{tag}] the prefills launched no FASST kernel: {launches}")
     part, smem = tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw)
     tokens = sum(len(t) for t in streams)
+    weights = tree_nbytes(pipe.params)
+    if held is not None and not weights < pipe.quantized_bytes:
+        raise AssertionError(f"[{tag}] rank {grp.rank} holds {weights} weight bytes, not "
+                             f"under the whole tree's {pipe.quantized_bytes}")
+    mine = {"rank": grp.rank, "tokens_per_s": tokens / wall,
+            "decode_ms_per_step": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
+            **{f"{k}_per_step": in_decode[k] / steps_run
+               for k in ("collectives", "collective_bytes", "expert_gathers",
+                         "expert_gather_bytes")},
+            "weights_gb": weights / 1e9, "whole_weights_gb": pipe.quantized_bytes / 1e9,
+            "resident_gb": mem["resident"] / 1e9, "deploy_peak_gb": mem["build_peak"] / 1e9}
+    per_rank = _group_gather(grp, mine)
+    for m in per_rank:
+        say(f"[{tag}] rank {m['rank']} of {grp.size}: {json.dumps(m)}")
     stats = {"arch": pipe.cfg.name, "layers": pipe.cfg.num_layers, "requests": n,
              "tokens": tokens, "wall_s": wall,
              "tokens_per_s": tokens / wall, "decode_steps": eng.decode_steps,
@@ -3783,7 +3935,7 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
              "prefill_ms_per_call": 1e3 * eng.prefill_s / max(eng.prefill_calls, 1),
              "launches_per_step": per_step,
              "same_as_single_device": n - len(part), "near_tie_partings": len(part),
-             "launches_per_rank": [c for _, c in every],
+             "launches_per_rank": [c for _, c in every], "per_rank": per_rank,
              "rank_memory_gb": {k: v / 1e9 for k, v in mem.items()},
              **({"single_device_memory_gb": {k: v / 1e9 for k, v in smem.items()}}
                 if smem else {}),
@@ -3794,17 +3946,22 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
 
 
 def tp_rank(rank, world, device, prompts, lm):
-    """[tp], [tp-dense], [compress], [tp-lm], [tp-lm-dense] and [tp-qwen]
-    on one of ``world`` ranks that share the one card over gloo
-    (launch_ranks), each engine a deploy(mesh=tp_mesh(world)) served by
-    tp_serve: full-width nllb600m int4, paged (page 16) then dense,
-    horizon 16, [serve]'s prompts; gemma3-1b whole (one KV head, a copy
-    on each rank), paged then dense, on [lm-gemma]'s prompts past its
-    512-token windows; qwen2.5-14b at full width cut to ``lm["qwen_layers"]``
-    of its 48 layers, paged, on [lm]'s prompts, against the single
-    device's streams that the parent served before the spawn (the ranks
-    draw and quantize the whole cut one after the other). Returns each
-    phase's launches and numbers."""
+    """[tp], [tp-dense], [compress], [tp-lm], [tp-lm-dense], [tp-qwen],
+    [tp-moe], [tp-olmoe] and [tp-audio] on one of ``world`` ranks that
+    share the one card over gloo (launch_ranks), each engine a
+    deploy(mesh=tp_mesh(world)) served by tp_serve: full-width nllb600m
+    int4, paged (page 16) then dense, horizon 16, [serve]'s prompts;
+    gemma3-1b whole (one KV head, a copy on each rank), paged then dense,
+    on [lm-gemma]'s prompts past its 512-token windows; qwen2.5-14b at
+    full width cut to ``lm["qwen_layers"]`` of its 48 layers, paged, on
+    [lm]'s prompts, against the single device's streams that the parent
+    served before the spawn (the ranks draw and quantize the whole cut
+    one after the other); then, paged, nllb600m-moe whole on [serve]'s
+    prompts and whisper-base whole on [audio]'s frames, against the
+    streams [moe-nllb] and [audio] served before the spawn, and
+    olmoe-1b-7b cut to TP_OLMOE_LAYERS on [moe]'s prompts, against one
+    device's engine of that cut (tp_family_phases). Returns each phase's
+    launches and numbers."""
     import torch
     import torch.distributed as dist
     from repro_torch.cluster import tp_mesh
@@ -3882,6 +4039,52 @@ def tp_rank(rank, world, device, prompts, lm):
                               ("qmm", "fasst_act", "paged_attn"))
     del pipe
     torch.cuda.empty_cache()
+
+    out.update(tp_family_phases(torch, rank, world, device, mesh, ctx, prompts, lm))
+    return out
+
+
+def tp_family_phases(torch, rank, world, device, mesh, ctx, prompts, lm):
+    """[tp-moe] / [tp-olmoe] / [tp-audio] on this rank: expert parallelism
+    (each rank E / tp experts, the experts' FASST activation at the
+    rank-local (G, E / tp, C, ff), one gather along E a layer) and the
+    audio mesh (whisper's odd vocabulary replicated), paged, each held by
+    tp_serve against the single device's streams of [moe-nllb] and
+    [audio] (``lm["families"]``) and, for olmoe-1b-7b cut to
+    TP_OLMOE_LAYERS, against a single-device engine of the cut that
+    tp_vs_single serves on rank 0; a second run of each MoE engine must
+    repeat its bits. Returns each phase's launches and numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import SamplingParams, deploy
+    say = log if rank == 0 else (lambda *a: None)
+    out = {}
+    fam = lm["families"]
+    olmoe = dataclasses.replace(get_config("olmoe-1b-7b"), num_layers=TP_OLMOE_LAYERS)
+    whisper = get_config("whisper-base")
+    for tag, arch, prompts_of, per_layer, streams in (
+            ("tp-moe", get_config("nllb600m-moe"), prompts,
+             {"qmm": 6, "qmm_naf": 0, "paged_attn": 1, "fasst_act": 1}, fam["moe-nllb"]),
+            ("tp-olmoe", olmoe, fam["moe-prompts"],
+             {"qmm": 4, "qmm_naf": 0, "paged_attn": 1, "fasst_act": 1}, None),
+            ("tp-audio", whisper, _frame_prompts(torch, whisper, device, SLOTS),
+             {"qmm": 8, "qmm_naf": 1, "paged_attn": 1, "fasst_act": 0}, fam["audio"])):
+        kw = dict(slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON, init_seed=SEED,
+                  device=device, ctx=ctx, paged=True, page_size=PAGE)
+        mem = engine_memory(torch, device, lambda: deploy(arch, "int4", mesh=mesh, **kw))
+        torch.cuda.empty_cache()
+        pipe = mem.pop("built")
+        L = arch.num_layers
+        out[tag] = tp_serve(torch, tag, lm["card"], pipe, mem, prompts_of,
+                            {k: v * L for k, v in per_layer.items()},
+                            {"streams": streams, "build": lambda: deploy(arch, "int4", **kw)},
+                            ("qmm", "fasst_act", "paged_attn"))
+        if arch.moe is not None:
+            again = pipe.generate(prompts_of, SamplingParams(max_new_tokens=GEN))
+            if [o.token_ids for o in again] != out[tag]["streams"]:
+                raise AssertionError(f"[{tag}] a second run of the engine changed a stream")
+            say(f"[{tag}] a second run of the engine repeats all {len(again)} streams")
+        del pipe
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3916,15 +4119,18 @@ def tp_lm_inputs(torch, card):
 
 def time_tp_kernels(torch, card, dev):
     """qmm and paged attention over one tp2 rank's NLLB decode step, timed
-    on the card alone (no other rank running): qmm at the shard shapes
+    on the card alone (no other rank running), then the same for
+    qwen2.5-14b and for nllb600m-moe (with its experts' FASST
+    activation): qmm at the shard shapes
     (6 decoder layers x q, k, v, cross q 1024x512; o, cross o 512x1024;
     FFN in 1024x4096, out 4096x1024; int4, M 8: 48 launches, each on its
     own weight), paged attention at the rank's 8 of 16 heads (6 launches,
     d 64, int8 pages of 16, lengths as row 2's); then the same over one
     tp2 rank's qwen2.5-14b decode step at [tp-qwen]'s cut (TP_QWEN_LAYERS
     layers x 7 int4 launches at the shard shapes; paged attention at 20 of
-    40 heads, 4 of 8 KV heads, d 128). Returns the ``tp_`` and
-    ``tp_qwen_`` keys of the qmm and paged_attn entries."""
+    40 heads, 4 of 8 KV heads, d 128); the nllb600m-moe step as its
+    comment below says. Returns the ``tp_``, ``tp_qwen_`` and ``tp_moe_``
+    keys of the qmm, paged_attn and fasst_act entries."""
     from repro_torch.core.qtensor import QTensor
     g = torch.Generator(device=dev).manual_seed(SEED + 33)
     layer = [(1024, 512)] * 4 + [(512, 1024)] * 2 + [(1024, 4096), (4096, 1024)]
@@ -3964,18 +4170,57 @@ def time_tp_kernels(torch, card, dev):
                           "work": f"one tp{TP} rank's {LM_ARCH} decode step: {work}"}
     del fns
     torch.cuda.empty_cache()
-    keyed = {name: {f"tp_{k}": v for k, v in e.items()} for name, e in out.items()}
-    for name, e in qwen.items():
-        keyed[name].update({f"tp_qwen_{k}": v for k, v in e.items()})
-    for name, e in keyed.items():
-        log_time({"name": name, **e}, card, "tp_")
-        log_time({"name": name, **e}, card, "tp_qwen_")
+    # one tp2 rank's nllb600m-moe decode step: qmm at the attention's shard
+    # shapes (q, k, v, cross q 1024x512; o, cross o 512x1024; the experts
+    # are dequantize-then-einsum), paged attention at 8 of 16 heads, and
+    # the FASST activation (relu) on the rank's 8 of 16 experts' rows of
+    # the dropless decode buffer, (G, E / tp, C, ff) = (8, 8, 1, 8192) bf16
+    layer = [(1024, 512)] * 4 + [(512, 1024)] * 2
+    ws = [QTensor.quantize(torch.randn(kn, generator=g, device=dev) * 0.02, "int4", 64)
+          for _ in range(6) for kn in layer]
+    fns, (t, by) = qmm_window(torch, g, dev, ws, SLOTS)
+    moe = {"qmm": {**times(*fns, plain_reps=2), "bound_ms": t, "bound_by": by,
+                   "work": f"one tp{TP} rank's nllb600m-moe decode step: {len(ws)} int4 "
+                           f"launches at M={SLOTS} (q, k, v, cross q 1024x512; o, cross o "
+                           "512x1024)"}}
+    del ws, fns
+    lens = torch.randint(1, 257, (SLOTS,), generator=g, device=dev)
+    fns, (t, by), work = paged_window(torch, g, dev, 16 // TP, 16 // TP, 64, 16, 6, lens)
+    moe["paged_attn"] = {**times(*fns), "bound_ms": t, "bound_by": by,
+                         "work": f"one tp{TP} rank's nllb600m-moe decode step: {work}"}
+    shape = (SLOTS, 16 // TP, 1, 8192)
+    fns, (t, by) = fasst_window(torch, g, dev, shape, 6)
+    moe["fasst_act"] = {**times(*fns, plain_reps=20), "bound_ms": t, "bound_by": by,
+                        "work": f"one tp{TP} rank's nllb600m-moe decode step: 6 relu launches "
+                                f"on its experts' {shape} bf16 (G, E/tp, C, ff)"}
+    del fns
+    torch.cuda.empty_cache()
+    keyed = {}
+    for pre, group in (("tp_", out), ("tp_qwen_", qwen), ("tp_moe_", moe)):
+        for name, e in group.items():
+            keyed.setdefault(name, {}).update({f"{pre}{k}": v for k, v in e.items()})
+            log_time({"name": name, **{f"{pre}{k}": v for k, v in e.items()}}, card, pre)
     return keyed
+
+
+def fasst_window(torch, g, dev, shape, n, mode="relu"):
+    """Kernel, plain and library calls of ``n`` FASST activations on their
+    own bf16 inputs of ``shape``, one launch each, and the bound of that
+    work (each value read and written once, one operation a value)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fasst import fasst_act_plain
+    xs = [(3 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+          for _ in range(n)]
+    numel = n * int(np.prod(shape))
+    return ((lambda: [ops.fasst(x, mode) for x in xs],
+             lambda: [fasst_act_plain(x, mode) for x in xs],
+             lambda: [torch.relu(x) for x in xs]),
+            bound_ms(numel * 2 * 2, numel, F32_FLOPS_PER_MS))
 
 
 def tp_phase(card, prompts, lm):
     """[tp] / [tp-dense] / [compress] / [tp-lm] / [tp-lm-dense] / [tp-qwen]
-    on TP ranks sharing the card."""
+    / [tp-moe] / [tp-olmoe] / [tp-audio] on TP ranks sharing the card."""
     from repro_torch.cluster import launch_ranks, rank_backend
     backend = rank_backend("cuda", TP)
     if backend != "gloo":
@@ -3983,8 +4228,8 @@ def tp_phase(card, prompts, lm):
     t0 = time.perf_counter()
     results = launch_ranks(tp_rank, TP, device="cuda", args=(prompts, lm))
     log(f"[tp] {TP} ranks over {backend} on {card} took {time.perf_counter() - t0:.1f} s "
-        "(process start, deploys, nllb600m's two layouts, gemma3-1b's two and qwen2.5-14b's "
-        "cut)")
+        "(process start, deploys, nllb600m's two layouts, gemma3-1b's two, qwen2.5-14b's "
+        "cut, nllb600m-moe, olmoe-1b-7b's cut and whisper-base)")
     return results[0]
 
 
@@ -4125,7 +4370,7 @@ def dp_tp_rank(rank, world, device, prompts, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    del eng._decode_loop
+    end_count(eng)
     outs = [by_id[g] for g in gids]
     if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
         raise AssertionError("[dp-tp] not every request retired on length")
@@ -4287,13 +4532,26 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_launches[name] = phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+    # the MoE and audio families on one device, before the tp spawn, whose
+    # [tp-moe] and [tp-audio] hold their ranks to the streams kept in
+    # ``single`` and [tp-olmoe] serves [moe]'s prompts; paged attention
+    # timed at their served shapes goes into ``timed``
+    timed, single = {}, {}
+    for name, phase in (("moe", lambda: moe_phase(torch, card, timed, single)),
+                        ("audio", lambda: audio_phase(torch, card, timed, single)),
+                        ("moe-nllb", lambda: moe_nllb_phase(torch, card, prompts, single))):
+        t0 = time.perf_counter()
+        phase_launches[name] = phase()
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
     # scale-out: TP ranks sharing the card (their own processes), then two
     # routed replicas in this one, both on [serve]'s prompts and weights
     t0 = time.perf_counter()
     tp_kernels = time_tp_kernels(torch, card, dev)
     for e in entries:
         e.update(tp_kernels.get(e["name"], {}))
-    tp_out = tp_phase(card, prompts, tp_lm_inputs(torch, card))
+    tp_out = tp_phase(card, prompts, dict(tp_lm_inputs(torch, card), families=single))
+    for tag in ("tp-moe", "tp-olmoe", "tp-audio"):
+        phase_launches[tag] = tp_out[tag]["launches"]
     phase_launches["tp"] = tp_out["tp"]["launches"]
     phase_launches["tp-dense"] = tp_out["tp-dense"]["launches"]
     phase_launches["tp-lm"] = _add(dict(tp_out["tp-lm"]["launches"]),
@@ -4330,14 +4588,9 @@ def main() -> int:
             e.update(lm_kernels[e["name"]])
             log_time(e, card, "lm_")
     log(f"[lm-kernels] took {time.perf_counter() - t0:.1f} s")
-    # the MoE and audio families; paged attention timed at their served
-    # shapes goes into ``timed``
-    timed = {}
-    phases = LM_PHASES + (("moe", lambda torch, card: moe_phase(torch, card, timed)),
-                          ("audio", lambda torch, card: audio_phase(torch, card, timed)),
-                          ("moe-nllb", lambda torch, card: moe_nllb_phase(torch, card,
-                                                                          prompts)),
-                          ("ssm", lambda torch, card: ssm_phase(torch, card, timed)),
+    # the recurrent families; paged attention and qmm timed at their
+    # served shapes go into ``timed``
+    phases = LM_PHASES + (("ssm", lambda torch, card: ssm_phase(torch, card, timed)),
                           ("hybrid", hybrid_phase))
     for name, phase in phases:
         t0 = time.perf_counter()
@@ -4354,7 +4607,8 @@ def main() -> int:
               "hybrid": phase_launches["hybrid"], "tp": phase_launches["tp"],
               "tp_dense": phase_launches["tp-dense"], "dp": phase_launches["dp"],
               "tp_lm": phase_launches["tp-lm"], "tp_qwen": phase_launches["tp-qwen"],
-              "dp_tp": phase_launches["dp-tp"]}
+              "tp_moe": phase_launches["tp-moe"], "tp_olmoe": phase_launches["tp-olmoe"],
+              "tp_audio": phase_launches["tp-audio"], "dp_tp": phase_launches["dp-tp"]}
     for e in entries:
         if e["name"] == "paged_attn":
             for tag in ("moe", "audio"):
@@ -4365,8 +4619,8 @@ def main() -> int:
         e["launches"] = (launches if served else api_launches)[e["name"]]
         # spec, spec_dense, faults, quant, train, eval, train_lm, lm,
         # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid, tp (rank 0),
-        # tp_dense (rank 0), dp, tp_lm (rank 0, paged + dense), tp_qwen
-        # (rank 0), dp_tp (rank 0)
+        # tp_dense (rank 0), dp, tp_lm (rank 0, paged + dense), tp_qwen,
+        # tp_moe, tp_olmoe, tp_audio (rank 0), dp_tp (rank 0)
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -4390,12 +4644,16 @@ def main() -> int:
         "[dp-tp] (rank 0 of 4): " + ", ".join(
             f"{e['name']}={e['launches_tp_lm']} / {e['launches_tp_qwen']} / "
             f"{e['launches_dp_tp']}" for e in entries))
+    log("kernels in [tp-moe] / [tp-olmoe] / [tp-audio] (rank 0 of 2): " + ", ".join(
+        f"{e['name']}={e['launches_tp_moe']} / {e['launches_tp_olmoe']} / "
+        f"{e['launches_tp_audio']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
             "launches_moe", "launches_moe_nllb", "launches_audio", "launches_ssm",
             "launches_hybrid", "launches_tp", "launches_tp_dense", "launches_dp",
-            "launches_tp_lm", "launches_tp_qwen", "launches_dp_tp",
+            "launches_tp_lm", "launches_tp_qwen", "launches_tp_moe", "launches_tp_olmoe",
+            "launches_tp_audio", "launches_dp_tp",
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")

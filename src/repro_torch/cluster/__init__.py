@@ -7,7 +7,8 @@ composition:
   ranks that :func:`launch_ranks` started: every rank serves the same
   requests on its shard of the weights and KV storage, and the model sums
   its row-parallel products over the ranks (``parallel/tp.py``). The text
-  enc-dec and the dense and VLM LM families.
+  and audio enc-decs and the dense, VLM and MoE LM families (an MoE
+  model's experts split E over the ranks).
 * **Data parallel** — :class:`ReplicaRouter` balances requests over N
   independent engine replicas; :func:`deploy_replicas` builds them
   behind the ordinary ``TranslationPipeline`` surface, replica ``i`` on
@@ -34,7 +35,9 @@ import dataclasses
 import os
 import pickle
 import re
+import sys
 import tempfile
+import traceback
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
@@ -96,6 +99,13 @@ def _rank_main(rank: int, world: int, fn: Callable, args: tuple, device: str,
     try:
         out = fn(rank, world, dev, *args)
         dist.barrier()
+    except BaseException:
+        # a rank's error reaches its peers as a closed connection, and the
+        # spawn raises whichever failed rank it sees first: the first
+        # cause goes to stderr here
+        print(f"rank {rank} of {world} raised:", file=sys.stderr)
+        traceback.print_exc()
+        raise
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmpdir, f"rank{rank}.pkl"), "wb") as f:
@@ -113,8 +123,9 @@ def launch_ranks(fn: Callable, world: int, *, device="cuda", args: tuple = (),
     :func:`rank_backend`'s: NCCL with rank r on ``cuda:r`` when the
     process sees ``world`` cards, else gloo with every rank on ``device``.
     ``fn`` must be importable by name (a module-level function); its
-    result is pickled back. A rank that raises stops the others, and the
-    error is raised here.
+    result is pickled back. A rank that raises prints its traceback to
+    stderr and stops the others, and a failed rank's error is raised here
+    (perhaps a peer's closed connection: the first cause is on stderr).
     """
     import torch.multiprocessing as mp
     if world < 1:

@@ -15,9 +15,23 @@ capacity dispatch of static shape, as in the reference:
 
 Dispatch is group-local: tokens sort within ``dispatch_groups`` leading
 batch groups (one group per row up to 32 rows), so capacity is counted
-per sequence, pad tokens included. ``parallel_mode`` ("expert" or
-"tensor") only places the experts on a mesh in the reference; the port
-has no mesh, and both modes compute the same thing.
+per sequence, pad tokens included.
+
+Expert parallelism (a tensor-parallel engine's rank, ``Ctx.tp``): the
+rank holds ``E_l = E / tp`` of the stacked experts whole
+(``parallel.sharding``), ranks ``[r E_l, (r+1) E_l)``. Everything up to
+the buffer (routing, capacity, dispatch, drops) runs on every rank on the
+same replicated activations, so every rank's ``(G, E, C, d)`` buffer is
+one device's. The rank runs its experts on its ``E_l`` slice of the
+buffer, and ``TPGroup.gather`` concatenates the ranks' ``(G, E_l, C, d)``
+outputs along E, exactly; the combine below then runs as on one device.
+Summing per-rank partial combines instead would reorder each token's
+sum. Under the reference's ``("model",)`` serving mesh its sharding
+hints compute the same: E-local experts, gathered back to replicated.
+``parallel_mode`` ("expert" or "tensor") places and computes the same
+here, as in the reference's serving engine, which places every
+parameter with the default expert mode. Where tp does not divide E the
+stacks replicate and a rank runs every expert.
 
 The combine gathers each token's rows through the inverse of the sort
 permutation and adds them in the order of the sorted assignments
@@ -72,6 +86,21 @@ def _expert_ffn(ctx: Ctx, experts, buf, act: str):
     wi, wo = (maybe_dequantize(experts[n], cd) for n in ("w_in", "w_out"))
     h = ctx.naf(torch.einsum("gecd,edf->gecf", buf, wi), act)
     return torch.einsum("gecf,efd->gecd", h.to(cd), wo)
+
+
+def _local_experts(ctx: Ctx, experts, buf, act: str):
+    """buf (G, E, C, d) -> (G, E, C, d) where the stacks hold all E
+    experts; a tensor-parallel rank holding ``E_l < E`` of them runs its
+    slice ``[r E_l, (r+1) E_l)`` of the buffer and gathers the ranks'
+    outputs along E (the module docstring)."""
+    E, E_l = buf.shape[1], next(iter(experts.values())).shape[-3]
+    if E_l == E:
+        return _expert_ffn(ctx, experts, buf, act)
+    if ctx.tp is None or E_l * ctx.tp.size != E:
+        raise ValueError(f"{E_l} of {E} experts need a tensor-parallel group of "
+                         f"{E // E_l} ranks, got {ctx.tp}")
+    r = ctx.tp.rank
+    return ctx.tp.gather(_expert_ffn(ctx, experts, buf[:, r * E_l:(r + 1) * E_l], act), dim=1)
 
 
 def _pick_groups(B: int, target: int = 32) -> int:
@@ -153,7 +182,7 @@ def moe_apply(ctx: Ctx, params, x, *, top_k: int, capacity_factor: float = 1.25,
     buf = torch.zeros((G, E * C + 1, d), dtype=cd, device=dev)
     src = torch.gather(xt.to(cd), 1, t_sorted[..., None].expand(G, TK, d))
     buf.scatter_(1, buf_idx[..., None].expand(G, TK, d), src)
-    out_buf = _expert_ffn(ctx, params["experts"], buf[:, :E * C].reshape(G, E, C, d), act)
+    out_buf = _local_experts(ctx, params["experts"], buf[:, :E * C].reshape(G, E, C, d), act)
 
     # combine: a token's k rows, through the inverse permutation, in the
     # order of the sorted assignments; the appended zero row is the trash

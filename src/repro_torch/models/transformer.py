@@ -92,7 +92,7 @@ def _head(ctx: Ctx, params, cfg, x, read=None):
     if read is not None:
         logits = logits[torch.arange(logits.shape[0], device=logits.device), read.long()]
     if ctx.tp is not None and logits.shape[-1] != cfg.vocab_size:
-        logits = ctx.tp.gather_last(logits)
+        logits = ctx.tp.gather(logits, -1)
     return logits
 
 

@@ -21,8 +21,13 @@ row-parallel products over the ranks where they are computed. So the
 reference's ``set_mesh`` / ``hint`` / ``hint_pick`` (GSPMD constraints
 inside model code) have no counterpart here.
 
-:func:`shard_tree` slices one rank's shard by these specs. Four layouts
-differ from the reference's on purpose:
+:func:`shard_tree` slices one rank's shard by these specs. The stacked
+experts ``(L, E, d, ff)`` / ``(L, E, ff, d)`` take the expert axis (the
+reference's default ``expert_mode="expert"``; "tensor" mode places the
+same in its serving engine): rank r holds experts ``[r E/tp, (r+1)
+E/tp)`` whole, their scales with them, and where tp does not divide E
+the stacks replicate. Four layouts differ from the reference's on
+purpose:
 
 (a) A QTensor's scales (and QLoRA adapters) and a projection's bias
     (``bias_q`` beside ``wq``) follow their weight's split. The reference

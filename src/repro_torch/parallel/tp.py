@@ -4,9 +4,10 @@ The design is SPMD: every rank of a ``("model",)`` mesh runs the same
 host scheduler on the same requests, with a model of its own local
 widths (``H / tp`` query heads, ``d_ff / tp`` FFN columns; ``d_model``
 and the vocabulary unchanged) over its shard of the quantized weights.
-It serves the text enc-dec family and the decoder-only dense and VLM
-families (gemma3, qwen2.5, internlm2, nemotron-4, llava-next). Only three
-places talk to the other ranks:
+It serves the text enc-dec and audio families and the decoder-only
+dense, VLM and MoE families (nllb600m and its MoE variant, whisper-base,
+gemma3, qwen2.5, internlm2, nemotron-4, llava-next, olmoe, moonshot).
+Only four places talk to the other ranks:
 
 * every row-parallel product (a matmul site ending in ``.out``: the
   attention and FFN output projections) is summed over the ranks
@@ -18,7 +19,19 @@ places talk to the other ranks:
   term of each sum is nonzero; gloo's CUDA support covers all-reduce,
   not all-gather, so one path serves every backend). A prefill gathers
   only the rows the engine samples from (one a request), never the
-  whole ``(B, S, V)``.
+  whole ``(B, S, V)``. A vocabulary that tp does not divide (whisper's
+  51865) replicates, as the reference's rule does: the whole-table
+  lookup and head run on every rank with no collective;
+* an MoE layer's experts (expert parallelism, ``models.moe``): a rank
+  holds ``E / tp`` of the stacked experts whole and keeps every FFN
+  width (an expert is not split by width). Routing, capacity, dispatch
+  and drops run on every rank on the same replicated activations, so
+  every rank's buffer ``(G, E, C, d)`` is one device's; a rank runs its
+  experts on its slice of the buffer and :meth:`TPGroup.gather` puts
+  the ``(G, E / tp, C, d)`` outputs back together along E, after which
+  the combine runs as on one device. Where tp does not divide E the
+  stacks replicate and every rank runs every expert, with no
+  collective. The router is replicated and reads all E.
 
 KV heads. Where tp divides ``Hkv`` a rank keeps ``Hkv / tp`` of them.
 Where ``Hkv`` divides tp (gemma3's one KV head at any tp, the reduced
@@ -40,7 +53,8 @@ The paged allocator, block tables and lengths stay host state on every
 rank, as in the reference.
 
 The sums run in f32: a bf16 partial product is widened, summed and
-rounded once.
+rounded once. A gather widens too (exact: every sum has one nonzero
+term).
 """
 
 from __future__ import annotations
@@ -55,7 +69,8 @@ from ..core.qtensor import QTensor
 from ..unported import later
 from .sharding import param_specs, shard_tree
 
-__all__ = ["TPGroup", "tp_engine_parts", "refuse_under_mesh", "local_config", "kv_replicas"]
+__all__ = ["TPGroup", "tp_engine_parts", "refuse_under_mesh", "local_config", "kv_replicas",
+           "experts_per_rank"]
 
 
 class TPGroup:
@@ -78,23 +93,27 @@ class TPGroup:
         """The sum of ``x`` over the ranks, in f32, cast back once."""
         if self.size == 1:
             return x
-        import torch.distributed as dist
         y = x.to(torch.float32).contiguous()
-        if y.data_ptr() == x.data_ptr():
-            y = y.clone()
-        dist.all_reduce(y, group=self.group)
-        return y.to(x.dtype)
+        return self._sum(y.clone() if y.data_ptr() == x.data_ptr() else y).to(x.dtype)
 
-    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' slices of the last dim, concatenated in rank order."""
+    def _sum(self, y: torch.Tensor) -> torch.Tensor:
+        """The contiguous f32 ``y`` summed over the ranks, in place."""
+        import torch.distributed as dist
+        dist.all_reduce(y, group=self.group)
+        return y
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' slices of ``x`` along ``dim``, concatenated in rank
+        order: each rank's slice written into f32 zeros and the buffers
+        summed (one term of each sum is nonzero, so the bits are kept)."""
         if self.size == 1:
             return x
-        import torch.distributed as dist
-        n = x.shape[-1]
-        out = x.new_zeros(*x.shape[:-1], n * self.size)
-        out[..., self.rank * n:(self.rank + 1) * n] = x
-        dist.all_reduce(out, group=self.group)
-        return out
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * self.size
+        out = x.new_zeros(shape, dtype=torch.float32)
+        out.narrow(dim, self.rank * n, n).copy_(x)
+        return self._sum(out).to(x.dtype)
 
     def embed(self, table: Any, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
         """Embedding rows of ``ids`` from a vocabulary-split table: the
@@ -106,7 +125,7 @@ class TPGroup:
         return self.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
 
 
-_MESH_FAMILIES = ("encdec", "dense", "vlm")
+_MESH_FAMILIES = ("encdec", "audio", "dense", "vlm", "moe")
 
 
 def refuse_under_mesh(cfg, *, tp: Optional[int] = None, act_fmt: str = "bf16",
@@ -114,17 +133,17 @@ def refuse_under_mesh(cfg, *, tp: Optional[int] = None, act_fmt: str = "bf16",
                       adapters: bool = False, draft: bool = False, sla: bool = False,
                       faults: bool = False) -> None:
     """Raise, naming the later slice, for what a mesh does not serve yet:
-    a family other than the text enc-dec and the dense and VLM LMs (MoE
-    expert parallelism, the SSM, hybrid and audio meshes), a KV-head
+    a family other than the text and audio enc-decs and the dense, VLM
+    and MoE LMs (the SSM and hybrid meshes), a KV-head
     count that neither divides ``tp`` nor is divided by it (when ``tp``
     is given), act-quantizing specs and calibration (a per-token absmax
     over a split K needs an all-reduce max), QLoRA adapters (their
     ``lora_a`` K splits too), a draft arm, and what reads a clock (SLA
     admission, fault injection: the ranks' clocks differ)."""
-    if cfg.family not in _MESH_FAMILIES or cfg.moe is not None:
-        what = f"{cfg.name} ({cfg.family}{', MoE' if cfg.moe else ''})"
-        raise later(f"a tensor-parallel mesh for {what}: the port shards the text "
-                    "enc-dec and the dense and VLM LM families", 6)
+    if cfg.family not in _MESH_FAMILIES:
+        raise later(f"a tensor-parallel mesh for {cfg.name} ({cfg.family}): the port "
+                    "shards the text and audio enc-decs and the dense, VLM and MoE LM "
+                    "families", 6)
     if tp is not None:
         local_config(cfg, tp)
     for on, what in ((act_fmt != "bf16" or attn_fmt != "bf16",
@@ -152,8 +171,11 @@ def kv_replicas(cfg, tp: int) -> int:
 def local_config(cfg, tp: int):
     """The rank-local config: query heads and FFN width over ``tp``; KV
     heads over ``tp``, or the one KV head a rank's query heads read
-    where ``Hkv`` divides tp (the module docstring)."""
-    for name in ("num_heads", "d_ff"):
+    where ``Hkv`` divides tp (the module docstring). An MoE config keeps
+    ``d_ff`` whole (every FFN is an expert, and experts are not split by
+    width) and ``moe.num_experts`` global (the router reads all E)."""
+    widths = ("num_heads",) if cfg.moe is not None else ("num_heads", "d_ff")
+    for name in widths:
         if getattr(cfg, name) % tp:
             raise later(f"{cfg.name}'s {name} {getattr(cfg, name)} over tp{tp}, which "
                         "does not divide it", 6)
@@ -162,7 +184,8 @@ def local_config(cfg, tp: int):
         raise later(f"{cfg.name}'s num_kv_heads {hkv} over tp{tp} (neither divides the "
                     "other: the reference's sequence split)", 6)
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=max(hkv // tp, 1), d_ff=cfg.d_ff // tp)
+                               num_kv_heads=max(hkv // tp, 1),
+                               d_ff=cfg.d_ff if cfg.moe is not None else cfg.d_ff // tp)
 
 
 def _has_adapters(params) -> bool:
@@ -188,26 +211,42 @@ def tp_engine_parts(model, params, ctx, mesh, device, draft=None, sla=None, faul
     shard = shard_tree(params, specs, group.rank, {"model": group.size},
                        kv_replicas=kv_replicas(cfg, group.size))
     lmodel = build_model(local, device)
-    _check_widths(shard, lmodel, cfg)
+    _check_widths(shard, lmodel, cfg, group.size)
     return lmodel, shard, dataclasses.replace(ctx, tp=group)
 
 
-def _check_widths(shard, lmodel, cfg) -> None:
-    """Every projection of the shard has the local model's widths: a
-    weight that the reference's rules would replicate (a dim the mesh
-    does not divide) cannot serve in a split model."""
-    lc = lmodel.cfg
-    hd = lc.head_dim
-    expect = {"wq": (cfg.d_model, lc.num_heads * hd), "wk": (cfg.d_model, lc.num_kv_heads * hd),
-              "wv": (cfg.d_model, lc.num_kv_heads * hd), "wo": (lc.num_heads * hd, cfg.d_model),
-              "w_in": (cfg.d_model, lc.d_ff), "w_out": (lc.d_ff, cfg.d_model)}
+def experts_per_rank(cfg, tp: int) -> int:
+    """The experts a rank holds: ``E / tp``, or all E where tp does not
+    divide E (the reference's rule replicates the stacks)."""
+    E = cfg.moe.num_experts
+    return E // tp if E % tp == 0 else E
 
-    def walk(node, name: Optional[str]):
+
+def _check_widths(shard, lmodel, cfg, tp: int) -> None:
+    """Every projection of the shard has the local model's widths, and
+    every expert stack ``E / tp`` experts (or all E, replicated) of the
+    whole widths: a weight that the reference's rules would replicate (a
+    dim the mesh does not divide) cannot serve in a split model."""
+    lc = lmodel.cfg
+    hd, d = lc.head_dim, cfg.d_model
+    expect = {"wq": (d, lc.num_heads * hd), "wk": (d, lc.num_kv_heads * hd),
+              "wv": (d, lc.num_kv_heads * hd), "wo": (lc.num_heads * hd, d),
+              "w_in": (d, lc.d_ff), "w_out": (lc.d_ff, d)}
+    experts = {}
+    if cfg.moe is not None:
+        e, ff = experts_per_rank(cfg, tp), cfg.d_ff
+        experts = {n: (e, d, ff) for n in ("w_gate", "w_up", "w_in")}
+        experts.update({n: (e, ff, d) for n in ("w_down", "w_out")})
+
+    def walk(node, keys):
         if isinstance(node, dict):
             for k, v in node.items():
-                walk(v, k)
-        elif name in expect and tuple(node.shape[-2:]) != expect[name]:
-            raise later(f"{cfg.name}'s {name} {tuple(node.shape[-2:])} does not split into "
-                        f"the local widths {expect[name]}", 6)
+                walk(v, keys + (k,))
+            return
+        name = keys[-1] if keys else None
+        want = experts.get(name) if "experts" in keys else expect.get(name)
+        if want is not None and tuple(node.shape[-len(want):]) != want:
+            raise later(f"{cfg.name}'s {'.'.join(keys)} {tuple(node.shape[-len(want):])} "
+                        f"does not split into the local widths {want}", 6)
 
-    walk(shard, None)
+    walk(shard, ())

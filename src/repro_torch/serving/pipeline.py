@@ -258,14 +258,15 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  with the same arguments and serves the same requests; the
                  engine keeps the rank's shard of the quantized weights and
                  KV storage and sums its row-parallel products over the
-                 ranks. The streams are the single-device engine's. The
-                 text enc-dec and the dense and VLM LM families at every
-                 weight-only spec, dense or paged; act-quantizing specs,
-                 ``calib_batches``, adapters, a draft arm, ``sla``,
-                 ``faults``, a request's ``deadline_ms``, a KV-head count
-                 that neither divides tp nor is divided by it, and the
-                 MoE, SSM, hybrid and audio families raise
-                 (NotImplementedError, a later port slice).
+                 ranks (an MoE model's experts: E / tp a rank, their
+                 outputs gathered). The streams are the single-device
+                 engine's. The text and audio enc-decs and the dense, VLM
+                 and MoE LM families at every weight-only spec, dense or
+                 paged; act-quantizing specs, ``calib_batches``,
+                 adapters, a draft arm, ``sla``, ``faults``, a request's
+                 ``deadline_ms``, a KV-head count that neither divides tp
+                 nor is divided by it, and the SSM and hybrid families
+                 raise (NotImplementedError, a later port slice).
     device:      None = "cuda" (raises without a card).
     """
     spec = resolve_spec(policy)

@@ -190,13 +190,14 @@ def test_translate_surface(torch_params):
     dict(calib_batches=[], paged=False), dict(kv_dtype="fp8", paged=False),
     dict(mesh=object(), policy="w8a8"), dict(mesh=object(), draft_spec="nf4", paged=False),
     dict(mesh=object(), sla=SLATarget(p95_ttft_ms=50.0)),
-    dict(mesh=object(), arch="olmoe-1b-7b"), dict(mesh=object(), calib_batches=[])])
+    dict(mesh=object(), arch="mamba2-780m"), dict(mesh=object(), calib_batches=[])])
 def test_unported_routes_raise(kwargs):
     """Routes outside the ported slices raise, naming their slice: under a
     mesh (slice 6) an act-quantizing spec, a draft arm, SLA admission,
-    calibration and an MoE family, before any build work
-    (tensor-parallel serving itself: tests/test_torch_tp.py and, the
-    dense and VLM LMs, tests/test_torch_tp_lm.py). The
+    calibration and the SSM family, before any build work
+    (tensor-parallel serving itself: tests/test_torch_tp.py, the dense
+    and VLM LMs tests/test_torch_tp_lm.py, the MoE and audio families
+    tests/test_torch_tp_moe.py). The
     quantization routes (slice 3) deploy: act-quantizing and fp8-KV specs
     and drafts and ``calib_batches`` build engines whose Ctx carries the
     spec's activation formats and whose caches the KV format

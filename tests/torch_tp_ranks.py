@@ -1,12 +1,14 @@
 """Rank bodies for the tensor-parallel tests (tests/test_torch_tp.py,
-tests/test_torch_tp_lm.py).
+tests/test_torch_tp_lm.py, tests/test_torch_tp_moe.py).
 
 They run in processes that ``repro_torch.cluster.launch_ranks`` spawns,
 so they live in a module of their own that imports torch and the port
 only (no JAX): each rank deploys a reduced model on its shard of the
 same weights and serves the reference TP test's grids (nllb600m), the
-LM grids (gemma3-1b, qwen2.5-14b, llava-next-mistral-7b), or its share
-of a composed dp x tp stack.
+LM grids (gemma3-1b, qwen2.5-14b, llava-next-mistral-7b), the MoE and
+audio grids (nllb600m-moe, whisper-base, olmoe-1b-7b,
+moonshot-v1-16b-a3b) and a preempting engine, or its share of a
+composed dp x tp stack.
 """
 
 import dataclasses
@@ -97,11 +99,13 @@ def lm_grids(pipe, prompts):
             [(o.token_ids, o.finish_reason) for o in pipe.generate(prompts, SAMPLED)])
 
 
-def lm_prefill_logits(pipe, batch):
+def lm_prefill_logits(pipe, batch, max_len=LM_KW["max_len"]):
     """One prefill's whole logits (1, S, V) through the engine's own
-    (rank-local) model, shard and ctx."""
+    (rank-local) model, shard and ctx; an enc-dec's cache holds the
+    engine's source capacity."""
     eng = pipe.engine
-    cache = eng.model.init_cache(1, LM_KW["max_len"], eng.kv_dtype)
+    kw = dict(enc_len=eng.enc_cap) if eng.enc_cap else {}
+    cache = eng.model.init_cache(1, max_len, eng.kv_dtype, **kw)
     with torch.no_grad():
         return eng.model.prefill(eng.ctx, eng.params, cache, dict(batch))[1].numpy()
 
@@ -160,3 +164,64 @@ def stack_grids(device, spec, replicas, tp, params_np, src):
     by_id = {o.request_id: o.token_ids for o in router.run_until_drained()}
     out["routed"] = [by_id[g] for g in gids]
     return out
+
+
+MOE_KW = dict(slots=2, ctx=CTX, page_size=4)
+
+
+def moe_grid(rank, world, device, params_np, cases, batches, stack, preempt):
+    """Every case (arch, spec, paged, horizon, max_len) of the MoE and
+    audio families deployed with ``mesh=tp_mesh(world)`` on this rank's
+    shard of ``params_np[arch]``, its greedy grid served on
+    ``batches[arch]``; per arch the experts a rank holds, its weight bytes
+    against the whole tree's, and the first case's prefill logits. With
+    ``stack`` (spec, replicas, tp, params, batches), the composed
+    ``deploy_replicas(tp=...)`` of the reduced nllb600m-moe; with
+    ``preempt`` (params, batches, num_pages, max_new_tokens), a paged
+    nllb600m-moe engine on 2 slots whose pool preempts: its streams and
+    preemption counters."""
+    out = {"grids": {}, "local": {}}
+    mesh = tp_mesh(world)
+    for arch, spec, paged, horizon, max_len in cases:
+        params = from_numpy_tree(params_np[arch], "cpu")
+        prompts = lm_prompts(batches[arch])
+        pipe = deploy(lm_config(arch), spec, params=params, mesh=mesh, device=device,
+                      paged=paged, horizon=horizon, max_len=max_len, **MOE_KW)
+        out["grids"][arch, spec, paged, horizon] = [
+            (o.token_ids, o.finish_reason) for o in pipe.generate(prompts, GREEDY)]
+        if arch not in out["local"]:
+            lc, shard = pipe.engine.model.cfg, pipe.engine.params
+            layer = shard.get("decoder", shard)["layers"]
+            experts = layer["moe"]["experts"] if "moe" in layer else None
+            out["local"][arch] = {
+                "heads": (lc.num_heads, lc.num_kv_heads, lc.d_ff),
+                "experts": None if experts is None else
+                next(iter(experts.values())).shape[-3],
+                "bytes": (tree_nbytes(shard), pipe.quantized_bytes),
+                "logits": lm_prefill_logits(pipe, prompts[0], max_len)}
+    if stack is not None:
+        spec, replicas, tp, params_np, nllb = stack
+        pipe = deploy_replicas(lm_config("nllb600m-moe"), spec, replicas=replicas, tp=tp,
+                               params=from_numpy_tree(params_np, "cpu"), device=device,
+                               paged=True, horizon=16, max_len=16, **MOE_KW)
+        out["stack"] = {"group": pipe.engine.group,
+                        "grid": [(o.token_ids, o.finish_reason)
+                                 for o in pipe.generate(lm_prompts(nllb), GREEDY)]}
+    if preempt is not None:
+        out["preempt"] = preempt_run(device, mesh, *preempt)
+    return out
+
+
+def preempt_run(device, mesh, params_np, batches, num_pages, new):
+    """The reduced nllb600m-moe int8, paged on 2 slots over ``num_pages``
+    pages (``mesh`` None: one device): the greedy streams of ``batches``
+    and the preemption counters."""
+    pipe = deploy(lm_config("nllb600m-moe"), "int8", params=from_numpy_tree(params_np, "cpu"),
+                  mesh=mesh, device=device, paged=True, horizon=4, max_len=32,
+                  num_pages=num_pages, preempt_limit=16, **MOE_KW)
+    outs = pipe.generate(lm_prompts(batches), SamplingParams(max_new_tokens=new))
+    m = pipe.engine.metrics()
+    pipe.engine.allocator.check()
+    return {"grid": [(o.token_ids, o.finish_reason) for o in outs],
+            "preemptions": m.preemptions, "resumed": m.resumed_requests,
+            "pages_in_use": pipe.engine.allocator.pages_in_use}
