@@ -81,7 +81,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 17. LM training ([train-lm]): one f32 AdamW step with remat of each LM
    family's reduced config on the card against the CPU (qwen2.5-14b,
    gemma3-1b, llava-next-mistral-7b with image rows, olmoe-1b-7b,
-   mamba2-780m, recurrentgemma-9b); then full width, TRAIN_STEPS steps
+   mamba2-780m, recurrentgemma-9b); then full width, 10 or 20 steps
    each with the loss falling: gemma3-1b whole (f32 AdamW, remat, two
    microbatches, 4 x 640 tokens past its 512-token windows), mamba2-780m
    whole (8 x 256, two SSD chunks) and olmoe-1b-7b cut to 3 of its 16
@@ -90,16 +90,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each, and no kernel launch;
 18. the decoder-only LMs, each deploy freed before the next: qmm and
    paged attention at qwen2.5-14b's served shapes against their plain
-   versions; qwen2.5-14b at full width, 24 of its 48 layers, int4 paged
+   versions; qwen2.5-14b at full width, 12 of its 48 layers, int4 paged
    and dense ([lm]); gemma3-1b whole, paged and dense, prompts past its
    512-token local windows and no paged-attention launch ([lm-gemma]);
-   llava-next-mistral-7b whole, dense, with image rows ([vlm]). Each
+   llava-next-mistral-7b at 16 of its 32 layers, dense, with image rows
+   ([vlm]). Each
    engine holds qmm and the FASST activation against their plain
    versions at every shape its warm-up gave them; each phase checks the
    kernel bundle against the torch bundle, and dense against paged up
    to near ties (a first token may part there at an exact bf16 tie);
 19. (run right after [quant], before the scale-out phases, which hold
-   their ranks to these streams) the MoE and audio families, int4:
+   their ranks to these streams) the MoE, audio and SSM families, int4:
    olmoe-1b-7b (8 of 16 layers) paged and
    dense ([moe], [moe-dense]; 64 experts top-8, the experts' SiLU
    through the FASST kernel on 4-D inputs), whisper-base paged and dense
@@ -110,19 +111,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bit for bit, meets the kernel bundle within the torch bundle's bound,
    and parts from the other layout only at near ties (an MoE slot routed
    to other experts at a router near tie is exempt from then on); the
-   paged attention is timed at the served shapes;
-20. the recurrent families, whole, int4, dense (as in the reference:
-   no paged cache, no draft arm): mamba2-780m on 8 prompts of 256-512
-   tokens, one of prime length (one-row SSD chunks) ([ssm]; qmm alone, at
-   the in_proj's N 6448, no multiple of 64, held against its plain
-   version at decode and prefill rows and timed over one decode step),
-   and recurrentgemma-9b on 8 prompts of 2100-2400 tokens, past its
+   paged attention is timed at the served shapes; then mamba2-780m whole,
+   dense (as in the reference: no paged cache, no draft arm) on 8 prompts
+   of 256-512 tokens, one of prime length (one-row SSD chunks) ([ssm];
+   qmm alone, at the in_proj's N 6448, no multiple of 64, held against
+   its plain version at decode and prefill rows and timed over one decode
+   step), held as 20 says;
+20. (after the LM phases) recurrentgemma-9b whole, int4, dense, on 8
+   prompts of 2100-2400 tokens, past its
    2048-token local window, so the rolling KV buffer wraps in prefill and
    again in decode ([hybrid]; qmm and the FASST activation on the RG-LRU
-   gates and the GELU-GLU); each engine holds its kernels at every shape
-   its warm-up gave them, launches exactly the counts a decode step
-   derives from the model, meets the torch bundle's bound and repeats its
-   8 streams bit for bit on a second run;
+   gates and the GELU-GLU); each recurrent engine holds its kernels at
+   every shape its warm-up gave them, launches exactly the counts a
+   decode step derives from the model, meets the torch bundle's bound and
+   repeats its 8 streams bit for bit on a second run;
 21. scale-out on [serve]'s prompts and weights: two tensor-parallel
    ranks sharing the card over gloo (``cluster.launch_ranks``; NCCL
    refuses two ranks on one device), each deploy(mesh=tp_mesh(2)) of
@@ -133,10 +135,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one device's, each rank's resident bytes and deploy peak printed
    beside the single device's; inside the same ranks the int8
    compressed all-reduce on the card byte-equal to the CPU's
-   ([compress]); in the same two ranks, gemma3-1b whole (its one KV head
-   copied on both ranks), paged ([tp-lm]) then dense ([tp-lm-dense]), on
+   ([compress]); in the same two ranks, gemma3-1b cut to 13 of its 26
+   layers (its one KV head copied on both ranks; against one device's
+   engine of the cut), paged ([tp-lm]) then dense ([tp-lm-dense]), on
    [lm-gemma]'s prompts past its 512-token windows, and qwen2.5-14b at
-   full width cut to 8 of its 48 layers, paged ([tp-qwen]; the single
+   full width cut to 4 of its 48 layers, paged ([tp-qwen]; the single
    device's streams served before the spawn), each held as [tp] is;
    then expert parallelism and the audio mesh, paged: nllb600m-moe
    whole on [serve]'s prompts ([tp-moe], 8 of 16 experts a rank) and
@@ -144,7 +147,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the streams of 19, and olmoe-1b-7b cut to 4 of its 16 layers on
    [moe]'s prompts ([tp-olmoe], 32 of 64 experts a rank), against a
    single-device engine of that cut served in the spawn; each MoE engine
-   run twice with the same bits; then
+   run twice with the same bits; then the SSM and hybrid meshes, dense:
+   mamba2-780m whole on [ssm]'s prompts against [ssm]'s streams
+   ([tp-ssm], 24 of 48 SSD heads a rank) and recurrentgemma-9b at full
+   width cut to 5 of its 38 layers on [hybrid]'s prompts, past its window,
+   against a single-device engine of that cut served in the spawn
+   ([tp-hybrid], half the RG-LRU channels a rank), each with its
+   collectives a decode step held exactly; then
    two routed replicas on the card (deploy_replicas, [dp]): each
    replica's streams a lone engine's bit for bit, [serve]'s up to near
    ties, the merged metrics the sums; then the composed stack on four
@@ -1250,12 +1259,16 @@ def profile_decode(torch, pipe, prompts, tag="profile", sampled=False, expect=No
     from repro_torch.kernels import ops
     from repro_torch.serving import SamplingParams
     eng = pipe.engine
+    K = 4
+    # the prefill's token, one step, the K profiled ones and one more: the
+    # 8 slots stay live through the profiled horizon and retire just after
+    # it (GEN tokens until [tp-ssm] and [tp-hybrid] needed the script's
+    # time: the drain of the rest was never measured)
     for i, p in enumerate(prompts):
         knobs = dict(temperature=0.7, top_p=0.9, seed=100 + i) if sampled else {}
-        eng.submit(p, SamplingParams(max_new_tokens=GEN, **knobs))
+        eng.submit(p, SamplingParams(max_new_tokens=K + 3, **knobs))
     eng.step(horizon=1)                       # admit all 8, one step
     torch.cuda.synchronize()
-    K = 4
     steps0 = eng.decode_steps
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1518,7 +1531,8 @@ def tp_follow_replay(torch, side, prompts, sps, forced_streams, steps):
 
 
 def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_streams,
-                      engine_kw=None, first_token_ties=False, sides=None):
+                      engine_kw=None, first_token_ties=False, sides=None, logit_tol=None,
+                      steps=0):
     """Where a dense and a paged stream part, show that the step was a
     near tie. Both layouts replay the common prefix teacher-forced in
     fresh engines of the same slots. A parting at the first token fails,
@@ -1547,13 +1561,19 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
     order, so its router can tip). From then on the slot's
     logits may differ by more than the bound; a later parting of that
     slot is put down to the router tie, and the other slots keep the
-    bound. Returns the parting steps."""
+    bound. With ``logit_tol`` (largest, mean) every replayed step, parting
+    or not, holds the sides' largest logit difference and their mean
+    difference to it (teacher-forced on the same tokens, the sides differ
+    by rounding only), the largest in place of the routes' 0.3 at the
+    parting steps, and the replay runs at least ``steps`` steps. Returns
+    the parting steps."""
     from repro_torch import random as prng
     from repro_torch.serving.sampler import filter_logits
 
     part = _partings(tag, paged_streams, dense_streams, first_token_ties)
-    steps = max(list(part.values()) + [3])
+    steps = max(list(part.values()) + [3, steps])
     n = len(prompts)
+    worst, worst_mean = (0.0, 0), 0.0
     if sides is None:
         sides = [[(_fresh_engine(pipe, paged, **(engine_kw or {})), list(range(n)))]
                  for paged in (True, False)]
@@ -1589,6 +1609,14 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
             lp, ld = lgs
             kept = [i for i in range(n) if i not in rerouted]
             err = float((lp[kept] - ld[kept]).abs().max()) if kept else 0.0
+            if logit_tol is not None:
+                mean = float((lp[kept] - ld[kept]).abs().mean()) if kept else 0.0
+                worst, worst_mean = max(worst, (err, j)), max(worst_mean, mean)
+                if not (err <= logit_tol[0] and mean <= logit_tol[1]):
+                    raise AssertionError(
+                        f"[{tag}] step {j}: teacher-forced on the same tokens, the sides' "
+                        f"logits differ by {err:.4g} at most and {mean:.4g} on average, past "
+                        f"{logit_tol}: more than rounding")
             parting = [i for i, pj in part.items() if pj == j]
             if any(not sps[i].greedy for i in parting):
                 # filter the whole batch, as the engines' sampler does
@@ -1600,10 +1628,12 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
                     log(f"{where}: after its router near tie at layer {rerouted[i][0]}, "
                         f"step {rerouted[i][1]}")
                     continue
-                # the routes' int8-KV bound of [routes] holds here too
-                if not err < 0.3:
+                # the routes' int8-KV bound of [routes] holds here too,
+                # unless the phase holds every step to its own
+                limit = 0.3 if logit_tol is None else logit_tol[0]
+                if not err < limit:
                     raise AssertionError(f"{where}: the engines' logits differ by "
-                                         f"{err:.3g} >= 0.3")
+                                         f"{err:.3g} >= {limit}")
                 if sp.greedy:
                     top2 = lp[i].topk(2).values
                     margin = float(top2[0] - top2[1])
@@ -1619,6 +1649,11 @@ def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_strea
                     except AssertionError as e:
                         raise AssertionError(f"{where}: {e}") from None
                 log(f"{where}: near tie, {what}")
+    if logit_tol is not None:
+        log(f"[{tag}] teacher-forced on the same tokens, the sides' logits differ by at "
+            f"most {worst[0]:.4g} (step {worst[1]}; a step's mean difference at most "
+            f"{worst_mean:.4g}) over steps 0-{steps} of {n} requests, within {logit_tol} "
+            "(largest, mean)")
     return part
 
 
@@ -1672,7 +1707,12 @@ def sampled(torch, pipe_p, pipe_d, prompts):
 # ---------------------------------------------------------------------------
 
 PREEMPT_PAGES = 10      # 8 requests of 1 + 32 positions need 24 pages whole
-OVERLAP_GEN = 64        # 4 horizons of 16 a request in [overlap]
+# 3 horizons of 16 a request in [overlap] (4 until [tp-ssm] and
+# [tp-hybrid] needed the script's time)
+OVERLAP_GEN = 48
+# the profiled run of each [overlap] engine: 2 horizons a request (64 until
+# [tp-ssm] and [tp-hybrid] needed the script's time)
+OVERLAP_PROFILED_GEN = 32
 
 
 def _first_parting(a, b):
@@ -1874,18 +1914,18 @@ def profiled_round(torch, fn, label):
 
 
 def overlap_phase(torch, card, pipe, pipe_d, prompts):
-    """[overlap]: the same requests (64 new tokens each) on paged and
+    """[overlap]: the same requests (48 new tokens each) on paged and
     dense engines, with overlapped and with serial rounds: token-identical
-    streams; host wall
-    per step, tokens/s, overlap_rounds, and the idle share from a
-    profiled second run. Then one steady overlapped round, with no
+    streams; host wall per step, tokens/s, overlap_rounds, and the idle
+    share from a profiled further run (OVERLAP_PROFILED_GEN new tokens a
+    request). Then one steady overlapped round, with no
     admission, under torch.profiler: exactly one host wait on the
     device (the walk's event)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import SamplingParams
     sp = SamplingParams(max_new_tokens=OVERLAP_GEN)
 
-    def run(eng):
+    def run(eng, sp=sp):
         eng.reset_metrics()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1907,7 +1947,7 @@ def overlap_phase(torch, card, pipe, pipe_d, prompts):
             m = eng.metrics()
             # device kernels only: CPU op events would cost minutes to process
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _, pwall = run(eng)
+                _, pwall = run(eng, SamplingParams(max_new_tokens=OVERLAP_PROFILED_GEN))
             busy = _busy_ms(torch, prof)
             tokens = sum(len(t) for t in streams[ov])
             log(f"[overlap] {layout}, overlap {ov}: " + json.dumps({
@@ -2702,8 +2742,11 @@ def train_phase(torch, card, dev):
 # finite, as [train]'s 8-bit run's is.
 TRAIN_LM_PARITY = ("qwen2.5-14b", "gemma3-1b", "llava-next-mistral-7b", "olmoe-1b-7b",
                    "mamba2-780m", "recurrentgemma-9b")
-TRAIN_LM_RUNS = (("gemma3-1b", None, 32, True, 2, 4, 640, TRAIN_STEPS),
-                 ("mamba2-780m", None, 32, True, 1, 8, 256, TRAIN_STEPS),
+# gemma3-1b's and mamba2-780m's f32 runs take 10 steps (20 until [tp-ssm]
+# and [tp-hybrid] needed the script's time); olmoe's keeps TRAIN_STEPS
+TRAIN_LM_STEPS = 10
+TRAIN_LM_RUNS = (("gemma3-1b", None, 32, True, 2, 4, 640, TRAIN_LM_STEPS),
+                 ("mamba2-780m", None, 32, True, 1, 8, 256, TRAIN_LM_STEPS),
                  ("olmoe-1b-7b", 3, 32, False, 1, 8, 64, TRAIN_STEPS),
                  ("olmoe-1b-7b", 3, 8, False, 1, 8, 64, TRAIN_STEPS_8BIT))
 
@@ -2726,7 +2769,7 @@ def train_lm_phase(torch, card, dev):
     TRAIN_LM_RUNS at full width, random weights from seed SEED, f32
     parameters, bf16 compute, batches from launch.train.batches_for and a
     warmup-cosine lr (peak TRAIN_LR): a _train_run JSON line and one
-    profiled step each; over TRAIN_STEPS steps the mean loss of the last
+    profiled step each; over an f32 run's steps the mean loss of the last
     5 falls below the first; an MoE's aux loss is finite. olmoe-1b-7b
     keeps 3 of its 16 layers: f32 AdamW state is 16 bytes a parameter,
     and a step holds the old state and the new one. No kernel launches
@@ -2764,7 +2807,7 @@ def train_lm_phase(torch, card, dev):
         batches = batches_for(cfg, batch, seq, seed=SEED, device=dev)
         state, losses, stats = _train_run(torch, step, init(params), batches, steps, tag,
                                           card, n_params, tokens=batch * seq, phase="train-lm")
-        if steps == TRAIN_STEPS and not np.mean(losses[-5:]) < losses[0]:
+        if bits == 32 and not np.mean(losses[-5:]) < losses[0]:
             raise AssertionError(f"[train-lm] {tag}: the loss did not fall: {losses}")
         log(f"[train-lm] {tag} losses: {[round(x, 4) for x in losses]}")
         if cfg.moe is not None and not (np.isfinite(stats["aux_loss_last"])
@@ -3047,17 +3090,20 @@ def api_path(torch, pipe):
 # [lm], [lm-gemma], [vlm]: the decoder-only LMs
 # ---------------------------------------------------------------------------
 
-# qwen2.5-14b at full width, depth cut to 24 of 48 layers: deploy() draws
-# the f32 tree whole and quantizes it, as the reference does; all 48
-# layers are 59 GB in f32 (14.77 B parameters) and the quantization
-# temporaries of the stacked (48, 5120, 13824) gate and up leaves would
-# pass 80 GB; 24 layers are 32.7 GB
+# qwen2.5-14b at full width, its decode step's kernels timed at 24 of 48
+# layers: deploy() draws the f32 tree whole and quantizes it, as the
+# reference does; all 48 layers are 59 GB in f32 (14.77 B parameters) and
+# the quantization temporaries of the stacked (48, 5120, 13824) gate and
+# up leaves would pass 80 GB
 LM_ARCH, LM_LAYERS = "qwen2.5-14b", 24
 # served depth cuts: qwen2.5-14b's 48-layer f32 init and quantization do
 # not fit the card; olmoe-1b-7b keeps 8 of its 16 layers for the script's
 # time limit (with all 16 the script ran 1070.5 s of its 1200 on an
-# "NVIDIA H100 80GB HBM3, 700.00 W" host)
-DEPTH_CUTS = {LM_ARCH: LM_LAYERS, "olmoe-1b-7b": 8}
+# "NVIDIA H100 80GB HBM3, 700.00 W" host); [lm] serves qwen2.5-14b at 12
+# of 48 layers and [vlm] llava-next-mistral-7b at 16 of 32 (24 and whole
+# until [tp-ssm] and [tp-hybrid] needed the script's time; rows 1q / 2q
+# still time LM_LAYERS)
+DEPTH_CUTS = {LM_ARCH: 12, "llava-next-mistral-7b": 16, "olmoe-1b-7b": 8}
 LM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120))
 LM_HEAD_KN = (5120, 152064)
 LONG_LEN = 768          # [lm-gemma] and [vlm] cache length
@@ -3320,15 +3366,15 @@ def _add(total, launches):
 
 
 def lm_phase(torch, card):
-    """[lm]: qwen2.5-14b at int4, full width, 24 of its 48 layers, paged
+    """[lm]: qwen2.5-14b at int4, full width, 12 of its 48 layers, paged
     (the paged-attention kernel: no windows) and dense on the same
     weights; 8 requests of 32-64 prompt tokens x 32 new tokens, greedy.
     The kernel bundle agrees with the torch bundle on live slots, and
     dense and paged streams part only at near ties. Returns the launches
     of the measured runs."""
     from repro_torch.serving import SamplingParams
-    cut = (f" (depth cut to {LM_LAYERS} of 48: the 48-layer f32 init is 59 GB and "
-           "its quantization temporaries pass 80 GB)")
+    cut = (f" (depth cut to {DEPTH_CUTS[LM_ARCH]} of 48: the 48-layer f32 init is 59 GB "
+           "and its quantization temporaries pass 80 GB)")
     pipe = _lm_deploy(torch, "lm", LM_ARCH, True, MAX_LEN, cut=cut)
     L, V = pipe.cfg.num_layers, pipe.cfg.vocab_size
     prompts = _lm_prompts(np.random.default_rng(SEED + 20), V, 32, 64)
@@ -3389,8 +3435,8 @@ def lm_gemma_phase(torch, card):
 
 
 def vlm_phase(torch, card):
-    """[vlm]: llava-next-mistral-7b at int4, full width and depth (32
-    layers), dense (as in the reference); each request carries seeded
+    """[vlm]: llava-next-mistral-7b at int4, full width, 16 of its 32
+    layers, dense (as in the reference); each request carries seeded
     random image embeddings (1, 576, 4096) ahead of 16-48 text tokens x
     32 new tokens. A second run repeats every stream, and the kernel
     bundle agrees with the torch bundle on live slots. Returns the
@@ -3590,7 +3636,7 @@ def time_qmm_ssm(torch, card, dev):
     return {f"ssm_{k}": v for k, v in e.items()}
 
 
-def ssm_phase(torch, card, timed):
+def ssm_phase(torch, card, timed, single):
     """[ssm]: mamba2-780m whole (48 layers, d 1536, SSD state 128, 48
     heads of 64, chunk 128, tied 50280 head; 0.78 B parameters drawn and
     quantized on the card), int4, dense; 8 requests of 256-512 prompt
@@ -3599,8 +3645,9 @@ def ssm_phase(torch, card, timed):
     else of the port's (the SiLUs are plain PyTorch, as in the
     reference). qmm is held at the in_proj's N 6448 (= 50 x 128 + 48, no
     multiple of 64) on the served weight at decode and prefill rows, and
-    timed over one decode step (``timed["qmm"]``). Returns the launches
-    of the measured run."""
+    timed over one decode step (``timed["qmm"]``). Runs before the tp
+    spawn and keeps its prompts and streams in ``single["ssm"]`` ([tp-ssm]
+    holds its ranks to them). Returns the launches of the measured run."""
     pipe = _lm_deploy(torch, "ssm", "mamba2-780m", False, SSM_LEN)
     L, dev = pipe.cfg.num_layers, pipe.engine.device
     prompts = _prime_prompts(np.random.default_rng(SEED + 28), pipe.cfg.vocab_size,
@@ -3615,6 +3662,7 @@ def ssm_phase(torch, card, timed):
         f"bit-identical; max abs err (f32 out) {max(errs):.3g}; prompt lengths {lens}")
     expect = {"qmm": 2 * L, "qmm_naf": 0, "paged_attn": 0, "fasst_act": 0}
     outs, launches = lm_serve(torch, card, "ssm", pipe, prompts, expect)
+    single["ssm"] = {"prompts": prompts, "streams": [o.token_ids for o in outs]}
     repeat_run("ssm", pipe, prompts, outs)
     routes_agree(torch, pipe, prompts, "ssm-routes")
     del pipe
@@ -3661,11 +3709,27 @@ LM_PHASES = (("lm", lm_phase), ("lm-gemma", lm_gemma_phase), ("vlm", vlm_phase))
 # ---------------------------------------------------------------------------
 
 TP = 2
-TP_QWEN_LAYERS = 8      # [tp-qwen]: qwen2.5-14b cut to 8 of its 48 layers (15 GB f32 a rank)
+# [tp-lm] / [tp-lm-dense]: gemma3-1b cut to 13 of its 26 layers (two of its
+# 5 local : 1 global groups and a local layer; whole until [tp-ssm] and
+# [tp-hybrid] needed the script's time)
+TP_GEMMA_LAYERS = 13
+# [tp-qwen]: qwen2.5-14b cut to 4 of its 48 layers (8 GB f32 a rank); 8 until
+# [tp-ssm] and [tp-hybrid] needed the script's time
+TP_QWEN_LAYERS = 4
 # [tp-olmoe]: olmoe-1b-7b cut to 4 of its 16 layers for the script's time
 # limit ([moe] serves 8: with [tp-olmoe] at 8 too the script ran 1048.0 s
 # of its 1200 on an "NVIDIA H100 80GB HBM3, 700.00 W" host)
 TP_OLMOE_LAYERS = 4
+# [tp-hybrid]: recurrentgemma-9b cut to 5 of its 38 layers: one (RG-LRU,
+# RG-LRU, local attention) super-block and the 2-layer RG-LRU tail
+TP_HYBRID_LAYERS = 5
+# [tp-ssm] / [tp-hybrid]: the (largest, mean) logit difference a
+# teacher-forced step of a rank may show against one device. On an H100 a
+# sound rank gave (0.314, 0.048) and (0.25, 0.0102) over 32 steps, a rank
+# with a planted fault (the norm over its own columns; the gates from its
+# own channels) (3.81, 0.476) and (0.879, 0.131); the bits repeat from run
+# to run. The routes' 0.3 does not fit 48 recurrent layers in bf16.
+TP_RECURRENT_LOGIT_TOL = {"tp-ssm": (1.0, 0.15), "tp-hybrid": (0.5, 0.04)}
 COMPRESS_SHAPES = {"w_in": (1024, 8192), "wo": (1024, 1024), "bias": (1000,)}
 
 
@@ -3795,7 +3859,8 @@ def end_count(eng):
         del eng.ctx.tp._sum, eng.ctx.tp.gather
 
 
-def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=None):
+def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=None,
+                 logit_tol=None):
     """Hold a tensor-parallel engine's greedy ``streams`` against one
     device's, on every rank of the engine's group: group rank 0 takes the
     single device's streams from ``single["streams"]``, or serves them on
@@ -3803,8 +3868,10 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
     prefix is replayed teacher-forced on both sides, a fresh engine of
     the tensor-parallel pipe (every rank of the group) against a fresh
     single-device one (group rank 0, built then if it was not), and the
-    parting must be a near tie (near_tie_partings). Returns (partings,
-    the single device's deploy memory or None)."""
+    parting must be a near tie (near_tie_partings). With ``logit_tol``
+    (largest, mean) every step of the streams is replayed, parted or not,
+    and holds the sides' logits to it. Returns (partings, the single
+    device's deploy memory or None)."""
     lead = grp.rank == 0
     n, part, smem, spipe = len(prompts), {}, None, None
     kw = engine_kw or {}
@@ -3821,7 +3888,9 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
             spipe.generate(prompts[:2], type(sp)(max_new_tokens=4))
             want = [o.token_ids for o in spipe.generate(prompts, sp)]
         part = _partings(tag, streams, want, first_token_ties=True)
-    steps = _group_bcast(grp, max(list(part.values()) + [3]) if part else 0)
+    every = GEN - 1 if logit_tol is not None else 0
+    steps = _group_bcast(grp, max(list(part.values()) + [3, every])
+                         if part or every else 0)
     if steps:
         side = [(_fresh_engine(pipe, pipe.engine.paged, **kw), list(range(n)))]
         if lead:
@@ -3830,7 +3899,8 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
             near_tie_partings(torch, tag, pipe, prompts, [sp] * n, streams, want,
                               first_token_ties=True,
                               sides=[side, [(_fresh_engine(spipe, pipe.engine.paged, **kw),
-                                             list(range(n)))]])
+                                             list(range(n)))]],
+                              logit_tol=logit_tol, steps=every)
         else:
             tp_follow_replay(torch, side, prompts, [sp] * n, streams, steps)
     del spipe
@@ -3847,19 +3917,37 @@ def _experts_held(tree):
     return next((e for e in map(_experts_held, tree.values()) if e is not None), None)
 
 
-def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engine_kw=None):
+def _mixer_held(pipe) -> str:
+    """What a recurrent rank's shard holds of its mixers, or ""."""
+    c, p = pipe.cfg, pipe.params
+    if c.family == "ssm":
+        ssm = p["layers"]["ssm"]
+        return (f", {ssm['a_log'].shape[-1]} of {c.ssm.expand * c.d_model // c.ssm.head_dim} "
+                f"SSD heads (in_proj N {ssm['in_proj'].shape[-1]}, conv channels "
+                f"{ssm['conv_w'].shape[-1]})")
+    if c.family == "hybrid":
+        w = p["blocks"]["r1"]["rglru"]["w_rg"]
+        return f", RG-LRU {w.shape[-1]} of {c.d_rec} channels (w_rg {tuple(w.shape[-2:])})"
+    return ""
+
+
+def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engine_kw=None,
+             collectives=None, logit_tol=None):
     """One tensor-parallel engine's served run, called alike on every rank
     of its mesh; rank 0 prints. A warm-up on the same prompts whose
     shapes rank 0 holds ``need``'s kernels at (hold_served); the measured
     greedy run with the launch counters set to 0 just before and read
     just after; every rank's streams and launches equal; a decode step
-    launching exactly ``per_step`` and the prefills the FASST kernel;
-    the streams against one device's up to near ties (tp_vs_single). An
-    MoE rank must hold fewer weight bytes than the whole quantized tree.
-    Rank 0 prints one line per rank: tokens/s, decode ms a step, the
-    collectives a step (and the experts' gathers among them), its
-    weights against the whole tree's and its resident memory against
-    the deploy's peak. Returns the launches, streams and numbers."""
+    launching exactly ``per_step`` (and summing exactly ``collectives``
+    times over the ranks, when given) and, where ``need`` names it, the
+    prefills the FASST kernel; the streams against one device's up to
+    near ties (tp_vs_single; with ``logit_tol``, every step's logits held
+    to it teacher-forced). A rank must hold fewer weight bytes than
+    the whole quantized tree. Rank 0 prints one line per rank: tokens/s,
+    decode ms a step, the collectives a step (and the experts' gathers
+    among them), its weights against the whole tree's and its resident
+    memory against the deploy's peak. Returns the launches, streams and
+    numbers."""
     import torch.distributed as dist
     from repro_torch.core import tree_nbytes
     from repro_torch.kernels import ops
@@ -3870,9 +3958,11 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     lead = grp.rank == 0
     say = log if lead else (lambda *a: None)
     held = _experts_held(pipe.params)
-    experts = "" if held is None else f", {held} of {lc.moe.num_experts} experts"
+    experts = ("" if held is None else f", {held} of {lc.moe.num_experts} experts") \
+        + _mixer_held(pipe)
+    kv = {"ssm": "recurrent state", "hybrid": "bf16 rolling KV"}.get(lc.family, "int8 KV")
     say(f"[{tag}] deployed {pipe.cfg.name} int4, {pipe.cfg.num_layers} layers, on "
-        f"tp{grp.size} ({'paged' if eng.paged else 'dense'} int8 KV): each rank "
+        f"tp{grp.size} ({'paged' if eng.paged else 'dense'} {kv}): each rank "
         f"{lc.num_heads}/{lc.num_kv_heads} heads of {lc.head_dim}, d_ff {lc.d_ff}{experts}, "
         f"vocab slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
         f"{tree_nbytes(pipe.params) / 1e9:.3f} GB of weights (of "
@@ -3910,12 +4000,17 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     if not steps_run or any(in_decode[k] != c * steps_run for k, c in per_step.items()):
         raise AssertionError(f"[{tag}] {steps_run} decode steps launched {in_decode}; "
                              f"a step launches {per_step}")
-    if not launches["fasst_act"] > in_decode["fasst_act"]:
+    if collectives is not None and in_decode["collectives"] != collectives * steps_run:
+        raise AssertionError(f"[{tag}] {steps_run} decode steps summed "
+                             f"{in_decode['collectives']} times over the ranks; a step sums "
+                             f"{collectives} times")
+    if "fasst_act" in need and not launches["fasst_act"] > in_decode["fasst_act"]:
         raise AssertionError(f"[{tag}] the prefills launched no FASST kernel: {launches}")
-    part, smem = tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw)
+    part, smem = tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw,
+                              logit_tol)
     tokens = sum(len(t) for t in streams)
     weights = tree_nbytes(pipe.params)
-    if held is not None and not weights < pipe.quantized_bytes:
+    if not weights < pipe.quantized_bytes:
         raise AssertionError(f"[{tag}] rank {grp.rank} holds {weights} weight bytes, not "
                              f"under the whole tree's {pipe.quantized_bytes}")
     mine = {"rank": grp.rank, "tokens_per_s": tokens / wall,
@@ -3947,11 +4042,13 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
 
 def tp_rank(rank, world, device, prompts, lm):
     """[tp], [tp-dense], [compress], [tp-lm], [tp-lm-dense], [tp-qwen],
-    [tp-moe], [tp-olmoe] and [tp-audio] on one of ``world`` ranks that
+    [tp-moe], [tp-olmoe], [tp-audio], [tp-ssm] and [tp-hybrid] on one of
+    ``world`` ranks that
     share the one card over gloo (launch_ranks), each engine a
     deploy(mesh=tp_mesh(world)) served by tp_serve: full-width nllb600m
     int4, paged (page 16) then dense, horizon 16, [serve]'s prompts;
-    gemma3-1b whole (one KV head, a copy on each rank), paged then dense,
+    gemma3-1b cut to TP_GEMMA_LAYERS (one KV head, a copy on each rank),
+    paged then dense, against one device's engine of the cut,
     on [lm-gemma]'s prompts past its 512-token windows; qwen2.5-14b at
     full width cut to ``lm["qwen_layers"]`` of its 48 layers, paged, on
     [lm]'s prompts, against the single device's streams that the parent
@@ -3960,8 +4057,9 @@ def tp_rank(rank, world, device, prompts, lm):
     prompts and whisper-base whole on [audio]'s frames, against the
     streams [moe-nllb] and [audio] served before the spawn, and
     olmoe-1b-7b cut to TP_OLMOE_LAYERS on [moe]'s prompts, against one
-    device's engine of that cut (tp_family_phases). Returns each phase's
-    launches and numbers."""
+    device's engine of that cut (tp_family_phases); then the SSM and
+    hybrid meshes (tp_recurrent_phases). Returns each phase's launches
+    and numbers."""
     import torch
     import torch.distributed as dist
     from repro_torch.cluster import tp_mesh
@@ -4004,24 +4102,25 @@ def tp_rank(rank, world, device, prompts, lm):
     del raw
     torch.cuda.empty_cache()
 
-    # [tp-lm] / [tp-lm-dense]: gemma3-1b, a step 7 qmm and one FASST GLU
-    # gate a layer, no paged attention (its windows take the gather route)
+    # [tp-lm] / [tp-lm-dense]: gemma3-1b cut to TP_GEMMA_LAYERS, a step 7
+    # qmm and one FASST GLU gate a layer, no paged attention (its windows
+    # take the gather route)
+    gemma = dataclasses.replace(get_config("gemma3-1b"), num_layers=TP_GEMMA_LAYERS)
     for tag, paged in (("tp-lm", True), ("tp-lm-dense", False)):
         kw = dict(slots=SLOTS, max_len=LONG_LEN, horizon=HORIZON, init_seed=SEED,
                   device=device, ctx=ctx, **paging(paged))
-        mem = engine_memory(torch, device, lambda: deploy("gemma3-1b", "int4", mesh=mesh,
-                                                          **kw))
+        mem = engine_memory(torch, device, lambda: deploy(gemma, "int4", mesh=mesh, **kw))
         pipe = mem.pop("built")
         L = pipe.cfg.num_layers
         out[tag] = tp_serve(torch, tag, lm["card"], pipe, mem, lm["gemma_prompts"],
                             {"qmm": 7 * L, "qmm_naf": 0, "paged_attn": 0, "fasst_act": L},
-                            {"build": lambda: deploy("gemma3-1b", "int4", **kw)},
+                            {"build": lambda: deploy(gemma, "int4", **kw)},
                             ("qmm", "fasst_act"), dict(max_len=LONG_LEN))
         del pipe
         torch.cuda.empty_cache()
 
     # [tp-qwen]: the paged attention at the rank's 20 of 40 heads and 4 of
-    # 8 KV heads; the ranks draw the 15 GB f32 cut in turn
+    # 8 KV heads; the ranks draw the f32 cut in turn
     cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=lm["qwen_layers"])
     kw = dict(slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON, init_seed=SEED, device=device,
               ctx=ctx, **paging(True))
@@ -4041,6 +4140,7 @@ def tp_rank(rank, world, device, prompts, lm):
     torch.cuda.empty_cache()
 
     out.update(tp_family_phases(torch, rank, world, device, mesh, ctx, prompts, lm))
+    out.update(tp_recurrent_phases(torch, device, mesh, ctx, lm))
     return out
 
 
@@ -4088,6 +4188,56 @@ def tp_family_phases(torch, rank, world, device, mesh, ctx, prompts, lm):
     return out
 
 
+def tp_recurrent_phases(torch, device, mesh, ctx, lm):
+    """[tp-ssm] / [tp-hybrid] on this rank, dense (as on one device), each
+    held by tp_serve with its collectives a step held exactly:
+    mamba2-780m whole on [ssm]'s prompts against [ssm]'s streams
+    (``lm["families"]["ssm"]``), each rank on 24 of the 48 SSD heads
+    (layout (e)); a decode step launches qmm twice a layer and sums twice
+    a layer (the gated norm's sums of squares, out_proj) plus the
+    embedding's sum and the head's gather. recurrentgemma-9b at full
+    width cut to TP_HYBRID_LAYERS (one (RG-LRU, RG-LRU, local attention)
+    super-block and the 2-layer RG-LRU tail) on [hybrid]'s prompts, past
+    its window, against one device's engine of the cut served on rank 0
+    (tp_vs_single), each rank on half the RG-LRU channels and heads
+    (layout (f), the one KV head copied): a step launches qmm 3 a
+    recurrent and 7 an attention layer and the FASST kernel 2 and 1, and
+    sums 3 times a recurrent layer (the conv output's gather, out_proj,
+    the MLP) and twice an attention layer, plus the embedding and the
+    head. Returns each phase's launches and numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import hybrid_layout
+    from repro_torch.serving import deploy
+    out = {}
+    ssm = get_config("mamba2-780m")
+    hybrid = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=TP_HYBRID_LAYERS)
+    n_super, tail = hybrid_layout(hybrid)
+    rec = 2 * n_super + tail
+    hybrid_prompts = _lm_prompts(np.random.default_rng(SEED + 30), hybrid.vocab_size,
+                                 2100, 2400)
+    fam = lm["families"]["ssm"]
+    for tag, arch, max_len, prompts_of, per_step, sums, streams, need in (
+            ("tp-ssm", ssm, SSM_LEN, fam["prompts"],
+             {"qmm": 2 * ssm.num_layers, "qmm_naf": 0, "paged_attn": 0, "fasst_act": 0},
+             2 * ssm.num_layers + 2, fam["streams"], ("qmm",)),
+            ("tp-hybrid", hybrid, HYBRID_LEN, hybrid_prompts,
+             {"qmm": 3 * rec + 7 * n_super, "qmm_naf": 0, "paged_attn": 0,
+              "fasst_act": 2 * rec + n_super},
+             3 * rec + 2 * n_super + 2, None, ("qmm", "fasst_act"))):
+        kw = dict(slots=SLOTS, max_len=max_len, horizon=HORIZON, init_seed=SEED,
+                  device=device, ctx=ctx)
+        mem = engine_memory(torch, device, lambda: deploy(arch, "int4", mesh=mesh, **kw))
+        torch.cuda.empty_cache()
+        pipe = mem.pop("built")
+        out[tag] = tp_serve(torch, tag, lm["card"], pipe, mem, prompts_of, per_step,
+                            {"streams": streams, "build": lambda: deploy(arch, "int4", **kw)},
+                            need, dict(max_len=max_len), collectives=sums,
+                            logit_tol=TP_RECURRENT_LOGIT_TOL[tag])
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_lm_inputs(torch, card):
     """The LM inputs of the tp spawn: [lm-gemma]'s and [lm]'s prompts, and
     the single device's greedy streams of [tp-qwen]'s cut (qwen2.5-14b,
@@ -4129,8 +4279,10 @@ def time_tp_kernels(torch, card, dev):
     tp2 rank's qwen2.5-14b decode step at [tp-qwen]'s cut (TP_QWEN_LAYERS
     layers x 7 int4 launches at the shard shapes; paged attention at 20 of
     40 heads, 4 of 8 KV heads, d 128); the nllb600m-moe step as its
-    comment below says. Returns the ``tp_``, ``tp_qwen_`` and ``tp_moe_``
-    keys of the qmm, paged_attn and fasst_act entries."""
+    comment below says; qmm over one tp2 rank's mamba2-780m decode step
+    ([tp-ssm]) and recurrentgemma-9b decode step at [tp-hybrid]'s cut.
+    Returns the ``tp_``, ``tp_qwen_``, ``tp_moe_``, ``tp_ssm_`` and
+    ``tp_hybrid_`` keys of the qmm, paged_attn and fasst_act entries."""
     from repro_torch.core.qtensor import QTensor
     g = torch.Generator(device=dev).manual_seed(SEED + 33)
     layer = [(1024, 512)] * 4 + [(512, 1024)] * 2 + [(1024, 4096), (4096, 1024)]
@@ -4195,8 +4347,36 @@ def time_tp_kernels(torch, card, dev):
                                 f"on its experts' {shape} bf16 (G, E/tp, C, ff)"}
     del fns
     torch.cuda.empty_cache()
+    # one tp2 rank's mamba2-780m decode step: 48 layers x in_proj at the
+    # rank's 24 of 48 SSD heads (1536 x (2 x 1536 + 2 x 128 + 24) = 1536 x
+    # 3352, N no multiple of 64) and out_proj's rows (1536 x 1536)
+    ws = [QTensor.quantize(torch.randn(kn, generator=g, device=dev) * 0.02, "int4", 64)
+          for _ in range(48) for kn in ((1536, 3352), (1536, 1536))]
+    fns, (t, by) = qmm_window(torch, g, dev, ws, SLOTS)
+    ssm = {"qmm": {**times(*fns, plain_reps=2), "bound_ms": t, "bound_by": by,
+                   "work": f"one tp{TP} rank's mamba2-780m decode step: {len(ws)} int4 "
+                           f"launches at M={SLOTS} (in_proj 1536x3352, out_proj 1536x1536)"}}
+    del ws, fns
+    torch.cuda.empty_cache()
+    # one tp2 rank's recurrentgemma-9b decode step at [tp-hybrid]'s cut:
+    # the MLP of each of the 5 layers (gate, up 4096x6144; down 6144x4096)
+    # and the attention layer's q 4096x2048, k, v 4096x256 (the one KV head
+    # copied), o 2048x4096; the RG-LRU is bf16 (the policy exempts it)
+    layers = [[(4096, 6144)] * 2 + [(6144, 4096)]] * TP_HYBRID_LAYERS \
+        + [[(4096, 2048)] + [(4096, 256)] * 2 + [(2048, 4096)]]
+    ws = [QTensor.quantize(torch.randn(kn, generator=g, device=dev) * 0.02, "int4", 64)
+          for layer in layers for kn in layer]
+    fns, (t, by) = qmm_window(torch, g, dev, ws, SLOTS)
+    hybrid = {"qmm": {**times(*fns, plain_reps=2), "bound_ms": t, "bound_by": by,
+                      "work": f"one tp{TP} rank's recurrentgemma-9b decode step "
+                              f"({TP_HYBRID_LAYERS} layers): {len(ws)} int4 launches at "
+                              f"M={SLOTS} (MLP gate, up 4096x6144, down 6144x4096; q "
+                              "4096x2048; k, v 4096x256; o 2048x4096)"}}
+    del ws, fns
+    torch.cuda.empty_cache()
     keyed = {}
-    for pre, group in (("tp_", out), ("tp_qwen_", qwen), ("tp_moe_", moe)):
+    for pre, group in (("tp_", out), ("tp_qwen_", qwen), ("tp_moe_", moe),
+                       ("tp_ssm_", ssm), ("tp_hybrid_", hybrid)):
         for name, e in group.items():
             keyed.setdefault(name, {}).update({f"{pre}{k}": v for k, v in e.items()})
             log_time({"name": name, **{f"{pre}{k}": v for k, v in e.items()}}, card, pre)
@@ -4220,7 +4400,8 @@ def fasst_window(torch, g, dev, shape, n, mode="relu"):
 
 def tp_phase(card, prompts, lm):
     """[tp] / [tp-dense] / [compress] / [tp-lm] / [tp-lm-dense] / [tp-qwen]
-    / [tp-moe] / [tp-olmoe] / [tp-audio] on TP ranks sharing the card."""
+    / [tp-moe] / [tp-olmoe] / [tp-audio] / [tp-ssm] / [tp-hybrid] on TP
+    ranks sharing the card."""
     from repro_torch.cluster import launch_ranks, rank_backend
     backend = rank_backend("cuda", TP)
     if backend != "gloo":
@@ -4228,8 +4409,9 @@ def tp_phase(card, prompts, lm):
     t0 = time.perf_counter()
     results = launch_ranks(tp_rank, TP, device="cuda", args=(prompts, lm))
     log(f"[tp] {TP} ranks over {backend} on {card} took {time.perf_counter() - t0:.1f} s "
-        "(process start, deploys, nllb600m's two layouts, gemma3-1b's two, qwen2.5-14b's "
-        "cut, nllb600m-moe, olmoe-1b-7b's cut and whisper-base)")
+        "(process start, deploys, nllb600m's two layouts, gemma3-1b's cut's two, qwen2.5-14b's "
+        "cut, nllb600m-moe, olmoe-1b-7b's cut, whisper-base, mamba2-780m and "
+        "recurrentgemma-9b's cut)")
     return results[0]
 
 
@@ -4532,14 +4714,16 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_launches[name] = phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
-    # the MoE and audio families on one device, before the tp spawn, whose
-    # [tp-moe] and [tp-audio] hold their ranks to the streams kept in
-    # ``single`` and [tp-olmoe] serves [moe]'s prompts; paged attention
-    # timed at their served shapes goes into ``timed``
+    # the MoE, audio and SSM families on one device, before the tp spawn,
+    # whose [tp-moe], [tp-audio] and [tp-ssm] hold their ranks to the
+    # streams kept in ``single`` and [tp-olmoe] serves [moe]'s prompts;
+    # paged attention and qmm timed at their served shapes go into
+    # ``timed``
     timed, single = {}, {}
     for name, phase in (("moe", lambda: moe_phase(torch, card, timed, single)),
                         ("audio", lambda: audio_phase(torch, card, timed, single)),
-                        ("moe-nllb", lambda: moe_nllb_phase(torch, card, prompts, single))):
+                        ("moe-nllb", lambda: moe_nllb_phase(torch, card, prompts, single)),
+                        ("ssm", lambda: ssm_phase(torch, card, timed, single))):
         t0 = time.perf_counter()
         phase_launches[name] = phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
@@ -4550,7 +4734,7 @@ def main() -> int:
     for e in entries:
         e.update(tp_kernels.get(e["name"], {}))
     tp_out = tp_phase(card, prompts, dict(tp_lm_inputs(torch, card), families=single))
-    for tag in ("tp-moe", "tp-olmoe", "tp-audio"):
+    for tag in ("tp-moe", "tp-olmoe", "tp-audio", "tp-ssm", "tp-hybrid"):
         phase_launches[tag] = tp_out[tag]["launches"]
     phase_launches["tp"] = tp_out["tp"]["launches"]
     phase_launches["tp-dense"] = tp_out["tp-dense"]["launches"]
@@ -4588,11 +4772,7 @@ def main() -> int:
             e.update(lm_kernels[e["name"]])
             log_time(e, card, "lm_")
     log(f"[lm-kernels] took {time.perf_counter() - t0:.1f} s")
-    # the recurrent families; paged attention and qmm timed at their
-    # served shapes go into ``timed``
-    phases = LM_PHASES + (("ssm", lambda torch, card: ssm_phase(torch, card, timed)),
-                          ("hybrid", hybrid_phase))
-    for name, phase in phases:
+    for name, phase in LM_PHASES + (("hybrid", hybrid_phase),):
         t0 = time.perf_counter()
         phase_launches[name] = phase(torch, card)
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
@@ -4608,7 +4788,8 @@ def main() -> int:
               "tp_dense": phase_launches["tp-dense"], "dp": phase_launches["dp"],
               "tp_lm": phase_launches["tp-lm"], "tp_qwen": phase_launches["tp-qwen"],
               "tp_moe": phase_launches["tp-moe"], "tp_olmoe": phase_launches["tp-olmoe"],
-              "tp_audio": phase_launches["tp-audio"], "dp_tp": phase_launches["dp-tp"]}
+              "tp_audio": phase_launches["tp-audio"], "tp_ssm": phase_launches["tp-ssm"],
+              "tp_hybrid": phase_launches["tp-hybrid"], "dp_tp": phase_launches["dp-tp"]}
     for e in entries:
         if e["name"] == "paged_attn":
             for tag in ("moe", "audio"):
@@ -4620,7 +4801,8 @@ def main() -> int:
         # spec, spec_dense, faults, quant, train, eval, train_lm, lm,
         # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid, tp (rank 0),
         # tp_dense (rank 0), dp, tp_lm (rank 0, paged + dense), tp_qwen,
-        # tp_moe, tp_olmoe, tp_audio (rank 0), dp_tp (rank 0)
+        # tp_moe, tp_olmoe, tp_audio, tp_ssm, tp_hybrid (rank 0), dp_tp
+        # (rank 0)
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -4647,13 +4829,15 @@ def main() -> int:
     log("kernels in [tp-moe] / [tp-olmoe] / [tp-audio] (rank 0 of 2): " + ", ".join(
         f"{e['name']}={e['launches_tp_moe']} / {e['launches_tp_olmoe']} / "
         f"{e['launches_tp_audio']}" for e in entries))
+    log("kernels in [tp-ssm] / [tp-hybrid] (rank 0 of 2): " + ", ".join(
+        f"{e['name']}={e['launches_tp_ssm']} / {e['launches_tp_hybrid']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
             "launches_moe", "launches_moe_nllb", "launches_audio", "launches_ssm",
             "launches_hybrid", "launches_tp", "launches_tp_dense", "launches_dp",
             "launches_tp_lm", "launches_tp_qwen", "launches_tp_moe", "launches_tp_olmoe",
-            "launches_tp_audio", "launches_dp_tp",
+            "launches_tp_audio", "launches_tp_ssm", "launches_tp_hybrid", "launches_dp_tp",
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")

@@ -7,8 +7,9 @@ composition:
   ranks that :func:`launch_ranks` started: every rank serves the same
   requests on its shard of the weights and KV storage, and the model sums
   its row-parallel products over the ranks (``parallel/tp.py``). The text
-  and audio enc-decs and the dense, VLM and MoE LM families (an MoE
-  model's experts split E over the ranks).
+  and audio enc-decs and every LM family (an MoE model's experts split E
+  over the ranks; an SSM's heads and an RG-LRU's channels split, with
+  the collectives their norm and gates need).
 * **Data parallel** — :class:`ReplicaRouter` balances requests over N
   independent engine replicas; :func:`deploy_replicas` builds them
   behind the ordinary ``TranslationPipeline`` surface, replica ``i`` on

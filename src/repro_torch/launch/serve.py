@@ -28,8 +28,9 @@ Scale-out: ``--mesh tp<K>`` runs the launcher's body on K ranks
 (``cluster.launch_ranks``: NCCL when each rank has a card of its own,
 gloo when they share one or run on the CPU), each deploying with
 ``mesh=tp_mesh(K)`` and serving the same requests (any ``--arch`` of the
-text enc-dec, dense, VLM or MoE families; an MoE model's experts split E
-over the ranks); rank 0 prints. ``--mesh dp<N>``
+registry: an MoE model's experts split E over the ranks, an SSM's heads
+and an RG-LRU's channels split too; the SSM and hybrid engines are dense
+only, without ``--paged``); rank 0 prints. ``--mesh dp<N>``
 serves through ``deploy_replicas`` (N engines behind the replica
 router). ``--mesh dp<N>,tp<K>`` runs the body on N·K ranks, each calling
 ``deploy_replicas(replicas=N, tp=K)``: N tensor-parallel replicas behind
@@ -50,6 +51,8 @@ kernels' plain versions.
       --paged --mesh dp2,tp2 --requests 4 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch nllb600m-moe --smoke \\
       --device cpu --paged --mesh tp2 --requests 4 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --smoke \\
+      --device cpu --mesh tp2 --requests 4 --gen 8 --max-len 32
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Unified model facade: one callable surface per architecture family.
 
-build_model(cfg, device) -> ModelAPI with
+build_model(cfg, device, tp=1) -> ModelAPI with
   init(generator | key)              -> params (a key from random.prng_key(seed)
                                         draws the reference's init for that seed)
   forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced;
@@ -85,7 +85,7 @@ def _no_paged_cache(fam: str) -> Callable:
     return init_paged_cache
 
 
-def _lm_model(cfg, device) -> ModelAPI:
+def _lm_model(cfg, device, tp: int = 1) -> ModelAPI:
     def forward(ctx, params, batch, remat=False):
         logits, aux, _ = tf.lm_forward(ctx, params, cfg, _on(device, batch, "tokens"),
                                        img_embeds=_on(device, batch, "img_embeds"),
@@ -93,7 +93,7 @@ def _lm_model(cfg, device) -> ModelAPI:
         return logits, aux
 
     def init_cache(batch_size, max_len, kv_dtype="bf16"):
-        return tf.lm_init_cache(cfg, batch_size, max_len, kv_dtype, device)
+        return tf.lm_init_cache(cfg, batch_size, max_len, kv_dtype, device, tp)
 
     def prefill(ctx, params, cache, batch, read=None):
         return tf.lm_prefill(ctx, params, cfg, batch["tokens"], cache,
@@ -119,9 +119,9 @@ def _hybrid_model(cfg, device) -> ModelAPI:
     def init_cache(batch_size, max_len, kv_dtype="bf16"):
         return hy.hybrid_init_cache(cfg, batch_size, max_len, kv_dtype, device)
 
-    def prefill(ctx, params, cache, batch):
+    def prefill(ctx, params, cache, batch, read=None):
         return hy.hybrid_prefill(ctx, params, cfg, batch["tokens"], cache,
-                                 lengths=batch.get("lengths"))
+                                 lengths=batch.get("lengths"), read=read)
 
     def decode_step(ctx, params, tokens, cache):
         return hy.hybrid_decode_step(ctx, params, cfg, tokens, cache)
@@ -130,9 +130,13 @@ def _hybrid_model(cfg, device) -> ModelAPI:
                     decode_step, _no_paged_cache("hybrid"))
 
 
-def build_model(cfg, device="cuda") -> ModelAPI:
+def build_model(cfg, device="cuda", tp: int = 1) -> ModelAPI:
+    """The family's ModelAPI on ``device``. ``tp``: the tensor-parallel
+    group size an SSM rank's caches take (its rank-local widths come from
+    the group, not from the config: ``parallel.tp.local_config``); the
+    other families read their local widths from a rank-local config."""
     if cfg.family in ("dense", "vlm", "moe", "ssm"):
-        return _lm_model(cfg, device)
+        return _lm_model(cfg, device, tp)
     if cfg.family == "hybrid":
         return _hybrid_model(cfg, device)
     if cfg.family not in ("encdec", "audio"):

@@ -156,7 +156,9 @@ def hybrid_forward(ctx: Ctx, params, cfg, tokens, remat: bool = False):
 def hybrid_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16",
                       device="cuda"):
     """The serving cache. ``kv_dtype`` is accepted and ignored: the
-    rolling K/V are bf16, as in the reference."""
+    rolling K/V are bf16, as in the reference. A rank-local config
+    (``parallel.tp.local_config``) gives a rank's ``d_rec / tp`` states
+    and the one KV head its query heads read."""
     n_super, tail = hybrid_layout(cfg)
     W = min(cfg.local_window, max_len)
     kv = (n_super, batch, W, cfg.num_kv_heads, cfg.head_dim)
@@ -194,9 +196,11 @@ def _put_state(cache, conv_key, h_key, i, st):
 _BLOCK_STATES = (("r1", "b_conv1", "b_h1"), ("r2", "b_conv2", "b_h2"))
 
 
-def hybrid_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None):
+def hybrid_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, read=None):
     """Run the prompt tokens (B, S) from the cache's states and fill it in
-    place. Returns (cache, logits (B, S, V))."""
+    place. Returns (cache, logits (B, S, V)), or with ``read`` (B,) the
+    logits (B, V) of one position a row: the rows a tensor-parallel rank
+    gathers (``transformer._head``)."""
     B, S = tokens.shape
     n_super, tail = hybrid_layout(cfg)
     W = cache["b_k"].shape[2]
@@ -222,7 +226,7 @@ def hybrid_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None):
     cache["pos_roll"][:, dst] = src.to(torch.int32)
     cache["len"] = lengths if lengths is not None else torch.full(
         (B,), S, dtype=torch.int32, device=x.device)
-    return cache, _lm_head(ctx, params, cfg, x)
+    return cache, _lm_head(ctx, params, cfg, x, read)
 
 
 def _rglru_step(ctx: Ctx, cfg, bp, x, cache, conv_key, h_key, i):

@@ -14,6 +14,14 @@ the sequence axis with the reference's combine); decode carries h
 never quantized (the policy exempts ``rglru``), so its five products are
 plain matmuls; the output gate's GELU goes through ``ctx.naf`` (the
 FASST kernel when it is on).
+
+Under a tensor-parallel group (``ctx.tp``) the block runs on the rank's
+``d_rec / tp`` channels (``parallel.sharding`` layout (f)): the conv, the
+gates' products with the rank's columns of ``w_rg`` / ``w_ig``, ``a``,
+``b`` and the scan are the rank's own; the conv output is gathered along
+channels before the gates (a channel's gates read every channel), and
+``out_proj``'s partial products are summed over the ranks (an
+unlabelled site, as in the reference, so the sum is explicit here).
 """
 
 from __future__ import annotations
@@ -50,9 +58,13 @@ def rglru_init(g, d_model: int, d_rec: int, lead: tuple = ()):
 
 
 def _gates(ctx: Ctx, params, xr):
+    """(a, b) of the channels of ``xr``; on a group's rank the gates read
+    every rank's channels (gathered) through its columns of the gate
+    weights."""
     f32 = torch.float32
-    r = torch.sigmoid(ctx.dot(xr, params["w_rg"]).to(f32))
-    i = torch.sigmoid(ctx.dot(xr, params["w_ig"]).to(f32))
+    xw = xr if ctx.tp is None else ctx.tp.gather(xr, -1)
+    r = torch.sigmoid(ctx.dot(xw, params["w_rg"]).to(f32))
+    i = torch.sigmoid(ctx.dot(xw, params["w_ig"]).to(f32))
     a = torch.exp(-_C * F.softplus(params["a_param"].to(f32)) * r)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * i * xr.to(f32)
     return a, b
@@ -71,6 +83,12 @@ def _conv(x, w, bias, state=None):
     for i in range(_CONV_W):
         out = out + xp[:, i:i + S].to(torch.float32) * w[i]
     return (out + bias.to(torch.float32)).to(x.dtype), xp[:, -(_CONV_W - 1):]
+
+
+def _out(ctx: Ctx, params, y):
+    """``out_proj``, its partial products summed over a group's ranks."""
+    out = ctx.dot(y, params["out_proj"])
+    return out if ctx.tp is None else ctx.tp.all_reduce(out)
 
 
 def linear_scan(a, b):
@@ -100,7 +118,7 @@ def rglru_apply(ctx: Ctx, params, x, state=None, return_state: bool = False):
     if h0 is not None:      # the initial state folds into the first step
         b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
     h = linear_scan(a, b)
-    out = ctx.dot(h.to(ctx.compute_dtype) * gate, params["out_proj"])
+    out = _out(ctx, params, h.to(ctx.compute_dtype) * gate)
     if return_state:
         return out, (new_conv, h[:, -1])
     return out
@@ -124,4 +142,4 @@ def rglru_decode_step(ctx: Ctx, params, x, state):
     a, b = _gates(ctx, params, xr1.to(ctx.compute_dtype))
     h_new = a[:, 0] * h + b[:, 0]
     y = h_new[:, None, :].to(ctx.compute_dtype) * gate
-    return ctx.dot(y, params["out_proj"]), (xp[:, 1:], h_new)
+    return _out(ctx, params, y), (xp[:, 1:], h_new)

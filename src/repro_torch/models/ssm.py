@@ -9,6 +9,14 @@ The projections (``in_proj`` / ``out_proj``) take the policy's weight
 format (qmm on the card for 4-bit weights); the recurrence runs in f32,
 as in the reference. The SiLUs are plain PyTorch (the reference calls
 ``jax.nn.silu``, not the FASST activation).
+
+Under a tensor-parallel group (``ctx.tp``) the layer runs on the rank's
+SSD heads (``parallel.sharding`` layout (e)): the packed projection holds
+its heads' z, x and dt columns and all of B and C, the conv and the
+recurrence run locally, the gated RMSNorm sums each row's sum of squares
+over the ranks before it divides by the whole ``d_inner``, and
+``out_proj``'s partial products are summed over the ranks. The sites are
+unlabelled, as in the reference, so the sums are explicit here.
 """
 
 from __future__ import annotations
@@ -24,8 +32,14 @@ __all__ = ["ssm_init", "ssm_apply", "ssm_decode_step", "ssm_init_state",
 _CONV_W = 4
 
 
-def _dims(d_model, ssm_cfg):
-    d_inner = ssm_cfg.expand * d_model
+def _tp(ctx: Ctx) -> int:
+    return ctx.tp.size if ctx.tp is not None else 1
+
+
+def _dims(d_model, ssm_cfg, tp: int = 1):
+    """(d_inner, SSD heads, state dim, conv channels, in_proj width), the
+    rank-local ones on a group of ``tp`` ranks (layout (e))."""
+    d_inner = ssm_cfg.expand * d_model // tp
     nh = d_inner // ssm_cfg.head_dim
     ds = ssm_cfg.state_dim
     conv_dim = d_inner + 2 * ds          # x + B + C (n_groups = 1)
@@ -77,7 +91,7 @@ def ssm_init(g, d_model: int, ssm_cfg, layers=None):
 
 
 def _split_proj(ctx: Ctx, params, x, d_model, ssm_cfg):
-    d_inner, _, _, conv_dim, _ = _dims(d_model, ssm_cfg)
+    d_inner, _, _, conv_dim, _ = _dims(d_model, ssm_cfg, _tp(ctx))
     zxbcdt = ctx.dot(x, params["in_proj"])
     return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:d_inner + conv_dim],
             zxbcdt[..., d_inner + conv_dim:])
@@ -158,10 +172,23 @@ def _ssd_chunked(xh, Bm, Cm, dt, A, chunk: int):
     return (y_intra + y_inter).reshape(Bsz, S, nh, hp), h
 
 
-def _gate_out(ctx: Ctx, params, y, z):
-    """y (f32) -> compute dtype, times SiLU(z), RMS-normed, ``out_proj``."""
+def _split_rms_norm(tp, x, scale, width: int, eps=1e-6):
+    """``rms_norm`` of rows whose ``width`` columns are split over the
+    ranks of ``tp``: each row's f32 sum of squares summed over the ranks,
+    over the whole width."""
+    xf = x.to(torch.float32)
+    var = tp.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def _gate_out(ctx: Ctx, params, y, z, d_inner: int):
+    """y (f32) -> compute dtype, times SiLU(z), RMS-normed over the whole
+    ``d_inner``, ``out_proj`` (summed over a group's ranks)."""
     y = y.to(ctx.compute_dtype) * F.silu(z.to(torch.float32)).to(ctx.compute_dtype)
-    return ctx.dot(rms_norm(y, params["norm_scale"]), params["out_proj"])
+    if ctx.tp is None:
+        return ctx.dot(rms_norm(y, params["norm_scale"]), params["out_proj"])
+    y = _split_rms_norm(ctx.tp, y, params["norm_scale"], d_inner)
+    return ctx.tp.all_reduce(ctx.dot(y, params["out_proj"]))
 
 
 def ssm_apply(ctx: Ctx, params, x, *, d_model: int, ssm_cfg, conv_state=None,
@@ -169,7 +196,7 @@ def ssm_apply(ctx: Ctx, params, x, *, d_model: int, ssm_cfg, conv_state=None,
     """Full-sequence SSD block from the zero SSD state (as the reference's
     prefill runs it), x (B, S, d) -> y (B, S, d) [, (conv state, SSD
     state)]."""
-    d_inner, nh, ds, _, _ = _dims(d_model, ssm_cfg)
+    d_inner, nh, ds, _, _ = _dims(d_model, ssm_cfg, _tp(ctx))
     B, S, _ = x.shape
     z, xbc, dt = _split_proj(ctx, params, x, d_model, ssm_cfg)
     xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_bias"], conv_state)
@@ -180,15 +207,17 @@ def ssm_apply(ctx: Ctx, params, x, *, d_model: int, ssm_cfg, conv_state=None,
     A = -torch.exp(params["a_log"].to(torch.float32))
     y, h_last = _ssd_chunked(xs, Bm, Cm, dt, A, ssm_cfg.chunk)
     y = y + xs.to(torch.float32) * params["D"].to(torch.float32)[:, None]
-    out = _gate_out(ctx, params, y.reshape(B, S, d_inner), z)
+    out = _gate_out(ctx, params, y.reshape(B, S, d_inner), z, ssm_cfg.expand * d_model)
     if return_state:
         return out, (new_conv, h_last)
     return out
 
 
-def ssm_init_state(batch: int, d_model: int, ssm_cfg, device="cuda"):
-    """Zero (conv (B, 3, conv_dim) bf16, SSD (B, nh, hp, ds) f32) states."""
-    _, nh, ds, conv_dim, _ = _dims(d_model, ssm_cfg)
+def ssm_init_state(batch: int, d_model: int, ssm_cfg, device="cuda", tp: int = 1):
+    """Zero (conv (B, 3, conv_dim) bf16, SSD (B, nh, hp, ds) f32) states, a
+    rank's widths on a group of ``tp`` (layout (e): its heads' x channels
+    and all of B and C; its heads)."""
+    _, nh, ds, conv_dim, _ = _dims(d_model, ssm_cfg, tp)
     return (torch.zeros((batch, _CONV_W - 1, conv_dim), dtype=torch.bfloat16, device=device),
             torch.zeros((batch, nh, ssm_cfg.head_dim, ds), dtype=torch.float32,
                         device=device))
@@ -198,7 +227,7 @@ def ssm_decode_step(ctx: Ctx, params, x, state, *, d_model: int, ssm_cfg):
     """One-token recurrent update, x (B, 1, d); state (conv, h). The new
     conv state comes back in the projection's dtype (the caller stores it
     into its cache leaf); h in f32."""
-    d_inner, nh, ds, _, _ = _dims(d_model, ssm_cfg)
+    d_inner, nh, ds, _, _ = _dims(d_model, ssm_cfg, _tp(ctx))
     B = x.shape[0]
     conv_state, h = state
     z, xbc, dt = _split_proj(ctx, params, x, d_model, ssm_cfg)
@@ -215,13 +244,14 @@ def ssm_decode_step(ctx: Ctx, params, x, state, *, d_model: int, ssm_cfg):
     h = h * decay[:, :, None, None] + (dtv[:, :, None] * xs)[..., None] * Bm[:, None, None, :]
     y = torch.matmul(h, Cm[:, None, :, None])[..., 0]                # (B, nh, hp)
     y = y + xs * params["D"].to(f32)[:, None]
-    return _gate_out(ctx, params, y.reshape(B, 1, d_inner), z), (xp[:, 1:], h)
+    return (_gate_out(ctx, params, y.reshape(B, 1, d_inner), z, ssm_cfg.expand * d_model),
+            (xp[:, 1:], h))
 
 
 def ssm_naive_ref(ctx: Ctx, params, x, *, d_model: int, ssm_cfg):
     """The step-by-step recurrence (the oracle the chunked form is tested
     against)."""
-    state = ssm_init_state(x.shape[0], d_model, ssm_cfg, x.device)
+    state = ssm_init_state(x.shape[0], d_model, ssm_cfg, x.device, _tp(ctx))
     outs = []
     for t in range(x.shape[1]):
         y, state = ssm_decode_step(ctx, params, x[:, t:t + 1], state, d_model=d_model,

@@ -472,12 +472,14 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
     return _lm_head(ctx, params, cfg, x, read), aux, kvs
 
 
-def lm_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16", device="cuda"):
+def lm_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16", device="cuda",
+                  tp: int = 1):
     """Dense serving cache: K/V at ``max_len`` per slot, ``pos`` -1 where
-    empty, ``len`` per slot; an SSM's recurrent states and ``len``."""
+    empty, ``len`` per slot; an SSM's recurrent states (a rank's widths
+    on a group of ``tp``) and ``len``."""
     _check_family(cfg)
     if cfg.family == "ssm":
-        conv, ssd = ssm_mod.ssm_init_state(batch, cfg.d_model, cfg.ssm, device)
+        conv, ssd = ssm_mod.ssm_init_state(batch, cfg.d_model, cfg.ssm, device, tp)
         L = cfg.num_layers
         return {"conv": conv.expand(L, *conv.shape).clone(),
                 "ssd": ssd.expand(L, *ssd.shape).clone(),

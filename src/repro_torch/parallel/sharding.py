@@ -50,6 +50,22 @@ purpose:
     would cut a head across ranks; ``kv_replicas`` ranks hold each head
     (``parallel.tp``). ``q_norm`` / ``k_norm`` (``(head_dim,)``) replicate,
     as every 1-D leaf does.
+(e) The SSM (Mamba-2; ``recurrent`` on). Rank r holds SSD heads ``[r nh/tp,
+    (r+1) nh/tp)``. The packed ``in_proj`` columns (z, x, B, C, dt) give it
+    its heads' z and x columns, all of B and C (one group: every head reads
+    them) and its heads' dt columns, in that order, where the reference's
+    even column split would cut across segments; ``conv_w`` / ``conv_bias``
+    its heads' x channels and all of B and C; ``a_log``, ``dt_bias`` and
+    ``D`` its heads; ``norm_scale`` its ``d_inner`` columns; ``out_proj``
+    its rows (the reference's split). The scales follow (a). The engine's
+    conv state keeps the same channels (x's heads, B and C whole), not the
+    reference cache rule's even split of ``conv_dim``; its SSD state takes
+    the rank's heads, as the reference's does.
+(f) The RG-LRU (``recurrent`` on). ``gate_proj`` / ``in_proj`` columns,
+    ``conv_w`` / ``conv_bias`` / ``a_param`` and ``out_proj`` rows split by
+    channel; ``w_rg`` and ``w_ig``, which the reference replicates, give
+    rank r their columns ``[r d_rec/tp, (r+1) d_rec/tp)``: the gates of its
+    channels, computed from the whole (gathered) conv output.
 """
 
 from __future__ import annotations
@@ -296,15 +312,29 @@ def _full(spec: Spec, ndim: int) -> Spec:
     return tuple(spec) + (None,) * (ndim - len(spec))
 
 
+def _even(idx: int, n: int):
+    """``last`` of an even split: piece ``idx`` of ``n`` of the last dim."""
+    def ranges(size):
+        if size % n:
+            raise ValueError(f"a last dim of {size} does not split {n} ways")
+        return [(idx * (size // n), size // n)]
+    return ranges
+
+
 def _slice(t: torch.Tensor, spec: Spec, axes, coords, last=None) -> torch.Tensor:
     """The rank's piece of ``t``: a copy where a dim splits (a view would
     keep the whole tensor's storage alive beside the shard), ``t`` itself
-    where it replicates. ``last`` = (piece, pieces) overrides the last
-    dim's split (layout (d))."""
+    where it replicates. ``last`` (the last dim's length -> the (start,
+    length) ranges the rank keeps, in order) overrides the last dim's
+    split (layouts (d)-(f))."""
     split = False
     spec = _full(spec, t.ndim)
     for d, ax in enumerate(spec):
-        idx, n = last if last is not None and d == t.ndim - 1 else _part(axes, coords, ax)
+        if last is not None and d == t.ndim - 1:
+            t = torch.cat([t.narrow(d, a, k) for a, k in last(t.shape[d])], dim=d)
+            split = True
+            continue
+        idx, n = _part(axes, coords, ax)
         if n > 1:
             if t.shape[d] % n:
                 raise ValueError(f"dim {d} of {tuple(t.shape)} does not split {n} ways")
@@ -335,7 +365,12 @@ def _shard_qtensor(qt: QTensor, spec: Spec, axes, coords, last=None) -> QTensor:
     scales = _block_scales(qt).to(torch.float32)
     shape = list(qt.shape)
     for d, ax in enumerate(spec):
-        n = last[1] if last is not None and d == nd - 1 else _part(axes, coords, ax)[1]
+        if last is not None and d == nd - 1:
+            if d == q:
+                raise ValueError("a last-dim layout needs the codes' K on another dim")
+            shape[d] = sum(k for _, k in last(shape[d]))
+            continue
+        n = _part(axes, coords, ax)[1]
         if n == 1:
             continue
         shape[d] //= n
@@ -362,20 +397,50 @@ def _spec_of(specs: Mapping[str, Spec], keys: Tuple[str, ...], node) -> Spec:
     return specs.get(path + ".data" if isinstance(node, QTensor) else path, ())
 
 
+def _ssm_last(p, name: str, r: int, tp: int):
+    """Layout (e): the ``last`` of an SSM leaf ``name`` of the param dict
+    ``p`` (layer-stacked or not) on rank ``r`` of ``tp``, or None (its
+    spec's split: ``out_proj``'s rows)."""
+    nh, di = p["a_log"].shape[-1], p["norm_scale"].shape[-1]
+    if nh % tp:
+        raise ValueError(f"{nh} SSD heads do not split {tp} ways")
+    ds = (p["conv_w"].shape[-1] - di) // 2
+    hl, dl = nh // tp, di // tp
+    heads, cols = [(r * hl, hl)], [(r * dl, dl)]
+    ranges = {"in_proj": [(r * dl, dl), (di + r * dl, dl), (2 * di, 2 * ds),
+                          (2 * di + 2 * ds + r * hl, hl)],
+              "conv_w": [(r * dl, dl), (di, 2 * ds)], "conv_bias": [(r * dl, dl), (di, 2 * ds)],
+              "a_log": heads, "dt_bias": heads, "D": heads, "norm_scale": cols}.get(name)
+    return None if ranges is None else (lambda size: ranges)
+
+
+_RGLRU_CHANNELS = ("gate_proj", "in_proj", "conv_w", "conv_bias", "a_param", "w_rg", "w_ig")
+
+
 def shard_tree(tree: Any, specs: Mapping[str, Spec], rank: int, mesh,
-               kv_replicas: int = 1) -> Any:
+               kv_replicas: int = 1, recurrent: bool = False) -> Any:
     """Rank ``rank``'s shard of ``tree`` under ``specs`` (path -> spec, as
     :func:`param_specs` / :func:`cache_specs` give them): every split dim
-    sliced to the rank's contiguous piece, with the layouts (a)-(d) of the
+    sliced to the rank's contiguous piece, with the layouts (a)-(f) of the
     module docstring (``kv_replicas`` > 1 turns on (d): that many ranks of
-    the "model" axis hold each KV head). A path absent from ``specs``
-    replicates."""
+    the "model" axis hold each KV head; ``recurrent`` turns on (e) and (f)
+    for the SSM and RG-LRU param dicts, the tensor-parallel engine's
+    layout). A path absent from ``specs`` replicates."""
     axes = mesh_axes(mesh)
     coords = _coords(axes, rank)
     kv_last = None
     if kv_replicas > 1:
         tp = axes["model"]
-        kv_last = (coords["model"] // kv_replicas, tp // kv_replicas)
+        kv_last = _even(coords["model"] // kv_replicas, tp // kv_replicas)
+    mixer = recurrent and "model" in axes and axes["model"] > 1
+
+    def layout(parent, name):
+        """The last-dim layout of leaf ``name`` of ``parent``: (d)-(f)."""
+        if mixer and "a_log" in parent:
+            return _ssm_last(parent, name, coords["model"], axes["model"])
+        if mixer and "w_rg" in parent:
+            return _even(coords["model"], axes["model"]) if name in _RGLRU_CHANNELS else None
+        return kv_last if name in ("wk", "wv", "bias_k", "bias_v") else None
 
     def walk(node, keys, parent):
         if isinstance(node, dict):
@@ -383,7 +448,7 @@ def shard_tree(tree: Any, specs: Mapping[str, Spec], rank: int, mesh,
         if node is None:
             return None
         name = keys[-1] if keys else None
-        last = kv_last if name in ("wk", "wv", "bias_k", "bias_v") else None
+        last = layout(parent, name) if parent is not None else None
         if isinstance(node, QTensor):
             return _shard_qtensor(node, _spec_of(specs, keys, node), axes, coords, last)
         spec = specs.get(keystr(keys), ())

@@ -4,10 +4,11 @@ The design is SPMD: every rank of a ``("model",)`` mesh runs the same
 host scheduler on the same requests, with a model of its own local
 widths (``H / tp`` query heads, ``d_ff / tp`` FFN columns; ``d_model``
 and the vocabulary unchanged) over its shard of the quantized weights.
-It serves the text enc-dec and audio families and the decoder-only
-dense, VLM and MoE families (nllb600m and its MoE variant, whisper-base,
-gemma3, qwen2.5, internlm2, nemotron-4, llava-next, olmoe, moonshot).
-Only four places talk to the other ranks:
+It serves the text enc-dec and audio families and every decoder-only
+family: dense, VLM, MoE, SSM and hybrid (nllb600m and its MoE variant,
+whisper-base, gemma3, qwen2.5, internlm2, nemotron-4, llava-next, olmoe,
+moonshot, mamba2, recurrentgemma). Only these places talk to the other
+ranks:
 
 * every row-parallel product (a matmul site ending in ``.out``: the
   attention and FFN output projections) is summed over the ranks
@@ -31,7 +32,20 @@ Only four places talk to the other ranks:
   the ``(G, E / tp, C, d)`` outputs back together along E, after which
   the combine runs as on one device. Where tp does not divide E the
   stacks replicate and every rank runs every expert, with no
-  collective. The router is replicated and reads all E.
+  collective. The router is replicated and reads all E;
+* an SSM (Mamba-2) layer on the rank's SSD heads (``parallel.sharding``
+  layout (e)): the conv and the recurrence run locally, the gated
+  RMSNorm over the split ``d_inner`` sums each row's f32 sum of squares
+  over the ranks (a norm over the rank's columns alone would be Mamba-2's
+  grouped norm, another function), and ``out_proj``'s partial products
+  are summed over the ranks;
+* an RG-LRU layer on the rank's ``d_rec / tp`` channels (layout (f)): the
+  conv output is gathered along channels before the gates, since a
+  channel's gates read every channel (``w_rg`` / ``w_ig``; the rank holds
+  their columns of its channels), and ``out_proj`` is summed over the
+  ranks. The recurrent sites are unlabelled, as the reference leaves
+  them, so these two sums are explicit in the model code, not a
+  ``.out`` site's.
 
 KV heads. Where tp divides ``Hkv`` a rank keeps ``Hkv / tp`` of them.
 Where ``Hkv`` divides tp (gemma3's one KV head at any tp, the reduced
@@ -70,7 +84,7 @@ from ..unported import later
 from .sharding import param_specs, shard_tree
 
 __all__ = ["TPGroup", "tp_engine_parts", "refuse_under_mesh", "local_config", "kv_replicas",
-           "experts_per_rank"]
+           "experts_per_rank", "ssd_heads"]
 
 
 class TPGroup:
@@ -125,7 +139,7 @@ class TPGroup:
         return self.all_reduce(torch.where(hit[..., None], x, torch.zeros_like(x)))
 
 
-_MESH_FAMILIES = ("encdec", "audio", "dense", "vlm", "moe")
+_MESH_FAMILIES = ("encdec", "audio", "dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def refuse_under_mesh(cfg, *, tp: Optional[int] = None, act_fmt: str = "bf16",
@@ -133,17 +147,17 @@ def refuse_under_mesh(cfg, *, tp: Optional[int] = None, act_fmt: str = "bf16",
                       adapters: bool = False, draft: bool = False, sla: bool = False,
                       faults: bool = False) -> None:
     """Raise, naming the later slice, for what a mesh does not serve yet:
-    a family other than the text and audio enc-decs and the dense, VLM
-    and MoE LMs (the SSM and hybrid meshes), a KV-head
-    count that neither divides ``tp`` nor is divided by it (when ``tp``
-    is given), act-quantizing specs and calibration (a per-token absmax
+    a family the registry does not know, a width that ``tp`` does not
+    divide (heads, FFN, RG-LRU channels, SSD heads) and a KV-head count
+    that neither divides ``tp`` nor is divided by it (when ``tp`` is
+    given), act-quantizing specs and calibration (a per-token absmax
     over a split K needs an all-reduce max), QLoRA adapters (their
     ``lora_a`` K splits too), a draft arm, and what reads a clock (SLA
     admission, fault injection: the ranks' clocks differ)."""
     if cfg.family not in _MESH_FAMILIES:
         raise later(f"a tensor-parallel mesh for {cfg.name} ({cfg.family}): the port "
-                    "shards the text and audio enc-decs and the dense, VLM and MoE LM "
-                    "families", 6)
+                    "shards the text and audio enc-decs and the dense, VLM, MoE, SSM and "
+                    "hybrid LM families", 6)
     if tp is not None:
         local_config(cfg, tp)
     for on, what in ((act_fmt != "bf16" or attn_fmt != "bf16",
@@ -168,13 +182,30 @@ def kv_replicas(cfg, tp: int) -> int:
     return tp // hkv if hkv < tp and tp % hkv == 0 else 1
 
 
+def ssd_heads(cfg) -> int:
+    """An SSM config's SSD head count, ``expand * d_model / ssm.head_dim``
+    (its ``num_heads`` is not read by the model)."""
+    return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+
+
 def local_config(cfg, tp: int):
     """The rank-local config: query heads and FFN width over ``tp``; KV
     heads over ``tp``, or the one KV head a rank's query heads read
     where ``Hkv`` divides tp (the module docstring). An MoE config keeps
     ``d_ff`` whole (every FFN is an expert, and experts are not split by
-    width) and ``moe.num_experts`` global (the router reads all E)."""
+    width) and ``moe.num_experts`` global (the router reads all E). A
+    hybrid's ``d_rec`` splits too. An SSM config comes back as it is:
+    its SSD heads must split over ``tp``, and the rank-local widths come
+    from the group (``models.ssm._dims``, ``build_model(tp=)``), since
+    the config's fields mirror the reference's."""
+    if cfg.family == "ssm":
+        if ssd_heads(cfg) % tp:
+            raise later(f"{cfg.name}'s {ssd_heads(cfg)} SSD heads over tp{tp}, which does "
+                        "not divide them", 6)
+        return cfg
     widths = ("num_heads",) if cfg.moe is not None else ("num_heads", "d_ff")
+    if cfg.family == "hybrid":
+        widths += ("d_rec",)
     for name in widths:
         if getattr(cfg, name) % tp:
             raise later(f"{cfg.name}'s {name} {getattr(cfg, name)} over tp{tp}, which "
@@ -185,7 +216,8 @@ def local_config(cfg, tp: int):
                     "other: the reference's sequence split)", 6)
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
                                num_kv_heads=max(hkv // tp, 1),
-                               d_ff=cfg.d_ff if cfg.moe is not None else cfg.d_ff // tp)
+                               d_ff=cfg.d_ff if cfg.moe is not None else cfg.d_ff // tp,
+                               d_rec=cfg.d_rec // tp)
 
 
 def _has_adapters(params) -> bool:
@@ -209,8 +241,8 @@ def tp_engine_parts(model, params, ctx, mesh, device, draft=None, sla=None, faul
     local = local_config(cfg, group.size)
     specs = param_specs(params, {"model": group.size}, fsdp_scope="none")
     shard = shard_tree(params, specs, group.rank, {"model": group.size},
-                       kv_replicas=kv_replicas(cfg, group.size))
-    lmodel = build_model(local, device)
+                       kv_replicas=kv_replicas(cfg, group.size), recurrent=True)
+    lmodel = build_model(local, device, tp=group.size)
     _check_widths(shard, lmodel, cfg, group.size)
     return lmodel, shard, dataclasses.replace(ctx, tp=group)
 
@@ -223,20 +255,28 @@ def experts_per_rank(cfg, tp: int) -> int:
 
 
 def _check_widths(shard, lmodel, cfg, tp: int) -> None:
-    """Every projection of the shard has the local model's widths, and
-    every expert stack ``E / tp`` experts (or all E, replicated) of the
-    whole widths: a weight that the reference's rules would replicate (a
-    dim the mesh does not divide) cannot serve in a split model."""
+    """Every projection of the shard has the local model's widths, every
+    expert stack ``E / tp`` experts (or all E, replicated) of the whole
+    widths, and every SSM and RG-LRU leaf its layout's (e) / (f) widths: a
+    weight that the reference's rules would replicate (a dim the mesh
+    does not divide) cannot serve in a split model."""
     lc = lmodel.cfg
     hd, d = lc.head_dim, cfg.d_model
-    expect = {"wq": (d, lc.num_heads * hd), "wk": (d, lc.num_kv_heads * hd),
-              "wv": (d, lc.num_kv_heads * hd), "wo": (lc.num_heads * hd, d),
-              "w_in": (d, lc.d_ff), "w_out": (lc.d_ff, d)}
-    experts = {}
+    expect = {None: {"wq": (d, lc.num_heads * hd), "wk": (d, lc.num_kv_heads * hd),
+                     "wv": (d, lc.num_kv_heads * hd), "wo": (lc.num_heads * hd, d),
+                     "w_in": (d, lc.d_ff), "w_out": (lc.d_ff, d)}}
     if cfg.moe is not None:
         e, ff = experts_per_rank(cfg, tp), cfg.d_ff
-        experts = {n: (e, d, ff) for n in ("w_gate", "w_up", "w_in")}
-        experts.update({n: (e, ff, d) for n in ("w_down", "w_out")})
+        expect["experts"] = {n: (e, d, ff) for n in ("w_gate", "w_up", "w_in")}
+        expect["experts"].update({n: (e, ff, d) for n in ("w_down", "w_out")})
+    if cfg.family == "ssm":
+        di, ds, nh = cfg.ssm.expand * d // tp, cfg.ssm.state_dim, ssd_heads(cfg) // tp
+        expect["ssm"] = {"in_proj": (d, 2 * di + 2 * ds + nh), "out_proj": (di, d),
+                         "conv_w": (4, di + 2 * ds)}
+    if cfg.family == "hybrid":
+        r, rl = cfg.d_rec, lc.d_rec
+        expect["rglru"] = {"gate_proj": (d, rl), "in_proj": (d, rl), "w_rg": (r, rl),
+                           "w_ig": (r, rl), "out_proj": (rl, d)}
 
     def walk(node, keys):
         if isinstance(node, dict):
@@ -244,7 +284,8 @@ def _check_widths(shard, lmodel, cfg, tp: int) -> None:
                 walk(v, keys + (k,))
             return
         name = keys[-1] if keys else None
-        want = experts.get(name) if "experts" in keys else expect.get(name)
+        mixer = next((m for m in ("experts", "ssm", "rglru") if m in keys[:-1]), None)
+        want = expect.get(mixer, {}).get(name)
         if want is not None and tuple(node.shape[-len(want):]) != want:
             raise later(f"{cfg.name}'s {'.'.join(keys)} {tuple(node.shape[-len(want):])} "
                         f"does not split into the local widths {want}", 6)

@@ -99,7 +99,8 @@ Tensor parallelism (``mesh=tp_mesh(K)``)
 Every rank of the mesh builds the engine on the same full weights and
 serves the same requests; the engine keeps the rank's shard and a model
 of the rank's local widths (``parallel/tp.py``), and builds its caches
-from that model. The logits every rank samples from are the same bits,
+from that model (an SSM's and a hybrid's recurrent states at the rank's
+heads and channels). The logits every rank samples from are the same bits,
 and no scheduling decision reads a clock or polls the device, so every
 rank retires, pages and admits alike with no control channel. A
 decoder-only LM's prefill gathers only the rows the engine samples from.

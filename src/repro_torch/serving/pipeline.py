@@ -259,14 +259,16 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  engine keeps the rank's shard of the quantized weights and
                  KV storage and sums its row-parallel products over the
                  ranks (an MoE model's experts: E / tp a rank, their
-                 outputs gathered). The streams are the single-device
-                 engine's. The text and audio enc-decs and the dense, VLM
-                 and MoE LM families at every weight-only spec, dense or
-                 paged; act-quantizing specs, ``calib_batches``,
-                 adapters, a draft arm, ``sla``, ``faults``, a request's
-                 ``deadline_ms``, a KV-head count that neither divides tp
-                 nor is divided by it, and the SSM and hybrid families
-                 raise (NotImplementedError, a later port slice).
+                 outputs gathered; an SSM's heads and an RG-LRU's channels
+                 split). The streams are the single-device engine's. The
+                 text and audio enc-decs and every LM family at every
+                 weight-only spec, dense or paged (the SSM and hybrid
+                 dense only, as on one device); act-quantizing specs,
+                 ``calib_batches``, adapters, a draft arm, ``sla``,
+                 ``faults``, a request's ``deadline_ms``, a width that tp
+                 does not divide and a KV-head count that neither divides
+                 tp nor is divided by it raise (NotImplementedError, a
+                 later port slice).
     device:      None = "cuda" (raises without a card).
     """
     spec = resolve_spec(policy)

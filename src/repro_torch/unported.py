@@ -10,13 +10,12 @@ ROADMAP.md, queue 1); nothing runs another route in its place.
 # (every model family, served and trained), slice 5 (scale-out:
 # tensor-parallel text enc-dec engines, replica routing, the compressed
 # all-reduce, sharded restore) and the first parts of slice 6 (meshes for
-# the dense, VLM, MoE (expert parallelism) and audio families, composed
-# dp x tp stacks) have landed
+# the dense, VLM, MoE (expert parallelism), audio, SSM and hybrid
+# families, composed dp x tp stacks) have landed
 SLICES = {
-    6: ("scale-out, the rest: the SSM and hybrid meshes, the sequence split "
-        "for a KV-head count that tp does not divide, act-quantizing, "
-        "calibrated, adapter, draft and clock-driven arms under a mesh, and a "
-        "shard-first deploy"),
+    6: ("scale-out, the rest: the sequence split for a KV-head count that tp "
+        "does not divide, act-quantizing, calibrated, adapter, draft and "
+        "clock-driven arms under a mesh, and a shard-first deploy"),
 }
 
 

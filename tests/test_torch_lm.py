@@ -386,11 +386,12 @@ def test_generator_init_has_the_reference_shapes(arch):
 
 
 def test_unported_routes_raise(models):
-    """Only the rest of scale-out (port slice 6: the SSM and hybrid
-    meshes, the sequence split for a KV-head count tp does not divide,
-    the act-quantizing, calibrated, adapter, draft and clock-driven arms
-    under a mesh, a shard-first deploy) is left unported: MoE expert
-    parallelism and the audio mesh have landed. Every LM family
+    """Only the rest of scale-out (port slice 6: the sequence split for a
+    KV-head count tp does not divide, the act-quantizing, calibrated,
+    adapter, draft and clock-driven arms under a mesh, a shard-first
+    deploy) is left unported: MoE expert parallelism, the audio mesh and
+    the SSM and hybrid meshes have landed, and both recurrent archs pass
+    ``refuse_under_mesh`` at tp2 and tp4. Every LM family
     inits from a key and recomputes its layers under ``remat``: qwen's key
     init is the reference's (3e-7 relative, two f32 ulps), and for qwen
     and the MoE, SSM and hybrid variants of its config ``remat`` gives
@@ -400,9 +401,15 @@ def test_unported_routes_raise(models):
     from repro_torch.configs.base import MoECfg, SSMCfg
     from repro_torch.train.steps import compute_loss
     from repro_torch.tree import leaves_with_path
+    from repro_torch.parallel.tp import refuse_under_mesh
     assert sorted(unported.SLICES) == [6]
-    assert "SSM and hybrid meshes" in unported.SLICES[6]
-    assert "MoE" not in unported.SLICES[6] and "audio" not in unported.SLICES[6]
+    for left in ("sequence split", "act-quantizing", "draft", "shard-first deploy"):
+        assert left in unported.SLICES[6], left
+    for landed in ("MoE", "audio", "SSM", "hybrid"):
+        assert landed not in unported.SLICES[6], landed
+    for arch in ("mamba2-780m", "recurrentgemma-9b"):
+        for tp in (2, 4):
+            refuse_under_mesh(get_config(arch), tp=tp)
     _, cfg, raw, _, _ = models["qwen2.5-14b"]
     want = dict(leaves_with_path(jax_to_torch(raw)))
     got = dict(leaves_with_path(build_model(cfg, "cpu").init(prng_key(0))))

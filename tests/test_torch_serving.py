@@ -190,14 +190,16 @@ def test_translate_surface(torch_params):
     dict(calib_batches=[], paged=False), dict(kv_dtype="fp8", paged=False),
     dict(mesh=object(), policy="w8a8"), dict(mesh=object(), draft_spec="nf4", paged=False),
     dict(mesh=object(), sla=SLATarget(p95_ttft_ms=50.0)),
-    dict(mesh=object(), arch="mamba2-780m"), dict(mesh=object(), calib_batches=[])])
+    dict(mesh=object(), arch="mamba2-780m", policy="fp8e2e"),
+    dict(mesh=object(), calib_batches=[])])
 def test_unported_routes_raise(kwargs):
     """Routes outside the ported slices raise, naming their slice: under a
-    mesh (slice 6) an act-quantizing spec, a draft arm, SLA admission,
-    calibration and the SSM family, before any build work
+    mesh (slice 6) an act-quantizing spec (on the SSM family too), a
+    draft arm, SLA admission and calibration, before any build work
     (tensor-parallel serving itself: tests/test_torch_tp.py, the dense
     and VLM LMs tests/test_torch_tp_lm.py, the MoE and audio families
-    tests/test_torch_tp_moe.py). The
+    tests/test_torch_tp_moe.py, the SSM and hybrid families
+    tests/test_torch_tp_recurrent.py). The
     quantization routes (slice 3) deploy: act-quantizing and fp8-KV specs
     and drafts and ``calib_batches`` build engines whose Ctx carries the
     spec's activation formats and whose caches the KV format

@@ -29,7 +29,8 @@ Without a spawn, two ranks run in threads over an in-process all-reduce
 equals one device's rows (embed scale, image rows), and a prefill under
 a mesh gathers only the rows the engine reads; ``shard_tree``'s layout
 (d) and the refusals of what stays in slice 6 (and the families that now
-pass) need no ranks at all.
+pass, the SSM and hybrid ones too: tests/test_torch_tp_recurrent.py) need
+no ranks at all.
 
 One spawn of 2 ranks and one of 4 serve every grid.
 """
@@ -420,13 +421,19 @@ def test_kv_heads_that_tp_splits_or_replicates():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "nllb600m-moe", "mamba2-780m",
                                   "recurrentgemma-9b", "whisper-base"])
 def test_families_left_for_slice_6_raise(arch):
-    """The SSM and hybrid families still raise slice 6 under a mesh; the
-    MoE families (expert parallelism) and whisper-base (the audio mesh)
-    now pass at tp2, as the dense and VLM LMs do."""
+    """Every family now passes at tp2, as the dense and VLM LMs do: the
+    MoE families (expert parallelism), whisper-base (the audio mesh) and
+    the SSM and hybrid families (mamba2-780m's 48 SSD heads, the hybrid's
+    16 heads and d_rec 4096 split at tp2 and tp4). What stays in slice 6
+    still raises for each: an act-quantizing spec under a mesh, and
+    gemma3-1b's 4 query heads at tp8 (a width tp does not divide)."""
+    refuse_under_mesh(get_config(arch), tp=2)
     if arch in ("mamba2-780m", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="port slice 6.*SSM and hybrid meshes"):
-            refuse_under_mesh(get_config(arch), tp=2)
-    else:
-        refuse_under_mesh(get_config(arch), tp=2)
+        refuse_under_mesh(get_config(arch), tp=4)
+    with pytest.raises(NotImplementedError,
+                       match="act-quantizing spec under a mesh.*port slice 6"):
+        refuse_under_mesh(get_config(arch), tp=2, act_fmt="int8")
+    with pytest.raises(NotImplementedError, match="num_heads 4 over tp8.*port slice 6"):
+        refuse_under_mesh(get_config("gemma3-1b"), tp=8)
     for served in KV:
         refuse_under_mesh(get_config(served), tp=2)

@@ -1,5 +1,6 @@
 """Rank bodies for the tensor-parallel tests (tests/test_torch_tp.py,
-tests/test_torch_tp_lm.py, tests/test_torch_tp_moe.py).
+tests/test_torch_tp_lm.py, tests/test_torch_tp_moe.py,
+tests/test_torch_tp_recurrent.py).
 
 They run in processes that ``repro_torch.cluster.launch_ranks`` spawns,
 so they live in a module of their own that imports torch and the port
@@ -7,8 +8,9 @@ only (no JAX): each rank deploys a reduced model on its shard of the
 same weights and serves the reference TP test's grids (nllb600m), the
 LM grids (gemma3-1b, qwen2.5-14b, llava-next-mistral-7b), the MoE and
 audio grids (nllb600m-moe, whisper-base, olmoe-1b-7b,
-moonshot-v1-16b-a3b) and a preempting engine, or its share of a
-composed dp x tp stack.
+moonshot-v1-16b-a3b), the recurrent grids (mamba2-780m,
+recurrentgemma-9b) and a preempting engine, or its share of a composed
+dp x tp stack.
 """
 
 import dataclasses
@@ -225,3 +227,52 @@ def preempt_run(device, mesh, params_np, batches, num_pages, new):
     return {"grid": [(o.token_ids, o.finish_reason) for o in outs],
             "preemptions": m.preemptions, "resumed": m.resumed_requests,
             "pages_in_use": pipe.engine.allocator.pages_in_use}
+
+
+# the engine shapes tests/test_torch_ssm.py and tests/test_torch_hybrid.py
+# serve the recurrent archs at (the reference's f32 SSM engine breaks past
+# horizon 1)
+REC_KW = {"mamba2-780m": dict(slots=3, max_len=32, horizon=1, ctx=CTX),
+          "recurrentgemma-9b": dict(slots=3, max_len=48, horizon=4, ctx=CTX)}
+
+
+def recurrent_local(pipe):
+    """A recurrent engine's rank-local widths: an SSM shard's (SSD heads,
+    in_proj width, conv channels), a hybrid's (heads, KV heads, d_ff,
+    d_rec, w_rg's shape)."""
+    lc, shard = pipe.engine.model.cfg, pipe.engine.params
+    if lc.family == "ssm":
+        ssm = shard["layers"]["ssm"]
+        return (ssm["a_log"].shape[-1], ssm["in_proj"].shape[-1], ssm["conv_w"].shape[-1])
+    w_rg = shard["blocks"]["r1"]["rglru"]["w_rg"]
+    return (lc.num_heads, lc.num_kv_heads, lc.d_ff, lc.d_rec, tuple(w_rg.shape[-2:]))
+
+
+def recurrent_grid(rank, world, device, params_np, cases, batches, stack):
+    """Every case (arch, spec) of the SSM and hybrid families deployed
+    dense with ``mesh=tp_mesh(world)`` on this rank's shard of
+    ``params_np[arch]`` (``REC_KW``'s engine), its greedy and sampled grids
+    served on ``batches[arch]``; per arch its local widths, its weight
+    bytes against the whole tree's and the first case's prefill logits.
+    With ``stack`` (arch, spec, replicas, tp), the composed
+    ``deploy_replicas(tp=...)`` of that arch: its group and grids."""
+    out = {"grids": {}, "local": {}}
+    mesh = tp_mesh(world)
+    for arch, spec in cases:
+        pipe = deploy(lm_config(arch), spec, params=from_numpy_tree(params_np[arch], "cpu"),
+                      mesh=mesh, device=device, **REC_KW[arch])
+        prompts = lm_prompts(batches[arch])
+        out["grids"][arch, spec] = lm_grids(pipe, prompts)
+        if arch not in out["local"]:
+            out["local"][arch] = {
+                "widths": recurrent_local(pipe),
+                "bytes": (tree_nbytes(pipe.engine.params), pipe.quantized_bytes),
+                "logits": lm_prefill_logits(pipe, prompts[0], REC_KW[arch]["max_len"])}
+    if stack is not None:
+        arch, spec, replicas, tp = stack
+        pipe = deploy_replicas(lm_config(arch), spec, replicas=replicas, tp=tp,
+                               params=from_numpy_tree(params_np[arch], "cpu"), device=device,
+                               **REC_KW[arch])
+        out["stack"] = {"group": pipe.engine.group,
+                        "grids": lm_grids(pipe, lm_prompts(batches[arch]))}
+    return out
