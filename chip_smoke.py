@@ -81,7 +81,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 17. LM training ([train-lm]): one f32 AdamW step with remat of each LM
    family's reduced config on the card against the CPU (qwen2.5-14b,
    gemma3-1b, llava-next-mistral-7b with image rows, olmoe-1b-7b,
-   mamba2-780m, recurrentgemma-9b); then full width, 10 or 20 steps
+   mamba2-780m, recurrentgemma-9b); then full width, 6 or 20 steps
    each with the loss falling: gemma3-1b whole (f32 AdamW, remat, two
    microbatches, 4 x 640 tokens past its 512-token windows), mamba2-780m
    whole (8 x 256, two SSD chunks) and olmoe-1b-7b cut to 3 of its 16
@@ -91,8 +91,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 18. the decoder-only LMs, each deploy freed before the next: qmm and
    paged attention at qwen2.5-14b's served shapes against their plain
    versions; qwen2.5-14b at full width, 12 of its 48 layers, int4 paged
-   and dense ([lm]); gemma3-1b whole, paged and dense, prompts past its
-   512-token local windows and no paged-attention launch ([lm-gemma]);
+   and dense ([lm]); gemma3-1b at full width, 13 of its 26 layers, paged
+   and dense, prompts past its 512-token local windows and no
+   paged-attention launch ([lm-gemma]);
    llava-next-mistral-7b at 16 of its 32 layers, dense, with image rows
    ([vlm]). Each
    engine holds qmm and the FASST activation against their plain
@@ -153,8 +154,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    width cut to 5 of its 38 layers on [hybrid]'s prompts, past its window,
    against a single-device engine of that cut served in the spawn
    ([tp-hybrid], half the RG-LRU channels a rank), each with its
-   collectives a decode step held exactly; then
-   two routed replicas on the card (deploy_replicas, [dp]): each
+   collectives a decode step held exactly; then the quantization arms
+   under the mesh, full-width nllb600m paged on [quant]'s raw weights and
+   calibration batches: w8a8 and w4a8kv8 calibrated on the shards (every
+   rank's site table equal), fp8e2e dynamic (every rank's row-parallel
+   codes and per-token scales one device's bit for bit) and int4 with
+   [quant]'s QLoRA adapters ([tp-quant-<arm>]), each against [quant]'s
+   streams up to near ties, every step teacher-forced within its bound,
+   a step's collectives exactly [tp]'s plus one max a row-parallel site
+   for fp8e2e; and the int4 target with a calibrated w4a8kv8 draft arm
+   ([tp-spec]): every rank's acceptance counters equal, the streams
+   [tp]'s target-only streams up to near ties; the tp phases run no
+   warm-up (each holds its kernels at the shapes of its measured run);
+   then two routed replicas on the card (deploy_replicas, [dp]): each
    replica's streams a lone engine's bit for bit, [serve]'s up to near
    ties, the merged metrics the sums; then the composed stack on four
    ranks sharing the card over gloo (deploy_replicas(replicas=2, tp=2),
@@ -1520,14 +1532,18 @@ def _side_step(torch, side, forced, j, n):
     return torch.stack([rows[i] for i in range(n)]), routes
 
 
-def tp_follow_replay(torch, side, prompts, sps, forced_streams, steps):
+def tp_follow_replay(torch, sides, prompts, sps, forced_streams, steps):
     """What a tensor-parallel rank other than 0 runs while rank 0 checks
-    its partings: the same admission and forced steps on its own shard
-    of the replay side, so that every collective meets its peers."""
-    _side_admit(torch, "tp-follow", side, prompts, sps, steps)
+    its partings: the same admissions and forced steps on its own shard
+    of the tensor-parallel replay sides (near_tie_partings' order: every
+    side admitted, then each step side by side), so that every
+    collective meets its peers."""
+    for side in sides:
+        _side_admit(torch, "tp-follow", side, prompts, sps, steps)
     forced = torch.tensor([t[:steps] for t in forced_streams], dtype=torch.int32)
     for j in range(1, steps + 1):
-        _side_step(torch, side, forced, j, len(prompts))
+        for side in sides:
+            _side_step(torch, side, forced, j, len(prompts))
 
 
 def near_tie_partings(torch, tag, pipe, prompts, sps, paged_streams, dense_streams,
@@ -1707,12 +1723,13 @@ def sampled(torch, pipe_p, pipe_d, prompts):
 # ---------------------------------------------------------------------------
 
 PREEMPT_PAGES = 10      # 8 requests of 1 + 32 positions need 24 pages whole
-# 3 horizons of 16 a request in [overlap] (4 until [tp-ssm] and
-# [tp-hybrid] needed the script's time)
-OVERLAP_GEN = 48
-# the profiled run of each [overlap] engine: 2 horizons a request (64 until
-# [tp-ssm] and [tp-hybrid] needed the script's time)
-OVERLAP_PROFILED_GEN = 32
+# 2 horizons of 16 a request in [overlap] (4 until [tp-ssm] and
+# [tp-hybrid] needed the script's time, 3 until [tp-quant] and [tp-spec])
+OVERLAP_GEN = 32
+# the profiled run of each [overlap] engine: 1 horizon a request (64 until
+# [tp-ssm] and [tp-hybrid], 32 until [tp-quant] and [tp-spec] needed the
+# script's time)
+OVERLAP_PROFILED_GEN = 16
 
 
 def _first_parting(a, b):
@@ -1914,7 +1931,7 @@ def profiled_round(torch, fn, label):
 
 
 def overlap_phase(torch, card, pipe, pipe_d, prompts):
-    """[overlap]: the same requests (48 new tokens each) on paged and
+    """[overlap]: the same requests (OVERLAP_GEN new tokens each) on paged and
     dense engines, with overlapped and with serial rounds: token-identical
     streams; host wall per step, tokens/s, overlap_rounds, and the idle
     share from a profiled further run (OVERLAP_PROFILED_GEN new tokens a
@@ -1965,7 +1982,10 @@ def overlap_phase(torch, card, pipe, pipe_d, prompts):
 
     eng = _fresh_engine(pipe, True)
     for p in prompts:
-        eng.submit(p, SamplingParams(max_new_tokens=MAX_LEN - 1))
+        # 4 horizons: the first, the first overlapped round, the profiled
+        # steady round (no slot retires in it) and the drain (MAX_LEN - 1
+        # until [tp-quant] and [tp-spec] needed the script's time)
+        eng.submit(p, SamplingParams(max_new_tokens=4 * HORIZON))
     rounds = eng.serve_rounds()
     next(rounds)                         # admission + the first horizon
     next(rounds)                         # the first overlapped round
@@ -2294,6 +2314,33 @@ def launch_phase(card):
 QUANT_CALIB = (2, 8, 64)   # [quant]'s calibration: batches, rows, tokens a row
 
 
+def quant_calib(cfg):
+    """[quant]'s calibration batches (QUANT_CALIB, SyntheticTranslation of
+    seed SEED): [tp-quant]'s ranks calibrate on the same."""
+    from repro_torch.data import SyntheticTranslation
+    nb, rows, toks = QUANT_CALIB
+    ds = SyntheticTranslation(cfg.vocab_size, toks, seed=SEED)
+    return [{k: v for k, v in ds.sample(rows).items() if not isinstance(v, str)}
+            for _ in range(nb)]
+
+
+def qlora_tree(torch, raw, dev):
+    """The int4 tree of ``raw`` with rank-16 QLoRA adapters, B non-zero,
+    drawn from seed SEED + 1 on ``dev``: [quant-qlora]'s and
+    [tp-quant-qlora]'s."""
+    from repro_torch.core import (attach_lora, extract_adapters, inject_adapters,
+                                  quantize_tree, resolve_spec)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    q = attach_lora(quantize_tree(raw, resolve_spec("int4").policy()), g, rank=16)
+
+    def fill(node):
+        if isinstance(node, dict) and set(node) == {"a", "b"}:
+            return {"a": node["a"], "b": 0.02 * torch.randn(
+                node["b"].shape, generator=g, device=dev)}
+        return {k: fill(v) for k, v in node.items()} if isinstance(node, dict) else node
+    return inject_adapters(q, fill(extract_adapters(q)))
+
+
 def _quant_ffn_in(torch, pipe, tag):
     """The adapted decoder FFN-in of every layer as a decode step serves it
     (the adapted weight declines the epilogue NAF: qmm, the adapter term,
@@ -2326,7 +2373,7 @@ def _quant_ffn_in(torch, pipe, tag):
     return err
 
 
-def quant_phase(torch, card, prompts, base):
+def quant_phase(torch, card, prompts, base, single):
     """[quant]: the quantization routes on [serve]'s prompts and raw
     weights (seed SEED, full width, all layers), "kernels" bundle, one
     deploy per arm:
@@ -2347,12 +2394,13 @@ def quant_phase(torch, card, prompts, base):
     Each arm logs tokens/s and decode ms a step, a profiled 4-step
     horizon (host ms, device-busy ms, idle share, launches a step), the
     launches of each port kernel over its measured run and
-    kv_cache_bytes. Returns the summed launches of the measured runs."""
+    kv_cache_bytes. The paged arms' greedy streams go into
+    ``single["quant"]`` (by arm: w8a8, fp8e2e, w4a8kv8, qlora), which
+    [tp-quant] holds its ranks to. Returns the summed launches of the
+    measured runs."""
     import dataclasses
     import warnings
-    from repro_torch.core import (attach_lora, extract_adapters, inject_adapters,
-                                  quantize_tree, resolve_spec)
-    from repro_torch.data import SyntheticTranslation
+    from repro_torch.core import resolve_spec
     from repro_torch.kernels import ops
     from repro_torch.models import Ctx
     from repro_torch.serving import SamplingParams, deploy
@@ -2361,9 +2409,7 @@ def quant_phase(torch, card, prompts, base):
     L = cfg.num_layers
     raw = base.model.init(torch.Generator(device=dev).manual_seed(SEED))
     nb, rows, toks = QUANT_CALIB
-    ds = SyntheticTranslation(cfg.vocab_size, toks, seed=SEED)
-    calib = [{k: v for k, v in ds.sample(rows).items() if not isinstance(v, str)}
-             for _ in range(nb)]
+    calib = quant_calib(cfg)
     sp = SamplingParams(max_new_tokens=GEN)
     total = {k: 0 for k in ops.LAUNCHES}
     streams = {}
@@ -2490,15 +2536,7 @@ def quant_phase(torch, card, prompts, base):
 
     # int4 + rank-16 QLoRA adapters, B non-zero
     tag = "quant-qlora"
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    q = attach_lora(quantize_tree(raw, resolve_spec("int4").policy()), g, rank=16)
-
-    def fill(node):
-        if isinstance(node, dict) and set(node) == {"a", "b"}:
-            return {"a": node["a"], "b": 0.02 * torch.randn(
-                node["b"].shape, generator=g, device=dev)}
-        return {k: fill(v) for k, v in node.items()} if isinstance(node, dict) else node
-    q = inject_adapters(q, fill(extract_adapters(q)))
+    q = qlora_tree(torch, raw, dev)
     pipe = run(tag, "int4", True, params=q,
                expect={"qmm": 8 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L})
     err = routes_agree(torch, pipe, prompts, tag)
@@ -2507,6 +2545,8 @@ def quant_phase(torch, card, prompts, base):
         f"{ffn_err:.4g} of the plain versions; kernels vs torch bundle {err:.4g}")
     del pipe, q, raw
     torch.cuda.empty_cache()
+    single["quant"] = {arm: streams[f"quant-{arm}"]
+                       for arm in ("w8a8", "fp8e2e", "w4a8kv8", "qlora")}
     return total
 
 
@@ -2520,7 +2560,9 @@ EVAL_FIT = dict(steps=1500, batch=32, lr=3e-3, seed=0)
 EVAL_FORMATS = ["bf16", "int8", "int4", "fp4", "nf4", "w8a8", "fp8e2e"]
 EVAL_SERVE = dict(slots=4, max_len=16, page_size=4, horizon=4)
 EVAL_SENT, EVAL_CALIB = 6, (3, 8)          # sentences a pair; calibration batches x rows
-EVAL_FULL_SENT, EVAL_FULL_MAX_LEN = 8, 64  # full width: 63 new tokens a sentence
+# full width: 31 new tokens a sentence (63 until [tp-quant] and [tp-spec]
+# needed the script's time)
+EVAL_FULL_SENT, EVAL_FULL_MAX_LEN = 8, 32
 
 
 def _params_leaves(torch, tree):
@@ -2742,9 +2784,10 @@ def train_phase(torch, card, dev):
 # finite, as [train]'s 8-bit run's is.
 TRAIN_LM_PARITY = ("qwen2.5-14b", "gemma3-1b", "llava-next-mistral-7b", "olmoe-1b-7b",
                    "mamba2-780m", "recurrentgemma-9b")
-# gemma3-1b's and mamba2-780m's f32 runs take 10 steps (20 until [tp-ssm]
-# and [tp-hybrid] needed the script's time); olmoe's keeps TRAIN_STEPS
-TRAIN_LM_STEPS = 10
+# gemma3-1b's and mamba2-780m's f32 runs take 6 steps (20 until [tp-ssm]
+# and [tp-hybrid], 10 until [tp-quant] and [tp-spec] needed the script's
+# time); olmoe's keeps TRAIN_STEPS
+TRAIN_LM_STEPS = 6
 TRAIN_LM_RUNS = (("gemma3-1b", None, 32, True, 2, 4, 640, TRAIN_LM_STEPS),
                  ("mamba2-780m", None, 32, True, 1, 8, 256, TRAIN_LM_STEPS),
                  ("olmoe-1b-7b", 3, 32, False, 1, 8, 64, TRAIN_STEPS),
@@ -2892,7 +2935,7 @@ def eval_phase(torch, card, full_params, dev):
     fewer model bytes; w8a8 mean BLEU > 0.5. Then the layouts
     (eval_layouts), and full width: the [train] phase's f32 parameters
     deployed at int4, paged, through the kernels, scored on hin<->eng
-    with EVAL_FULL_SENT sentences of 63 new tokens (floor scores: the
+    with EVAL_FULL_SENT sentences of EVAL_FULL_MAX_LEN - 1 new tokens (floor scores: the
     model is barely trained); qmm and paged attention must launch. The
     report goes to build/eval_report.json and .md. Returns the launches
     of the sweep and the full-width run."""
@@ -3102,8 +3145,10 @@ LM_ARCH, LM_LAYERS = "qwen2.5-14b", 24
 # "NVIDIA H100 80GB HBM3, 700.00 W" host); [lm] serves qwen2.5-14b at 12
 # of 48 layers and [vlm] llava-next-mistral-7b at 16 of 32 (24 and whole
 # until [tp-ssm] and [tp-hybrid] needed the script's time; rows 1q / 2q
-# still time LM_LAYERS)
-DEPTH_CUTS = {LM_ARCH: 12, "llava-next-mistral-7b": 16, "olmoe-1b-7b": 8}
+# still time LM_LAYERS); [lm-gemma] serves gemma3-1b at 13 of 26 layers
+# (two of its 5 local : 1 global groups and a local layer, as [tp-lm];
+# whole until [tp-quant] and [tp-spec] needed the script's time)
+DEPTH_CUTS = {LM_ARCH: 12, "llava-next-mistral-7b": 16, "olmoe-1b-7b": 8, "gemma3-1b": 13}
 LM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120))
 LM_HEAD_KN = (5120, 152064)
 LONG_LEN = 768          # [lm-gemma] and [vlm] cache length
@@ -3397,8 +3442,9 @@ def lm_phase(torch, card):
 
 
 def lm_gemma_phase(torch, card):
-    """[lm-gemma]: gemma3-1b at int4, full width and depth (26 layers, tied
-    head, q/k norm, embed scale, 5:1 local:global windows of 512), paged
+    """[lm-gemma]: gemma3-1b at int4, full width, 13 of its 26 layers
+    (DEPTH_CUTS; tied head, q/k norm, embed scale, 5:1 local:global
+    windows of 512: 11 local and 2 global layers), paged
     and dense; prompts of 520-700 tokens, so the local windows truncate.
     The paged step takes the reference's gather route: no paged-attention
     launch over the whole run. The kernel bundle agrees with the torch
@@ -3811,23 +3857,30 @@ def _group_bcast(grp, obj):
 def counted_decode(eng):
     """Count the wrapper launches made inside ``eng``'s decode loop (the
     run's decode steps alone: its prefills launch at other shapes and
-    counts) and, on a tensor-parallel rank, its collectives: every f32
-    sum of its group (``collectives`` and the buffers' bytes) and, among
-    them, the experts' gathers along E (``expert_gathers`` and bytes).
+    counts) and, on a tensor-parallel rank, its collectives: every sum
+    and max of its group (``collectives`` and the buffers' bytes) and,
+    among them, the experts' gathers along E (``expert_gathers`` and
+    bytes) and the dynamic activation scales' maxes (``act_maxes``).
     Returns the counts, filled as the engine runs; end_count(eng) ends
     the count."""
     from repro_torch.kernels import ops
     in_decode, real_loop = dict.fromkeys(ops.LAUNCHES, 0), eng._decode_loop
     sums = dict.fromkeys(("collectives", "collective_bytes", "expert_gathers",
-                          "expert_gather_bytes"), 0)
+                          "expert_gather_bytes", "act_maxes"), 0)
     grp = eng.ctx.tp
     if grp is not None:
-        real_sum, real_gather = grp._sum, grp.gather
+        real_sum, real_max, real_gather = grp._sum, grp._max, grp.gather
 
         def counted_sum(y):
             sums["collectives"] += 1
             sums["collective_bytes"] += y.numel() * y.element_size()
             return real_sum(y)
+
+        def counted_max(y):
+            sums["collectives"] += 1
+            sums["act_maxes"] += 1
+            sums["collective_bytes"] += y.numel() * y.element_size()
+            return real_max(y)
 
         def counted_gather(x, dim):
             if dim == 1:                # an MoE layer's experts, along E
@@ -3835,7 +3888,7 @@ def counted_decode(eng):
                 sums["expert_gather_bytes"] += x.numel() * grp.size * 4
             return real_gather(x, dim)
 
-        grp._sum, grp.gather = counted_sum, counted_gather
+        grp._sum, grp._max, grp.gather = counted_sum, counted_max, counted_gather
         in_decode.update(sums)
 
     def counted_loop(*a, **kw):
@@ -3856,7 +3909,7 @@ def end_count(eng):
     """Undo counted_decode's wrappers."""
     del eng._decode_loop
     if eng.ctx.tp is not None:
-        del eng.ctx.tp._sum, eng.ctx.tp.gather
+        del eng.ctx.tp._sum, eng.ctx.tp._max, eng.ctx.tp.gather
 
 
 def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=None,
@@ -3885,7 +3938,6 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
         want = single.get("streams")
         if want is None:
             spipe, smem = build()
-            spipe.generate(prompts[:2], type(sp)(max_new_tokens=4))
             want = [o.token_ids for o in spipe.generate(prompts, sp)]
         part = _partings(tag, streams, want, first_token_ties=True)
     every = GEN - 1 if logit_tol is not None else 0
@@ -3902,7 +3954,7 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
                                              list(range(n)))]],
                               logit_tol=logit_tol, steps=every)
         else:
-            tp_follow_replay(torch, side, prompts, [sp] * n, streams, steps)
+            tp_follow_replay(torch, [side], prompts, [sp] * n, streams, steps)
     del spipe
     torch.cuda.empty_cache()
     return part, smem
@@ -3934,10 +3986,11 @@ def _mixer_held(pipe) -> str:
 def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engine_kw=None,
              collectives=None, logit_tol=None):
     """One tensor-parallel engine's served run, called alike on every rank
-    of its mesh; rank 0 prints. A warm-up on the same prompts whose
-    shapes rank 0 holds ``need``'s kernels at (hold_served); the measured
-    greedy run with the launch counters set to 0 just before and read
-    just after; every rank's streams and launches equal; a decode step
+    of its mesh; rank 0 prints. The measured greedy run (no warm-up run
+    before it: the phases before the spawn compiled every kernel) with
+    the launch counters set to 0 just before and read just after, and
+    rank 0 holding ``need``'s kernels at the shapes it gave them
+    (hold_served); every rank's streams and launches equal; a decode step
     launching exactly ``per_step`` (and summing exactly ``collectives``
     times over the ranks, when given) and, where ``need`` names it, the
     prefills the FASST kernel; the streams against one device's up to
@@ -3960,8 +4013,9 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     held = _experts_held(pipe.params)
     experts = ("" if held is None else f", {held} of {lc.moe.num_experts} experts") \
         + _mixer_held(pipe)
-    kv = {"ssm": "recurrent state", "hybrid": "bf16 rolling KV"}.get(lc.family, "int8 KV")
-    say(f"[{tag}] deployed {pipe.cfg.name} int4, {pipe.cfg.num_layers} layers, on "
+    kv = {"ssm": "recurrent state", "hybrid": "bf16 rolling KV"}.get(lc.family,
+                                                                   f"{eng.kv_dtype} KV")
+    say(f"[{tag}] deployed {pipe.cfg.name} {pipe.spec_str}, {pipe.cfg.num_layers} layers, on "
         f"tp{grp.size} ({'paged' if eng.paged else 'dense'} {kv}): each rank "
         f"{lc.num_heads}/{lc.num_kv_heads} heads of {lc.head_dim}, d_ff {lc.d_ff}{experts}, "
         f"vocab slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
@@ -3969,10 +4023,6 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
         f"{pipe.quantized_bytes / 1e9:.3f} GB); {_mem_line(mem)}")
     n = len(prompts)
     sp = SamplingParams(max_new_tokens=GEN)
-    with served_shapes() as seen:
-        pipe.generate(prompts, SamplingParams(max_new_tokens=4))
-    if lead:
-        hold_served(torch, tag, seen, eng.device, need)
     eng.reset_metrics()
     torch.cuda.synchronize()
     dist.barrier(group=grp.group)
@@ -3980,11 +4030,14 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     steps0 = eng.decode_steps
     ops.reset_launches()
     t0 = time.perf_counter()
-    outs = pipe.generate(prompts, sp)
+    with served_shapes() as seen:
+        outs = pipe.generate(prompts, sp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     end_count(eng)
+    if lead:
+        hold_served(torch, tag, seen, eng.device, need)
     streams = [o.token_ids for o in outs]
     if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
         raise AssertionError(f"[{tag}] not every request retired on length")
@@ -4017,7 +4070,7 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
             "decode_ms_per_step": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
             **{f"{k}_per_step": in_decode[k] / steps_run
                for k in ("collectives", "collective_bytes", "expert_gathers",
-                         "expert_gather_bytes")},
+                         "expert_gather_bytes", "act_maxes")},
             "weights_gb": weights / 1e9, "whole_weights_gb": pipe.quantized_bytes / 1e9,
             "resident_gb": mem["resident"] / 1e9, "deploy_peak_gb": mem["build_peak"] / 1e9}
     per_rank = _group_gather(grp, mine)
@@ -4042,7 +4095,8 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
 
 def tp_rank(rank, world, device, prompts, lm):
     """[tp], [tp-dense], [compress], [tp-lm], [tp-lm-dense], [tp-qwen],
-    [tp-moe], [tp-olmoe], [tp-audio], [tp-ssm] and [tp-hybrid] on one of
+    [tp-moe], [tp-olmoe], [tp-audio], [tp-ssm], [tp-hybrid], [tp-quant-*]
+    and [tp-spec] on one of
     ``world`` ranks that
     share the one card over gloo (launch_ranks), each engine a
     deploy(mesh=tp_mesh(world)) served by tp_serve: full-width nllb600m
@@ -4058,8 +4112,9 @@ def tp_rank(rank, world, device, prompts, lm):
     streams [moe-nllb] and [audio] served before the spawn, and
     olmoe-1b-7b cut to TP_OLMOE_LAYERS on [moe]'s prompts, against one
     device's engine of that cut (tp_family_phases); then the SSM and
-    hybrid meshes (tp_recurrent_phases). Returns each phase's launches
-    and numbers."""
+    hybrid meshes (tp_recurrent_phases), then the quantization arms and
+    the draft arm under the mesh (tp_quant_phases). Returns each phase's
+    launches and numbers."""
     import torch
     import torch.distributed as dist
     from repro_torch.cluster import tp_mesh
@@ -4141,6 +4196,7 @@ def tp_rank(rank, world, device, prompts, lm):
 
     out.update(tp_family_phases(torch, rank, world, device, mesh, ctx, prompts, lm))
     out.update(tp_recurrent_phases(torch, device, mesh, ctx, lm))
+    out.update(tp_quant_phases(torch, rank, device, mesh, prompts, lm, out["tp"]["streams"]))
     return out
 
 
@@ -4235,6 +4291,199 @@ def tp_recurrent_phases(torch, device, mesh, ctx, lm):
                             logit_tol=TP_RECURRENT_LOGIT_TOL[tag])
         del pipe
         torch.cuda.empty_cache()
+    return out
+
+
+# [tp-quant]: the arms [quant] serves on one device, each on the tp ranks
+# (name, spec, calibrated on quant_calib)
+TP_QUANT_ARMS = (("w8a8", "w8a8", True), ("fp8e2e", "fp8e2e", False),
+                 ("w4a8kv8", "w4a8kv8", True), ("qlora", "int4", False))
+# [tp-quant]: the (largest, mean) logit difference a teacher-forced step of
+# a rank may show against one device, by arm, about 3x what a sound rank
+# showed over 32 steps on an H100 ("NVIDIA H100 80GB HBM3, 700.00 W"):
+# w8a8 (0.1055, 0.01462), fp8e2e (0.1719, 0.02746), w4a8kv8 (0.08789,
+# 0.01337), qlora (0.03906, 0.005735). A planted fault (a rank quantizing
+# its K slice on its own absmax) moved fp8e2e only to (0.2031, 0.03022):
+# e4m3's relative step hardly depends on the scale, so no bound separates
+# it; row_parallel_codes catches it exactly
+TP_QUANT_LOGIT_TOL = {"w8a8": (0.3, 0.045), "fp8e2e": (0.5, 0.08), "w4a8kv8": (0.3, 0.04),
+                      "qlora": (0.12, 0.02)}
+
+
+def row_parallel_codes(torch, tag, pipe):
+    """A dynamic act-quantizing arm's rank: the decoder's first FFN-out
+    product (a row-parallel ".out" site) of seeded random bf16 rows, the
+    same whole rows on every rank with an outlier in the last rank's
+    slice, through the served ctx's ``Ctx.dot`` on the rank's K slice.
+    The activation codes and per-token scales qmatmul quantizes with must
+    be one device's codes of the whole rows, sliced, bit for bit (a rank
+    on its own absmax gets other scales). Returns the codes held."""
+    import repro_torch.core.qlinear as ql
+    ctx, grp, dev = pipe.ctx, pipe.ctx.tp, pipe.engine.device
+    w = pipe.params["decoder"]["layers"]["mlp"]["w_out"].select(0)
+    k = w.shape[-2]
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    x = (3 * torch.randn((SLOTS, 1, k * grp.size), generator=g, device=dev)).to(torch.bfloat16)
+    x[0, 0, -1] = 40.0
+    real, seen = ql.quantize_activations, []
+
+    def spy(xs, fmt="int8", scale=None):
+        seen.append(real(xs, fmt, scale))
+        return seen[-1]
+
+    ql.quantize_activations = spy
+    try:
+        ctx.dot(x[..., grp.rank * k:(grp.rank + 1) * k], w, site="dec.ffn.out")
+    finally:
+        ql.quantize_activations = real
+    codes, scale = real(x, ctx.act_fmt)
+    (got, got_scale), = seen
+    mine = codes[..., grp.rank * k:(grp.rank + 1) * k]
+    if not (torch.equal(got.view(torch.uint8), mine.view(torch.uint8))
+            and torch.equal(got_scale, scale)):
+        raise AssertionError(f"[{tag}] rank {grp.rank}: the row-parallel FFN-out's "
+                             f"{ctx.act_fmt} codes or per-token scales are not one device's")
+    return got.numel()
+
+
+def tp_quant_phases(torch, rank, device, mesh, prompts, lm, tp_streams):
+    """[tp-quant] and [tp-spec] on this rank, paged, [serve]'s prompts, the
+    raw weights of seed SEED at full width.
+
+    [tp-quant-<arm>]: each of [quant]'s arms (TP_QUANT_ARMS: w8a8 and
+    w4a8kv8 calibrated on [quant]'s batches, fp8e2e dynamic, int4 with
+    [quant]'s rank-16 QLoRA adapters) deployed on the mesh and served by
+    tp_serve against the streams [quant] served on one device
+    (``lm["quant"]``): every rank's calibrated site table equal; a decode
+    step launching what [quant]'s step launches; every step teacher-forced
+    within TP_QUANT_LOGIT_TOL; a step's collectives exactly [tp]'s (the
+    three row-parallel sums a decoder layer, the embedding's sum and the
+    head's gather: 3 L + 2) plus, for the dynamic fp8e2e, one max of the
+    per-token absmax at each row-parallel site (3 L).
+
+    [tp-spec]: the int4 target with a w4a8kv8 draft arm calibrated on the
+    same batches (lookahead SPEC_K): every rank's draft table and
+    acceptance counters equal, the greedy streams [tp]'s target-only
+    streams of this rank (``tp_streams``) up to near ties (replayed on
+    fresh paged and dense target-only engines of the mesh), qmm, the
+    FASST kernel and the paged attention held at every served shape.
+    The dynamic arm's row-parallel codes are held exactly
+    (row_parallel_codes). Returns each phase's launches and numbers."""
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.core import resolve_spec
+    from repro_torch.kernels import ops
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serving import SamplingParams, deploy
+    say = log if rank == 0 else (lambda *a: None)
+    cfg = get_config("nllb600m")
+    L = cfg.num_layers
+    raw = build_model(cfg, device).init(torch.Generator(device=device).manual_seed(SEED))
+    calib = quant_calib(cfg)
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, horizon=HORIZON, device=device, paged=True,
+              page_size=PAGE, ctx=Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True))
+    act = {"qmm": 0, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}
+    per_step = {"w8a8": act, "fp8e2e": act,
+                "w4a8kv8": {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L, "fasst_act": 0},
+                "qlora": {"qmm": 8 * L, "qmm_naf": 0, "paged_attn": L, "fasst_act": L}}
+    out = {}
+
+    def build(spec, params, calibrated, mesh=mesh, **more):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # fp8e2e quantizes dynamically
+            return deploy("nllb600m", spec, params=params, mesh=mesh,
+                          calib_batches=calib if calibrated else None, **kw, **more)
+
+    def one_table(tag, pipe, calibrated, draft=False):
+        table = (pipe.engine.draft.ctx if draft else pipe.ctx).act_scales
+        if bool(table) != calibrated:
+            raise AssertionError(f"[{tag}] calibrated={calibrated}, table {table}")
+        if any(t != table for t in _group_gather(pipe.ctx.tp, table)):
+            raise AssertionError(f"[{tag}] the ranks' calibrated site tables differ")
+        if table:
+            say(f"[{tag}] every rank holds the same {len(table)}-site table, merged by "
+                f"max over the ranks once (dec.ffn.out {dict(table)['dec.ffn.out']:.6g})")
+
+    for arm, spec, calibrated in TP_QUANT_ARMS:
+        tag = f"tp-quant-{arm}"
+        t0 = time.perf_counter()
+        params = qlora_tree(torch, raw, device) if arm == "qlora" else raw
+        mem = engine_memory(torch, device, lambda: build(spec, params, calibrated))
+        pipe = mem.pop("built")
+        dynamic = resolve_spec(spec).quantizes_act and not calibrated
+        say(f"[{tag}] deployed in {time.perf_counter() - t0:.1f} s"
+            + (", calibrated on [quant]'s batches" if calibrated else
+               ", activations quantized dynamically" if dynamic else ""))
+        one_table(tag, pipe, calibrated)
+        if dynamic:
+            n = row_parallel_codes(torch, tag, pipe)
+            say(f"[{tag}] every rank's {pipe.ctx.act_fmt} codes and per-token scales at the "
+                f"row-parallel FFN-out ({n} codes a rank) are one device's, bit for bit")
+        need = ("fasst_act", "paged_attn") + (("qmm",) if per_step[arm]["qmm"] else ())
+        out[tag] = tp_serve(torch, tag, lm["card"], pipe, mem, prompts, per_step[arm],
+                            {"streams": lm["quant"][arm],
+                             "build": lambda: build(spec, params, calibrated, mesh=None)},
+                            need, collectives=3 * L + 2 + (3 * L if dynamic else 0),
+                            logit_tol=TP_QUANT_LOGIT_TOL[arm])
+        del pipe, params
+        torch.cuda.empty_cache()
+
+    tag = "tp-spec"
+    t_phase = time.perf_counter()
+    mem = engine_memory(torch, device, lambda: build("int4", raw, True, draft_spec="w4a8kv8",
+                                                     draft_lookahead=SPEC_K))
+    pipe = mem.pop("built")
+    eng, grp = pipe.engine, pipe.ctx.tp
+    one_table(tag, pipe, True, draft=True)
+    sp = SamplingParams(max_new_tokens=GEN)
+    eng.reset_metrics()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with served_shapes() as seen:
+        outs = pipe.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if rank == 0:
+        hold_served(torch, tag, seen, device, ("qmm", "fasst_act", "paged_attn"))
+    streams = [o.token_ids for o in outs]
+    if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
+        raise AssertionError(f"[{tag}] not every request retired on length")
+    eng.allocator.check()
+    if eng.allocator.pages_in_use:
+        raise AssertionError(f"[{tag}] {eng.allocator.pages_in_use} pages leaked")
+    m = eng.metrics()
+    counters = (m.drafted_tokens, m.accepted_tokens, m.verify_calls)
+    every = _group_gather(grp, (streams, counters))
+    if any(c != counters for _, c in every) or any(t != streams for t, _ in every):
+        raise AssertionError(f"[{tag}] the ranks' streams or acceptance counters differ: "
+                             f"{[c for _, c in every]}")
+    if not (m.verify_calls and launches["qmm"] and launches["paged_attn"]):
+        raise AssertionError(f"[{tag}] {m.verify_calls} verify rounds, launches {launches}")
+    n = len(prompts)
+    part = _partings(tag, streams, tp_streams) if rank == 0 else {}
+    steps = _group_bcast(grp, max(list(part.values()) + [3]) if part else 0)
+    if steps:
+        sides = [[(_fresh_engine(pipe, paged), list(range(n)))] for paged in (True, False)]
+        if rank == 0:
+            near_tie_partings(torch, tag, pipe, prompts, [sp] * n, streams, tp_streams,
+                              sides=sides)
+        else:
+            tp_follow_replay(torch, sides, prompts, [sp] * n, streams, steps)
+    tokens = sum(len(t) for t in streams)
+    say(f"[{tag}] " + json.dumps({
+        "draft": pipe.draft_spec_str, "lookahead": SPEC_K, "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "acceptance_rate": m.acceptance_rate,
+        "drafted_accepted_verify_rounds": counters, "same_counters_on_every_rank": True,
+        "same_as_tp_target_only": n - len(part), "near_tie_partings": len(part),
+        "decode_ms_per_step": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
+        "launches": launches, "rank_memory_gb": {k: v / 1e9 for k, v in mem.items()},
+        "card": lm["card"]}))
+    say(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
+    out[tag] = {"launches": launches, "streams": streams}
+    del pipe, eng, raw
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4400,8 +4649,8 @@ def fasst_window(torch, g, dev, shape, n, mode="relu"):
 
 def tp_phase(card, prompts, lm):
     """[tp] / [tp-dense] / [compress] / [tp-lm] / [tp-lm-dense] / [tp-qwen]
-    / [tp-moe] / [tp-olmoe] / [tp-audio] / [tp-ssm] / [tp-hybrid] on TP
-    ranks sharing the card."""
+    / [tp-moe] / [tp-olmoe] / [tp-audio] / [tp-ssm] / [tp-hybrid] /
+    [tp-quant-*] / [tp-spec] on TP ranks sharing the card."""
     from repro_torch.cluster import launch_ranks, rank_backend
     backend = rank_backend("cuda", TP)
     if backend != "gloo":
@@ -4410,8 +4659,8 @@ def tp_phase(card, prompts, lm):
     results = launch_ranks(tp_rank, TP, device="cuda", args=(prompts, lm))
     log(f"[tp] {TP} ranks over {backend} on {card} took {time.perf_counter() - t0:.1f} s "
         "(process start, deploys, nllb600m's two layouts, gemma3-1b's cut's two, qwen2.5-14b's "
-        "cut, nllb600m-moe, olmoe-1b-7b's cut, whisper-base, mamba2-780m and "
-        "recurrentgemma-9b's cut)")
+        "cut, nllb600m-moe, olmoe-1b-7b's cut, whisper-base, mamba2-780m, "
+        "recurrentgemma-9b's cut, nllb600m's four quantization arms and its draft arm)")
     return results[0]
 
 
@@ -4706,11 +4955,15 @@ def main() -> int:
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
     runs = {True: (pipe, paged_outs, paged_stats), False: (pipe_d, dense_outs, dense_stats)}
     phase_launches = {}
+    # the single device's streams that the tp phases hold their ranks to
+    # ([quant]'s arms, [moe-nllb], [audio], [ssm]) and the kernel times at
+    # served shapes
+    timed, single = {}, {}
     for name, phase in (("spec", lambda: spec_phase(torch, card, prompts, runs)),
                         ("faults", lambda: faults_phase(torch, card, pipe, prompts,
                                                         paged_outs)),
                         ("launch", lambda: launch_phase(card)),
-                        ("quant", lambda: quant_phase(torch, card, prompts, pipe))):
+                        ("quant", lambda: quant_phase(torch, card, prompts, pipe, single))):
         t0 = time.perf_counter()
         phase_launches[name] = phase()
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
@@ -4719,7 +4972,6 @@ def main() -> int:
     # streams kept in ``single`` and [tp-olmoe] serves [moe]'s prompts;
     # paged attention and qmm timed at their served shapes go into
     # ``timed``
-    timed, single = {}, {}
     for name, phase in (("moe", lambda: moe_phase(torch, card, timed, single)),
                         ("audio", lambda: audio_phase(torch, card, timed, single)),
                         ("moe-nllb", lambda: moe_nllb_phase(torch, card, prompts, single)),
@@ -4733,7 +4985,8 @@ def main() -> int:
     tp_kernels = time_tp_kernels(torch, card, dev)
     for e in entries:
         e.update(tp_kernels.get(e["name"], {}))
-    tp_out = tp_phase(card, prompts, dict(tp_lm_inputs(torch, card), families=single))
+    tp_out = tp_phase(card, prompts, dict(tp_lm_inputs(torch, card), families=single,
+                                          quant=single["quant"]))
     for tag in ("tp-moe", "tp-olmoe", "tp-audio", "tp-ssm", "tp-hybrid"):
         phase_launches[tag] = tp_out[tag]["launches"]
     phase_launches["tp"] = tp_out["tp"]["launches"]
@@ -4741,6 +4994,10 @@ def main() -> int:
     phase_launches["tp-lm"] = _add(dict(tp_out["tp-lm"]["launches"]),
                                    tp_out["tp-lm-dense"]["launches"])
     phase_launches["tp-qwen"] = tp_out["tp-qwen"]["launches"]
+    phase_launches["tp-quant"] = {}
+    for arm, _, _ in TP_QUANT_ARMS:
+        _add(phase_launches["tp-quant"], tp_out[f"tp-quant-{arm}"]["launches"])
+    phase_launches["tp-spec"] = tp_out["tp-spec"]["launches"]
     log(f"[tp] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_launches["dp"], dp_placed, _ = dp_phase(torch, card, prompts, pipe, paged_outs)
@@ -4789,7 +5046,8 @@ def main() -> int:
               "tp_lm": phase_launches["tp-lm"], "tp_qwen": phase_launches["tp-qwen"],
               "tp_moe": phase_launches["tp-moe"], "tp_olmoe": phase_launches["tp-olmoe"],
               "tp_audio": phase_launches["tp-audio"], "tp_ssm": phase_launches["tp-ssm"],
-              "tp_hybrid": phase_launches["tp-hybrid"], "dp_tp": phase_launches["dp-tp"]}
+              "tp_hybrid": phase_launches["tp-hybrid"], "tp_quant": phase_launches["tp-quant"],
+              "tp_spec": phase_launches["tp-spec"], "dp_tp": phase_launches["dp-tp"]}
     for e in entries:
         if e["name"] == "paged_attn":
             for tag in ("moe", "audio"):
@@ -4801,8 +5059,8 @@ def main() -> int:
         # spec, spec_dense, faults, quant, train, eval, train_lm, lm,
         # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid, tp (rank 0),
         # tp_dense (rank 0), dp, tp_lm (rank 0, paged + dense), tp_qwen,
-        # tp_moe, tp_olmoe, tp_audio, tp_ssm, tp_hybrid (rank 0), dp_tp
-        # (rank 0)
+        # tp_moe, tp_olmoe, tp_audio, tp_ssm, tp_hybrid, tp_quant (the four
+        # arms), tp_spec (rank 0), dp_tp (rank 0)
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -4831,13 +5089,16 @@ def main() -> int:
         f"{e['launches_tp_audio']}" for e in entries))
     log("kernels in [tp-ssm] / [tp-hybrid] (rank 0 of 2): " + ", ".join(
         f"{e['name']}={e['launches_tp_ssm']} / {e['launches_tp_hybrid']}" for e in entries))
+    log("kernels in [tp-quant] (4 arms) / [tp-spec] (rank 0 of 2): " + ", ".join(
+        f"{e['name']}={e['launches_tp_quant']} / {e['launches_tp_spec']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
             "launches_moe", "launches_moe_nllb", "launches_audio", "launches_ssm",
             "launches_hybrid", "launches_tp", "launches_tp_dense", "launches_dp",
             "launches_tp_lm", "launches_tp_qwen", "launches_tp_moe", "launches_tp_olmoe",
-            "launches_tp_audio", "launches_tp_ssm", "launches_tp_hybrid", "launches_dp_tp",
+            "launches_tp_audio", "launches_tp_ssm", "launches_tp_hybrid", "launches_tp_quant",
+            "launches_tp_spec", "launches_dp_tp",
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")

@@ -9,7 +9,8 @@ composition:
   its row-parallel products over the ranks (``parallel/tp.py``). The text
   and audio enc-decs and every LM family (an MoE model's experts split E
   over the ranks; an SSM's heads and an RG-LRU's channels split, with
-  the collectives their norm and gates need).
+  the collectives their norm and gates need), at every quantization arm
+  (act-quantizing specs, calibration, QLoRA adapters, a draft arm).
 * **Data parallel** — :class:`ReplicaRouter` balances requests over N
   independent engine replicas; :func:`deploy_replicas` builds them
   behind the ordinary ``TranslationPipeline`` surface, replica ``i`` on

@@ -12,6 +12,12 @@ passes to ``Ctx.dot``) instead of one global scalar:
 Each site's static scale is ``absmax / max_code`` for the deployed
 activation format; sites never observed fall back to dynamic per-token
 quantization at serve time (core.qlinear).
+
+On a tensor-parallel rank (``ctx.tp``) the passes run on the rank's shard
+through its local model, so a row-parallel input and a per-head
+attention operand are observed on the rank's slice; the ranks' site
+tables are then merged by ``max`` once (``TPGroup.all_max``), which gives
+every rank the same table, and one device's absmax at every site.
 """
 
 from __future__ import annotations
@@ -67,9 +73,11 @@ class SiteCollector:
     def __init__(self):
         self.stats = ActSiteStats()
         self._pending: Dict[str, torch.Tensor] = {}
+        self.device = None
 
     def observe(self, site: str | None, x: torch.Tensor) -> None:
         site = site or _UNSITED
+        self.device = x.device
         m = x.detach().to(torch.float32).abs().amax()
         prev = self._pending.get(site)
         self._pending[site] = m if prev is None else torch.maximum(prev, m)
@@ -78,6 +86,19 @@ class SiteCollector:
         for site, m in self._pending.items():
             self.stats.update(site, m.item())
         self._pending.clear()
+
+    def merge_ranks(self, tp) -> None:
+        """Every site's absmax replaced by its max over the ranks of the
+        tensor-parallel group ``tp``: one collective over the sorted
+        site table (the ranks run one model, so they observe one set of
+        sites)."""
+        sites = sorted(self.stats.absmax)
+        if tp is None or not sites:
+            return
+        local = torch.tensor([self.stats.absmax[k] for k in sites], dtype=torch.float32,
+                             device=self.device)
+        merged = tp.all_max(local).tolist()
+        self.stats = ActSiteStats(dict(zip(sites, merged)))
 
 
 @torch.no_grad()
@@ -95,7 +116,9 @@ def calibrate_act_scales(model, params, ctx, batches: Iterable,
 
     ``max_code`` is the deployed format's absmax code (127 for int8, 448
     for fp8 e4m3). Returns ``{}`` when ``batches`` is empty; callers then
-    quantize dynamically (deploy() warns).
+    quantize dynamically (deploy() warns). Under ``ctx.tp`` ``model`` and
+    ``params`` are the rank's, every rank passes the same batches, and
+    the tables are merged over the ranks (the module docstring).
     """
     collector = SiteCollector()
     cctx = dataclasses.replace(ctx, act_fmt="bf16", act_collector=collector)
@@ -109,6 +132,7 @@ def calibrate_act_scales(model, params, ctx, batches: Iterable,
             "calibration saw no quantized-weight matmuls — the deployed "
             "tree has no QTensor sites to calibrate (was the policy a "
             "bf16/f32 passthrough?)")
+    collector.merge_ranks(ctx.tp)
     return collector.stats.scales(max_code)
 
 

@@ -28,7 +28,10 @@ route); the caller of any other route, or of an adapted weight, applies
 its activation itself.
 
 Static per-site activation scales (core.calibration) arrive as
-``act_scale``; ``None`` means dynamic per-token quantization.
+``act_scale``; ``None`` means dynamic per-token quantization. A
+tensor-parallel rank's row-parallel product passes the dynamic per-token
+scale itself (``token_scale`` of the absmax over the ranks), so the rank
+quantizes its K slice on the whole row's scale.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from .quantize import dequantize_blockwise
 
 __all__ = ["qmatmul", "qmm_route", "embed_lookup", "quantize_activations",
            "quantize_activations_int8", "int8_mac_eligible", "act_quant_eligible",
-           "StaticScale", "static_scale", "f32_reciprocal"]
+           "StaticScale", "static_scale", "token_absmax", "token_scale", "f32_reciprocal"]
 
 _MAX_CODE = {"int8": 127.0, "fp8": 448.0}
 
@@ -96,25 +99,38 @@ def act_quant_eligible(w: Any) -> bool:
     return isinstance(w, QTensor)
 
 
+def token_absmax(x: torch.Tensor) -> torch.Tensor:
+    """The f32 absmax of each row of ``x``'s last axis, ``(..., 1)``."""
+    return x.to(torch.float32).abs().amax(dim=-1, keepdim=True)
+
+
+def token_scale(absmax: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The dynamic per-token scale of rows with this absmax: absmax times
+    the f32 reciprocal of the format's max code (1 for an all-zero row)."""
+    return torch.where(absmax == 0, torch.ones_like(absmax),
+                       absmax * f32_reciprocal(_MAX_CODE[fmt]))
+
+
 def quantize_activations(x: torch.Tensor, fmt: str = "int8", scale=None):
     """Symmetric quantization of activations to int8 or fp8 (e4m3).
 
     ``scale=None`` is the dynamic per-token path (each row of the last
-    axis gets its absmax scale); a static ``scale`` (a per-site scalar from
-    core.calibration, as a float or a StaticScale) saturates outliers at
-    the format's edge. The codes are computed in f32 whatever ``x``'s
-    dtype, as the reference's f32 scale makes JAX compute them, and with
-    the reference's compiled arithmetic: the dynamic scale is absmax times
-    the f32 reciprocal of the format's max code, and a static scale
-    multiplies by its f32 reciprocal. Returns ``(codes, scale)``.
+    axis gets its absmax scale); a per-token f32 tensor ``(..., 1)`` is
+    that scale given (a row-parallel rank's, from the whole row's absmax);
+    a static ``scale`` (a per-site scalar from core.calibration, as a
+    float or a StaticScale) saturates outliers at the format's edge. The
+    codes are computed in f32 whatever ``x``'s dtype, as the reference's
+    f32 scale makes JAX compute them, and with the reference's compiled
+    arithmetic: the dynamic scale is absmax times the f32 reciprocal of
+    the format's max code, and a static scale multiplies by its f32
+    reciprocal. Returns ``(codes, scale)``.
     """
     if fmt not in _MAX_CODE:
         raise ValueError(f"activation format must be int8 | fp8, got {fmt!r}")
     xf = x.to(torch.float32)
-    if scale is None:
-        absmax = xf.abs().amax(dim=-1, keepdim=True)
-        scale = torch.where(absmax == 0, torch.ones_like(absmax),
-                            absmax * f32_reciprocal(_MAX_CODE[fmt]))
+    if scale is None or (isinstance(scale, torch.Tensor) and scale.ndim):
+        if scale is None:
+            scale = token_scale(token_absmax(xf), fmt)
         y = xf / scale
     else:
         if not isinstance(scale, StaticScale):
@@ -141,9 +157,10 @@ def _lora_term(x, w: QTensor, compute_dtype):
     return torch.matmul(xa, w.lora_b.to(compute_dtype)) * scaling
 
 
-def _int8_path(x, w: QTensor, compute_dtype, act_scale=None):
+def _int8_path(x, w: QTensor, compute_dtype, act_scale=None, total=None):
     """w8a8 integer matmul; None for an int8 weight with several K-blocks
-    (it fake-quantizes instead)."""
+    (it fake-quantizes instead). ``total`` sums the int32 products over a
+    row-parallel rank's group before the rescale (qmatmul's ``reduce``)."""
     if not int8_mac_eligible(w):
         return None
     xq, sx = quantize_activations(x, "int8", act_scale)
@@ -153,6 +170,8 @@ def _int8_path(x, w: QTensor, compute_dtype, act_scale=None):
     if M % _INT_MM_ROWS:
         x2 = torch.nn.functional.pad(x2, (0, 0, 0, -M % _INT_MM_ROWS))
     out = torch._int_mm(x2, w.data)[:M].reshape(*x.shape[:-1], N)
+    if total is not None:
+        out = total(out)
     sw = w.block_scales().squeeze(-2)                      # (N,)
     return (out.to(torch.float32) * sx * sw).to(compute_dtype)
 
@@ -166,33 +185,38 @@ def _fake_quant_act(x, fmt: str, act_scale, compute_dtype):
 
 def qmatmul(x: torch.Tensor, w: Any, *, act: str = "bf16",
             compute_dtype=torch.bfloat16, impl: str = "torch",
-            naf: str | None = None, act_scale=None) -> torch.Tensor:
+            naf: str | None = None, act_scale=None, reduce=None) -> torch.Tensor:
     """y = x @ w for plain or quantized ``w`` (last-2-axis contraction);
     with ``naf``, the qmm kernel's FASST activation of it (kernel route of
     an unadapted weight only: ``act`` is the activation *format*, not
     this). ``act_scale``: a calibrated static scale for the int8 / fp8
-    activation routes."""
+    activation routes, or a per-token scale tensor (quantize_activations).
+    ``reduce``: a row-parallel rank's sum over its group
+    (``TPGroup.all_reduce``). The integer route sums its int32 products
+    before the rescale, so the result is one device's, bit for bit (an
+    adapter term beside it is summed on its own); every other route sums
+    its product, the adapter term included."""
     if naf is not None and not (qmm_route(w, impl) and w.lora_a is None):
         raise ValueError(f"naf={naf!r} fuses into the qmm kernel only, for a "
                          f"weight without adapters; this product takes the "
                          f"{impl!r} route")
+    total = reduce if reduce is not None else (lambda t: t)
     if not isinstance(w, QTensor):
-        return torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
+        return total(torch.matmul(x.to(compute_dtype), w.to(compute_dtype)))
     lora = _lora_term(x, w, compute_dtype)
     y = None
     if act == "int8" and w.fmt == "int8":
-        y = _int8_path(x, w, compute_dtype, act_scale)
-    if y is None:
-        if act in _MAX_CODE:
-            x = _fake_quant_act(x, act, act_scale, compute_dtype)
-        if qmm_route(w, impl):
-            from ..kernels import ops as kops  # lazy: avoid import cycle
-            y = kops.qmm(x, w, compute_dtype=compute_dtype, naf=naf)
-        else:
-            y = torch.matmul(x.to(compute_dtype), w.dequantize(compute_dtype))
-    if lora is not None:
-        y = y + lora.to(y.dtype)
-    return y
+        y = _int8_path(x, w, compute_dtype, act_scale, total)
+    if y is not None:
+        return y if lora is None else y + total(lora).to(y.dtype)
+    if act in _MAX_CODE:
+        x = _fake_quant_act(x, act, act_scale, compute_dtype)
+    if qmm_route(w, impl):
+        from ..kernels import ops as kops  # lazy: avoid import cycle
+        y = kops.qmm(x, w, compute_dtype=compute_dtype, naf=naf)
+    else:
+        y = torch.matmul(x.to(compute_dtype), w.dequantize(compute_dtype))
+    return total(y if lora is None else y + lora.to(y.dtype))
 
 
 def embed_lookup(table: Any, ids: torch.Tensor, compute_dtype=torch.bfloat16):

@@ -30,7 +30,9 @@ gloo when they share one or run on the CPU), each deploying with
 ``mesh=tp_mesh(K)`` and serving the same requests (any ``--arch`` of the
 registry: an MoE model's experts split E over the ranks, an SSM's heads
 and an RG-LRU's channels split too; the SSM and hybrid engines are dense
-only, without ``--paged``); rank 0 prints. ``--mesh dp<N>``
+only, without ``--paged``; every ``--policy`` and ``--draft-spec``
+serves, the act-quantizing ones dynamically as on one device); rank 0
+prints. ``--mesh dp<N>``
 serves through ``deploy_replicas`` (N engines behind the replica
 router). ``--mesh dp<N>,tp<K>`` runs the body on N·K ranks, each calling
 ``deploy_replicas(replicas=N, tp=K)``: N tensor-parallel replicas behind
@@ -53,6 +55,8 @@ kernels' plain versions.
       --device cpu --paged --mesh tp2 --requests 4 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --smoke \\
       --device cpu --mesh tp2 --requests 4 --gen 8 --max-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --paged --mesh tp2 --policy w8a8 --draft-spec nf4 --requests 4 --gen 8
 """
 
 from __future__ import annotations

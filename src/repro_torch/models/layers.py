@@ -17,7 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.qlinear import (act_quant_eligible, qmatmul, qmm_route,
-                            quantize_activations, static_scale)
+                            quantize_activations, static_scale, token_absmax, token_scale)
 from ..kernels.fasst import _naf
 from ..kernels.qmm import DECODE_MAX_M
 from ..random import normal, split
@@ -57,10 +57,16 @@ class Ctx:
                      each x<fmt> attention operand) reports its absmax
                      under its site label. Not part of eq / hash.
     tp:              a tensor-parallel engine's ``parallel.tp.TPGroup``:
-                     every row-parallel product (a site ending in ".out")
-                     is summed over its ranks, and a vocabulary-split
-                     embedding and head gather over them. None on one
-                     device. Not part of eq / hash.
+                     every row-parallel product (a site ending in ".out",
+                     or ``row_split``) is summed over its ranks, and a
+                     vocabulary-split embedding and head gather over them.
+                     An act-quantizing spec's dynamic scale at such a
+                     product is the whole row's: the ranks' absmax
+                     reduced by max. Static scales, column-parallel sites
+                     and the x<fmt> attention operands (quantized along
+                     head_dim or one head's keys, whole on the rank) need
+                     no collective. None on one device. Not part of eq /
+                     hash.
     """
     compute_dtype: Any = torch.bfloat16
     act_fmt: str = "bf16"
@@ -100,21 +106,26 @@ class Ctx:
             self._device_scales[key] = static_scale(scale, device)
         return self._device_scales[key]
 
-    def dot(self, x, w, site=None, naf=None):
+    def dot(self, x, w, site=None, naf=None, row_split=False):
         """x @ w with the context's activation route. ``site`` is the
         matmul's calibration label (e.g. "dec.ffn.in"): the collector
         files absmax observations under it, and the static-scale registry
         is keyed by it; unlabelled sites stay dynamic. Under ``tp`` a
-        row-parallel site (".out") sums its partial products over the
-        ranks."""
+        row-parallel product (a ".out" site, or ``row_split`` for an
+        unlabelled one) holds the rank's K slice of ``x``: a dynamic
+        activation scale is taken from the ranks' absmax, and the partial
+        products are summed over the ranks (w8a8's int32 products before
+        their rescale, exactly)."""
         if self.act_collector is not None and act_quant_eligible(w):
             self.act_collector.observe(site, x)
-        y = qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
-                    impl=self.matmul_impl, naf=naf,
-                    act_scale=self.scale_for(site, x.device))
-        if self.tp is not None and site is not None and site.endswith(".out"):
-            y = self.tp.all_reduce(y)
-        return y
+        scale = self.scale_for(site, x.device)
+        split = self.tp is not None and (row_split or (site or "").endswith(".out"))
+        if (split and scale is None and self.act_fmt in ("int8", "fp8")
+                and act_quant_eligible(w)):
+            scale = token_scale(self.tp.all_max(token_absmax(x)), self.act_fmt)
+        return qmatmul(x, w, act=self.act_fmt, compute_dtype=self.compute_dtype,
+                       impl=self.matmul_impl, naf=naf, act_scale=scale,
+                       reduce=self.tp.all_reduce if split else None)
 
     def _attn_fq(self, x, site):
         """Fake-quantize one f32 attention operand at the attention format:

@@ -87,8 +87,7 @@ def _conv(x, w, bias, state=None):
 
 def _out(ctx: Ctx, params, y):
     """``out_proj``, its partial products summed over a group's ranks."""
-    out = ctx.dot(y, params["out_proj"])
-    return out if ctx.tp is None else ctx.tp.all_reduce(out)
+    return ctx.dot(y, params["out_proj"], row_split=True)
 
 
 def linear_scan(a, b):

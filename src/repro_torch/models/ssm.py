@@ -188,7 +188,7 @@ def _gate_out(ctx: Ctx, params, y, z, d_inner: int):
     if ctx.tp is None:
         return ctx.dot(rms_norm(y, params["norm_scale"]), params["out_proj"])
     y = _split_rms_norm(ctx.tp, y, params["norm_scale"], d_inner)
-    return ctx.tp.all_reduce(ctx.dot(y, params["out_proj"]))
+    return ctx.dot(y, params["out_proj"], row_split=True)
 
 
 def ssm_apply(ctx: Ctx, params, x, *, d_model: int, ssm_cfg, conv_state=None,

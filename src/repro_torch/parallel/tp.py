@@ -11,8 +11,22 @@ moonshot, mamba2, recurrentgemma). Only these places talk to the other
 ranks:
 
 * every row-parallel product (a matmul site ending in ``.out``: the
-  attention and FFN output projections) is summed over the ranks
-  (``Ctx.dot``), a bias added once after the sum;
+  attention and FFN output projections; an SSM's and an RG-LRU's
+  ``out_proj``, unlabelled, passed as ``row_split``) is summed over the
+  ranks (``Ctx.dot``), a bias added once after the sum. w8a8's integer
+  route sums its int32 products before their rescale, so its product is
+  one device's, bit for bit;
+* an act-quantizing spec's dynamic per-token scale at such a product:
+  the rank holds a K slice of each row, so it takes its slice's absmax,
+  the max over the ranks (:meth:`TPGroup.all_max`) gives the whole row's,
+  and the rank quantizes its slice on that scale: one device's codes and
+  scale, exactly. A static (calibrated) site and a column-parallel site
+  (the whole row on every rank) take no collective, nor does the x<fmt>
+  attention slot: each of its operands is quantized along ``head_dim``
+  or the key axis of one head, both whole on the rank;
+* calibration (``core.calibration``) runs on the rank's shard and merges
+  the ranks' site tables by the same max, once, so every rank holds one
+  device's table;
 * a vocabulary-split embedding looks up the rows it holds, zeroes the
   rest and sums over the ranks (exact: one term is nonzero);
 * the head computes the logits of the rank's vocabulary slice and
@@ -68,7 +82,14 @@ rank, as in the reference.
 
 The sums run in f32: a bf16 partial product is widened, summed and
 rounded once. A gather widens too (exact: every sum has one nonzero
-term).
+term), and so does a max (exact).
+
+QLoRA adapters split with their weights (``lora_a``'s K, ``lora_b``'s N),
+so at a row-parallel site ``(x_r A_r) B`` is the rank's partial of
+``(x A) B`` and rides the product's sum; ``lora_alpha / r`` is unchanged.
+A speculative draft arm is sharded like the target (:func:`shard_params`)
+and decodes through the same group; its acceptance reads the gathered
+logits, the same bits on every rank.
 """
 
 from __future__ import annotations
@@ -79,12 +100,11 @@ from typing import Any, Optional
 import torch
 
 from ..core.qlinear import embed_lookup
-from ..core.qtensor import QTensor
 from ..unported import later
 from .sharding import param_specs, shard_tree
 
-__all__ = ["TPGroup", "tp_engine_parts", "refuse_under_mesh", "local_config", "kv_replicas",
-           "experts_per_rank", "ssd_heads"]
+__all__ = ["TPGroup", "tp_engine_parts", "shard_params", "refuse_under_mesh", "local_config",
+           "kv_replicas", "experts_per_rank", "ssd_heads"]
 
 
 class TPGroup:
@@ -104,16 +124,32 @@ class TPGroup:
         return f"TPGroup(rank {self.rank} of {self.size}, {self.backend})"
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks, in f32, cast back once."""
+        """The sum of ``x`` over the ranks, in f32, cast back once; an
+        integer ``x`` (w8a8's int32 products) sums in its own dtype,
+        exactly."""
         if self.size == 1:
             return x
-        y = x.to(torch.float32).contiguous()
+        y = (x.to(torch.float32) if x.is_floating_point() else x).contiguous()
         return self._sum(y.clone() if y.data_ptr() == x.data_ptr() else y).to(x.dtype)
 
     def _sum(self, y: torch.Tensor) -> torch.Tensor:
         """The contiguous f32 ``y`` summed over the ranks, in place."""
         import torch.distributed as dist
         dist.all_reduce(y, group=self.group)
+        return y
+
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over the ranks, in f32, cast back
+        once (exact)."""
+        if self.size == 1:
+            return x
+        y = x.to(torch.float32).contiguous()
+        return self._max(y.clone() if y.data_ptr() == x.data_ptr() else y).to(x.dtype)
+
+    def _max(self, y: torch.Tensor) -> torch.Tensor:
+        """The contiguous f32 ``y``'s elementwise max over the ranks, in place."""
+        import torch.distributed as dist
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
         return y
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -142,31 +178,24 @@ class TPGroup:
 _MESH_FAMILIES = ("encdec", "audio", "dense", "vlm", "moe", "ssm", "hybrid")
 
 
-def refuse_under_mesh(cfg, *, tp: Optional[int] = None, act_fmt: str = "bf16",
-                      attn_fmt: str = "bf16", calibrated: bool = False,
-                      adapters: bool = False, draft: bool = False, sla: bool = False,
+def refuse_under_mesh(cfg, *, tp: Optional[int] = None, sla: bool = False,
                       faults: bool = False) -> None:
     """Raise, naming the later slice, for what a mesh does not serve yet:
     a family the registry does not know, a width that ``tp`` does not
     divide (heads, FFN, RG-LRU channels, SSD heads) and a KV-head count
     that neither divides ``tp`` nor is divided by it (when ``tp`` is
-    given), act-quantizing specs and calibration (a per-token absmax
-    over a split K needs an all-reduce max), QLoRA adapters (their
-    ``lora_a`` K splits too), a draft arm, and what reads a clock (SLA
-    admission, fault injection: the ranks' clocks differ)."""
+    given: the sequence split), and what reads a clock (SLA admission,
+    fault injection: the ranks' clocks differ, and a decision on them
+    needs rank 0's broadcast each round, a control channel the port does
+    not have). Every quantization arm serves: act-quantizing specs, the
+    x<fmt> attention slot, calibration, QLoRA adapters and a draft arm."""
     if cfg.family not in _MESH_FAMILIES:
         raise later(f"a tensor-parallel mesh for {cfg.name} ({cfg.family}): the port "
                     "shards the text and audio enc-decs and the dense, VLM, MoE, SSM and "
                     "hybrid LM families", 6)
     if tp is not None:
         local_config(cfg, tp)
-    for on, what in ((act_fmt != "bf16" or attn_fmt != "bf16",
-                      "an act-quantizing spec under a mesh (its per-token absmax "
-                      "over a split K needs an all-reduce max)"),
-                     (calibrated, "calib_batches under a mesh"),
-                     (adapters, "QLoRA adapters under a mesh (lora_a's K splits too)"),
-                     (draft, "a speculative draft arm under a mesh"),
-                     (sla, "sla= under a mesh (it reads the clock, and the ranks' "
+    for on, what in ((sla, "sla= under a mesh (it reads the clock, and the ranks' "
                            "clocks differ)"),
                      (faults, "faults= under a mesh (clock skew and injection "
                               "rounds read the clock)")):
@@ -220,31 +249,29 @@ def local_config(cfg, tp: int):
                                d_rec=cfg.d_rec // tp)
 
 
-def _has_adapters(params) -> bool:
-    if isinstance(params, dict):
-        return any(_has_adapters(v) for v in params.values())
-    return isinstance(params, QTensor) and params.lora_a is not None
-
-
-def tp_engine_parts(model, params, ctx, mesh, device, draft=None, sla=None, faults=None):
+def tp_engine_parts(model, params, ctx, mesh, device):
     """(local model, local params, ctx with the group) of this rank's
     engine: the reference's ``fsdp_scope="none"`` specs on the mesh, one
     shard per rank, checked against the local widths."""
     from ..models import Ctx, build_model
-    ctx = ctx if ctx is not None else Ctx()
     cfg = model.cfg
-    refuse_under_mesh(cfg, act_fmt=ctx.act_fmt, attn_fmt=ctx.attn_act_fmt,
-                      calibrated=ctx.act_scales is not None,
-                      adapters=_has_adapters(params), draft=draft is not None,
-                      sla=sla is not None, faults=faults is not None)
+    refuse_under_mesh(cfg)
     group = TPGroup.of(mesh)
-    local = local_config(cfg, group.size)
+    lmodel = build_model(local_config(cfg, group.size), device, tp=group.size)
+    ctx = ctx if ctx is not None else Ctx()
+    return lmodel, shard_params(params, cfg, lmodel, group), dataclasses.replace(ctx, tp=group)
+
+
+def shard_params(params, cfg, lmodel, group: TPGroup):
+    """The rank's shard of the whole (quantized) tree ``params`` of
+    ``cfg``, checked against the rank-local model ``lmodel``: the
+    target's weights, and a draft arm's (the same checkpoint quantized
+    again), placed alike."""
     specs = param_specs(params, {"model": group.size}, fsdp_scope="none")
     shard = shard_tree(params, specs, group.rank, {"model": group.size},
                        kv_replicas=kv_replicas(cfg, group.size), recurrent=True)
-    lmodel = build_model(local, device, tp=group.size)
     _check_widths(shard, lmodel, cfg, group.size)
-    return lmodel, shard, dataclasses.replace(ctx, tp=group)
+    return shard
 
 
 def experts_per_rank(cfg, tp: int) -> int:

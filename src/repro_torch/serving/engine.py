@@ -94,18 +94,24 @@ sync, walk); every emission sits behind ``if self.trace is not None``.
 ``sla=SLATarget(...)`` retunes the effective horizon and the paged
 prefill-group cap against the measured p95s.
 
-Tensor parallelism (``mesh=tp_mesh(K)``)
-----------------------------------------
-Every rank of the mesh builds the engine on the same full weights and
-serves the same requests; the engine keeps the rank's shard and a model
-of the rank's local widths (``parallel/tp.py``), and builds its caches
-from that model (an SSM's and a hybrid's recurrent states at the rank's
-heads and channels). The logits every rank samples from are the same bits,
-and no scheduling decision reads a clock or polls the device, so every
-rank retires, pages and admits alike with no control channel. A
-decoder-only LM's prefill gathers only the rows the engine samples from.
-What reads a clock (``sla``, ``faults``, a request's ``deadline_ms``)
-raises under a mesh.
+Tensor parallelism (``deploy(mesh=tp_mesh(K))``)
+------------------------------------------------
+On every rank of the mesh ``deploy`` builds the engine from the rank's
+parts (``parallel.tp.tp_engine_parts``): a model of the rank's local
+widths, its shard of the quantized weights and a ctx carrying the group
+(``ctx.tp``). The engine builds its caches from that model (an SSM's and
+a hybrid's recurrent states at the rank's heads and channels; a draft
+arm's cache, dense or its own chains of the one paged pool, likewise)
+and serves the same requests on every rank. Every quantization arm
+serves so: act-quantizing specs (a row-parallel product's dynamic scale
+is the ranks' absmax), calibrated scales (calibrated on the shard, the
+site tables merged), QLoRA adapters and a draft arm sharded like the
+target. The logits every rank samples from are the same bits, and no
+scheduling decision reads a clock or polls the device, so every rank
+retires, pages, admits and accepts drafted tokens alike with no control
+channel. A decoder-only LM's prefill gathers only the rows the engine
+samples from. What reads a clock (``sla``, ``faults``, a request's
+``deadline_ms``) raises under a mesh.
 """
 
 from __future__ import annotations
@@ -123,7 +129,7 @@ from .. import random as prng
 from ..obs import PHASES, SCHED_TID, Histogram, TraceConfig, Tracer
 from ..obs.metrics import render_prometheus
 from ..models.api import decode_block
-from ..parallel.tp import tp_engine_parts
+from ..parallel.tp import refuse_under_mesh
 from ..unported import later
 from .metrics import EngineMetrics, SLAController, SLATarget
 from .paged_cache import TRASH_PAGE, PageAllocator, paged_insert, pages_needed
@@ -189,8 +195,7 @@ class ServeEngine:
                  max_src_len: Optional[int] = None, horizon: int = 1,
                  draft: Optional[DraftArm] = None, overlap: bool = True,
                  sla: Optional[SLATarget] = None, max_pending: Optional[int] = None,
-                 preempt_limit: int = 3, faults=None, trace=None, device="cuda",
-                 mesh=None):
+                 preempt_limit: int = 3, faults=None, trace=None, device="cuda"):
         if horizon < 1:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         if max_pending is not None and max_pending < 1:
@@ -198,13 +203,12 @@ class ServeEngine:
         if preempt_limit < 0:
             raise ValueError(f"preempt_limit must be >= 0, got {preempt_limit}")
         # a rank of a tensor-parallel mesh serves the model of its local
-        # widths over its shard of the weights, placed once here; its ctx
-        # carries the group the row-parallel sums and the vocabulary
+        # widths over its shard of the weights (deploy places them); its
+        # ctx carries the group the row-parallel sums and the vocabulary
         # gathers run over (parallel/tp.py)
-        self.mesh = mesh
-        if mesh is not None:
-            model, params, ctx = tp_engine_parts(model, params, ctx, mesh, device,
-                                                 draft=draft, sla=sla, faults=faults)
+        self.tp = ctx.tp if ctx is not None else None
+        if self.tp is not None and (sla is not None or faults is not None):
+            refuse_under_mesh(model.cfg, sla=sla is not None, faults=faults is not None)
         fam = model.cfg.family
         if fam not in _SERVED:
             raise ValueError(f"unknown family {fam!r}; the engine serves {_SERVED}")
@@ -334,7 +338,7 @@ class ServeEngine:
         if on_token is not None:
             request = dataclasses.replace(request, on_token=on_token)
         sp = request.params
-        if self.mesh is not None and sp.deadline_ms is not None:
+        if self.tp is not None and sp.deadline_ms is not None:
             raise later("a request's deadline_ms under a mesh (it reads the clock, "
                         "and the ranks' clocks differ)", 6)
         inputs = {}
@@ -1355,7 +1359,7 @@ class ServeEngine:
         LM's rank of a mesh gathers those rows only (``lm_prefill(read=)``:
         the whole (B, S, V) would cross the ranks); elsewhere they are
         read from the whole logits."""
-        if self.mesh is not None and not self._enc_dec:
+        if self.tp is not None and not self._enc_dec:
             return self.model.prefill(self.ctx, self.params, cache, batch, read=read)
         cache, logits = self.model.prefill(self.ctx, self.params, cache, batch)
         return cache, logits[torch.arange(read.shape[0], device=logits.device), read]

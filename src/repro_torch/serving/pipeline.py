@@ -29,6 +29,7 @@ routes. The FASST activation kernel is the ``Ctx.use_fasst_kernel`` knob.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Iterable, Iterator, List, Optional, Sequence, Union
 
 import torch
@@ -38,7 +39,7 @@ from ..core import QuantSpec, calibrated_ctx, quantize_tree, resolve_spec, tree_
 from ..data import LANG_CODES
 from ..models import Ctx, build_model
 from ..obs import TraceConfig, Tracer
-from ..parallel.tp import refuse_under_mesh
+from ..parallel.tp import refuse_under_mesh, shard_params, tp_engine_parts
 from .engine import ServeEngine
 from .metrics import SLATarget
 from .params import Request, RequestOutput, SamplingParams
@@ -256,19 +257,24 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     mesh:        a ``("model",)`` mesh from ``cluster.tp_mesh(K)``, inside the
                  ranks of ``cluster.launch_ranks``: every rank calls deploy()
                  with the same arguments and serves the same requests; the
-                 engine keeps the rank's shard of the quantized weights and
-                 KV storage and sums its row-parallel products over the
+                 rank keeps its shard of the quantized weights and KV
+                 storage and sums its row-parallel products over the
                  ranks (an MoE model's experts: E / tp a rank, their
                  outputs gathered; an SSM's heads and an RG-LRU's channels
                  split). The streams are the single-device engine's. The
                  text and audio enc-decs and every LM family at every
-                 weight-only spec, dense or paged (the SSM and hybrid
-                 dense only, as on one device); act-quantizing specs,
-                 ``calib_batches``, adapters, a draft arm, ``sla``,
-                 ``faults``, a request's ``deadline_ms``, a width that tp
-                 does not divide and a KV-head count that neither divides
-                 tp nor is divided by it raise (NotImplementedError, a
-                 later port slice).
+                 spec, dense or paged (the SSM and hybrid dense only, as
+                 on one device), with every quantization arm: an
+                 act-quantizing spec's dynamic scale at a row-parallel
+                 product is the whole row's (the ranks' absmax reduced by
+                 max), ``calib_batches`` calibrate on the rank's shard and
+                 the ranks' site tables merge by max, QLoRA adapters split
+                 with their weights, and a draft arm is quantized from the
+                 whole raw tree and sharded like the target. ``sla``,
+                 ``faults``, a request's ``deadline_ms`` (they read the
+                 clock), a width that tp does not divide and a KV-head
+                 count that neither divides tp nor is divided by it raise
+                 (NotImplementedError, a later port slice).
     device:      None = "cuda" (raises without a card).
     """
     spec = resolve_spec(policy)
@@ -278,10 +284,7 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     if mesh is not None:            # refuse before any build work
         size = getattr(mesh, "size", None)
         refuse_under_mesh(cfg, tp=size() if callable(size) else None,
-                          act_fmt=spec.act, attn_fmt=spec.attn,
-                          calibrated=calib_batches is not None,
-                          draft=draft_spec is not None, sla=sla is not None,
-                          faults=faults is not None)
+                          sla=sla is not None, faults=faults is not None)
     kv = kv_dtype or spec.kv
     dev = _device(device)
     model = build_model(cfg, dev)
@@ -306,6 +309,16 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
         calib_batches = list(calib_batches)
     if spec.weights != "f32":
         params = quantize_tree(params, spec.policy())
+    q_bytes = tree_nbytes(params)
+    place = None
+    if mesh is not None:
+        # a rank keeps its shard, a model of its local widths and a ctx
+        # carrying the group, and drops the whole tree; calibration and
+        # the draft arm then run on what the engine serves, as on one
+        # device
+        whole = model.cfg
+        model, params, ctx = tp_engine_parts(model, params, ctx, mesh, dev)
+        place = functools.partial(shard_params, cfg=whole, lmodel=model, group=ctx.tp)
     if spec.quantizes_act or spec.quantizes_attn:
         fmt = spec.act if spec.quantizes_act else spec.attn
         ctx = calibrated_ctx(ctx, model, params, calib_batches, fmt,
@@ -314,16 +327,14 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
     if draft_spec is not None:
         draft = build_draft_arm(model, raw_params, ctx, draft_spec,
                                 lookahead=draft_lookahead,
-                                calib_batches=calib_batches)
+                                calib_batches=calib_batches, place=place)
+    del raw_params
     engine = ServeEngine(model, params, slots=slots, max_len=max_len,
                          kv_dtype=kv, ctx=ctx, paged=paged, page_size=page_size,
                          num_pages=num_pages, max_src_len=max_src_len,
                          horizon=horizon, draft=draft, overlap=overlap, sla=sla,
                          max_pending=max_pending, preempt_limit=preempt_limit,
-                         faults=faults, trace=trace, device=dev, mesh=mesh)
-    q_bytes = tree_nbytes(params)
-    if mesh is not None:            # the engine holds the shard: drop the whole tree
-        model, params, ctx = engine.model, engine.params, engine.ctx
+                         faults=faults, trace=trace, device=dev)
     name = policy if isinstance(policy, str) else str(spec)
     return TranslationPipeline(cfg, model, params, engine, ctx, name, fp_bytes, q_bytes,
                                spec, draft_spec=draft.spec if draft else None)

@@ -23,7 +23,7 @@ attention format is the target's, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, Optional, Tuple
+from typing import Any, Callable, Iterable, Optional, Tuple
 
 import torch
 
@@ -84,19 +84,25 @@ def accept_longest_prefix(draft_block: torch.Tensor, target_block: torch.Tensor,
 
 def build_draft_arm(model, raw_params, base_ctx: Ctx, draft_spec, *,
                     lookahead: int = 4,
-                    calib_batches: Optional[Iterable[dict]] = None) -> DraftArm:
+                    calib_batches: Optional[Iterable[dict]] = None,
+                    place: Optional[Callable] = None) -> DraftArm:
     """Quantize a second arm of ``raw_params`` (the UN-quantized
     checkpoint) at ``draft_spec`` and bundle it as a DraftArm.
 
-    ``base_ctx`` supplies the compute dtype, the kernel routes and the
-    attention format; the draft's activation format and (calibrated on
-    ``calib_batches``) static scales replace the target's. An
-    act-quantizing draft without batches warns and stays dynamic."""
+    ``base_ctx`` supplies the compute dtype, the kernel routes, the
+    attention format and a tensor-parallel rank's group; the draft's
+    activation format and (calibrated on ``calib_batches``) static scales
+    replace the target's. An act-quantizing draft without batches warns
+    and stays dynamic. ``place`` maps the quantized whole tree to what
+    ``model`` serves: a rank's shard (``parallel.tp.shard_params``), on
+    which a rank calibrates as the target does."""
     spec = resolve_spec(draft_spec)
     ctx = dataclasses.replace(base_ctx, act_fmt=spec.act, act_scales=None)
     params = raw_params
     if spec.weights != "f32":
         params = quantize_tree(raw_params, spec.policy())
+    if place is not None:
+        params = place(params)
     if spec.quantizes_act:
         ctx = calibrated_ctx(ctx, model, params, calib_batches, spec.act,
                              f"draft spec {spec} quantizes activations")

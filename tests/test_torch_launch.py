@@ -11,7 +11,8 @@ differ, since each package draws its own random weights); its
 rejections; act-quantizing and fp8 specs serve as ``--policy`` and
 ``--draft-spec``; ``--mesh`` keeps the reference's grammar: tp2 serves
 on two ranks, dp2 through the replica router and dp2,tp2 on four ranks,
-each with the single engine's streams.
+each with the single engine's streams, and so does tp2 with an
+act-quantizing policy and a draft arm.
 """
 
 import json
@@ -166,6 +167,25 @@ def test_launcher_scale_out_raises(capfd, mesh):
     if mesh != "dp2":
         assert any("over gloo" in line for line in lines)
     assert sum(line.startswith("served 4 requests") for line in lines) == 1
+
+
+def test_launcher_quant_arms_under_a_mesh(capfd):
+    """``--mesh tp2 --policy w8a8 --draft-spec nf4``: two gloo CPU ranks
+    serve the act-quantizing target (dynamic per-token scales, the
+    row-parallel ones the ranks' absmax) with its nf4 draft arm, and
+    rank 0 prints the single engine's [req N] streams and draft line."""
+    argv = [*SMOKE, "--impl", "torch", "--device", "cpu", "--paged", "--policy", "w8a8",
+            "--draft-spec", "nf4"]
+    with pytest.warns(UserWarning, match="dynamic per-token"):
+        serve.main(argv)
+    want = streams(capfd.readouterr().out.splitlines())
+    serve.main([*argv, "--mesh", "tp2"])
+    lines = capfd.readouterr().out.splitlines()
+    assert streams(lines) == want and len(want) == 4
+    assert any(line.startswith("tensor parallel: tp2") for line in lines), lines[:3]
+    assert any(line.startswith("speculative draft arm: nf4 = wnf4kv8dq") for line in lines)
+    served = [line for line in lines if line.startswith("served 4 requests")]
+    assert len(served) == 1 and "verify rounds" in served[0]
 
 
 def test_launcher_unit_mesh_and_bad_specs(capsys):

@@ -386,12 +386,14 @@ def test_generator_init_has_the_reference_shapes(arch):
 
 
 def test_unported_routes_raise(models):
-    """Only the rest of scale-out (port slice 6: the sequence split for a
-    KV-head count tp does not divide, the act-quantizing, calibrated,
-    adapter, draft and clock-driven arms under a mesh, a shard-first
-    deploy) is left unported: MoE expert parallelism, the audio mesh and
-    the SSM and hybrid meshes have landed, and both recurrent archs pass
-    ``refuse_under_mesh`` at tp2 and tp4. Every LM family
+    """Only the rest of scale-out (port slice 6: the clock-driven arms
+    under a mesh, the composed stack's on_token and --metrics-port, the
+    sequence split for a KV-head count tp does not divide, a shard-first
+    deploy) is left unported: MoE expert parallelism, the audio mesh, the
+    SSM and hybrid meshes and the quantization arms under a mesh
+    (act-quantizing specs, calibration, adapters, a draft arm) have
+    landed, and both recurrent archs pass ``refuse_under_mesh`` at tp2 and
+    tp4. Every LM family
     inits from a key and recomputes its layers under ``remat``: qwen's key
     init is the reference's (3e-7 relative, two f32 ulps), and for qwen
     and the MoE, SSM and hybrid variants of its config ``remat`` gives
@@ -403,9 +405,11 @@ def test_unported_routes_raise(models):
     from repro_torch.tree import leaves_with_path
     from repro_torch.parallel.tp import refuse_under_mesh
     assert sorted(unported.SLICES) == [6]
-    for left in ("sequence split", "act-quantizing", "draft", "shard-first deploy"):
+    for left in ("sla=", "faults=", "deadline_ms", "on_token", "--metrics-port",
+                 "sequence split", "shard-first deploy"):
         assert left in unported.SLICES[6], left
-    for landed in ("MoE", "audio", "SSM", "hybrid"):
+    for landed in ("MoE", "audio", "SSM", "hybrid", "act-quantizing", "calibrat", "adapter",
+                   "draft"):
         assert landed not in unported.SLICES[6], landed
     for arch in ("mamba2-780m", "recurrentgemma-9b"):
         for tp in (2, 4):

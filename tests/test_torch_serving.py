@@ -25,7 +25,8 @@ from repro.serving import SamplingParams as JSamplingParams  # noqa: E402
 from repro.serving import deploy as j_deploy  # noqa: E402
 from repro.serving import impl_routes as j_impl_routes  # noqa: E402
 from repro_torch.core import resolve_spec  # noqa: E402
-from repro_torch.serving import SLATarget, SamplingParams, deploy, impl_routes  # noqa: E402
+from repro_torch.serving import (FaultPlan, SLATarget, SamplingParams, deploy,  # noqa: E402
+                                 impl_routes)
 
 SPECS = ["int4", "fp4", "nf4"]
 SRC_LENS = [5, 9, 12, 5, 7]
@@ -183,23 +184,37 @@ def test_translate_surface(torch_params):
     assert [o.request_id for o in outs] == [0, 1]
 
 
+class _Mesh:
+    """A stand-in mesh of ``n`` ranks, for refusals made before any build."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(policy="w8a8"), dict(policy="fp8e2e"), dict(policy="w4a8kv8"),
     dict(policy="w16x8"), dict(policy="fp8"), dict(kv_dtype="fp8"),
     dict(draft_spec="wfp4a8"), dict(draft_spec="w4kvfp8"), dict(calib_batches=[]),
     dict(calib_batches=[], paged=False), dict(kv_dtype="fp8", paged=False),
-    dict(mesh=object(), policy="w8a8"), dict(mesh=object(), draft_spec="nf4", paged=False),
+    dict(mesh=object(), policy="w8a8", faults=FaultPlan(nan_at=[(1, 0, 0)])),
+    dict(mesh=object(), draft_spec="nf4", paged=False, sla=SLATarget(p95_tpot_ms=50.0)),
     dict(mesh=object(), sla=SLATarget(p95_ttft_ms=50.0)),
-    dict(mesh=object(), arch="mamba2-780m", policy="fp8e2e"),
-    dict(mesh=object(), calib_batches=[])])
+    dict(mesh=object(), arch="mamba2-780m", faults=FaultPlan(skew_at=[(1, 5.0)])),
+    dict(mesh=_Mesh(3), calib_batches=[])])
 def test_unported_routes_raise(kwargs):
     """Routes outside the ported slices raise, naming their slice: under a
-    mesh (slice 6) an act-quantizing spec (on the SSM family too), a
-    draft arm, SLA admission and calibration, before any build work
-    (tensor-parallel serving itself: tests/test_torch_tp.py, the dense
-    and VLM LMs tests/test_torch_tp_lm.py, the MoE and audio families
+    mesh (slice 6) what reads the clock (SLA admission, fault injection;
+    beside an act-quantizing spec, a draft arm, on the SSM family too)
+    and a width tp does not divide (the reduced nllb600m's 4 heads at
+    tp3), before any build work (tensor-parallel serving itself:
+    tests/test_torch_tp.py, the dense and VLM LMs
+    tests/test_torch_tp_lm.py, the MoE and audio families
     tests/test_torch_tp_moe.py, the SSM and hybrid families
-    tests/test_torch_tp_recurrent.py). The
+    tests/test_torch_tp_recurrent.py, the quantization arms
+    tests/test_torch_tp_quant.py). The
     quantization routes (slice 3) deploy: act-quantizing and fp8-KV specs
     and drafts and ``calib_batches`` build engines whose Ctx carries the
     spec's activation formats and whose caches the KV format

@@ -418,21 +418,44 @@ def test_kv_heads_that_tp_splits_or_replicates():
             refuse_under_mesh(dataclasses.replace(cfg, num_kv_heads=hkv), tp=tp)
 
 
+class _Reached(Exception):
+    """Raised by ``_StubMesh`` where a deploy first reads its group: the
+    deploy got past every refusal."""
+
+
+class _StubMesh:
+    """A mesh of ``n`` ranks that stops a deploy at its first collective
+    setup (``get_group``)."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self):
+        return self.n
+
+    def get_group(self):
+        raise _Reached
+
+
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "nllb600m-moe", "mamba2-780m",
                                   "recurrentgemma-9b", "whisper-base"])
 def test_families_left_for_slice_6_raise(arch):
-    """Every family now passes at tp2, as the dense and VLM LMs do: the
-    MoE families (expert parallelism), whisper-base (the audio mesh) and
-    the SSM and hybrid families (mamba2-780m's 48 SSD heads, the hybrid's
-    16 heads and d_rec 4096 split at tp2 and tp4). What stays in slice 6
-    still raises for each: an act-quantizing spec under a mesh, and
-    gemma3-1b's 4 query heads at tp8 (a width tp does not divide)."""
+    """Every family passes at tp2, as the dense and VLM LMs do: the MoE
+    families (expert parallelism), whisper-base (the audio mesh) and the
+    SSM and hybrid families (mamba2-780m's 48 SSD heads, the hybrid's 16
+    heads and d_rec 4096 split at tp2 and tp4), and so does an
+    act-quantizing spec: a w8a8 deploy of the reduced arch on a tp2 mesh
+    reaches the rank's group (the quantization arms under a mesh,
+    tests/test_torch_tp_quant.py). What stays in slice 6 still raises for
+    each: ``sla=`` under a mesh (it reads the clock), and gemma3-1b's 4
+    query heads at tp8 (a width tp does not divide)."""
     refuse_under_mesh(get_config(arch), tp=2)
     if arch in ("mamba2-780m", "recurrentgemma-9b"):
         refuse_under_mesh(get_config(arch), tp=4)
-    with pytest.raises(NotImplementedError,
-                       match="act-quantizing spec under a mesh.*port slice 6"):
-        refuse_under_mesh(get_config(arch), tp=2, act_fmt="int8")
+    with pytest.raises(_Reached):
+        deploy(arch, "w8a8", smoke=True, device="cpu", mesh=_StubMesh(2))
+    with pytest.raises(NotImplementedError, match="sla= under a mesh.*port slice 6"):
+        refuse_under_mesh(get_config(arch), tp=2, sla=True)
     with pytest.raises(NotImplementedError, match="num_heads 4 over tp8.*port slice 6"):
         refuse_under_mesh(get_config("gemma3-1b"), tp=8)
     for served in KV:

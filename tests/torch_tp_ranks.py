@@ -1,6 +1,6 @@
 """Rank bodies for the tensor-parallel tests (tests/test_torch_tp.py,
 tests/test_torch_tp_lm.py, tests/test_torch_tp_moe.py,
-tests/test_torch_tp_recurrent.py).
+tests/test_torch_tp_recurrent.py, tests/test_torch_tp_quant.py).
 
 They run in processes that ``repro_torch.cluster.launch_ranks`` spawns,
 so they live in a module of their own that imports torch and the port
@@ -9,11 +9,13 @@ same weights and serves the reference TP test's grids (nllb600m), the
 LM grids (gemma3-1b, qwen2.5-14b, llava-next-mistral-7b), the MoE and
 audio grids (nllb600m-moe, whisper-base, olmoe-1b-7b,
 moonshot-v1-16b-a3b), the recurrent grids (mamba2-780m,
-recurrentgemma-9b) and a preempting engine, or its share of a composed
-dp x tp stack.
+recurrentgemma-9b), the quantization arms (act-quantizing, calibrated,
+adapted and draft-armed engines) and a preempting engine, or its share
+of a composed dp x tp stack.
 """
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -23,7 +25,7 @@ from repro_torch.convert import from_numpy_tree
 from repro_torch.core import tree_nbytes
 from repro_torch.models import Ctx
 from repro_torch.optim import compressed_psum
-from repro_torch.serving import SamplingParams, deploy
+from repro_torch.serving import SamplingParams, deploy, impl_routes
 
 CTX = Ctx(compute_dtype=torch.float32)
 GREEDY = SamplingParams(max_new_tokens=8)
@@ -275,4 +277,66 @@ def recurrent_grid(rank, world, device, params_np, cases, batches, stack):
                                **REC_KW[arch])
         out["stack"] = {"group": pipe.engine.group,
                         "grids": lm_grids(pipe, lm_prompts(batches[arch]))}
+    return out
+
+
+# the quantization arms under a mesh (tests/test_torch_tp_quant.py): each
+# case is (name, spec, tree, kw) with kw's engine shape, "bundle" (the
+# port's kernel-route bundle), "calibrate" and "draft_spec"
+def quant_deploy(arch, spec, params, calib, kw, **more):
+    """deploy() of one quantization arm: ``params`` (a torch tree),
+    ``calib`` (numpy batch dicts, made tensors afresh) when the case
+    calibrates, the case's bundle and engine shape; ``more`` adds the
+    mesh and the device."""
+    kw = dict(kw)
+    batches = lm_prompts(calib) if kw.pop("calibrate", False) else None
+    routes = impl_routes(kw.pop("bundle", "kernels"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # a dynamic act spec warns
+        return deploy(arch, spec, params=params, calib_batches=batches, ctx=CTX,
+                      **routes, **kw, **more)
+
+
+def quant_facts(pipe):
+    """What every rank must agree on beside the streams: the target's and
+    the draft's calibrated site tables, and a draft arm's counters
+    (drafted, accepted, verify rounds)."""
+    eng = pipe.engine
+    draft = eng.draft
+    return {"table": pipe.ctx.act_scales,
+            "draft_table": None if draft is None else draft.ctx.act_scales,
+            "accept": None if draft is None else (eng.drafted_tokens, eng.accepted_tokens,
+                                                  eng.verify_calls)}
+
+
+def quant_grid(rank, world, device, trees, cases, src, calib, lm_cases, stack):
+    """Every nllb600m case (name, spec, tree, kw) deployed with
+    ``mesh=tp_mesh(world)`` on this rank's shard of ``trees[tree]``: its
+    greedy and sampled grids on ``src`` and its quant_facts. Each LM case
+    (arch, spec, kw, params, prompts, calib) likewise on ``lm_grids``
+    (``trees`` and ``params`` are torch trees).
+    With ``stack`` (spec, replicas, tp, kw), the composed
+    ``deploy_replicas(tp=...)`` of nllb600m on ``trees["raw"]``,
+    calibrated on ``calib``: its group, grids and table."""
+    mesh = tp_mesh(world)
+    out = {"grids": {}, "facts": {}}
+    for name, spec, tree, kw in cases:
+        pipe = quant_deploy("nllb600m", spec, trees[tree], calib, kw, smoke=True, mesh=mesh,
+                            device=device)
+        out["grids"][name] = grids(pipe, src)
+        out["facts"][name] = quant_facts(pipe)
+    for arch, spec, kw, params, prompts, lm_calib in lm_cases:
+        pipe = quant_deploy(lm_config(arch), spec, params, lm_calib, kw, mesh=mesh,
+                            device=device)
+        out["grids"][arch] = lm_grids(pipe, lm_prompts(prompts))
+        out["facts"][arch] = quant_facts(pipe)
+    if stack is not None:
+        spec, replicas, tp, kw = stack
+        batches = lm_prompts(calib)
+        pipe = deploy_replicas("nllb600m", spec, replicas=replicas, tp=tp,
+                               params=trees["raw"], calib_batches=batches, device=device,
+                               **dict(common(kw["paged"], kw["horizon"]), **impl_routes(
+                                   kw["bundle"])))
+        out["stack"] = {"group": pipe.engine.group, "grids": grids(pipe, src),
+                        "table": pipe.engine.own.ctx.act_scales}
     return out
