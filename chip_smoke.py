@@ -164,8 +164,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a step's collectives exactly [tp]'s plus one max a row-parallel site
    for fp8e2e; and the int4 target with a calibrated w4a8kv8 draft arm
    ([tp-spec]): every rank's acceptance counters equal, the streams
-   [tp]'s target-only streams up to near ties; the tp phases run no
-   warm-up (each holds its kernels at the shapes of its measured run);
+   [tp]'s target-only streams up to near ties; on [tp]'s engine, before
+   it is freed, the clock-driven arms under the mesh: [faults]'s plan
+   ([tp-faults]: every rank's reasons, events and counters equal,
+   survivors [tp]'s streams up to a resume's near tie, casualties
+   prefixes, the pool clean; then again with rank 1's clock an hour
+   ahead, every rank taking rank 0's expiries) and an SLA target that
+   retunes at every window ([tp-sla]: every rank's controller equal
+   after every round, the streams prefixes of [tp]'s), each broadcasting
+   exactly once a round and summing exactly [tp]'s collectives a decode
+   step; the tp phases run no warm-up (each holds its kernels at the
+   shapes of its measured run);
    then two routed replicas on the card (deploy_replicas, [dp]): each
    replica's streams a lone engine's bit for bit, [serve]'s up to near
    ties, the merged metrics the sums; then the composed stack on four
@@ -173,7 +182,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    [dp-tp]): every rank's outputs equal, the placements [dp]'s, each
    replica a lone tp2 engine's bit for bit and one device's up to near
    ties, a decode step's launches a tp2 rank's, the merged metrics the
-   sums;
+   sums, every rank's ``on_token`` streams the drained outputs;
 22. a launch-count line, the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -4093,14 +4102,274 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     return {"launches": launches, "streams": streams, "stats": stats}
 
 
+TP_SLA_TTFT_MS = 1e-3      # [tp-sla]'s target: every window of 2 breaches it
+CLOCK_AHEAD_S = 3600.0     # rank 1's clock in [tp-faults]'s second run
+
+
+class _AheadClock:
+    """The ``time`` module as the engine module reads it, ``perf_counter``
+    ``ahead_s`` ahead."""
+
+    def __init__(self, ahead_s: float):
+        self.ahead_s = ahead_s
+
+    def perf_counter(self) -> float:
+        return time.perf_counter() + self.ahead_s
+
+
+@contextlib.contextmanager
+def _clock_ahead(on: bool, ahead_s: float):
+    """Inside, the engine module's clock runs ``ahead_s`` ahead where
+    ``on``."""
+    from repro_torch.serving import engine as engine_mod
+    real = engine_mod.time
+    if on:
+        engine_mod.time = _AheadClock(ahead_s)
+    try:
+        yield
+    finally:
+        engine_mod.time = real
+
+
+def _launched_every(tag, launches):
+    """Raise unless the run launched every kernel of the paged nllb600m
+    path."""
+    idle = [k for k in ("qmm", "qmm_naf", "paged_attn", "fasst_act") if not launches[k]]
+    if idle:
+        raise AssertionError(f"[{tag}] the run launched no {idle}: {launches}")
+
+
+def channel_count(eng):
+    """Count ``eng``'s control-channel broadcasts and their host time
+    (the whole channel step: pack, broadcast, apply) from now on; the
+    wrapper goes with ``del eng._rank0_decides``."""
+    n = {"broadcasts": 0, "channel_s": 0.0}
+    real = eng._rank0_decides
+
+    def timed(deadlined):
+        t0 = time.perf_counter()
+        got = real(deadlined)
+        n["channel_s"] += time.perf_counter() - t0
+        n["broadcasts"] += 1
+        return got
+
+    eng._rank0_decides = timed
+    return n
+
+
+def channel_bench(torch, grp, n_flags: int, n_obs: int, reps: int = 200):
+    """Host ms of one channel message (3 + n_flags + 2 n_obs f64) through
+    the engine's tensor broadcast and through broadcast_object_list of
+    the same values as a Python list, ``reps`` each, on every rank of the
+    group alike."""
+    import torch.distributed as dist
+    msg = torch.zeros(3 + n_flags + 2 * n_obs, dtype=torch.float64)
+    src = dist.get_global_rank(grp.group, 0)
+    out = {}
+    for name, fn in (("tensor", lambda: grp.broadcast(msg)),
+                     ("object", lambda: dist.broadcast_object_list(
+                         [msg.tolist()], src=src, group=grp.group))):
+        dist.barrier(group=grp.group)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def tp_faults_phase(torch, card, pipe, prompts, tp_stats):
+    """[tp-faults]: [faults]'s plan and constants on a fresh engine of
+    [tp]'s pipe, called alike on both ranks: reasons, events and counters
+    equal on both ranks and [faults]'s, survivors [tp]'s streams (a
+    resumed one may part only at a near tie of its replay), casualties
+    prefixes, the pool clean after release_all, one channel broadcast a
+    round boundary and [tp]'s collectives a decode step (``tp_stats``:
+    [tp]'s streams and numbers). Then the same
+    run with rank 1's clock CLOCK_AHEAD_S ahead from after the submits
+    (past every DEADLINE_MS budget): every rank's outputs and counters
+    are the first run's, rank 0's expiries. Returns the first run's
+    launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineSaturated, FaultPlan, SamplingParams, TraceConfig
+    t_phase = time.perf_counter()
+    grp = pipe.ctx.tp
+    say = log if grp.rank == 0 else (lambda *a: None)
+    sp = SamplingParams(max_new_tokens=GEN)
+    dl = SamplingParams(max_new_tokens=GEN, deadline_ms=DEADLINE_MS)
+    per_step = tp_stats["stats"]["per_rank"][grp.rank]["collectives_per_step"]
+    runs = []
+    for ahead in (False, True):
+        plan = FaultPlan(exhaust_at=[(1, SLOTS * pipe.engine.max_pages, 4)],
+                         nan_at=[(0, FAULT_NAN_SLOT, 5)], skew_at=[(1, SKEW_MS)])
+        eng = _fresh_engine(pipe, True, faults=plan, max_pending=len(prompts),
+                            preempt_limit=16, trace=TraceConfig())
+        in_decode = counted_decode(eng)
+        chan = channel_count(eng)
+        steps0 = eng.decode_steps
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ids = [eng.submit(p, dl if i in FAULT_DEADLINED else sp)
+               for i, p in enumerate(prompts)]
+        try:
+            eng.submit(prompts[0], sp)
+        except EngineSaturated as e:
+            if (e.pending, e.limit) != (len(prompts), len(prompts)):
+                raise AssertionError(f"[tp-faults] EngineSaturated({e.pending}, "
+                                     f"{e.limit})") from e
+        else:
+            raise AssertionError("[tp-faults] a submit past max_pending was queued")
+        with _clock_ahead(ahead and grp.rank == 1, CLOCK_AHEAD_S):
+            by_id = {o.request_id: o for o in eng.stream()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        end_count(eng)
+        del eng._rank0_decides
+        _launched_every("tp-faults", launches)
+        outs = [by_id[i] for i in ids]
+        m = eng.metrics()
+        facts = {"reasons": [o.finish_reason for o in outs],
+                 "streams": [o.token_ids for o in outs], "events": list(plan.events),
+                 "counters": (m.slot_errors, m.deadline_expirations, m.admission_rejections,
+                              m.preemptions, m.resumed_requests)}
+        every = _group_gather(grp, facts)
+        if any(f != facts for f in every):
+            raise AssertionError(f"[tp-faults] the ranks differ{' (rank 1 ahead)' * ahead}: "
+                                 f"{[f['reasons'] for f in every]}, "
+                                 f"{[f['counters'] for f in every]}")
+        want = ["error" if i == FAULT_NAN_SLOT else "deadline" if i in FAULT_DEADLINED
+                else "length" for i in range(len(prompts))]
+        if facts["reasons"] != want or facts["counters"][:3] != (1, 2, 1) \
+                or not facts["counters"][3] or not {"exhaust", "nan", "skew"} <= {
+                    e[0] for e in plan.events}:
+            raise AssertionError(f"[tp-faults] reasons {facts['reasons']} (expected {want}), "
+                                 f"counters {facts['counters']}, events {plan.events}")
+        steps_run = eng.decode_steps - steps0
+        if chan["broadcasts"] != eng._boundaries \
+                or in_decode["collectives"] != per_step * steps_run:
+            raise AssertionError(f"[tp-faults] {chan['broadcasts']} channel broadcasts in "
+                                 f"{eng._boundaries} rounds; {in_decode['collectives']} "
+                                 f"collectives in {steps_run} decode steps ([tp]'s "
+                                 f"{per_step} a step)")
+        plan.release_all(eng)
+        eng.allocator.check()
+        if eng.allocator.pages_in_use:
+            raise AssertionError(f"[tp-faults] {eng.allocator.pages_in_use} pages in use "
+                                 "after release_all")
+        runs.append((facts, eng, outs, wall, launches, chan))
+    (facts, eng, outs, wall, launches, chan), ahead_run = runs
+    if ahead_run[0] != facts:
+        raise AssertionError("[tp-faults] with rank 1's clock ahead the ranks served "
+                             f"{ahead_run[0]['reasons']} / {ahead_run[0]['counters']}, not "
+                             f"{facts['reasons']} / {facts['counters']}")
+    ref = tp_stats["streams"]
+    part = replay_partings(torch, "tp-faults", pipe, prompts, ref, facts["streams"],
+                           _resumes(eng.trace))
+    tokens = sum(len(t) for t in facts["streams"])
+    say("[tp-faults] " + json.dumps({
+        "reasons": facts["reasons"], "tokens": [len(t) for t in facts["streams"]],
+        "events": [list(e) for e in facts["events"]],
+        "slot_errors_deadline_expirations_admission_rejections_preemptions_resumed":
+            facts["counters"],
+        "survivors_same_as_tp": sum(o.token_ids == r for o, r in zip(outs, ref)
+                                    if o.finish_reason == "length"),
+        "casualty_prefixes": sum(o.token_ids == r[:len(o.token_ids)] for o, r in zip(outs, ref)
+                                 if o.finish_reason != "length"),
+        "near_tie_partings": len(part), "rank1_clock_ahead_s": CLOCK_AHEAD_S,
+        "rank1_ahead_same_outputs": True, "tokens_per_s": tokens / wall,
+        "tp_tokens_per_s": tp_stats["stats"]["tokens_per_s"],
+        "rounds": [r[1]._boundaries for r in runs],
+        "channel_broadcasts": [r[5]["broadcasts"] for r in runs],
+        "channel_ms_per_round": [1e3 * r[5]["channel_s"] / r[1]._boundaries for r in runs],
+        "collectives_per_step": per_step, "wall_s": [r[3] for r in runs],
+        "launches": launches,
+        "card": card}))
+    say(f"[tp-faults] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def tp_sla_phase(torch, card, pipe, prompts, tp_stats):
+    """[tp-sla]: [serve]'s prompts on a fresh engine of [tp]'s pipe under
+    a p95 TTFT target of TP_SLA_TTFT_MS with a window of 2, so every
+    window halves the horizon and the prefill cap; the budgets step down
+    from GEN by 4 a request, so retirements (and retunes) spread over the
+    rounds. Every rank's (horizon, prefill cap, retunes, windows) equal
+    after every round, the horizon down to 1, each stream the prefix of
+    [tp]'s (every request is admitted in [tp]'s one prefill group, and
+    a decode step's rows do not depend on the horizon), one channel
+    broadcast a round and [tp]'s collectives a decode step. Then the
+    channel's message timed through the tensor broadcast and through
+    broadcast_object_list. Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SamplingParams, SLATarget
+    t_phase = time.perf_counter()
+    grp = pipe.ctx.tp
+    say = log if grp.rank == 0 else (lambda *a: None)
+    eng = _fresh_engine(pipe, True, sla=SLATarget(p95_ttft_ms=TP_SLA_TTFT_MS, window=2))
+    ctl = eng.sla
+    trail = []
+    in_decode = counted_decode(eng)
+    chan = channel_count(eng)
+    steps0 = eng.decode_steps
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ids = [eng.submit(p, SamplingParams(max_new_tokens=GEN - 4 * i))
+           for i, p in enumerate(prompts)]
+    by_id = {o.request_id: o for o in eng.stream(on_round=lambda: trail.append(
+        (ctl.horizon, ctl.prefill_cap, ctl.retunes, ctl.windows)))}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    end_count(eng)
+    del eng._rank0_decides
+    _launched_every("tp-sla", launches)
+    trail.append((ctl.horizon, ctl.prefill_cap, ctl.retunes, ctl.windows))
+    streams = [by_id[i].token_ids for i in ids]
+    every = _group_gather(grp, (trail, streams))
+    if any(e != (trail, streams) for e in every):
+        raise AssertionError("[tp-sla] the ranks' controllers or streams differ")
+    ref = tp_stats["streams"]
+    bad = [i for i, (s, r) in enumerate(zip(streams, ref))
+           if s != r[:len(s)] or len(s) != GEN - 4 * i]
+    if bad or trail[-1][0] != 1 or trail[-1][3] != len(prompts) // 2:
+        raise AssertionError(f"[tp-sla] requests {bad} are not prefixes of [tp]'s streams; "
+                             f"controller {trail[-1]}")
+    steps_run = eng.decode_steps - steps0
+    per_step = tp_stats["stats"]["per_rank"][grp.rank]["collectives_per_step"]
+    if chan["broadcasts"] != eng._boundaries or in_decode["collectives"] != per_step * steps_run:
+        raise AssertionError(f"[tp-sla] {chan['broadcasts']} channel broadcasts in "
+                             f"{eng._boundaries} rounds; {in_decode['collectives']} "
+                             f"collectives in {steps_run} decode steps ([tp]'s {per_step} a "
+                             "step)")
+    bench = channel_bench(torch, grp, 0, 2)
+    tokens = sum(len(t) for t in streams)
+    say("[tp-sla] " + json.dumps({
+        "target_p95_ttft_ms": TP_SLA_TTFT_MS, "window": 2,
+        "trajectory_horizon_cap_retunes_windows": sorted(set(trail), key=trail.index),
+        "rounds": eng._boundaries, "prefixes_of_tp": len(streams) - len(bad),
+        "tokens": tokens, "tokens_per_s": tokens / wall,
+        "tp_tokens_per_s": tp_stats["stats"]["tokens_per_s"],
+        "channel_broadcasts": chan["broadcasts"],
+        "channel_ms_per_round": 1e3 * chan["channel_s"] / eng._boundaries,
+        "broadcast_ms_tensor_vs_object": [bench["tensor"], bench["object"]],
+        "collectives_per_step": per_step, "decode_steps": steps_run, "wall_s": wall,
+        "launches": launches, "card": card}))
+    say(f"[tp-sla] phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def tp_rank(rank, world, device, prompts, lm):
-    """[tp], [tp-dense], [compress], [tp-lm], [tp-lm-dense], [tp-qwen],
-    [tp-moe], [tp-olmoe], [tp-audio], [tp-ssm], [tp-hybrid], [tp-quant-*]
-    and [tp-spec] on one of
+    """[tp], [tp-faults], [tp-sla], [tp-dense], [compress], [tp-lm],
+    [tp-lm-dense], [tp-qwen], [tp-moe], [tp-olmoe], [tp-audio], [tp-ssm],
+    [tp-hybrid], [tp-quant-*] and [tp-spec] on one of
     ``world`` ranks that
     share the one card over gloo (launch_ranks), each engine a
     deploy(mesh=tp_mesh(world)) served by tp_serve: full-width nllb600m
-    int4, paged (page 16) then dense, horizon 16, [serve]'s prompts;
+    int4, paged (page 16) then dense, horizon 16, [serve]'s prompts, the
+    paged engine's pipe serving [tp-faults] and [tp-sla] on fresh engines
+    before it is freed;
     gemma3-1b cut to TP_GEMMA_LAYERS (one KV head, a copy on each rank),
     paged then dense, against one device's engine of the cut,
     on [lm-gemma]'s prompts past its 512-token windows; qwen2.5-14b at
@@ -4152,6 +4421,10 @@ def tp_rank(rank, world, device, prompts, lm):
             {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L if paged else 0, "fasst_act": 0},
             {"build": lambda: deploy("nllb600m", "int4", **kw)},
             ("qmm", "fasst_act") + (("paged_attn",) if paged else ()))
+        if paged:
+            # the clock-driven arms under the mesh, on [tp]'s engine
+            out["tp-faults"] = tp_faults_phase(torch, lm["card"], pipe, prompts, out["tp"])
+            out["tp-sla"] = tp_sla_phase(torch, lm["card"], pipe, prompts, out["tp"])
         del pipe
         torch.cuda.empty_cache()
     del raw
@@ -4648,9 +4921,10 @@ def fasst_window(torch, g, dev, shape, n, mode="relu"):
 
 
 def tp_phase(card, prompts, lm):
-    """[tp] / [tp-dense] / [compress] / [tp-lm] / [tp-lm-dense] / [tp-qwen]
-    / [tp-moe] / [tp-olmoe] / [tp-audio] / [tp-ssm] / [tp-hybrid] /
-    [tp-quant-*] / [tp-spec] on TP ranks sharing the card."""
+    """[tp] / [tp-faults] / [tp-sla] / [tp-dense] / [compress] / [tp-lm] /
+    [tp-lm-dense] / [tp-qwen] / [tp-moe] / [tp-olmoe] / [tp-audio] /
+    [tp-ssm] / [tp-hybrid] / [tp-quant-*] / [tp-spec] on TP ranks sharing
+    the card."""
     from repro_torch.cluster import launch_ranks, rank_backend
     backend = rank_backend("cuda", TP)
     if backend != "gloo":
@@ -4658,7 +4932,8 @@ def tp_phase(card, prompts, lm):
     t0 = time.perf_counter()
     results = launch_ranks(tp_rank, TP, device="cuda", args=(prompts, lm))
     log(f"[tp] {TP} ranks over {backend} on {card} took {time.perf_counter() - t0:.1f} s "
-        "(process start, deploys, nllb600m's two layouts, gemma3-1b's cut's two, qwen2.5-14b's "
+        "(process start, deploys, nllb600m's two layouts and [tp]'s clock-driven arms, "
+        "gemma3-1b's cut's two, qwen2.5-14b's "
         "cut, nllb600m-moe, olmoe-1b-7b's cut, whisper-base, mamba2-780m, "
         "recurrentgemma-9b's cut, nllb600m's four quantization arms and its draft arm)")
     return results[0]
@@ -4755,8 +5030,10 @@ def dp_tp_rank(rank, world, device, prompts, card):
     rank's; each replica's streams equal a lone tensor-parallel engine of
     its group serving its requests alone, bit for bit, and one device's
     serving them up to near ties replayed on both sides (tp_vs_single);
-    the merged counters and histograms are the replicas' sums. Returns the
-    placements, streams, launches and numbers."""
+    the merged counters and histograms are the replicas' sums; every
+    request is submitted with ``on_token``, and every rank's callback
+    streams equal the drained outputs. Returns the placements, streams,
+    launches and numbers."""
     import torch
     import torch.distributed as dist
     from repro_torch.cluster import GroupRouter, deploy_replicas
@@ -4795,7 +5072,8 @@ def dp_tp_rank(rank, world, device, prompts, card):
     steps0 = eng.decode_steps
     ops.reset_launches()
     t0 = time.perf_counter()
-    gids = [router.submit(p, sp) for p in prompts]
+    heard = [[] for _ in prompts]       # every rank's on_token streams
+    gids = [router.submit(p, sp, on_token=heard[i].append) for i, p in enumerate(prompts)]
     placed = [router._owner[g][0] for g in gids]
     by_id = {o.request_id: o for o in router.run_until_drained()}
     torch.cuda.synchronize()
@@ -4806,6 +5084,9 @@ def dp_tp_rank(rank, world, device, prompts, card):
     if any(o.finish_reason != "length" or len(o.token_ids) != GEN for o in outs):
         raise AssertionError("[dp-tp] not every request retired on length")
     streams = [o.token_ids for o in outs]
+    if heard != streams:
+        raise AssertionError(f"[dp-tp] rank {rank}'s on_token streams are not the drained "
+                             "outputs")
     every = [None] * world
     dist.all_gather_object(every, (streams, placed, [o.ttft_ms for o in outs]))
     if any(e != every[0] for e in every):
@@ -4852,6 +5133,7 @@ def dp_tp_rank(rank, world, device, prompts, card):
              "merged_synced_tokens": m.synced_tokens,
              "replica_synced_tokens": [p.synced_tokens for p in per],
              "ttft_p95_ms": m.ttft_p95_ms, "launches_per_step": per_step,
+             "on_token_streams_equal_outputs": "every rank",
              "rank_memory_gb": {k: v / 1e9 for k, v in mem.items()},
              "note": f"{world} ranks share one card over {grp.backend}", "card": card}
     say(f"[dp-tp] {json.dumps(stats)}")
@@ -4998,6 +5280,8 @@ def main() -> int:
     for arm, _, _ in TP_QUANT_ARMS:
         _add(phase_launches["tp-quant"], tp_out[f"tp-quant-{arm}"]["launches"])
     phase_launches["tp-spec"] = tp_out["tp-spec"]["launches"]
+    phase_launches["tp-faults"] = tp_out["tp-faults"]
+    phase_launches["tp-sla"] = tp_out["tp-sla"]
     log(f"[tp] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_launches["dp"], dp_placed, _ = dp_phase(torch, card, prompts, pipe, paged_outs)
@@ -5047,7 +5331,8 @@ def main() -> int:
               "tp_moe": phase_launches["tp-moe"], "tp_olmoe": phase_launches["tp-olmoe"],
               "tp_audio": phase_launches["tp-audio"], "tp_ssm": phase_launches["tp-ssm"],
               "tp_hybrid": phase_launches["tp-hybrid"], "tp_quant": phase_launches["tp-quant"],
-              "tp_spec": phase_launches["tp-spec"], "dp_tp": phase_launches["dp-tp"]}
+              "tp_spec": phase_launches["tp-spec"], "dp_tp": phase_launches["dp-tp"],
+              "tp_faults": phase_launches["tp-faults"], "tp_sla": phase_launches["tp-sla"]}
     for e in entries:
         if e["name"] == "paged_attn":
             for tag in ("moe", "audio"):
@@ -5060,7 +5345,8 @@ def main() -> int:
         # lm_gemma, vlm, moe, moe_nllb, audio, ssm, hybrid, tp (rank 0),
         # tp_dense (rank 0), dp, tp_lm (rank 0, paged + dense), tp_qwen,
         # tp_moe, tp_olmoe, tp_audio, tp_ssm, tp_hybrid, tp_quant (the four
-        # arms), tp_spec (rank 0), dp_tp (rank 0)
+        # arms), tp_spec (rank 0), dp_tp (rank 0), tp_faults and tp_sla
+        # (rank 0)
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -5091,6 +5377,8 @@ def main() -> int:
         f"{e['name']}={e['launches_tp_ssm']} / {e['launches_tp_hybrid']}" for e in entries))
     log("kernels in [tp-quant] (4 arms) / [tp-spec] (rank 0 of 2): " + ", ".join(
         f"{e['name']}={e['launches_tp_quant']} / {e['launches_tp_spec']}" for e in entries))
+    log("kernels in [tp-faults] / [tp-sla] (rank 0 of 2): " + ", ".join(
+        f"{e['name']}={e['launches_tp_faults']} / {e['launches_tp_sla']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
@@ -5098,7 +5386,7 @@ def main() -> int:
             "launches_hybrid", "launches_tp", "launches_tp_dense", "launches_dp",
             "launches_tp_lm", "launches_tp_qwen", "launches_tp_moe", "launches_tp_olmoe",
             "launches_tp_audio", "launches_tp_ssm", "launches_tp_hybrid", "launches_tp_quant",
-            "launches_tp_spec", "launches_dp_tp",
+            "launches_tp_spec", "launches_dp_tp", "launches_tp_faults", "launches_tp_sla",
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")

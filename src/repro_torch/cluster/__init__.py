@@ -10,7 +10,10 @@ composition:
   and audio enc-decs and every LM family (an MoE model's experts split E
   over the ranks; an SSM's heads and an RG-LRU's channels split, with
   the collectives their norm and gates need), at every quantization arm
-  (act-quantizing specs, calibration, QLoRA adapters, a draft arm).
+  (act-quantizing specs, calibration, QLoRA adapters, a draft arm), with
+  every arm that reads a clock (``sla=``, ``faults=``, ``max_pending``,
+  a request's ``deadline_ms``: rank 0's clock decides, through the
+  engine's control channel).
 * **Data parallel** — :class:`ReplicaRouter` balances requests over N
   independent engine replicas; :func:`deploy_replicas` builds them
   behind the ordinary ``TranslationPipeline`` surface, replica ``i`` on
@@ -20,7 +23,9 @@ composition:
   ``r // K``'s tensor-parallel engine on the ``("model",)`` row of a
   ``("dp", "model")`` mesh, and every rank runs the same
   :class:`GroupRouter` over the N replicas (its own engine and mirrors
-  of the others, kept in step by small host records; ``router.py``).
+  of the others, kept in step by small host records; ``router.py``),
+  with ``on_token`` streaming on every rank and the clock-driven arms
+  decided by each group's rank 0.
 
 All keep the engine's standing invariant: routed and sharded token
 streams are those of a single-device engine serving the same requests.
@@ -34,6 +39,7 @@ backend only carries the collectives. The mesh's repr names it.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import pickle
 import re
@@ -85,7 +91,7 @@ def rank_backend(device, world: int) -> str:
 
 
 def _rank_main(rank: int, world: int, fn: Callable, args: tuple, device: str,
-               backend: str, tmpdir: str) -> None:
+               backend: str, tmpdir: str, timeout: Optional[float] = None) -> None:
     import torch.distributed as dist
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -97,7 +103,9 @@ def _rank_main(rank: int, world: int, fn: Callable, args: tuple, device: str,
         # rank several-fold: one intra-op thread a rank
         torch.set_num_threads(1)
     dist.init_process_group(backend, init_method=f"file://{os.path.join(tmpdir, 'store')}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank,
+                            **({} if timeout is None
+                               else {"timeout": datetime.timedelta(seconds=timeout)}))
     try:
         out = fn(rank, world, dev, *args)
         dist.barrier()
@@ -115,7 +123,7 @@ def _rank_main(rank: int, world: int, fn: Callable, args: tuple, device: str,
 
 
 def launch_ranks(fn: Callable, world: int, *, device="cuda", args: tuple = (),
-                 tmpdir: Optional[str] = None) -> List[Any]:
+                 tmpdir: Optional[str] = None, timeout: Optional[float] = None) -> List[Any]:
     """Run ``fn(rank, world, device, *args)`` on ``world`` processes of a
     fresh process group and return each rank's result, in rank order.
 
@@ -128,13 +136,18 @@ def launch_ranks(fn: Callable, world: int, *, device="cuda", args: tuple = (),
     result is pickled back. A rank that raises prints its traceback to
     stderr and stops the others, and a failed rank's error is raised here
     (perhaps a peer's closed connection: the first cause is on stderr).
+    ``timeout`` (seconds) bounds every collective of the process group
+    (None: the backend's default, 30 minutes): ranks whose schedules
+    parted, one waiting in a collective that another never joins, then
+    raise instead of hanging.
     """
     import torch.multiprocessing as mp
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
     backend = rank_backend(device, world)
     with tempfile.TemporaryDirectory(dir=tmpdir) as tmp:
-        mp.start_processes(_rank_main, args=(world, fn, args, str(device), backend, tmp),
+        mp.start_processes(_rank_main,
+                           args=(world, fn, args, str(device), backend, tmp, timeout),
                            nprocs=world, join=True, start_method="spawn")
         out = []
         for rank in range(world):
@@ -208,7 +221,10 @@ def deploy_replicas(arch_or_cfg, policy="int4", *, replicas: int = 2, tp: int = 
     ``[i*tp, (i+1)*tp)`` on the ``("model",)`` row of a ``("dp",
     "model")`` mesh, each rank deploys only its own group's engine, on
     ``device`` (None: the rank's current card), and the router is a
-    :class:`GroupRouter` that every rank runs alike.
+    :class:`GroupRouter` that every rank runs alike. ``sla=``,
+    ``faults=`` and ``max_pending=`` reach each rank's engine; each
+    group's rank 0 decides its group's expiries and retunes, and
+    ``submit(on_token=)`` streams on every rank.
 
     Returns a ``TranslationPipeline`` whose ``engine`` is the router;
     ``translate`` / ``generate`` fan over replicas (``translate_stream``

@@ -55,6 +55,17 @@ loop ended, its counts, its finished outputs). So every rank's router
 sees the same counts, places the next request alike and returns the
 same outputs, timings included (group rank 0's); routing stays
 host-only and deterministic, and only these records cross groups.
+
+``on_token`` streams on every rank: the owning group's engine records
+each token it emits, with its request, in emission order; the lead's
+record rides the next broadcast of that replica (a submit's outcome, an
+abort's, the round's gather), and every rank then calls the caller's
+callback for each token in the lead's order, before it claims the
+outputs finished in that round. So a mirror sees a token in the round
+it was emitted, and every rank's streamed tokens equal the drained
+``token_ids``. Each group decides what reads a clock on its own rank 0
+(the engine's control channel); an expiry that frees a slot reaches
+every rank's placement through the counts of the round's gather.
 """
 
 from __future__ import annotations
@@ -66,7 +77,6 @@ from ..obs import Histogram
 from ..obs.metrics import render_prometheus, render_prometheus_labeled
 from ..serving.metrics import EngineMetrics, merge_metrics
 from ..serving.params import EngineSaturated, Request, RequestOutput, SamplingParams
-from ..unported import later
 
 __all__ = ["ReplicaRouter", "GroupReplica", "GroupRouter"]
 
@@ -282,6 +292,21 @@ def _broadcast(obj, src: int):
     return box[0]
 
 
+class _Tap:
+    """The engine-side ``on_token`` of a routed request: each token lands
+    in its replica's log beside the request's local id (set once
+    ``submit`` returns it; a dense engine emits the first token inside
+    ``submit``)."""
+
+    __slots__ = ("log", "lid")
+
+    def __init__(self, log: list):
+        self.log, self.lid = log, None
+
+    def __call__(self, tok: int) -> None:
+        self.log.append((self, int(tok)))
+
+
 class GroupReplica:
     """One replica of a composed dp x tp stack as one rank sees it: its
     own group's tensor-parallel engine (``engine``), or a mirror of
@@ -296,6 +321,25 @@ class GroupReplica:
         self.max_len, self.max_pending = max_len, max_pending
         self.num_pending = self.num_active = 0
         self._finished: List[RequestOutput] = []
+        self._log: list = []        # (tap, token) this rank's engine emitted
+        self._taps: dict = {}       # local id -> the caller's on_token
+
+    def _emitted(self) -> list:
+        """Take this rank's log as ``(local id, token)`` pairs, in emission
+        order (the lead's is the one every rank replays)."""
+        out = [(tap.lid, tok) for tap, tok in self._log]
+        self._log.clear()           # the taps hold this list
+        return out
+
+    def _deliver(self, emitted, finished=()) -> None:
+        """Call the caller's callbacks for the lead's ``emitted`` tokens,
+        in order, then forget those of the ``finished`` local ids."""
+        for lid, tok in emitted:
+            cb = self._taps.get(lid)
+            if cb is not None:
+                cb(tok)
+        for lid in finished:
+            self._taps.pop(lid, None)
 
     def _counts(self):
         e = self.engine
@@ -309,21 +353,27 @@ class GroupReplica:
                on_token: Optional[Callable[[int], None]] = None) -> int:
         """The engine's submit on the replica's own group, then the lead's
         outcome on every rank: its local id, or the error it raised (the
-        typed EngineSaturated, a validation error) raised alike."""
-        if on_token is not None:
-            raise later("on_token callbacks over a composed dp x tp stack (the "
-                        "mirrors see a request's tokens when it finishes)", 6)
+        typed EngineSaturated, a validation error) raised alike. With
+        ``on_token`` the engine records the request's tokens, and every
+        rank calls ``on_token`` with the lead's (the first token of a
+        dense admission before this returns, as one engine does)."""
         outcome = None
         if self.engine is not None:
+            tap = None if on_token is None else _Tap(self._log)
             try:
-                outcome = ("ok", self.engine.submit(request, params))
+                outcome = ("ok", self.engine.submit(request, params, on_token=tap))
+                if tap is not None:
+                    tap.lid = outcome[1]
             except EngineSaturated as exc:
                 outcome = ("saturated", (exc.pending, exc.limit))
             except (ValueError, TypeError, NotImplementedError) as exc:
                 outcome = ("error", exc)
-        kind, value, counts = _broadcast(outcome and outcome + (self._counts(),),
-                                         self.lead)
+            outcome += (self._counts(), self._emitted())
+        kind, value, counts, emitted = _broadcast(outcome, self.lead)
         self._settle(None, counts)
+        if kind == "ok" and on_token is not None:
+            self._taps[value] = on_token
+        self._deliver(emitted)
         if kind == "saturated":
             raise EngineSaturated(*value)
         if kind == "error":
@@ -332,7 +382,9 @@ class GroupReplica:
 
     def abort(self, request_id: int) -> Optional[RequestOutput]:
         out = None if self.engine is None else self.engine.abort(request_id)
-        return self._settle(*_broadcast((out, self._counts()), self.lead))
+        out, counts, emitted = _broadcast((out, self._counts(), self._emitted()), self.lead)
+        self._deliver(emitted, () if out is None else (request_id,))
+        return self._settle(out, counts)
 
     def take_finished(self) -> List[RequestOutput]:
         """The lead's outputs of the replica gathered by the last cluster
@@ -381,19 +433,23 @@ class GroupRouter(ReplicaRouter):
 
     def _exchange(self, ended: bool, outs=()) -> set:
         """Every group lead's record of the round (its round loop ended,
-        its queue and slot counts, its finished outputs) to every rank;
-        returns the replicas whose round loop ended."""
+        its queue and slot counts, its finished outputs, the tokens its
+        engine emitted for ``on_token``) to every rank, which streams the
+        tokens, then queues the outputs for claiming; returns the
+        replicas whose round loop ended."""
         import torch.distributed as dist
         eng, mine = self.own, self.replicas[self.group]
         finished = list(outs) + eng.take_finished()
+        emitted = mine._emitted()
         rec = None
         if dist.get_rank() == mine.lead:
-            rec = (ended, eng.num_pending, eng.num_active, finished)
+            rec = (ended, eng.num_pending, eng.num_active, finished, emitted)
         every = [None] * dist.get_world_size()
         dist.all_gather_object(every, rec)
         done = set()
         for i, h in enumerate(self.replicas):
-            ended_i, h.num_pending, h.num_active, got = every[h.lead]
+            ended_i, h.num_pending, h.num_active, got, toks = every[h.lead]
+            h._deliver(toks, [o.request_id for o in got])
             h._finished.extend(got)
             if ended_i:
                 done.add(i)

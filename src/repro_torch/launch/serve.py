@@ -16,7 +16,11 @@ engine's fault counters. Every shutdown number comes from ONE frozen
 
 Observability: ``--trace-out FILE`` dumps Chrome/Perfetto trace JSON,
 ``--metrics-out FILE`` the Prometheus text of the final snapshot, and
-``--metrics-port N`` serves the live exposition at ``GET /metrics``.
+``--metrics-port N`` serves the live exposition at ``GET /metrics``
+(rank 0 serves it under a mesh; over ``--mesh dp<N>,tp<K>`` rendering the
+merged metrics is a collective of every rank, so every rank refreshes a
+``MetricsSnapshot`` at the end of each round and the server returns the
+latest, at most a round old).
 
 ``--policy`` and ``--draft-spec`` take any spec of the grammar, the
 act-quantizing and fp8-KV ones included (``w8a8``, ``fp8e2e``,
@@ -36,9 +40,11 @@ prints. ``--mesh dp<N>``
 serves through ``deploy_replicas`` (N engines behind the replica
 router). ``--mesh dp<N>,tp<K>`` runs the body on N·K ranks, each calling
 ``deploy_replicas(replicas=N, tp=K)``: N tensor-parallel replicas behind
-a router that every rank runs alike; rank 0 prints (a live
-``--metrics-port`` raises there: a scrape would be a collective).
-``--device`` (default ``cuda``) picks the device; the CPU runs the
+a router that every rank runs alike; rank 0 prints. ``--sla-ttft-ms``,
+``--sla-tpot-ms``, ``--deadline-ms`` and ``--max-pending`` serve under
+every ``--mesh``: each tensor-parallel group's rank 0 decides the
+expiries and retunes, and every rank computes the same ``sla:`` and
+``faults:`` lines. ``--device`` (default ``cuda``) picks the device; the CPU runs the
 kernels' plain versions.
 
   python -m repro_torch.launch.serve --arch nllb600m --policy int4 \\
@@ -57,6 +63,8 @@ kernels' plain versions.
       --device cpu --mesh tp2 --requests 4 --gen 8 --max-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
       --paged --mesh tp2 --policy w8a8 --draft-spec nf4 --requests 4 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --paged --mesh dp2,tp2 --metrics-port 0 --sla-ttft-ms 1 --deadline-ms 600000
 """
 
 from __future__ import annotations
@@ -70,10 +78,9 @@ from ..cluster import deploy_replicas, launch_ranks, parse_mesh_spec, tp_mesh
 from ..configs import REGISTRY
 from ..core import ALIASES, resolve_spec, tree_nbytes
 from ..data import SyntheticTranslation
-from ..obs import MetricsServer
+from ..obs import MetricsServer, MetricsSnapshot
 from ..serving import (DEFAULT_IMPL, IMPL_CHOICES, EngineSaturated, SamplingParams,
                        SLATarget, TraceConfig, deploy, impl_routes)
-from ..unported import later
 
 __all__ = ["main", "parse_mesh_spec"]
 
@@ -141,9 +148,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.draft_spec is not None:
         resolve_spec(args.draft_spec)
     dp, tp = parse_mesh_spec(args.mesh) if args.mesh else (1, 1)
-    if dp > 1 and tp > 1 and args.metrics_port is not None:
-        raise later(f"--metrics-port over --mesh {args.mesh} (a scrape of the composed "
-                    "stack's merged metrics is a collective of every rank)", 6)
     if tp > 1:
         launch_ranks(_serve_rank, dp * tp, device=args.device, args=(args, dp))
     else:
@@ -205,11 +209,16 @@ def _serve(args, dp: int, mesh=None, device=None, lead: bool = True, tp: int = 1
     ds = SyntheticTranslation(cfg.vocab_size, cfg.enc_len, seed=0) \
         if cfg.family == "encdec" else None
 
-    metrics_srv = None
-    if args.metrics_port is not None and lead:
-        metrics_srv = MetricsServer(pipe.engine.prometheus,
-                                    port=args.metrics_port).start()
-        echo(f"metrics: live at {metrics_srv.url}")
+    metrics_srv = snap = None
+    if args.metrics_port is not None:
+        render = pipe.engine.prometheus
+        if dp > 1 and tp > 1:
+            # a collective: every rank renders at the end of each round
+            snap = MetricsSnapshot(render)
+            render = snap
+        if lead:
+            metrics_srv = MetricsServer(render, port=args.metrics_port).start()
+            echo(f"metrics: live at {metrics_srv.url}")
 
     t0 = time.perf_counter()
     for i in range(args.requests):
@@ -243,7 +252,7 @@ def _serve(args, dp: int, mesh=None, device=None, lead: bool = True, tp: int = 1
 
     # outputs stream back as each request finishes, not at the drain
     outs = []
-    for o in pipe.engine.stream():
+    for o in pipe.engine.stream(on_round=None if snap is None else snap.refresh):
         outs.append(o)
         echo(f"[req {o.request_id}] slot {o.slot} {o.finish_reason:6s} "
              f"ttft {o.ttft_ms:6.1f} ms tpot {o.tpot_ms:5.2f} ms: "
@@ -290,8 +299,9 @@ def _serve(args, dp: int, mesh=None, device=None, lead: bool = True, tp: int = 1
     if metrics_srv is not None:
         metrics_srv.close()
         echo("metrics: endpoint closed")
-    if getattr(pipe.engine, "sla", None) is not None:
-        ctl = pipe.engine.sla
+    # a composed stack's controller: this rank's replica's
+    ctl = getattr(getattr(pipe.engine, "own", pipe.engine), "sla", None)
+    if ctl is not None:
         held = ctl.holding()
         echo(f"sla: target ttft_p95 {args.sla_ttft_ms} ms / tpot_p95 "
              f"{args.sla_tpot_ms} ms -> horizon {ctl.horizon}, "

@@ -17,16 +17,17 @@ port imports nothing of the reference). Three modules:
   histograms. Metric names keep the reference's ``repro_serving``
   prefix, so one scrape configuration reads both packages.
 * ``obs.promhttp`` — a stdlib daemon-thread HTTP server exposing any
-  ``prometheus()``-shaped renderer at ``GET /metrics``.
+  ``prometheus()``-shaped renderer at ``GET /metrics``, and a snapshot
+  the serving loop refreshes where rendering is a collective.
 
 This package imports nothing from ``serving`` (serving imports it).
 """
 
 from .metrics import (Histogram, percentile, render_prometheus,
                       render_prometheus_labeled)
-from .promhttp import MetricsServer
+from .promhttp import MetricsServer, MetricsSnapshot
 from .trace import PHASES, SCHED_TID, TraceConfig, TraceEvent, Tracer
 
-__all__ = ["Histogram", "MetricsServer", "percentile", "render_prometheus",
+__all__ = ["Histogram", "MetricsServer", "MetricsSnapshot", "percentile", "render_prometheus",
            "render_prometheus_labeled", "PHASES", "SCHED_TID",
            "TraceConfig", "TraceEvent", "Tracer"]

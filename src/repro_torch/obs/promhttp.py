@@ -15,6 +15,17 @@ scheduler.
 
 ``port=0`` binds an ephemeral port (``srv.port`` reports the real one)
 — the shape the shutdown test uses.
+
+Where rendering is a collective (a composed dp x tp stack's merged
+metrics, which every rank must render together), the scrape thread must
+not render: a :class:`MetricsSnapshot` holds the text the serving loop
+last rendered, every rank refreshing it at the same point of each round
+(``stream(on_round=snap.refresh)``), and the server on rank 0 serves it,
+at most a round old.
+
+    snap = MetricsSnapshot(router.prometheus)        # every rank
+    srv = MetricsServer(snap, port=9100).start()     # rank 0
+    for out in router.stream(on_round=snap.refresh): ...
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 
-__all__ = ["MetricsServer"]
+__all__ = ["MetricsServer", "MetricsSnapshot"]
 
 _CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -83,3 +94,19 @@ class MetricsServer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class MetricsSnapshot:
+    """The text of ``render()`` as of the last :meth:`refresh` (one at
+    construction); calling it returns that text without rendering, so a
+    scrape thread never runs ``render``."""
+
+    def __init__(self, render: Callable[[], str]):
+        self.render = render
+        self.text = render()
+
+    def refresh(self) -> None:
+        self.text = self.render()       # one reference swap: a scrape reads old or new
+
+    def __call__(self) -> str:
+        return self.text

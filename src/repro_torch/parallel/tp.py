@@ -10,6 +10,13 @@ whisper-base, gemma3, qwen2.5, internlm2, nemotron-4, llava-next, olmoe,
 moonshot, mamba2, recurrentgemma). Only these places talk to the other
 ranks:
 
+* the control channel (:meth:`TPGroup.broadcast`): where an engine has
+  an arm that reads a clock (``sla``, ``faults``, a request's
+  ``deadline_ms``), each round boundary broadcasts rank 0's decisions
+  (the requests it expired on its clock, its SLA observations since the
+  last boundary) in one small f64 tensor, and every rank applies them
+  there (``serving.engine``). An engine with no such arm runs none;
+
 * every row-parallel product (a matmul site ending in ``.out``: the
   attention and FFN output projections; an SSM's and an RG-LRU's
   ``out_proj``, unlabelled, passed as ``row_split``) is summed over the
@@ -76,9 +83,11 @@ Any other ``Hkv`` (neither divides the other) raises, naming the later
 slice that brings the sequence split.
 
 After the gather every rank holds logits with the same bits, so the
-sampler, retirement and paging decisions agree with no control channel.
-The paged allocator, block tables and lengths stay host state on every
-rank, as in the reference.
+sampler, retirement on eos or length, paging, preemption, admission
+order and draft acceptance agree with no control channel; only what
+reads a clock is rank 0's, through the channel. The paged allocator,
+block tables and lengths stay host state on every rank, as in the
+reference.
 
 The sums run in f32: a bf16 partial product is widened, summed and
 rounded once. A gather widens too (exact: every sum has one nonzero
@@ -165,6 +174,22 @@ class TPGroup:
         out.narrow(dim, self.rank * n, n).copy_(x)
         return self._sum(out).to(x.dtype)
 
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Group rank 0's ``x`` on every rank of the group (the engine's
+        control channel): one broadcast on the group's own process group
+        (in a composed stack each replica is a group of its own), so
+        every rank passes an ``x`` of the same shape and dtype. Under
+        gloo it travels from host memory; under NCCL through the rank's
+        card, and reading it back then waits for that card's stream."""
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+        wire = (torch.device("cuda", torch.cuda.current_device())
+                if self.backend == "nccl" else torch.device("cpu"))
+        y = x.to(wire, copy=True).contiguous()
+        dist.broadcast(y, src=dist.get_global_rank(self.group, 0), group=self.group)
+        return y.to(x.device)
+
     def embed(self, table: Any, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
         """Embedding rows of ``ids`` from a vocabulary-split table: the
         rank's rows looked up, the others zero, summed over the ranks."""
@@ -178,29 +203,23 @@ class TPGroup:
 _MESH_FAMILIES = ("encdec", "audio", "dense", "vlm", "moe", "ssm", "hybrid")
 
 
-def refuse_under_mesh(cfg, *, tp: Optional[int] = None, sla: bool = False,
-                      faults: bool = False) -> None:
+def refuse_under_mesh(cfg, *, tp: Optional[int] = None) -> None:
     """Raise, naming the later slice, for what a mesh does not serve yet:
     a family the registry does not know, a width that ``tp`` does not
     divide (heads, FFN, RG-LRU channels, SSD heads) and a KV-head count
     that neither divides ``tp`` nor is divided by it (when ``tp`` is
-    given: the sequence split), and what reads a clock (SLA admission,
-    fault injection: the ranks' clocks differ, and a decision on them
-    needs rank 0's broadcast each round, a control channel the port does
-    not have). Every quantization arm serves: act-quantizing specs, the
-    x<fmt> attention slot, calibration, QLoRA adapters and a draft arm."""
+    given: the reference's sequence split). The shard-first deploy is
+    the other part left to slice 6. Every quantization arm serves
+    (act-quantizing specs, the x<fmt> attention slot, calibration, QLoRA
+    adapters, a draft arm), and so does every arm that reads a clock
+    (SLA admission, fault injection, deadlines: rank 0's clock decides,
+    through the engine's control channel)."""
     if cfg.family not in _MESH_FAMILIES:
         raise later(f"a tensor-parallel mesh for {cfg.name} ({cfg.family}): the port "
                     "shards the text and audio enc-decs and the dense, VLM, MoE, SSM and "
                     "hybrid LM families", 6)
     if tp is not None:
         local_config(cfg, tp)
-    for on, what in ((sla, "sla= under a mesh (it reads the clock, and the ranks' "
-                           "clocks differ)"),
-                     (faults, "faults= under a mesh (clock skew and injection "
-                              "rounds read the clock)")):
-        if on:
-            raise later(what, 6)
 
 
 def kv_replicas(cfg, tp: int) -> int:

@@ -106,12 +106,35 @@ and serves the same requests on every rank. Every quantization arm
 serves so: act-quantizing specs (a row-parallel product's dynamic scale
 is the ranks' absmax), calibrated scales (calibrated on the shard, the
 site tables merged), QLoRA adapters and a draft arm sharded like the
-target. The logits every rank samples from are the same bits, and no
-scheduling decision reads a clock or polls the device, so every rank
-retires, pages, admits and accepts drafted tokens alike with no control
-channel. A decoder-only LM's prefill gathers only the rows the engine
-samples from. What reads a clock (``sla``, ``faults``, a request's
-``deadline_ms``) raises under a mesh.
+target. The logits every rank samples from are the same bits, so
+sampling, retirement on eos or length, paging, preemption, admission
+order, draft acceptance and the fault plan's seeded page steals and NaN
+schedule (each rank builds the same plan, ticked at the same rounds and
+dispatches) agree on every rank with no message. A decoder-only LM's
+prefill gathers only the rows the engine samples from.
+
+What reads a clock would part the ranks, whose clocks differ: one rank
+would retire a slot that another keeps decoding, or admit a prefill
+group of another size, and the collectives would stop matching. So under
+a mesh every such decision is rank 0's, through a control channel
+(``TPGroup.broadcast``): at each round boundary, after the fault plan's
+tick and before admission, rank 0 sends one small f64 tensor, its round
+number and counts, a flag for each deadlined request (active slots in
+slot order, then the queue) that expired on its clock (its injected skew
+included; the other ranks' skews change only what their own clocks say),
+and the (TTFT, TPOT) of each request that retired clean since the last
+boundary. Every rank, rank 0 included, retires exactly those requests in
+one device's order and folds those observations into its SLA controller
+there (``SLAController.fold``), so every rank's horizon, prefill cap,
+retunes and windows agree after every round; a retune lands at most one
+round later than on one device, and no stream depends on the horizon.
+The channel runs once a round where ``sla`` or ``faults`` is set or a
+queued or active request carries a ``deadline_ms``, a predicate every
+rank computes alike from host state; an engine with none of them runs no
+channel, and a decode step's collectives are unchanged. Two rank-local
+quantities drive no decision and may differ: a rank's own timings
+(``RequestOutput.ttft_ms`` / ``tpot_ms``, its latency histograms) and
+its trace timestamps.
 """
 
 from __future__ import annotations
@@ -129,8 +152,6 @@ from .. import random as prng
 from ..obs import PHASES, SCHED_TID, Histogram, TraceConfig, Tracer
 from ..obs.metrics import render_prometheus
 from ..models.api import decode_block
-from ..parallel.tp import refuse_under_mesh
-from ..unported import later
 from .metrics import EngineMetrics, SLAController, SLATarget
 from .paged_cache import TRASH_PAGE, PageAllocator, paged_insert, pages_needed
 from .params import (GREEDY, EngineSaturated, Request, RequestOutput, RequestStats,
@@ -207,8 +228,9 @@ class ServeEngine:
         # ctx carries the group the row-parallel sums and the vocabulary
         # gathers run over (parallel/tp.py)
         self.tp = ctx.tp if ctx is not None else None
-        if self.tp is not None and (sla is not None or faults is not None):
-            refuse_under_mesh(model.cfg, sla=sla is not None, faults=faults is not None)
+        # the control channel of a mesh (module docstring): rank 0 decides
+        # what reads a clock
+        self._channel = self.tp if self.tp is not None and self.tp.size > 1 else None
         fam = model.cfg.family
         if fam not in _SERVED:
             raise ValueError(f"unknown family {fam!r}; the engine serves {_SERVED}")
@@ -281,6 +303,10 @@ class ServeEngine:
         # the carry merge takes THEIR masks from host state
         self._dirty_slots: set = set()
         self.sla = SLAController(sla, self.horizon, slots) if sla is not None else None
+        # on a mesh: the (TTFT, TPOT) of clean retirements since the last
+        # boundary, folded there from rank 0's channel message
+        self._observed: List[tuple] = []
+        self._boundaries = 0
         # -- fault tolerance -------------------------------------------
         self.max_pending = max_pending
         self.faults = faults                # a FaultPlan (serving/faults.py)
@@ -338,9 +364,6 @@ class ServeEngine:
         if on_token is not None:
             request = dataclasses.replace(request, on_token=on_token)
         sp = request.params
-        if self.tp is not None and sp.deadline_ms is not None:
-            raise later("a request's deadline_ms under a mesh (it reads the clock, "
-                        "and the ranks' clocks differ)", 6)
         inputs = {}
         keys = [(self._tkey, torch.int32), ("img_embeds", torch.float32)]
         if self._enc_dec:
@@ -732,11 +755,21 @@ class ServeEngine:
     def _round_boundary(self) -> None:
         """Host work at every round boundary, no-op rounds included: tick
         the fault plan (release / steal pages, skew the clock), expire
-        deadlines, then admit from the queue."""
+        deadlines (on a mesh: rank 0's expiries and SLA observations
+        through the control channel), then admit from the queue."""
         t0 = time.perf_counter()
+        self._boundaries += 1
         if self.faults is not None:
             self.faults.on_round(self)
-        self._expire_deadlines()
+        deadlined = self._deadlined()
+        if self._channel is not None and (deadlined or self.sla is not None
+                                          or self.faults is not None):
+            expired = self._rank0_decides(deadlined)
+        else:
+            now = self._now()
+            expired = {r.id for r in deadlined if self._deadline_passed(r, now)}
+        if expired:
+            self._expire(expired)
         self._admit_pending()
         if self.trace is not None:
             self._phase_done("admit", t0)
@@ -747,23 +780,54 @@ class ServeEngine:
             return False
         return (now - self._stats[request.id].arrival_s) * 1e3 > dl
 
-    def _expire_deadlines(self) -> None:
-        """Retire every request, active or queued, whose ``deadline_ms``
-        elapsed on the engine clock: a host compare, no device sync.
-        Active slots free their pages through ``_retire``; their tokens
-        stop at the last synced position, as an abort's do."""
-        now = self._now()
+    def _deadlined(self) -> List[Request]:
+        """The requests that carry a ``deadline_ms``: active slots in slot
+        order, then the queue in order (the order expiry retires them)."""
+        return ([s.request for s in self.slots
+                 if s.active and s.request.params.deadline_ms is not None]
+                + [r for r in self._queue if r.params.deadline_ms is not None])
+
+    def _expire(self, expired: set) -> None:
+        """Retire the requests of ``expired``, active or queued, as
+        ``deadline`` (a host compare on the engine clock decided them, no
+        device sync): active slots first, freeing their pages through
+        ``_retire`` with their tokens cut at the last synced position, as
+        an abort's are; then the queue."""
         for s in self.slots:
-            if s.active and self._deadline_passed(s.request, now):
+            if s.active and s.request.id in expired:
                 self._retire(s, "deadline")
-        if self._queue:
-            keep = collections.deque()
-            for r in self._queue:
-                if self._deadline_passed(r, now):
-                    self._finished.append(self._finish_queued(r, "deadline"))
-                else:
-                    keep.append(r)
-            self._queue = keep
+        keep = collections.deque()
+        for r in self._queue:
+            if r.id in expired:
+                self._finished.append(self._finish_queued(r, "deadline"))
+            else:
+                keep.append(r)
+        self._queue = keep
+
+    def _rank0_decides(self, deadlined: List[Request]) -> set:
+        """The control channel's round (module docstring): rank 0's
+        round number, counts, expiry flags of ``deadlined`` on its clock
+        and its SLA observations since the last boundary, broadcast in one
+        f64 tensor whose length every rank knows from host state; every
+        rank folds the observations and returns the ids to expire. A
+        rank whose round or counts are not rank 0's raises: the ranks'
+        schedules parted."""
+        n, obs = len(deadlined), self._observed
+        self._observed = []
+        msg = np.zeros(3 + n + 2 * len(obs), np.float64)
+        msg[:3] = self._boundaries, n, len(obs)
+        if self._channel.rank == 0:
+            now = self._now()
+            msg[3:3 + n] = [self._deadline_passed(r, now) for r in deadlined]
+            msg[3 + n:] = np.asarray(obs, np.float64).reshape(-1)
+        got = self._channel.broadcast(torch.from_numpy(msg)).numpy()
+        if not np.array_equal(got[:3], msg[:3]):
+            raise RuntimeError(f"rank {self._channel.rank} is at round {msg[:3].tolist()} "
+                               f"(round, deadlined, observed), rank 0 at "
+                               f"{got[:3].tolist()}: the ranks' schedules parted")
+        if self.sla is not None:
+            self.sla.fold(got[3 + n:].reshape(-1, 2).tolist())
+        return {r.id for r, hit in zip(deadlined, got[3:3 + n]) if hit}
 
     def _speculate_now(self) -> bool:
         """A speculative round needs a draft arm and only greedy active
@@ -1173,8 +1237,12 @@ class ServeEngine:
         elif reason == "error":
             self._slot_errors += 1
         if self.sla is not None and reason in ("eos", "length"):
-            # only clean completions feed the percentile window
-            self.sla.observe(out)
+            # only clean completions feed the percentile window; on a mesh
+            # rank 0's ride the next boundary's channel message
+            if self._channel is None:
+                self.sla.observe(out)
+            else:
+                self._observed.append((out.ttft_ms, out.tpot_ms))
         self._preempted.pop(rid, None)
         self._preempt_counts.pop(rid, None)
         self._disp_len.pop(s.id, None)

@@ -30,6 +30,15 @@ appended to ``plan.events``, so two plans with the same seed driving
 the same engine produce identical event logs — the determinism the
 chaos equivalence tests assert.
 
+Under a tensor-parallel mesh every rank builds its plan from the same
+arguments and its engine resets it at construction; the plan ticks
+``on_round`` once a round and ``poison`` once a dispatch, and draws from
+its own seeded RNG, so every rank steals the same pages at the same
+rounds, poisons the same slots (the NaN lands on the gathered logits)
+and logs the same events. A skew moves only what a rank's own clock
+says, and only rank 0's clock decides an expiry (the engine's control
+channel), so the skew expires the same requests on every rank.
+
 A plan is stateful and belongs to ONE engine at a time: the engine
 resets it at construction, and ``release_all(engine)`` returns any
 still-held pages after a drain (tests call it before asserting

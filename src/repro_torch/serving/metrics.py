@@ -242,10 +242,20 @@ class SLAController:
 
     def observe(self, output) -> bool:
         """Fold one retired RequestOutput; True if a retune fired."""
-        self._window.append((output.ttft_ms, output.tpot_ms))
-        if len(self._window) < self.target.window:
-            return False
-        return self._retune()
+        return bool(self.fold([(output.ttft_ms, output.tpot_ms)]))
+
+    def fold(self, pairs) -> int:
+        """Fold ``(ttft_ms, tpot_ms)`` pairs in order, as that many
+        ``observe`` calls would; returns the retunes that fired. A
+        tensor-parallel engine folds rank 0's pairs on every rank at a
+        round boundary, so ``holding()`` and ``retunes`` read alike on
+        every rank."""
+        fired = 0
+        for ttft, tpot in pairs:
+            self._window.append((ttft, tpot))
+            if len(self._window) >= self.target.window:
+                fired += self._retune()
+        return fired
 
     def _p95(self, idx: int) -> float:
         # the repo-wide nearest-rank definition (obs.metrics.percentile

@@ -271,10 +271,15 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  the ranks' site tables merge by max, QLoRA adapters split
                  with their weights, and a draft arm is quantized from the
                  whole raw tree and sharded like the target. ``sla``,
-                 ``faults``, a request's ``deadline_ms`` (they read the
-                 clock), a width that tp does not divide and a KV-head
-                 count that neither divides tp nor is divided by it raise
-                 (NotImplementedError, a later port slice).
+                 ``faults``, ``max_pending`` and a request's
+                 ``deadline_ms`` serve too: what reads a clock (an
+                 expiry, an SLA retune) is decided on the group's rank 0,
+                 on its clock, and broadcast at each round boundary, so
+                 every rank retires and retunes alike (a retune lands at
+                 most a round later than on one device; the streams do
+                 not depend on it). A width that tp does not divide and a
+                 KV-head count that neither divides tp nor is divided by
+                 it raise (NotImplementedError, a later port slice).
     device:      None = "cuda" (raises without a card).
     """
     spec = resolve_spec(policy)
@@ -283,8 +288,7 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
         cfg = reduce_config(cfg)
     if mesh is not None:            # refuse before any build work
         size = getattr(mesh, "size", None)
-        refuse_under_mesh(cfg, tp=size() if callable(size) else None,
-                          sla=sla is not None, faults=faults is not None)
+        refuse_under_mesh(cfg, tp=size() if callable(size) else None)
     kv = kv_dtype or spec.kv
     dev = _device(device)
     model = build_model(cfg, dev)

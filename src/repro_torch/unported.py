@@ -11,14 +11,15 @@ ROADMAP.md, queue 1); nothing runs another route in its place.
 # tensor-parallel text enc-dec engines, replica routing, the compressed
 # all-reduce, sharded restore) and the first parts of slice 6 (meshes for
 # the dense, VLM, MoE (expert parallelism), audio, SSM and hybrid
-# families, composed dp x tp stacks, and every quantization arm under a
-# mesh: act-quantizing and x<fmt> specs, calibration, QLoRA adapters, a
-# draft arm) have landed
+# families, composed dp x tp stacks, every quantization arm under a mesh:
+# act-quantizing and x<fmt> specs, calibration, QLoRA adapters, a draft
+# arm; and the clock-driven arms under a mesh, sla=, faults= and a
+# request's deadline_ms decided on rank 0's clock through a per-round
+# control channel, with the composed stack's on_token and --metrics-port)
+# have landed
 SLICES = {
-    6: ("scale-out, the rest: the clock-driven arms under a mesh (sla=, faults=, "
-        "a request's deadline_ms; they need rank 0's clock broadcast each round), "
-        "the composed stack's on_token and --metrics-port, the sequence split for "
-        "a KV-head count that tp does not divide, and a shard-first deploy"),
+    6: ("scale-out, the rest: the sequence split for a width or a KV-head count "
+        "that tp does not divide, and a shard-first deploy"),
 }
 
 

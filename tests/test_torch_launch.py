@@ -12,7 +12,8 @@ rejections; act-quantizing and fp8 specs serve as ``--policy`` and
 ``--draft-spec``; ``--mesh`` keeps the reference's grammar: tp2 serves
 on two ranks, dp2 through the replica router and dp2,tp2 on four ranks,
 each with the single engine's streams, and so does tp2 with an
-act-quantizing policy and a draft arm.
+act-quantizing policy and a draft arm; dp2,tp2 serves the SLA controller,
+deadlines and a live metrics port.
 """
 
 import json
@@ -186,6 +187,24 @@ def test_launcher_quant_arms_under_a_mesh(capfd):
     assert any(line.startswith("speculative draft arm: nf4 = wnf4kv8dq") for line in lines)
     served = [line for line in lines if line.startswith("served 4 requests")]
     assert len(served) == 1 and "verify rounds" in served[0]
+
+
+def test_launcher_clock_arms_and_metrics_port_over_dp_tp(capfd):
+    """``--mesh dp2,tp2 --metrics-port 0 --sla-ttft-ms 1 --deadline-ms
+    600000``: four gloo CPU ranks serve under the SLA controller and the
+    deadlines (each group's rank 0 decides), rank 0 serves the snapshot
+    that every rank refreshes once a round, and prints the live endpoint,
+    the four requests, the ``faults:`` line and the ``sla:`` line."""
+    serve.main([*SMOKE, "--impl", "torch", "--device", "cpu", "--paged", "--mesh", "dp2,tp2",
+                "--metrics-port", "0", "--sla-ttft-ms", "1", "--deadline-ms", "600000"])
+    lines = capfd.readouterr().out.splitlines()
+    assert sum(line.startswith("metrics: live at http://127.0.0.1:") for line in lines) == 1
+    got = streams(lines)
+    assert sorted(got) == [0, 1, 2, 3] and all(r == "length" for r, _ in got.values())
+    assert any(line.startswith("faults: 0 preemptions (0 resumed), 0 deadline expirations")
+               for line in lines)
+    sla = [line for line in lines if line.startswith("sla: target ttft_p95 1.0 ms")]
+    assert len(sla) == 1 and "retunes" in sla[0], lines[-4:]
 
 
 def test_launcher_unit_mesh_and_bad_specs(capsys):

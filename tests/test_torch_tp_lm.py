@@ -447,15 +447,16 @@ def test_families_left_for_slice_6_raise(arch):
     act-quantizing spec: a w8a8 deploy of the reduced arch on a tp2 mesh
     reaches the rank's group (the quantization arms under a mesh,
     tests/test_torch_tp_quant.py). What stays in slice 6 still raises for
-    each: ``sla=`` under a mesh (it reads the clock), and gemma3-1b's 4
-    query heads at tp8 (a width tp does not divide)."""
+    each: the arch's query heads (SSD heads) at tp5 (a width tp does not
+    divide: the sequence split), and gemma3-1b's 4 query heads at tp8; ``sla=`` under
+    a mesh serves (tests/test_torch_tp_clock.py)."""
     refuse_under_mesh(get_config(arch), tp=2)
     if arch in ("mamba2-780m", "recurrentgemma-9b"):
         refuse_under_mesh(get_config(arch), tp=4)
     with pytest.raises(_Reached):
         deploy(arch, "w8a8", smoke=True, device="cpu", mesh=_StubMesh(2))
-    with pytest.raises(NotImplementedError, match="sla= under a mesh.*port slice 6"):
-        refuse_under_mesh(get_config(arch), tp=2, sla=True)
+    with pytest.raises(NotImplementedError, match="over tp5.*port slice 6"):
+        refuse_under_mesh(get_config(arch), tp=5)
     with pytest.raises(NotImplementedError, match="num_heads 4 over tp8.*port slice 6"):
         refuse_under_mesh(get_config("gemma3-1b"), tp=8)
     for served in KV:

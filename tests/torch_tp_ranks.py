@@ -1,6 +1,7 @@
 """Rank bodies for the tensor-parallel tests (tests/test_torch_tp.py,
 tests/test_torch_tp_lm.py, tests/test_torch_tp_moe.py,
-tests/test_torch_tp_recurrent.py, tests/test_torch_tp_quant.py).
+tests/test_torch_tp_recurrent.py, tests/test_torch_tp_quant.py,
+tests/test_torch_tp_clock.py).
 
 They run in processes that ``repro_torch.cluster.launch_ranks`` spawns,
 so they live in a module of their own that imports torch and the port
@@ -10,11 +11,16 @@ LM grids (gemma3-1b, qwen2.5-14b, llava-next-mistral-7b), the MoE and
 audio grids (nllb600m-moe, whisper-base, olmoe-1b-7b,
 moonshot-v1-16b-a3b), the recurrent grids (mamba2-780m,
 recurrentgemma-9b), the quantization arms (act-quantizing, calibrated,
-adapted and draft-armed engines) and a preempting engine, or its share
-of a composed dp x tp stack.
+adapted and draft-armed engines), a preempting engine and the arms that
+read a clock (faults, deadlines, SLA admission, clocks that disagree), or
+its share of a composed dp x tp stack (``on_token``, a metrics snapshot
+scraped over HTTP).
 """
 
+import contextlib
 import dataclasses
+import time
+import urllib.request
 import warnings
 
 import torch
@@ -25,7 +31,9 @@ from repro_torch.convert import from_numpy_tree
 from repro_torch.core import tree_nbytes
 from repro_torch.models import Ctx
 from repro_torch.optim import compressed_psum
-from repro_torch.serving import SamplingParams, deploy, impl_routes
+from repro_torch.obs import MetricsServer, MetricsSnapshot
+from repro_torch.serving import (EngineSaturated, FaultPlan, SamplingParams, ServeEngine,
+                                 SLATarget, deploy, impl_routes)
 
 CTX = Ctx(compute_dtype=torch.float32)
 GREEDY = SamplingParams(max_new_tokens=8)
@@ -340,3 +348,236 @@ def quant_grid(rank, world, device, trees, cases, src, calib, lm_cases, stack):
         out["stack"] = {"group": pipe.engine.group, "grids": grids(pipe, src),
                         "table": pipe.engine.own.ctx.act_scales}
     return out
+
+
+# the clock-driven arms under a mesh (tests/test_torch_tp_clock.py): the
+# reduced nllb600m int4 ("torch" bundle), paged on 2 slots over 8 pages of
+# 4, horizon 4, as tests/test_torch_faults.py's "paged4" layout
+CLOCK_KW = dict(slots=2, max_len=16, horizon=4, paged=True, page_size=4, num_pages=8)
+DEADLINE_MS = 60_000.0      # far beyond wall time: only the skew expires it
+SKEW_MS = 600_000.0
+SHIFT_S = 3600.0            # rank 1's clock jump in the disagreeing-clock case
+SHIFT_DEADLINE_MS = 600_000.0
+FAST = 1e6                  # rank 1's clock rate in the other one
+FAST_TTFT_MS = 1e5          # between rank 0's p95 TTFT and rank 1's
+TINY, HUGE = 1e-6, 1e9      # SLA targets that every window breaches / meets
+# a budget that lapses before the first boundary (a deadline must be
+# positive, so this stands for 0)
+NOW_MS = 1e-6
+
+
+def chaos_plan():
+    """tests/test_torch_faults.py's plan: steal 4 pages at round 0 for 8
+    rounds, NaN on slot 0 at micro-step 2 of dispatch 0, a skew at round
+    1 past DEADLINE_MS."""
+    return FaultPlan(exhaust_at=[(0, 4, 8)], nan_at=[(0, 0, 2)], skew_at=[(1, SKEW_MS)])
+
+
+class _Clock:
+    """The ``time`` module as the engine module reads it: ``perf_counter``
+    jumped by ``shift_s`` and run ``rate`` times fast from now."""
+
+    def __init__(self, shift_s: float = 0.0, rate: float = 1.0):
+        self.t0, self.shift_s, self.rate = time.perf_counter(), shift_s, rate
+
+    def perf_counter(self) -> float:
+        return self.t0 + self.shift_s + (time.perf_counter() - self.t0) * self.rate
+
+
+@contextlib.contextmanager
+def own_clock(on: bool, **kw):
+    """Inside, the engine module reads ``_Clock(**kw)`` where ``on``."""
+    from repro_torch.serving import engine as engine_mod
+    real = engine_mod.time
+    if on:
+        engine_mod.time = _Clock(**kw)
+    try:
+        yield
+    finally:
+        engine_mod.time = real
+
+
+def clock_engine(pipe, **kw):
+    """A fresh engine of CLOCK_KW (``kw`` adds or replaces options) on the
+    deploy's rank-local model, shard and ctx."""
+    return ServeEngine(pipe.model, pipe.params, ctx=pipe.ctx, kv_dtype=pipe.engine.kv_dtype,
+                       device=pipe.engine.device, **dict(CLOCK_KW, **kw))
+
+
+def drain(eng, on_round=None):
+    """Serve until drained; outputs by request id."""
+    return {o.request_id: o for o in eng.stream(on_round=on_round)}
+
+
+def served(outs, ids):
+    return [(outs[i].token_ids, outs[i].finish_reason) for i in ids]
+
+
+def sla_state(ctl):
+    return (ctl.horizon, ctl.prefill_cap, ctl.retunes, ctl.windows)
+
+
+def counting(grp):
+    """Count the group's channel broadcasts and sums from now on."""
+    n = {"broadcast": 0, "sum": 0}
+    real_b, real_s = grp.broadcast, grp._sum
+
+    def broadcast(x):
+        n["broadcast"] += 1
+        return real_b(x)
+
+    def _sum(y):
+        n["sum"] += 1
+        return real_s(y)
+
+    grp.broadcast, grp._sum = broadcast, _sum
+    return n
+
+
+def clock_chaos(pipe, prompts, sps):
+    """The chaos plan with max_pending=4: four submits queue, a fifth is
+    refused; the streams, the counters, the plan's events and the pool
+    after release_all."""
+    plan = chaos_plan()
+    eng = clock_engine(pipe, faults=plan, preempt_limit=16, max_pending=4)
+    ids = [eng.submit(p, sp) for p, sp in zip(prompts[:4], sps)]
+    try:
+        eng.submit(prompts[4], sps[0])
+        rejected = None
+    except EngineSaturated as exc:
+        rejected = (exc.pending, exc.limit)
+    outs = drain(eng)
+    plan.release_all(eng)
+    eng.allocator.check()
+    return {"served": served(outs, ids), "preempted": [outs[i].stats.preemptions for i in ids],
+            "metrics": eng.metrics().as_dict(), "events": list(plan.events),
+            "rejected": rejected, "pages_in_use": eng.allocator.pages_in_use}
+
+
+def clock_deadline0(pipe, prompts, sps, zero):
+    """A deadline of NOW_MS on the requests of ``zero``: they expire at the
+    first boundary."""
+    eng = clock_engine(pipe)
+    ids = [eng.submit(p, dataclasses.replace(sp, deadline_ms=NOW_MS) if i in zero else sp)
+           for i, (p, sp) in enumerate(zip(prompts, sps))]
+    outs = drain(eng)
+    return {"served": served(outs, ids), "expired": eng.deadline_expirations}
+
+
+def clock_sla(pipe, prompts, sps):
+    """A TINY p95 TTFT target with a window of 2 (every window halves),
+    then on the same controller a HUGE one (every window relaxes): the
+    controller's state after every round and after each drain (whose
+    last boundary folds the last observations), and the streams."""
+    eng = clock_engine(pipe, sla=SLATarget(p95_ttft_ms=TINY, window=2))
+    trail, runs = [], []
+    for target in (TINY, HUGE):
+        eng.sla.target = SLATarget(p95_ttft_ms=target, window=2)
+        ids = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
+        outs = drain(eng, lambda: trail.append(sla_state(eng.sla)))
+        trail.append(sla_state(eng.sla))    # after the last boundary's fold
+        runs.append(served(outs, ids))
+    return {"served": runs, "trail": trail, "holding": eng.sla.holding()}
+
+
+def clock_shift(pipe, prompts, sps, rank):
+    """Every request with a SHIFT_DEADLINE_MS budget; after the submits
+    rank 1's clock jumps SHIFT_S, past every budget."""
+    eng = clock_engine(pipe)
+    ids = [eng.submit(p, dataclasses.replace(sp, deadline_ms=SHIFT_DEADLINE_MS))
+           for p, sp in zip(prompts, sps)]
+    with own_clock(rank == 1, shift_s=SHIFT_S):
+        outs = drain(eng)
+    return {"served": served(outs, ids), "expired": eng.deadline_expirations}
+
+
+def clock_fast(pipe, prompts, sps, rank):
+    """Rank 1's clock runs FAST times fast from before the submits, so its
+    own TTFTs breach FAST_TTFT_MS and rank 0's meet it."""
+    with own_clock(rank == 1, rate=FAST):
+        eng = clock_engine(pipe, sla=SLATarget(p95_ttft_ms=FAST_TTFT_MS, window=2))
+        ids = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
+        trail = []
+        outs = drain(eng, lambda: trail.append(sla_state(eng.sla)))
+        trail.append(sla_state(eng.sla))
+    return {"served": served(outs, ids), "trail": trail,
+            "own_ttft_ms": [outs[i].ttft_ms for i in ids]}
+
+
+def clock_cost(pipe, prompts, sps):
+    """Channel broadcasts and sums of the same run unarmed and armed (an
+    empty FaultPlan), with the rounds the armed run crossed."""
+    out = {}
+    for name, kw in (("unarmed", {}), ("armed", {"faults": FaultPlan()})):
+        eng = clock_engine(pipe, **kw)
+        n = counting(eng.tp)
+        ids = [eng.submit(p, sp) for p, sp in zip(prompts, sps)]
+        outs = drain(eng)
+        del eng.tp.broadcast, eng.tp._sum
+        out[name] = dict(n, boundaries=eng._boundaries, served=served(outs, ids))
+    return out
+
+
+def clock_grid(rank, world, device, params_np, prompts, sps):
+    """Every tp2 case of tests/test_torch_tp_clock.py on fresh engines of
+    one ``deploy(mesh=tp_mesh(world))``: the chaos plan, NOW_MS deadlines,
+    the SLA trajectory, the cost of the channel, then the two
+    disagreeing clocks (rank 1's alone)."""
+    pipe = deploy("nllb600m", "int4", params=from_numpy_tree(params_np, "cpu"),
+                  mesh=tp_mesh(world), device=device, smoke=True, **impl_routes("torch"),
+                  **CLOCK_KW)
+    return {"chaos": clock_chaos(pipe, prompts, sps[:4]),
+            "deadline0": clock_deadline0(pipe, prompts[:4], sps[:4], (1, 2)),
+            "sla": clock_sla(pipe, prompts, sps),
+            "cost": clock_cost(pipe, prompts[:2], sps[:2]),
+            "shift": clock_shift(pipe, prompts[:4], sps[:4], rank),
+            "fast": clock_fast(pipe, prompts[:4], sps[:4], rank)}
+
+
+def stack_clock(rank, world, device, params_np, prompts, sps, zero):
+    """This rank's view of ``deploy_replicas("nllb600m", "int4",
+    replicas=2, tp=2)`` under a TINY SLA target: every request submitted
+    with ``on_token`` (a NOW_MS deadline on those of ``zero``), served
+    through ``stream(on_round=)`` that counts rounds, refreshes a metrics
+    snapshot on every rank and, on rank 0, scrapes the server that serves
+    it. Returns the outputs, the callbacks' streams, the round of each
+    request's first callback and of its finish, the SLA state and rank
+    0's scrapes."""
+    pipe = deploy_replicas("nllb600m", "int4", replicas=2, tp=2,
+                           params=from_numpy_tree(params_np, "cpu"), device=device,
+                           smoke=True, sla=SLATarget(p95_ttft_ms=TINY, window=2),
+                           **impl_routes("torch"), **CLOCK_KW)
+    router = pipe.engine
+    rounds, heard, first = [0], {}, {}
+
+    def tap(i):
+        def cb(tok):
+            heard.setdefault(i, []).append(tok)
+            first.setdefault(i, rounds[0])
+        return cb
+
+    gids = [router.submit(p, dataclasses.replace(sp, deadline_ms=NOW_MS) if i in zero else sp,
+                          on_token=tap(i))
+            for i, (p, sp) in enumerate(zip(prompts, sps))]
+    snap = MetricsSnapshot(router.prometheus)
+    srv = MetricsServer(snap).start() if rank == 0 else None
+    scrapes = []
+
+    def on_round():
+        rounds[0] += 1
+        snap.refresh()
+        if srv is not None:
+            with urllib.request.urlopen(srv.url, timeout=10) as r:
+                scrapes.append(r.read().decode())
+
+    outs, finished = {}, {}
+    for o in router.stream(on_round=on_round):
+        outs[o.request_id] = o
+        finished[o.request_id] = rounds[0]
+    if srv is not None:
+        srv.close()
+    return {"outs": [(outs[g].token_ids, outs[g].finish_reason, outs[g].ttft_ms) for g in gids],
+            "heard": [heard.get(i, []) for i in range(len(gids))],
+            "first": [first.get(i) for i in range(len(gids))],
+            "finished": [finished[g] for g in gids], "rounds": rounds[0],
+            "group": router.group, "sla": sla_state(router.own.sla), "scrapes": scrapes}
