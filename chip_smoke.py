@@ -175,6 +175,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    exactly once a round and summing exactly [tp]'s collectives a decode
    step; the tp phases run no warm-up (each holds its kernels at the
    shapes of its measured run);
+   then three ranks sharing the card over gloo (any tp: a width 3 does
+   not divide is replicated): full-width nllb600m int4, whose 16 heads,
+   4096 FFN columns and 256204-token vocabulary 3 divides none of, paged
+   ([tp3]: the attention's pool whole, no collective, every rank's
+   streams [serve]'s bit for bit) and dense at max_len 42 ([tp3-dense]:
+   the self-attention cache split 14 rows a rank, every rank's block
+   reached, 2 collectives a layer a decode step), then gemma3-1b cut to
+   13 layers, dense at 768 ([tp3-lm]: its 4 heads replicated with the
+   cache split 256 rows a rank, its 6912 FFN columns split 2304 a rank;
+   2 + 1 collectives a layer) on [lm-gemma]'s prompts, against [tp-lm-
+   dense]'s single device; each held as [tp] is, with its collectives a
+   decode step held exactly, and both dense phases' teacher-forced
+   logits held to TP3_LOGIT_TOL at every step;
    then two routed replicas on the card (deploy_replicas, [dp]): each
    replica's streams a lone engine's bit for bit, [serve]'s up to near
    ties, the merged metrics the sums; then the composed stack on four
@@ -3869,13 +3882,14 @@ def counted_decode(eng):
     counts) and, on a tensor-parallel rank, its collectives: every sum
     and max of its group (``collectives`` and the buffers' bytes) and,
     among them, the experts' gathers along E (``expert_gathers`` and
-    bytes) and the dynamic activation scales' maxes (``act_maxes``).
+    bytes) and the maxes (``maxes``: a dynamic activation scale's over
+    the ranks, a sequence-split cache's score max and x<fmt> PV scale).
     Returns the counts, filled as the engine runs; end_count(eng) ends
     the count."""
     from repro_torch.kernels import ops
     in_decode, real_loop = dict.fromkeys(ops.LAUNCHES, 0), eng._decode_loop
     sums = dict.fromkeys(("collectives", "collective_bytes", "expert_gathers",
-                          "expert_gather_bytes", "act_maxes"), 0)
+                          "expert_gather_bytes", "maxes"), 0)
     grp = eng.ctx.tp
     if grp is not None:
         real_sum, real_max, real_gather = grp._sum, grp._max, grp.gather
@@ -3887,7 +3901,7 @@ def counted_decode(eng):
 
         def counted_max(y):
             sums["collectives"] += 1
-            sums["act_maxes"] += 1
+            sums["maxes"] += 1
             sums["collective_bytes"] += y.numel() * y.element_size()
             return real_max(y)
 
@@ -3933,9 +3947,9 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
     parting must be a near tie (near_tie_partings). With ``logit_tol``
     (largest, mean) every step of the streams is replayed, parted or not,
     and holds the sides' logits to it. Returns (partings, the single
-    device's deploy memory or None)."""
+    device's deploy memory or None, its streams on group rank 0)."""
     lead = grp.rank == 0
-    n, part, smem, spipe = len(prompts), {}, None, None
+    n, part, smem, spipe, want = len(prompts), {}, None, None, None
     kw = engine_kw or {}
 
     def build():
@@ -3966,7 +3980,7 @@ def tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw=
             tp_follow_replay(torch, [side], prompts, [sp] * n, streams, steps)
     del spipe
     torch.cuda.empty_cache()
-    return part, smem
+    return part, smem, want
 
 
 def _experts_held(tree):
@@ -3992,8 +4006,19 @@ def _mixer_held(pipe) -> str:
     return ""
 
 
+def _layout(eng) -> str:
+    """What a rank replicates (``RankConfig.replicated``) and the rows of
+    its dense self-attention cache (the sequence split), for the deploy
+    line."""
+    lc, c = eng.model.cfg, eng.cache
+    k = None if "block_tables" in c else next((c[n] for n in ("k_codes", "k", "b_k")
+                                               if n in c), None)
+    rows = "" if k is None else f", {k.shape[2]} of {eng.max_len} KV rows"
+    return f"; replicated: {', '.join(lc.replicated) or 'none'}{rows}"
+
+
 def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engine_kw=None,
-             collectives=None, logit_tol=None):
+             collectives=None, logit_tol=None, whole=False):
     """One tensor-parallel engine's served run, called alike on every rank
     of its mesh; rank 0 prints. The measured greedy run (no warm-up run
     before it: the phases before the spawn compiled every kernel) with
@@ -4005,11 +4030,12 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
     prefills the FASST kernel; the streams against one device's up to
     near ties (tp_vs_single; with ``logit_tol``, every step's logits held
     to it teacher-forced). A rank must hold fewer weight bytes than
-    the whole quantized tree. Rank 0 prints one line per rank: tokens/s,
-    decode ms a step, the collectives a step (and the experts' gathers
-    among them), its weights against the whole tree's and its resident
-    memory against the deploy's peak. Returns the launches, streams and
-    numbers."""
+    the whole quantized tree, or, ``whole`` (every sublayer replicated),
+    exactly its bytes. Rank 0 prints one line per rank: tokens/s, decode
+    ms a step, the collectives a step (and the experts' gathers among
+    them), its weights against the whole tree's, its KV bytes and its
+    resident memory against the deploy's peak. Returns the launches,
+    streams, numbers and, on rank 0, the single device's streams."""
     import torch.distributed as dist
     from repro_torch.core import tree_nbytes
     from repro_torch.kernels import ops
@@ -4029,7 +4055,7 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
         f"{lc.num_heads}/{lc.num_kv_heads} heads of {lc.head_dim}, d_ff {lc.d_ff}{experts}, "
         f"vocab slice {pipe.params['embedding'].shape[0]} of {lc.vocab_size}, "
         f"{tree_nbytes(pipe.params) / 1e9:.3f} GB of weights (of "
-        f"{pipe.quantized_bytes / 1e9:.3f} GB); {_mem_line(mem)}")
+        f"{pipe.quantized_bytes / 1e9:.3f} GB){_layout(eng)}; {_mem_line(mem)}")
     n = len(prompts)
     sp = SamplingParams(max_new_tokens=GEN)
     eng.reset_metrics()
@@ -4068,19 +4094,21 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
                              f"{collectives} times")
     if "fasst_act" in need and not launches["fasst_act"] > in_decode["fasst_act"]:
         raise AssertionError(f"[{tag}] the prefills launched no FASST kernel: {launches}")
-    part, smem = tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single, engine_kw,
-                              logit_tol)
+    part, smem, want = tp_vs_single(torch, tag, grp, pipe, prompts, sp, streams, single,
+                                    engine_kw, logit_tol)
     tokens = sum(len(t) for t in streams)
     weights = tree_nbytes(pipe.params)
-    if not weights < pipe.quantized_bytes:
-        raise AssertionError(f"[{tag}] rank {grp.rank} holds {weights} weight bytes, not "
-                             f"under the whole tree's {pipe.quantized_bytes}")
+    if not (weights == pipe.quantized_bytes if whole else weights < pipe.quantized_bytes):
+        raise AssertionError(f"[{tag}] rank {grp.rank} holds {weights} weight bytes, "
+                             f"{'not' if whole else 'not under'} the whole tree's "
+                             f"{pipe.quantized_bytes}")
     mine = {"rank": grp.rank, "tokens_per_s": tokens / wall,
             "decode_ms_per_step": 1e3 * eng.decode_s / max(eng.decode_steps, 1),
             **{f"{k}_per_step": in_decode[k] / steps_run
                for k in ("collectives", "collective_bytes", "expert_gathers",
-                         "expert_gather_bytes", "act_maxes")},
+                         "expert_gather_bytes", "maxes")},
             "weights_gb": weights / 1e9, "whole_weights_gb": pipe.quantized_bytes / 1e9,
+            "kv_gb": eng.kv_cache_bytes / 1e9,
             "resident_gb": mem["resident"] / 1e9, "deploy_peak_gb": mem["build_peak"] / 1e9}
     per_rank = _group_gather(grp, mine)
     for m in per_rank:
@@ -4099,7 +4127,7 @@ def tp_serve(torch, tag, card, pipe, mem, prompts, per_step, single, need, engin
              "note": f"{grp.size} ranks share one card over {grp.backend}", "card": card}
     say(f"[{tag}] {json.dumps(stats)}")
     say(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches, "streams": streams, "stats": stats}
+    return {"launches": launches, "streams": streams, "stats": stats, "single_streams": want}
 
 
 TP_SLA_TTFT_MS = 1e-3      # [tp-sla]'s target: every window of 2 breaches it
@@ -4939,6 +4967,102 @@ def tp_phase(card, prompts, lm):
     return results[0]
 
 
+TP3 = 3
+# [tp3-dense]: 14 cache rows a rank; a request's 1 prompt + 31 fed tokens
+# write positions 0-31, so every rank's block holds some (at 48, with 16
+# rows a rank, the third block would hold none)
+TP3_DENSE_LEN = 42
+# [tp3-dense] / [tp3-lm]: the (largest, mean) logit difference a
+# teacher-forced step of a rank may show against one device, every step
+# replayed, so that a combine that loses a rank's partial fails where the
+# greedy streams hold. On an H100 sound ranks gave (0.03125, 0.001192) and
+# (0.07812, 0.01016) over 32 steps; with the last rank's packed partial
+# zeroed (0.1562, 0.01326) and (1.469, 0.2077), neither stream parting.
+TP3_LOGIT_TOL = {"tp3-dense": (0.1, 0.004), "tp3-lm": (0.25, 0.03)}
+
+
+def tp3_rank(rank, world, device, prompts, lm):
+    """[tp3] / [tp3-dense] / [tp3-lm] on one of ``world`` (3) ranks sharing
+    the card over gloo, each engine a deploy(mesh=tp_mesh(3)) served by
+    tp_serve, the decode step's collectives held exactly. Full-width
+    nllb600m int4 on [serve]'s prompts and weights (seed), where 3 divides
+    no width: paged as [serve] ([tp3]: every sublayer and the pool whole,
+    no collective, the streams [serve]'s bit for bit) and dense at
+    TP3_DENSE_LEN ([tp3-dense]: 2 collectives a layer, the sequence
+    split's max and sum, against one device's engine of that shape);
+    then gemma3-1b cut to TP_GEMMA_LAYERS, dense at LONG_LEN ([tp3-lm]: 2
+    + 1 a layer, the FFN split) on [lm-gemma]'s prompts, against the
+    single device's streams [tp-lm-dense] served. Both dense phases hold
+    every teacher-forced step's logits to TP3_LOGIT_TOL. Returns each
+    phase's launches and numbers."""
+    import torch
+    from repro_torch.cluster import tp_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models import Ctx, build_model
+    from repro_torch.serving import deploy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = tp_mesh(world)
+    if rank == 0:
+        log(f"[tp3] {world} ranks on {device} of one {torch.cuda.get_device_name(device)}, "
+            f"{mesh!r}")
+    ctx = Ctx(compute_dtype=torch.bfloat16, use_fasst_kernel=True)
+    raw = build_model(get_config("nllb600m"), device).init(
+        torch.Generator(device=device).manual_seed(SEED))
+    out = {}
+    for tag, paged, max_len in (("tp3", True, MAX_LEN), ("tp3-dense", False, TP3_DENSE_LEN)):
+        kw = dict(slots=SLOTS, max_len=max_len, horizon=HORIZON, params=raw, device=device,
+                  ctx=ctx, **(dict(paged=True, page_size=PAGE) if paged else {}))
+        mem = engine_memory(torch, device, lambda: deploy("nllb600m", "int4", mesh=mesh, **kw))
+        pipe = mem.pop("built")
+        L = pipe.cfg.num_layers
+        single = {"build": lambda: deploy("nllb600m", "int4", **kw)}
+        if paged:
+            single["streams"] = lm["serve_streams"]
+        out[tag] = tp_serve(
+            torch, tag, lm["card"], pipe, mem, prompts,
+            {"qmm": 8 * L, "qmm_naf": L, "paged_attn": L if paged else 0, "fasst_act": 0},
+            single, ("qmm", "fasst_act") + (("paged_attn",) if paged else ()),
+            dict(max_len=max_len), collectives=0 if paged else 2 * L,
+            logit_tol=TP3_LOGIT_TOL.get(tag), whole=True)
+        if paged and out[tag]["streams"] != lm["serve_streams"]:
+            raise AssertionError("[tp3] a rank's streams are not [serve]'s bit for bit")
+        if paged and rank == 0:
+            log(f"[tp3] every rank's {len(prompts)} streams are [serve]'s bit for bit")
+        del pipe
+        torch.cuda.empty_cache()
+    del raw
+    torch.cuda.empty_cache()
+    gemma = dataclasses.replace(get_config("gemma3-1b"), num_layers=TP_GEMMA_LAYERS)
+    kw = dict(slots=SLOTS, max_len=LONG_LEN, horizon=HORIZON, init_seed=SEED, device=device,
+              ctx=ctx)
+    mem = engine_memory(torch, device, lambda: deploy(gemma, "int4", mesh=mesh, **kw))
+    pipe = mem.pop("built")
+    L = pipe.cfg.num_layers
+    out["tp3-lm"] = tp_serve(torch, "tp3-lm", lm["card"], pipe, mem, lm["gemma_prompts"],
+                             {"qmm": 7 * L, "qmm_naf": 0, "paged_attn": 0, "fasst_act": L},
+                             {"streams": lm["gemma_streams"],
+                              "build": lambda: deploy(gemma, "int4", **kw)},
+                             ("qmm", "fasst_act"), dict(max_len=LONG_LEN),
+                             collectives=3 * L, logit_tol=TP3_LOGIT_TOL["tp3-lm"])
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp3_phase(card, prompts, lm):
+    """[tp3] / [tp3-dense] / [tp3-lm] on TP3 ranks sharing the card."""
+    from repro_torch.cluster import launch_ranks, rank_backend
+    backend = rank_backend("cuda", TP3)
+    if backend != "gloo":
+        raise AssertionError(f"{TP3} ranks on one card must take gloo, got {backend}")
+    t0 = time.perf_counter()
+    results = launch_ranks(tp3_rank, TP3, device="cuda", args=(prompts, lm))
+    log(f"[tp3] {TP3} ranks over {backend} on {card} took {time.perf_counter() - t0:.1f} s "
+        "(process start, deploys, nllb600m's two layouts, gemma3-1b's cut)")
+    return results[0]
+
+
 def dp_phase(torch, card, prompts, serve_pipe, serve_outs):
     """[dp]: deploy_replicas(replicas=2) on the one card, [serve]'s engine
     shape, weights (seed) and prompts, routed by the ReplicaRouter. Each
@@ -5120,7 +5244,7 @@ def dp_tp_rank(rank, world, device, prompts, card):
                              "engine's")
     tp_pipe = dataclasses.replace(pipe, engine=eng)
     kw.pop("device")
-    part, smem = tp_vs_single(torch, f"dp-tp group {router.group}", grp, tp_pipe, mine, sp,
+    part, smem, _ = tp_vs_single(torch, f"dp-tp group {router.group}", grp, tp_pipe, mine, sp,
                               [streams[i] for i in idx],
                               {"build": lambda: deploy("nllb600m", "int4", device=device,
                                                        **kw)})
@@ -5267,8 +5391,8 @@ def main() -> int:
     tp_kernels = time_tp_kernels(torch, card, dev)
     for e in entries:
         e.update(tp_kernels.get(e["name"], {}))
-    tp_out = tp_phase(card, prompts, dict(tp_lm_inputs(torch, card), families=single,
-                                          quant=single["quant"]))
+    tp_lm = tp_lm_inputs(torch, card)
+    tp_out = tp_phase(card, prompts, dict(tp_lm, families=single, quant=single["quant"]))
     for tag in ("tp-moe", "tp-olmoe", "tp-audio", "tp-ssm", "tp-hybrid"):
         phase_launches[tag] = tp_out[tag]["launches"]
     phase_launches["tp"] = tp_out["tp"]["launches"]
@@ -5283,6 +5407,16 @@ def main() -> int:
     phase_launches["tp-faults"] = tp_out["tp-faults"]
     phase_launches["tp-sla"] = tp_out["tp-sla"]
     log(f"[tp] phase took {time.perf_counter() - t0:.1f} s")
+    # any tp: three ranks, where 3 divides no width of nllb600m
+    t0 = time.perf_counter()
+    tp3_out = tp3_phase(card, prompts, {
+        "card": card, "serve_streams": [o.token_ids for o in paged_outs],
+        "gemma_prompts": tp_lm["gemma_prompts"],
+        "gemma_streams": tp_out["tp-lm-dense"]["single_streams"]})
+    phase_launches["tp3"] = {}
+    for tag in ("tp3", "tp3-dense", "tp3-lm"):
+        _add(phase_launches["tp3"], tp3_out[tag]["launches"])
+    log(f"[tp3] phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_launches["dp"], dp_placed, _ = dp_phase(torch, card, prompts, pipe, paged_outs)
     log(f"[dp] phase took {time.perf_counter() - t0:.1f} s")
@@ -5332,7 +5466,8 @@ def main() -> int:
               "tp_audio": phase_launches["tp-audio"], "tp_ssm": phase_launches["tp-ssm"],
               "tp_hybrid": phase_launches["tp-hybrid"], "tp_quant": phase_launches["tp-quant"],
               "tp_spec": phase_launches["tp-spec"], "dp_tp": phase_launches["dp-tp"],
-              "tp_faults": phase_launches["tp-faults"], "tp_sla": phase_launches["tp-sla"]}
+              "tp_faults": phase_launches["tp-faults"], "tp_sla": phase_launches["tp-sla"],
+              "tp3": phase_launches["tp3"]}
     for e in entries:
         if e["name"] == "paged_attn":
             for tag in ("moe", "audio"):
@@ -5346,7 +5481,7 @@ def main() -> int:
         # tp_dense (rank 0), dp, tp_lm (rank 0, paged + dense), tp_qwen,
         # tp_moe, tp_olmoe, tp_audio, tp_ssm, tp_hybrid, tp_quant (the four
         # arms), tp_spec (rank 0), dp_tp (rank 0), tp_faults and tp_sla
-        # (rank 0)
+        # (rank 0), tp3 (rank 0 of 3: [tp3], [tp3-dense] and [tp3-lm])
         for run, counts in by_run.items():
             e[f"launches_{run}"] = counts[e["name"]]
     log(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -5379,6 +5514,8 @@ def main() -> int:
         f"{e['name']}={e['launches_tp_quant']} / {e['launches_tp_spec']}" for e in entries))
     log("kernels in [tp-faults] / [tp-sla] (rank 0 of 2): " + ", ".join(
         f"{e['name']}={e['launches_tp_faults']} / {e['launches_tp_sla']}" for e in entries))
+    log("kernels in [tp3] + [tp3-dense] + [tp3-lm] (rank 0 of 3): " + ", ".join(
+        f"{e['name']}={e['launches_tp3']}" for e in entries))
     keys = ("name", "route", "path", "source", "replaces", "launches", "launches_spec",
             "launches_spec_dense", "launches_faults", "launches_quant", "launches_train",
             "launches_eval", "launches_train_lm", "launches_lm", "launches_lm_gemma", "launches_vlm",
@@ -5387,6 +5524,7 @@ def main() -> int:
             "launches_tp_lm", "launches_tp_qwen", "launches_tp_moe", "launches_tp_olmoe",
             "launches_tp_audio", "launches_tp_ssm", "launches_tp_hybrid", "launches_tp_quant",
             "launches_tp_spec", "launches_dp_tp", "launches_tp_faults", "launches_tp_sla",
+            "launches_tp3",
             "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
             "library_device_ms", "unfused_ms", "unfused_device_ms", "work")

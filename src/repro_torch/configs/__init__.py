@@ -6,7 +6,7 @@ reference registry, in the reference's order.
 from . import (gemma3_1b, internlm2_20b, llava_next_mistral_7b, mamba2_780m,
                moonshot_v1_16b_a3b, nemotron_4_15b, nllb600m, olmoe_1b_7b,
                qwen2_5_14b, recurrentgemma_9b, whisper_base)
-from .base import (ModelConfig, MoECfg, ShapeSpec, SSMCfg, param_count,
+from .base import (ModelConfig, MoECfg, RankConfig, ShapeSpec, SSMCfg, param_count,
                    reduce_config)
 
 REGISTRY = {c.name: c for c in (mamba2_780m.CONFIG, nemotron_4_15b.CONFIG,
@@ -23,5 +23,5 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["get_config", "REGISTRY", "ModelConfig", "MoECfg", "SSMCfg",
+__all__ = ["get_config", "REGISTRY", "ModelConfig", "MoECfg", "RankConfig", "SSMCfg",
            "ShapeSpec", "param_count", "reduce_config"]

@@ -6,7 +6,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["MoECfg", "SSMCfg", "ModelConfig", "ShapeSpec", "reduce_config",
+__all__ = ["MoECfg", "SSMCfg", "ModelConfig", "RankConfig", "ShapeSpec", "reduce_config",
            "param_count"]
 
 
@@ -55,6 +55,17 @@ class ModelConfig:
     local_window: int = 0
     num_patches: int = 0
     source: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """One rank's config on a tensor-parallel group of ``tp`` ranks
+    (``parallel.tp.local_config``): the rank-local widths of every
+    sublayer that splits over the group, and ``replicated``, the sublayer
+    kinds the rank holds whole ("attn", "ffn", "rec" for the RG-LRU,
+    "ssd" for the SSM), which run one device's code with no collective."""
+    tp: int = 1
+    replicated: Tuple[str, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)

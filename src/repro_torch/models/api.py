@@ -1,11 +1,15 @@
 """Unified model facade: one callable surface per architecture family.
 
-build_model(cfg, device, tp=1) -> ModelAPI with
+build_model(cfg, device) -> ModelAPI with
   init(generator | key)              -> params (a key from random.prng_key(seed)
                                         draws the reference's init for that seed)
   forward(ctx, params, batch, remat=False) -> (logits, aux_loss)  (teacher-forced;
                                         remat recomputes each layer in backward)
-  init_cache(batch, max_len, kv)     -> dense prefill cache
+  init_cache(batch, max_len, kv, seq_split=True)
+                                     -> dense prefill cache (a tensor-parallel
+                                        rank's block of the sequence where its
+                                        attention is replicated, layers.seq_rows;
+                                        seq_split=False keeps it whole)
   init_paged_cache(slots, max_pages, num_pages, page_size, kv)
                                      -> block-paged serving cache (attention
                                         families; the SSM and hybrid raise
@@ -85,15 +89,15 @@ def _no_paged_cache(fam: str) -> Callable:
     return init_paged_cache
 
 
-def _lm_model(cfg, device, tp: int = 1) -> ModelAPI:
+def _lm_model(cfg, device) -> ModelAPI:
     def forward(ctx, params, batch, remat=False):
         logits, aux, _ = tf.lm_forward(ctx, params, cfg, _on(device, batch, "tokens"),
                                        img_embeds=_on(device, batch, "img_embeds"),
                                        remat=remat)
         return logits, aux
 
-    def init_cache(batch_size, max_len, kv_dtype="bf16"):
-        return tf.lm_init_cache(cfg, batch_size, max_len, kv_dtype, device, tp)
+    def init_cache(batch_size, max_len, kv_dtype="bf16", seq_split=True):
+        return tf.lm_init_cache(cfg, batch_size, max_len, kv_dtype, device, seq_split)
 
     def prefill(ctx, params, cache, batch, read=None):
         return tf.lm_prefill(ctx, params, cfg, batch["tokens"], cache,
@@ -116,8 +120,8 @@ def _hybrid_model(cfg, device) -> ModelAPI:
     def forward(ctx, params, batch, remat=False):
         return hy.hybrid_forward(ctx, params, cfg, _on(device, batch, "tokens"), remat=remat)
 
-    def init_cache(batch_size, max_len, kv_dtype="bf16"):
-        return hy.hybrid_init_cache(cfg, batch_size, max_len, kv_dtype, device)
+    def init_cache(batch_size, max_len, kv_dtype="bf16", seq_split=True):
+        return hy.hybrid_init_cache(cfg, batch_size, max_len, kv_dtype, device, seq_split)
 
     def prefill(ctx, params, cache, batch, read=None):
         return hy.hybrid_prefill(ctx, params, cfg, batch["tokens"], cache,
@@ -130,13 +134,12 @@ def _hybrid_model(cfg, device) -> ModelAPI:
                     decode_step, _no_paged_cache("hybrid"))
 
 
-def build_model(cfg, device="cuda", tp: int = 1) -> ModelAPI:
-    """The family's ModelAPI on ``device``. ``tp``: the tensor-parallel
-    group size an SSM rank's caches take (its rank-local widths come from
-    the group, not from the config: ``parallel.tp.local_config``); the
-    other families read their local widths from a rank-local config."""
+def build_model(cfg, device="cuda") -> ModelAPI:
+    """The family's ModelAPI on ``device``; a tensor-parallel rank's is
+    built on its rank-local config (``parallel.tp.local_config``), whose
+    widths, ``tp`` and replicated kinds its caches take."""
     if cfg.family in ("dense", "vlm", "moe", "ssm"):
-        return _lm_model(cfg, device, tp)
+        return _lm_model(cfg, device)
     if cfg.family == "hybrid":
         return _hybrid_model(cfg, device)
     if cfg.family not in ("encdec", "audio"):
@@ -150,9 +153,9 @@ def build_model(cfg, device="cuda", tp: int = 1) -> ModelAPI:
                                  src_tokens=_on(device, batch, "src_tokens"),
                                  frames=_on(device, batch, "frames"), remat=remat)
 
-    def init_cache(batch_size, max_len, kv_dtype="bf16", enc_len=None):
+    def init_cache(batch_size, max_len, kv_dtype="bf16", enc_len=None, seq_split=True):
         return ed.encdec_init_cache(cfg, batch_size, max_len,
-                                    enc_len or cfg.enc_len, kv_dtype, device)
+                                    enc_len or cfg.enc_len, kv_dtype, device, seq_split)
 
     def prefill(ctx, params, cache, batch):
         return ed.encdec_prefill(ctx, params, cfg, cache, batch["tgt_in"],

@@ -26,10 +26,10 @@ import torch
 from ..random import split
 from . import moe as moe_mod
 from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, mlp_init,
-                     normal_init, remat as _remat, rms_norm, stack_layers)
+                     normal_init, rank_ctx, remat as _remat, rms_norm, seq_rows, stack_layers)
 from .transformer import (SCALED_KV, _commit_decode_position, _commit_prefill,
                           _dense_kv, _embed_rows, _head, _kv_layout, _kv_leaves, _layer,
-                          _layers, _positions, _scatter_tokens, _self_leaves, paged_attn,
+                          _layers, _positions, _scatter_rows, _self_leaves, paged_attn,
                           paged_view)
 
 __all__ = ["encdec_init", "encdec_encode", "encdec_forward", "encdec_init_cache",
@@ -122,10 +122,11 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens=None, frames=None,
         x = _embed_rows(ctx, params, cfg, src_tokens)
     B, Se, _ = x.shape
     positions = _positions(B, Se, x.device)
+    actx = rank_ctx(ctx, cfg, "attn")
 
     def body(x, lp):
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
-        y, _ = attn_apply(ctx, lp["attn"], h, positions,
+        y, _ = attn_apply(actx, lp["attn"], h, positions,
                           num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                           head_dim=cfg.head_dim, causal=False,
                           rope_theta=cfg.rope_theta, site="enc.attn")
@@ -142,13 +143,14 @@ def encdec_encode(ctx: Ctx, params, cfg, src_tokens=None, frames=None,
 def _dec_layer(ctx, cfg, lp, x, positions, enc_kv):
     """enc_kv = (k, v, enc_positions) precomputed cross K/V. Returns
     (x, aux (None for a dense FFN), (k, v))."""
+    actx = rank_ctx(ctx, cfg, "attn")
     h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
-    y, kv = attn_apply(ctx, lp["attn"], h, positions, num_heads=cfg.num_heads,
+    y, kv = attn_apply(actx, lp["attn"], h, positions, num_heads=cfg.num_heads,
                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                        causal=True, rope_theta=cfg.rope_theta, site="dec.attn")
     x = x + y
     h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-    y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
+    y, _ = attn_apply(actx, lp["cross"], h, positions, num_heads=cfg.num_heads,
                       num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                       causal=False, kv_override=enc_kv, use_rope=False,
                       site="dec.cross")
@@ -160,6 +162,7 @@ def _dec_layer(ctx, cfg, lp, x, positions, enc_kv):
 
 def _cross_kv(ctx, lp, cfg, enc_out):
     """Per-layer cross-attention K/V from the encoder output."""
+    ctx = rank_ctx(ctx, cfg, "attn")
     B, Se, _ = enc_out.shape
     k = ctx.dot(enc_out, lp["cross"]["wk"], site="dec.cross.kv").reshape(
         B, Se, cfg.num_kv_heads, cfg.head_dim)
@@ -197,14 +200,17 @@ def encdec_forward(ctx: Ctx, params, cfg, tgt_tokens, src_tokens=None,
 
 
 def encdec_init_cache(cfg, batch: int, max_len: int, enc_len: int,
-                      kv_dtype: str = "bf16", device="cuda"):
-    """Dense serving cache: self K/V at ``max_len``, cross K/V at ``enc_len``."""
+                      kv_dtype: str = "bf16", device="cuda", seq_split: bool = True):
+    """Dense serving cache: self K/V at ``max_len`` (a rank's block of them
+    under the sequence split, ``seq_rows``, unless ``seq_split`` is off),
+    cross K/V at ``enc_len``, whole."""
     L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     cache = {"pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
              "len": torch.zeros((batch,), dtype=torch.int32, device=device),
              "cross_len": torch.full((batch,), enc_len, dtype=torch.int32, device=device)}
     cache.update(_kv_leaves("cross_", L, batch, enc_len, Hkv, hd, kv_dtype, device))
-    cache.update(_kv_leaves("", L, batch, max_len, Hkv, hd, kv_dtype, device))
+    rows = seq_rows(cfg, max_len) if seq_split else max_len
+    cache.update(_kv_leaves("", L, batch, rows, Hkv, hd, kv_dtype, device))
     return cache
 
 
@@ -231,7 +237,7 @@ def encdec_prefill(ctx: Ctx, params, cfg, cache, tgt_tokens, src_tokens=None,
 
     lens = lengths if lengths is not None else torch.full(
         (B,), Sd, dtype=torch.int32, device=dev)
-    new = _commit_prefill(dict(cache), ks, vs, lens)
+    new = _commit_prefill(dict(cache), ks, vs, lens, ctx)
     layout = _kv_layout(cache)
     if layout != "float":
         _, sfx, qfn = SCALED_KV[layout]
@@ -300,6 +306,8 @@ def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     layout = _kv_layout(cache)
     B = tokens.shape[0]
     positions = cache["len"][:, None]
+    whole = cache["pos"].shape[1]
+    actx = rank_ctx(ctx, cfg, "attn")
     x = _embed_rows(ctx, params, cfg, tokens)
     enc_pos = _enc_positions(cache, B, _cross_len(cache, layout), x.device)
     for i in range(cfg.num_layers):
@@ -311,12 +319,13 @@ def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
             k_dense, v_dense = _dense_kv(*leaves[:2]), _dense_kv(*leaves[2:])
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
         y, k_new, v_new = decode_attn_apply(
-            ctx, lp["attn"], h, positions, k_dense, v_dense, cache["pos"],
+            actx, lp["attn"], h, positions, k_dense, v_dense, cache["pos"],
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, site="dec.attn")
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta, site="dec.attn",
+            group=ctx.tp)
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-        y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
+        y, _ = attn_apply(actx, lp["cross"], h, positions, num_heads=cfg.num_heads,
                           num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                           causal=False, kv_override=(ck, cv, enc_pos),
                           use_rope=False, site="dec.cross")
@@ -329,7 +338,7 @@ def encdec_decode_step(ctx: Ctx, params, cfg, tokens, cache):
             qfn = SCALED_KV[layout][2]
             new = (*qfn(k_new), *qfn(v_new))
         for leaf, t in zip(leaves, new):
-            _scatter_tokens(leaf, t, cache["len"])
+            _scatter_rows(ctx, leaf, t, cache["len"], whole)
     x = rms_norm(x, params["decoder"]["norm_f_scale"], cfg.norm_eps)
     logits = _head(ctx, params, cfg, x)
     return _commit_decode_position(dict(cache), cache, positions), logits
@@ -347,18 +356,19 @@ def encdec_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     enc_pos = _enc_positions(cache, B, _cross_len(cache, layout), x.device)
     use_kernel = ctx.paged_attn_impl == "kernel"
     lengths_now = torch.where(active > 0, cache["len"] + 1, 0)
+    actx = rank_ctx(ctx, cfg, "attn")
     for i in range(cfg.num_layers):
         lp = _layer(params["decoder"]["layers"], i)
         leaves, ck, cv = _layer_kv(cache, i, layout)
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
-        y, _ = paged_attn(ctx, lp["attn"], h, positions, leaves, view_pos, pid,
+        y, _ = paged_attn(actx, lp["attn"], h, positions, leaves, view_pos, pid,
                           off, lengths_now, tables, use_kernel=use_kernel,
                           num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                           head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
                           site="dec.attn")
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
-        y, _ = attn_apply(ctx, lp["cross"], h, positions, num_heads=cfg.num_heads,
+        y, _ = attn_apply(actx, lp["cross"], h, positions, num_heads=cfg.num_heads,
                           num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                           causal=False, kv_override=(ck, cv, enc_pos),
                           use_rope=False, site="dec.cross")

@@ -12,7 +12,9 @@ layers keep a rolling KV buffer of W = min(local_window, max_len) rows:
 a token at position p sits at row p % W, and ``pos_roll`` (B, W) holds
 each row's absolute position (-1 = empty), so the window mask drops
 stale rows by itself. The buffer is bf16 whatever the KV format says,
-as in the reference.
+as in the reference. A tensor-parallel rank whose attention is
+replicated holds its block of the W rows where tp divides W (the
+sequence split, ``layers.seq_rows``); ``pos_roll`` stays whole.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch
 from ..random import split
 from ..tree import map_like
 from .layers import (Ctx, attention_init, attn_apply, decode_attn_apply, draw_sources,
-                     mlp, mlp_init, normal_init, remat as _remat, rms_norm, stack_layers)
+                     mlp, mlp_init, normal_init, rank_ctx, remat as _remat, rms_norm,
+                     seq_block, seq_rows, stack_layers)
 from .rglru import rglru_apply, rglru_decode_step, rglru_init, rglru_init_state
-from .transformer import _embed, _layer, _layers, _lm_head, _positions
+from .transformer import _embed, _layer, _layers, _lm_head, _positions, _scatter_rows
 
 __all__ = ["hybrid_init", "hybrid_forward", "hybrid_init_cache", "hybrid_prefill",
            "hybrid_decode_step", "hybrid_layout"]
@@ -105,8 +108,8 @@ def hybrid_init(g, cfg):
 
 
 def _mlp_residual(ctx: Ctx, cfg, bp, x):
-    return x + mlp(ctx, bp["mlp"], rms_norm(x, bp["norm_m_scale"], cfg.norm_eps),
-                   cfg.mlp_act)
+    h = rms_norm(x, bp["norm_m_scale"], cfg.norm_eps)
+    return x + mlp(rank_ctx(ctx, cfg, "ffn"), bp["mlp"], h, cfg.mlp_act)
 
 
 def _residual_mixer(ctx: Ctx, cfg, bp, x, positions, kind: str, state=None):
@@ -115,10 +118,12 @@ def _residual_mixer(ctx: Ctx, cfg, bp, x, positions, kind: str, state=None):
     new (conv, h) or the attention layer's (k, v))."""
     h = rms_norm(x, bp["norm_t_scale"], cfg.norm_eps)
     if kind == "rglru":
-        y, out = rglru_apply(ctx, bp["rglru"], h, state, return_state=True)
+        y, out = rglru_apply(rank_ctx(ctx, cfg, "rec"), bp["rglru"], h, state,
+                             return_state=True)
     else:
-        y, out = attn_apply(ctx, bp["attn"], h, positions, num_heads=cfg.num_heads,
-                            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        y, out = attn_apply(rank_ctx(ctx, cfg, "attn"), bp["attn"], h, positions,
+                            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                            head_dim=cfg.head_dim,
                             causal=True, window=cfg.local_window,
                             rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
     return _mlp_residual(ctx, cfg, bp, x + y), out
@@ -154,14 +159,16 @@ def hybrid_forward(ctx: Ctx, params, cfg, tokens, remat: bool = False):
 # ---------------------------------------------------------------------------
 
 def hybrid_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16",
-                      device="cuda"):
+                      device="cuda", seq_split: bool = True):
     """The serving cache. ``kv_dtype`` is accepted and ignored: the
     rolling K/V are bf16, as in the reference. A rank-local config
     (``parallel.tp.local_config``) gives a rank's ``d_rec / tp`` states
-    and the one KV head its query heads read."""
+    and the one KV head its query heads read, or its block of the W rows
+    (``seq_rows``, unless ``seq_split`` is off)."""
     n_super, tail = hybrid_layout(cfg)
     W = min(cfg.local_window, max_len)
-    kv = (n_super, batch, W, cfg.num_kv_heads, cfg.head_dim)
+    kv = (n_super, batch, seq_rows(cfg, W) if seq_split else W, cfg.num_kv_heads,
+          cfg.head_dim)
 
     def states(n):
         return tuple(t.expand(n, *t.shape).clone()
@@ -179,11 +186,15 @@ def hybrid_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16",
     return cache
 
 
-def _roll_slots(S: int, W: int, device):
+def _roll_slots(S: int, W: int, lo: int, rows: int, device):
     """Rolling-buffer fill for a prompt of length S: (source rows,
-    destination slots); a prompt longer than W keeps its last W rows."""
-    src = torch.arange(max(S - W, 0), S, device=device)
-    return src, src % W
+    destination rows); a prompt longer than W keeps its last W rows, at
+    slot p % W. A cache holding ``rows`` of the W slots from ``lo`` (a
+    rank's block, or all W from 0) keeps the sources whose slot falls
+    there, at their slot's row of it."""
+    src = torch.arange(max(S - W, 0), S)
+    src = src[(src % W >= lo) & (src % W < lo + rows)]
+    return src.to(device), (src % W - lo).to(device)
 
 
 def _put_state(cache, conv_key, h_key, i, st):
@@ -203,10 +214,10 @@ def hybrid_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, read=None
     gathers (``transformer._head``)."""
     B, S = tokens.shape
     n_super, tail = hybrid_layout(cfg)
-    W = cache["b_k"].shape[2]
+    W, rows = cache["pos_roll"].shape[1], cache["b_k"].shape[2]
     x = _embed(ctx, params, cfg, tokens)
     positions = _positions(B, S, x.device)
-    src, dst = _roll_slots(S, W, x.device)
+    src, dst = _roll_slots(S, W, seq_block(ctx.tp, rows, W), rows, x.device)
     cache = dict(cache)
     for i in range(n_super):
         bp = _layer(params["blocks"], i)
@@ -223,7 +234,8 @@ def hybrid_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, read=None
                                 "rglru", (cache["t_conv"][i], cache["t_h"][i]))
         _put_state(cache, "t_conv", "t_h", i, st)
     cache["pos_roll"][:] = -1
-    cache["pos_roll"][:, dst] = src.to(torch.int32)
+    keep = torch.arange(max(S - W, 0), S, device=x.device)
+    cache["pos_roll"][:, keep % W] = keep.to(torch.int32)
     cache["len"] = lengths if lengths is not None else torch.full(
         (B,), S, dtype=torch.int32, device=x.device)
     return cache, _lm_head(ctx, params, cfg, x, read)
@@ -231,7 +243,8 @@ def hybrid_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, read=None
 
 def _rglru_step(ctx: Ctx, cfg, bp, x, cache, conv_key, h_key, i):
     h = rms_norm(x, bp["norm_t_scale"], cfg.norm_eps)
-    y, st = rglru_decode_step(ctx, bp["rglru"], h, (cache[conv_key][i], cache[h_key][i]))
+    y, st = rglru_decode_step(rank_ctx(ctx, cfg, "rec"), bp["rglru"], h,
+                              (cache[conv_key][i], cache[h_key][i]))
     _put_state(cache, conv_key, h_key, i, st)
     return _mlp_residual(ctx, cfg, bp, x + y)
 
@@ -242,10 +255,11 @@ def hybrid_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     place."""
     B = tokens.shape[0]
     n_super, tail = hybrid_layout(cfg)
-    W = cache["b_k"].shape[2]
+    W = cache["pos_roll"].shape[1]
     positions = cache["len"][:, None]
     rows = torch.arange(B, device=positions.device)
     slot = (cache["len"] % W).long()
+    actx = rank_ctx(ctx, cfg, "attn")
     x = _embed(ctx, params, cfg, tokens)
     for i in range(n_super):
         bp = _layer(params["blocks"], i)
@@ -254,13 +268,14 @@ def hybrid_decode_step(ctx: Ctx, params, cfg, tokens, cache):
         at = bp["at"]
         h = rms_norm(x, at["norm_t_scale"], cfg.norm_eps)
         y, k_new, v_new = decode_attn_apply(
-            ctx, at["attn"], h, positions, cache["b_k"][i], cache["b_v"][i],
+            actx, at["attn"], h, positions, cache["b_k"][i], cache["b_v"][i],
             cache["pos_roll"], num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, window=cfg.local_window, rope_theta=cfg.rope_theta,
-            norm_eps=cfg.norm_eps)
+            norm_eps=cfg.norm_eps, group=ctx.tp)
         x = _mlp_residual(ctx, cfg, at, x + y)
-        cache["b_k"][i][rows, slot] = k_new[:, 0].to(torch.bfloat16)
-        cache["b_v"][i][rows, slot] = v_new[:, 0].to(torch.bfloat16)
+        # slot len % W in [0, W): _scatter_rows' clamp leaves it be
+        _scatter_rows(ctx, cache["b_k"][i], k_new, slot, W)
+        _scatter_rows(ctx, cache["b_v"][i], v_new, slot, W)
     for i in range(tail):
         x = _rglru_step(ctx, cfg, _layer(params["tail"], i), x, cache, "t_conv", "t_h", i)
     logits = _lm_head(ctx, params, cfg, x)

@@ -22,8 +22,9 @@ from ..kernels.fasst import _naf
 from ..kernels.qmm import DECODE_MAX_M
 from ..random import normal, split
 
-__all__ = ["Ctx", "rms_norm", "rope", "linear", "mlp", "fuses_naf", "attn_apply",
-           "decode_attn_apply", "GLU_ACTS", "PLAIN_ACTS", "normal_init", "draw_sources",
+__all__ = ["Ctx", "rank_ctx", "seq_rows", "seq_block", "rms_norm", "rope", "linear", "mlp",
+           "fuses_naf", "attn_apply", "decode_attn_apply", "GLU_ACTS", "PLAIN_ACTS",
+           "normal_init", "draw_sources",
            "stack_layers", "remat", "attention_init", "mlp_init"]
 
 _MATMUL_IMPLS = ("torch", "kernel")
@@ -64,9 +65,11 @@ class Ctx:
                      product is the whole row's: the ranks' absmax
                      reduced by max. Static scales, column-parallel sites
                      and the x<fmt> attention operands (quantized along
-                     head_dim or one head's keys, whole on the rank) need
-                     no collective. None on one device. Not part of eq /
-                     hash.
+                     head_dim or one head's keys, whole on the rank; but
+                     see ``decode_attn_apply``'s sequence split) need no
+                     collective. A sublayer the rank holds whole runs
+                     under ``solo`` (``rank_ctx``). None on one device.
+                     Not part of eq / hash.
     """
     compute_dtype: Any = torch.bfloat16
     act_fmt: str = "bf16"
@@ -93,6 +96,12 @@ class Ctx:
     @functools.cached_property
     def _device_scales(self):
         return {}
+
+    @functools.cached_property
+    def solo(self) -> "Ctx":
+        """This ctx without the group: one device's code, no collective
+        (made once, so its static scales upload once)."""
+        return dataclasses.replace(self, tp=None)
 
     def scale_for(self, site, device):
         """Calibrated static activation scale of a matmul site, as a
@@ -127,23 +136,28 @@ class Ctx:
                        impl=self.matmul_impl, naf=naf, act_scale=scale,
                        reduce=self.tp.all_reduce if split else None)
 
-    def _attn_fq(self, x, site):
+    def _attn_fq(self, x, site, group=None):
         """Fake-quantize one f32 attention operand at the attention format:
         observe its absmax when calibrating, quantize at the site's static
-        scale (or per token), widen back to f32."""
+        scale (or per token), widen back to f32. ``group``: the rows'
+        last axis is split over its ranks, so a dynamic scale is the whole
+        row's, the ranks' absmax reduced by max."""
         if self.act_collector is not None:
             self.act_collector.observe(site, x)
-        codes, scale = quantize_activations(x, fmt=self.attn_act_fmt,
-                                            scale=self.scale_for(site, x.device))
+        scale = self.scale_for(site, x.device)
+        if scale is None and group is not None:
+            scale = token_scale(group.all_max(token_absmax(x)), self.attn_act_fmt)
+        codes, scale = quantize_activations(x, fmt=self.attn_act_fmt, scale=scale)
         return codes.to(torch.float32) * scale
 
-    def attn_dot(self, subscripts, a, b, site=None):
+    def attn_dot(self, subscripts, a, b, site=None, a_group=None):
         """QK / PV attention einsum with f32 accumulation. A quantized
         attention format fake-quantizes BOTH operands (sites "{site}.a" /
-        "{site}.b") and contracts in f32."""
+        "{site}.b") and contracts in f32; ``a_group``: ``a``'s last axis
+        is split over that group's ranks (``_attn_fq``)."""
         if self.attn_act_fmt == "bf16":
             return torch.einsum(subscripts, a.to(torch.float32), b.to(torch.float32))
-        af = self._attn_fq(a.to(torch.float32), f"{site}.a")
+        af = self._attn_fq(a.to(torch.float32), f"{site}.a", a_group)
         bf = self._attn_fq(b.to(torch.float32), f"{site}.b")
         return torch.einsum(subscripts, af, bf)
 
@@ -152,6 +166,36 @@ class Ctx:
             from ..kernels import ops as kops
             return kops.fasst(x, mode)
         return _naf(x.to(torch.float32), mode).to(x.dtype)
+
+
+def rank_ctx(ctx: Ctx, cfg, kind: str) -> Ctx:
+    """The ctx a sublayer of ``kind`` ("attn", "ffn", "rec", "ssd") runs
+    under: ``ctx`` where it splits over ``ctx.tp``, ``ctx.solo`` where
+    the rank holds it whole (``cfg.replicated``, a rank's
+    ``configs.RankConfig``), so a replicated sublayer takes no
+    collective."""
+    if ctx.tp is None or kind not in getattr(cfg, "replicated", ()):
+        return ctx
+    return ctx.solo
+
+
+def seq_rows(cfg, S: int) -> int:
+    """The rows of an ``S``-row dense self-attention cache a rank holds:
+    ``S / tp`` where the rank's attention is replicated and tp divides S
+    (the sequence split: rank r holds rows ``[r S/tp, (r+1) S/tp)``), else
+    all S."""
+    tp = getattr(cfg, "tp", 1)
+    if "attn" in getattr(cfg, "replicated", ()) and S % tp == 0:
+        return S // tp
+    return S
+
+
+def seq_block(group, rows: int, whole: int) -> int:
+    """The first row of ``group``'s rank's block of a dense cache of
+    ``whole`` positions whose leaves hold ``rows`` (``seq_rows``): 0
+    where the cache is whole. Every writer of a split cache and its
+    attention read take their rows from here."""
+    return 0 if rows == whole else group.rank * rows
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -367,7 +411,7 @@ def attn_apply(ctx: Ctx, params, x, positions, *, num_heads, num_kv_heads,
 
 def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
                       cache_positions, *, num_heads, num_kv_heads, head_dim,
-                      window=0, rope_theta=1e4, norm_eps=1e-6, site="attn"):
+                      window=0, rope_theta=1e4, norm_eps=1e-6, site="attn", group=None):
     """One-token decode against a dense (dequantized) KV view.
 
     x (B, 1, d); cache_k/v (B, Smax, Hkv, hd); cache_positions (B, Smax)
@@ -375,6 +419,15 @@ def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
     combine. Both QK products share the "{site}.qk" site and the cache's
     PV product is "{site}.pv"; the fresh token's PV term is an
     elementwise f32 product, not a matmul, so it stays unquantized.
+
+    The sequence split: where cache_k / cache_v hold this rank's block of
+    rows (fewer than ``cache_positions``' Smax, ``seq_rows``), the rank
+    of ``group`` attends its block and the ranks' partials combine: the
+    max over the ranks' cache maxima and the fresh score first, then one
+    sum of each rank's packed (denominator, PV), the fresh token's term
+    added once after it. An x<fmt> slot's dynamic PV scale is the whole
+    row's (``a_group``). A block with no valid position gives exact
+    zeros (its masked scores sit at -1e30 under a finite max).
     Returns (y, new_k_token, new_v_token).
     """
     B = x.shape[0]
@@ -390,6 +443,11 @@ def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
     q = rope(q, positions, rope_theta)
     k_new = rope(k_new, positions, rope_theta)
 
+    rows = cache_k.shape[1]
+    split = rows != cache_positions.shape[1]
+    if split:
+        lo = seq_block(group, rows, cache_positions.shape[1])
+        cache_positions = cache_positions[:, lo:lo + rows]
     qg = q.reshape(B, 1, Hkv, H // Hkv, head_dim)
     sm_scale = head_dim ** -0.5
     cd = qg.dtype
@@ -399,15 +457,23 @@ def decode_attn_apply(ctx: Ctx, params, x, positions, cache_k, cache_v,
     s_cache = torch.where(mask[:, None, None, :, :], s_cache, -1e30)
     s_new = ctx.attn_dot("bqhgd,bqhd->bhgq", qg, k_new.to(cd),
                          site=f"{site}.qk")[..., None] * sm_scale
-    m = torch.maximum(s_cache.amax(dim=-1, keepdim=True), s_new)
+    m_cache = s_cache.amax(dim=-1, keepdim=True)
+    if split:
+        m_cache = group.all_max(m_cache)
+    m = torch.maximum(m_cache, s_new)
     e_cache = torch.exp(s_cache - m)                        # (B,Hkv,G,1,S)
     e_new = torch.exp(s_new - m)                            # (B,Hkv,G,1,1)
-    denom = e_cache.sum(dim=-1, keepdim=True) + e_new
+    denom = e_cache.sum(dim=-1, keepdim=True)
     out = ctx.attn_dot("bhgqk,bkhd->bqhgd", e_cache.to(cd), cache_v.to(cd),
-                       site=f"{site}.pv")
+                       site=f"{site}.pv", a_group=group if split else None)
+    if split:
+        # one sum of the packed partials: PV (B, 1, Hkv, G, hd) and the
+        # denominators (B, Hkv, G, 1, 1) side by side on the last axis
+        packed = group.all_reduce(torch.cat([out, denom.permute(0, 3, 1, 2, 4)], dim=-1))
+        out, denom = packed[..., :-1], packed[..., -1:].permute(0, 2, 3, 1, 4)
+    denom = denom + e_new
     out = out + e_new.permute(0, 3, 1, 2, 4) * v_new[:, :, :, None, :].to(torch.float32)
     out = out / denom.permute(0, 3, 1, 2, 4)
     y = ctx.dot(out.to(cd).reshape(B, 1, H * head_dim), params["wo"],
                 site=f"{site}.out")
     return y, k_new, v_new
-

@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from ..core.qtensor import maybe_dequantize
-from .layers import GLU_ACTS, Ctx, draw_sources, mlp, normal_init
+from .layers import GLU_ACTS, Ctx, draw_sources, mlp, normal_init, rank_ctx
 
 __all__ = ["moe_init", "moe_apply", "route", "capacity", "layer_ffn"]
 
@@ -204,9 +204,10 @@ def moe_apply(ctx: Ctx, params, x, *, top_k: int, capacity_factor: float = 1.25,
 def layer_ffn(ctx: Ctx, cfg, lp, h, site: str = "ffn", dropless: bool = False):
     """A layer's FFN: (y, aux). An MoE layer (``cfg.moe``) dispatches
     with capacity, or dropless (the decode steps); a dense FFN's aux is
-    None."""
+    None (a rank holding it whole runs it with no collective,
+    ``rank_ctx``)."""
     if cfg.moe is None:
-        return mlp(ctx, lp["mlp"], h, cfg.mlp_act, site=site), None
+        return mlp(rank_ctx(ctx, cfg, "ffn"), lp["mlp"], h, cfg.mlp_act, site=site), None
     m = cfg.moe
     return moe_apply(ctx, lp["moe"], h, top_k=m.top_k, capacity_factor=m.capacity_factor,
                      act=cfg.mlp_act, parallel_mode=m.parallel_mode, dropless=dropless,

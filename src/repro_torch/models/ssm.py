@@ -36,6 +36,12 @@ def _tp(ctx: Ctx) -> int:
     return ctx.tp.size if ctx.tp is not None else 1
 
 
+def ssd_ranks(cfg) -> int:
+    """The ranks an SSM's SSD heads split over: a rank-local config's
+    (``configs.RankConfig``) ``tp``, 1 where the rank holds them whole."""
+    return 1 if "ssd" in getattr(cfg, "replicated", ()) else getattr(cfg, "tp", 1)
+
+
 def _dims(d_model, ssm_cfg, tp: int = 1):
     """(d_inner, SSD heads, state dim, conv channels, in_proj width), the
     rank-local ones on a group of ``tp`` ranks (layout (e))."""

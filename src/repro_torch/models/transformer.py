@@ -35,12 +35,12 @@ from ..random import split
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (Ctx, _qk_norm, attention_init, attn_apply, decode_attn_apply,
-                     linear, mlp_init, normal_init, remat as _remat, rms_norm, rope,
-                     stack_layers)
+                     linear, mlp_init, normal_init, rank_ctx, remat as _remat, rms_norm,
+                     rope, seq_block, seq_rows, stack_layers)
 
 __all__ = ["paged_view", "paged_attn", "SCALED_KV", "_quantize_token_kv",
            "_fp8_token_kv", "_token_kv_quantizer", "_dense_kv", "_scatter_tokens",
-           "_commit_decode_position", "window_array", "lm_init", "lm_forward",
+           "_scatter_rows", "_commit_decode_position", "window_array", "lm_init", "lm_forward",
            "lm_init_cache", "lm_init_paged_cache", "lm_prefill", "lm_decode_step",
            "lm_paged_decode_step"]
 
@@ -143,12 +143,21 @@ def _self_leaves(cache, i: int, layout: str):
             cache[f"v{sfx}"][i], cache["v_scales"][i])
 
 
-def _commit_prefill(cache, ks, vs, lens):
+def _commit_prefill(cache, ks, vs, lens, ctx):
     """Write a prompt's layer-stacked K/V (L, B, S, Hkv, hd) into the
     dense cache's first S positions (quantized on int8 / fp8 caches), in
-    place, with its positions (-1 past each length) and lengths."""
+    place, with its positions (-1 past each length) and lengths. A rank
+    holding a block of the cache's rows (``seq_rows``) writes the part of
+    the prompt that falls in it (``ctx.tp``'s rank)."""
     B, S = ks.shape[1], ks.shape[2]
     layout = _kv_layout(cache)
+    rows = (cache["k_codes"] if layout == "int8" else cache["k"]).shape[2]
+    lo = seq_block(ctx.tp, rows, cache["pos"].shape[1])
+    n = max(0, min(S, lo + rows) - lo)
+    positions = _positions(B, S, ks.device)
+    cache["pos"][:, :S] = torch.where(positions < lens[:, None], positions, -1)
+    cache["len"] = lens.to(torch.int32)
+    ks, vs, S = ks[:, :, lo:lo + n], vs[:, :, lo:lo + n], n
     if layout != "float":
         _, sfx, qfn = SCALED_KV[layout]
         for name, t in (("k", ks), ("v", vs)):
@@ -158,9 +167,6 @@ def _commit_prefill(cache, ks, vs, lens):
     else:
         cache["k"][:, :, :S] = ks.to(cache["k"].dtype)
         cache["v"][:, :, :S] = vs.to(cache["v"].dtype)
-    positions = _positions(B, S, ks.device)
-    cache["pos"][:, :S] = torch.where(positions < lens[:, None], positions, -1)
-    cache["len"] = lens.to(torch.int32)
     return cache
 
 
@@ -317,6 +323,23 @@ def _scatter_tokens(cache, new, lens):
     return cache
 
 
+def _scatter_rows(ctx, leaf, new, lens, whole: int):
+    """``_scatter_tokens`` of one fresh token a row, ``new`` (B, 1, ...),
+    into a dense cache leaf (B, rows, ...) of ``whole`` positions. A rank
+    holding a block of the rows (``seq_rows``) writes the rows whose
+    position falls in its block and keeps the others, with no host sync
+    (a masked write, where a boolean index would wait for the device)."""
+    rows = leaf.shape[1]
+    if rows == whole:
+        return _scatter_tokens(leaf, new, lens)
+    at = torch.clamp(lens.long(), 0, whole - 1) - seq_block(ctx.tp, rows, whole)
+    own = ((at >= 0) & (at < rows)).view((-1,) + (1,) * (new.dim() - 2))
+    b = torch.arange(leaf.shape[0], device=leaf.device)
+    at = at.clamp(0, rows - 1)
+    leaf[b, at] = torch.where(own, new[:, 0].to(leaf.dtype), leaf[b, at])
+    return leaf
+
+
 def _commit_decode_position(new_cache, cache, positions):
     """Dense-cache epilogue of one decode step: record the written
     position and advance per-slot lengths, honoring an optional
@@ -418,6 +441,7 @@ def _lm_head(ctx: Ctx, params, cfg, x, read=None):
 def _ssm_layer(ctx: Ctx, cfg, lp, x, state=None):
     """x + SSD(norm(x)) from the zero SSD state; with ``state`` (the
     cache's conv state) also returns the new (conv, SSD) states."""
+    ctx = rank_ctx(ctx, cfg, "ssd")
     h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
     if state is None:
         return x + ssm_mod.ssm_apply(ctx, lp["ssm"], h, d_model=cfg.d_model,
@@ -429,7 +453,8 @@ def _ssm_layer(ctx: Ctx, cfg, lp, x, state=None):
 
 def _lm_layer(ctx: Ctx, cfg, lp, window, x, positions):
     h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
-    y, kv = attn_apply(ctx, lp["attn"], h, positions, num_heads=cfg.num_heads,
+    y, kv = attn_apply(rank_ctx(ctx, cfg, "attn"), lp["attn"], h, positions,
+                       num_heads=cfg.num_heads,
                        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                        causal=True, window=window, rope_theta=cfg.rope_theta,
                        norm_eps=cfg.norm_eps)
@@ -473,20 +498,23 @@ def lm_forward(ctx: Ctx, params, cfg, tokens, positions=None, img_embeds=None,
 
 
 def lm_init_cache(cfg, batch: int, max_len: int, kv_dtype: str = "bf16", device="cuda",
-                  tp: int = 1):
-    """Dense serving cache: K/V at ``max_len`` per slot, ``pos`` -1 where
-    empty, ``len`` per slot; an SSM's recurrent states (a rank's widths
-    on a group of ``tp``) and ``len``."""
+                  seq_split: bool = True):
+    """Dense serving cache: K/V at ``max_len`` per slot (a rank's block of
+    them under the sequence split, ``seq_rows``, unless ``seq_split`` is
+    off), ``pos`` -1 where empty, ``len`` per slot; an SSM's recurrent
+    states (a rank's widths, ``ssm.ssd_ranks``) and ``len``."""
     _check_family(cfg)
     if cfg.family == "ssm":
-        conv, ssd = ssm_mod.ssm_init_state(batch, cfg.d_model, cfg.ssm, device, tp)
+        conv, ssd = ssm_mod.ssm_init_state(batch, cfg.d_model, cfg.ssm, device,
+                                           ssm_mod.ssd_ranks(cfg))
         L = cfg.num_layers
         return {"conv": conv.expand(L, *conv.shape).clone(),
                 "ssd": ssd.expand(L, *ssd.shape).clone(),
                 "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
     cache = {"pos": torch.full((batch, max_len), -1, dtype=torch.int32, device=device),
              "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    cache.update(_kv_leaves("", cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+    rows = seq_rows(cfg, max_len) if seq_split else max_len
+    cache.update(_kv_leaves("", cfg.num_layers, batch, rows, cfg.num_kv_heads,
                             cfg.head_dim, kv_dtype, device))
     return cache
 
@@ -537,7 +565,7 @@ def lm_prefill(ctx: Ctx, params, cfg, tokens, cache, lengths=None, img_embeds=No
     B, S_tot = ks.shape[1], ks.shape[2]
     lens = lengths if lengths is not None else torch.full(
         (B,), S_tot, dtype=torch.int32, device=ks.device)
-    return _commit_prefill(dict(cache), ks, vs, lens), logits
+    return _commit_prefill(dict(cache), ks, vs, lens, ctx), logits
 
 
 def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
@@ -554,6 +582,8 @@ def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
         return _ssm_decode_step(ctx, params, cfg, tokens, cache)
     layout = _kv_layout(cache)
     positions = cache["len"][:, None]
+    whole = cache["pos"].shape[1]
+    actx = rank_ctx(ctx, cfg, "attn")
     x = _embed(ctx, params, cfg, tokens)
     for i, window in enumerate(window_array(cfg)):
         lp = _layer(params["layers"], i)
@@ -564,10 +594,10 @@ def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
             k_dense, v_dense = _dense_kv(*leaves[:2]), _dense_kv(*leaves[2:])
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
         y, k_new, v_new = decode_attn_apply(
-            ctx, lp["attn"], h, positions, k_dense, v_dense, cache["pos"],
+            actx, lp["attn"], h, positions, k_dense, v_dense, cache["pos"],
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, window=window, rope_theta=cfg.rope_theta,
-            norm_eps=cfg.norm_eps)
+            norm_eps=cfg.norm_eps, group=ctx.tp)
         x = x + y
         h = rms_norm(x, lp["norm2_scale"], cfg.norm_eps)
         x = x + moe_mod.layer_ffn(ctx, cfg, lp, h, dropless=True)[0]
@@ -577,7 +607,7 @@ def lm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
             qfn = SCALED_KV[layout][2]
             new = (*qfn(k_new), *qfn(v_new))
         for leaf, t in zip(leaves, new):
-            _scatter_tokens(leaf, t, cache["len"])
+            _scatter_rows(ctx, leaf, t, cache["len"], whole)
     logits = _lm_head(ctx, params, cfg, x)
     return _commit_decode_position(dict(cache), cache, positions), logits
 
@@ -586,11 +616,12 @@ def _ssm_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     """One recurrent step of every SSM layer; the new states are written
     into the cache in place (the conv state cast to its bf16 leaf)."""
     x = _embed(ctx, params, cfg, tokens)
+    sctx = rank_ctx(ctx, cfg, "ssd")
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
         y, (conv, ssd) = ssm_mod.ssm_decode_step(
-            ctx, lp["ssm"], h, (cache["conv"][i], cache["ssd"][i]), d_model=cfg.d_model,
+            sctx, lp["ssm"], h, (cache["conv"][i], cache["ssd"][i]), d_model=cfg.d_model,
             ssm_cfg=cfg.ssm)
         x = x + y
         cache["conv"][i] = conv.to(cache["conv"].dtype)
@@ -612,10 +643,11 @@ def lm_paged_decode_step(ctx: Ctx, params, cfg, tokens, cache):
     # reference's own rule, not a fallback: its paged step does the same.
     use_kernel = ctx.paged_attn_impl == "kernel" and not cfg.window_pattern
     lengths_now = torch.where(active > 0, cache["len"] + 1, 0)
+    actx = rank_ctx(ctx, cfg, "attn")
     for i, window in enumerate(window_array(cfg)):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1_scale"], cfg.norm_eps)
-        y, _ = paged_attn(ctx, lp["attn"], h, positions, _self_leaves(cache, i, layout),
+        y, _ = paged_attn(actx, lp["attn"], h, positions, _self_leaves(cache, i, layout),
                           view_pos, pid, off, lengths_now, tables, use_kernel=use_kernel,
                           num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                           head_dim=cfg.head_dim, window=window,

@@ -69,18 +69,34 @@ ranks:
   ``.out`` site's.
 
 KV heads. Where tp divides ``Hkv`` a rank keeps ``Hkv / tp`` of them.
-Where ``Hkv`` divides tp (gemma3's one KV head at any tp, the reduced
-configs' one KV head) each rank keeps the one KV head its query heads
-read, and ``tp / Hkv`` ranks hold a copy of it: rank r's query heads
-``[r H/tp, (r+1) H/tp)`` lie in one GQA group (``G = H / Hkv`` is a
+Where ``Hkv`` divides tp (gemma3's one KV head at tp2 and tp4, the
+reduced configs' one KV head) each rank keeps the one KV head its query
+heads read, and ``tp / Hkv`` ranks hold a copy of it: rank r's query
+heads ``[r H/tp, (r+1) H/tp)`` lie in one GQA group (``G = H / Hkv`` is a
 multiple of ``H / tp``), the group of KV head ``r // (tp / Hkv)``
 (``parallel.sharding`` layout (d)). Attention then runs unchanged on the
-local model with no collective, and the result is exact. The reference's
-GSPMD layout splits such a dense cache's sequence (a paged pool's head
-dim) instead; the port does not, since its gate is the streams and the
-sequence split would add a cross-rank softmax combine to every layer.
-Any other ``Hkv`` (neither divides the other) raises, naming the later
-slice that brings the sequence split.
+local model with no collective, and the result is exact.
+
+Any tp. Each sublayer splits where tp divides its width and is
+replicated otherwise (``local_config``, the reference's rule of
+splitting what the mesh divides): the attention where tp divides H and
+``Hkv`` and tp divide one another, the FFN where tp divides ``d_ff``,
+the RG-LRU where it divides ``d_rec``, the SSM where it divides the SSD
+heads, the experts where it divides E. A rank holds a replicated
+sublayer's weights whole (their scales, biases and adapters with them)
+and runs it as one device does, under a ctx without the group
+(``models.layers.rank_ctx``), so it takes no collective. A replicated
+attention's dense self-attention cache splits its sequence instead,
+where tp divides the cache's S (``max_len``; a hybrid's rolling buffer
+W), as the reference's ``cache_shardings`` does: rank r holds rows
+``[r S/tp, (r+1) S/tp)`` of every K/V leaf (``pos``, ``len`` and
+``pos_roll`` stay whole), writes only those, and a decode step combines
+the ranks' softmax partials (``models.layers.decode_attn_apply``): the
+max over the ranks, then one sum of the packed denominators and PV
+products, 2 collectives a layer (3 with an x<fmt> slot's dynamic PV
+scale). Where tp does not divide S, the cache is whole on every rank.
+A replicated attention's cross-attention cache and paged pool stay
+whole (ROADMAP.md, queue 3).
 
 After the gather every rank holds logits with the same bits, so the
 sampler, retirement on eos or length, paging, preemption, admission
@@ -104,16 +120,18 @@ logits, the same bits on every rank.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Optional
 
 import torch
 
+from ..configs.base import ModelConfig, RankConfig
 from ..core.qlinear import embed_lookup
-from ..unported import later
+from ..models.ssm import ssd_ranks
 from .sharding import param_specs, shard_tree
 
 __all__ = ["TPGroup", "tp_engine_parts", "shard_params", "refuse_under_mesh", "local_config",
-           "kv_replicas", "experts_per_rank", "ssd_heads"]
+           "replicated_kinds", "kv_replicas", "experts_per_rank", "ssd_heads"]
 
 
 class TPGroup:
@@ -204,30 +222,16 @@ _MESH_FAMILIES = ("encdec", "audio", "dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def refuse_under_mesh(cfg, *, tp: Optional[int] = None) -> None:
-    """Raise, naming the later slice, for what a mesh does not serve yet:
-    a family the registry does not know, a width that ``tp`` does not
-    divide (heads, FFN, RG-LRU channels, SSD heads) and a KV-head count
-    that neither divides ``tp`` nor is divided by it (when ``tp`` is
-    given: the reference's sequence split). The shard-first deploy is
-    the other part left to slice 6. Every quantization arm serves
-    (act-quantizing specs, the x<fmt> attention slot, calibration, QLoRA
-    adapters, a draft arm), and so does every arm that reads a clock
-    (SLA admission, fault injection, deadlines: rank 0's clock decides,
-    through the engine's control channel)."""
+    """Raise ValueError for what no mesh serves: a family the registry
+    does not know, or a group of fewer than one rank. Every family serves
+    at every tp (``local_config``), with every quantization arm and every
+    arm that reads a clock (rank 0's clock decides, through the engine's
+    control channel)."""
     if cfg.family not in _MESH_FAMILIES:
-        raise later(f"a tensor-parallel mesh for {cfg.name} ({cfg.family}): the port "
-                    "shards the text and audio enc-decs and the dense, VLM, MoE, SSM and "
-                    "hybrid LM families", 6)
-    if tp is not None:
-        local_config(cfg, tp)
-
-
-def kv_replicas(cfg, tp: int) -> int:
-    """How many ranks hold a copy of each KV head: 1 where tp divides
-    ``Hkv`` (each rank its ``Hkv / tp``), ``tp / Hkv`` where ``Hkv``
-    divides tp (each rank the one head its query heads read)."""
-    hkv = cfg.num_kv_heads
-    return tp // hkv if hkv < tp and tp % hkv == 0 else 1
+        raise ValueError(f"a tensor-parallel mesh for {cfg.name}: unknown family "
+                         f"{cfg.family!r}, a mesh serves {_MESH_FAMILIES}")
+    if tp is not None and tp < 1:
+        raise ValueError(f"a tensor-parallel group needs at least one rank, got tp{tp}")
 
 
 def ssd_heads(cfg) -> int:
@@ -236,36 +240,59 @@ def ssd_heads(cfg) -> int:
     return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
 
 
-def local_config(cfg, tp: int):
-    """The rank-local config: query heads and FFN width over ``tp``; KV
-    heads over ``tp``, or the one KV head a rank's query heads read
-    where ``Hkv`` divides tp (the module docstring). An MoE config keeps
-    ``d_ff`` whole (every FFN is an expert, and experts are not split by
-    width) and ``moe.num_experts`` global (the router reads all E). A
-    hybrid's ``d_rec`` splits too. An SSM config comes back as it is:
-    its SSD heads must split over ``tp``, and the rank-local widths come
-    from the group (``models.ssm._dims``, ``build_model(tp=)``), since
-    the config's fields mirror the reference's."""
+def replicated_kinds(cfg, tp: int) -> tuple:
+    """The sublayer kinds of ``cfg`` that ``tp`` ranks hold whole, the rest
+    splitting: "attn" unless tp divides the query heads and ``Hkv`` and tp
+    divide one another, "ffn" (a dense FFN) unless tp divides ``d_ff``,
+    "rec" (a hybrid's RG-LRU) unless it divides ``d_rec``, "ssd" (an SSM)
+    unless it divides the SSD heads. MoE experts follow
+    ``experts_per_rank``; the vocabulary splits by shape."""
     if cfg.family == "ssm":
-        if ssd_heads(cfg) % tp:
-            raise later(f"{cfg.name}'s {ssd_heads(cfg)} SSD heads over tp{tp}, which does "
-                        "not divide them", 6)
-        return cfg
-    widths = ("num_heads",) if cfg.moe is not None else ("num_heads", "d_ff")
-    if cfg.family == "hybrid":
-        widths += ("d_rec",)
-    for name in widths:
-        if getattr(cfg, name) % tp:
-            raise later(f"{cfg.name}'s {name} {getattr(cfg, name)} over tp{tp}, which "
-                        "does not divide it", 6)
+        return ("ssd",) if ssd_heads(cfg) % tp else ()
+    H, hkv = cfg.num_heads, cfg.num_kv_heads
+    rep = ()
+    if H % tp or (hkv % tp and tp % hkv):
+        rep += ("attn",)
+    if cfg.moe is None and cfg.d_ff % tp:
+        rep += ("ffn",)
+    if cfg.family == "hybrid" and cfg.d_rec % tp:
+        rep += ("rec",)
+    return rep
+
+
+def kv_replicas(cfg, tp: int) -> int:
+    """How many ranks hold a copy of each KV head of a split attention: 1
+    where tp divides ``Hkv`` (each rank its ``Hkv / tp``), ``tp / Hkv``
+    where ``Hkv`` divides tp (each rank the one head its query heads
+    read); 1 where the attention is replicated (every rank all of them)."""
     hkv = cfg.num_kv_heads
-    if hkv % tp and tp % hkv:
-        raise later(f"{cfg.name}'s num_kv_heads {hkv} over tp{tp} (neither divides the "
-                    "other: the reference's sequence split)", 6)
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=max(hkv // tp, 1),
-                               d_ff=cfg.d_ff if cfg.moe is not None else cfg.d_ff // tp,
-                               d_rec=cfg.d_rec // tp)
+    if cfg.family == "ssm" or "attn" in replicated_kinds(cfg, tp):
+        return 1
+    return tp // hkv if hkv < tp and tp % hkv == 0 else 1
+
+
+def local_config(cfg, tp: int) -> RankConfig:
+    """The rank-local config (a ``RankConfig``): query heads and KV heads
+    over ``tp`` (or the one KV head a rank's query heads read where
+    ``Hkv`` divides tp), ``d_ff`` and a hybrid's ``d_rec`` over ``tp``,
+    each where it splits (``replicated_kinds``) and whole where it does
+    not. An MoE config keeps ``d_ff`` whole (every FFN is an expert, and
+    experts are not split by width) and ``moe.num_experts`` global (the
+    router reads all E). An SSM config keeps its fields: the rank-local
+    widths of split SSD heads come from the group (``models.ssm._dims``,
+    ``models.ssm.ssd_ranks``), since the config's fields mirror the
+    reference's."""
+    rep = replicated_kinds(cfg, tp)
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    if cfg.family != "ssm":
+        if "attn" not in rep:
+            fields.update(num_heads=cfg.num_heads // tp,
+                          num_kv_heads=max(cfg.num_kv_heads // tp, 1))
+        if cfg.moe is None and "ffn" not in rep:
+            fields["d_ff"] = cfg.d_ff // tp
+        if "rec" not in rep:
+            fields["d_rec"] = cfg.d_rec // tp
+    return RankConfig(**fields, tp=tp, replicated=rep)
 
 
 def tp_engine_parts(model, params, ctx, mesh, device):
@@ -276,7 +303,8 @@ def tp_engine_parts(model, params, ctx, mesh, device):
     cfg = model.cfg
     refuse_under_mesh(cfg)
     group = TPGroup.of(mesh)
-    lmodel = build_model(local_config(cfg, group.size), device, tp=group.size)
+    lc = local_config(cfg, group.size)
+    lmodel = build_model(lc, device)
     ctx = ctx if ctx is not None else Ctx()
     return lmodel, shard_params(params, cfg, lmodel, group), dataclasses.replace(ctx, tp=group)
 
@@ -285,12 +313,27 @@ def shard_params(params, cfg, lmodel, group: TPGroup):
     """The rank's shard of the whole (quantized) tree ``params`` of
     ``cfg``, checked against the rank-local model ``lmodel``: the
     target's weights, and a draft arm's (the same checkpoint quantized
-    again), placed alike."""
-    specs = param_specs(params, {"model": group.size}, fsdp_scope="none")
-    shard = shard_tree(params, specs, group.rank, {"model": group.size},
-                       kv_replicas=kv_replicas(cfg, group.size), recurrent=True)
-    _check_widths(shard, lmodel, cfg, group.size)
+    again), placed alike. A replicated sublayer's leaves come whole."""
+    tp = group.size
+    rep = replicated_kinds(cfg, tp)
+    specs = {path: () if _SUBLAYER_KIND.get(_sublayer(path)) in rep else spec
+             for path, spec in param_specs(params, {"model": tp}, fsdp_scope="none").items()}
+    shard = shard_tree(params, specs, group.rank, {"model": tp},
+                       kv_replicas=kv_replicas(cfg, tp),
+                       recurrent=not {"rec", "ssd"} & set(rep))
+    _check_widths(shard, lmodel, cfg, tp)
     return shard
+
+
+# the param dicts of each sublayer kind (``replicated_kinds``)
+_SUBLAYER_KIND = {"attn": "attn", "cross": "attn", "mlp": "ffn", "rglru": "rec", "ssm": "ssd"}
+
+
+def _sublayer(path: str) -> Optional[str]:
+    """The innermost param dict of ``_SUBLAYER_KIND`` a leaf's path runs
+    through, or None."""
+    found = re.findall(r"\['(attn|cross|mlp|rglru|ssm)'\]", path)
+    return found[-1] if found else None
 
 
 def experts_per_rank(cfg, tp: int) -> int:
@@ -301,11 +344,10 @@ def experts_per_rank(cfg, tp: int) -> int:
 
 
 def _check_widths(shard, lmodel, cfg, tp: int) -> None:
-    """Every projection of the shard has the local model's widths, every
-    expert stack ``E / tp`` experts (or all E, replicated) of the whole
-    widths, and every SSM and RG-LRU leaf its layout's (e) / (f) widths: a
-    weight that the reference's rules would replicate (a dim the mesh
-    does not divide) cannot serve in a split model."""
+    """Every projection of the shard has the local model's widths (a
+    replicated sublayer's whole), every expert stack ``E / tp`` experts
+    (or all E, replicated) of the whole widths, and every SSM and RG-LRU
+    leaf its layout's (e) / (f) widths, or whole where replicated."""
     lc = lmodel.cfg
     hd, d = lc.head_dim, cfg.d_model
     expect = {None: {"wq": (d, lc.num_heads * hd), "wk": (d, lc.num_kv_heads * hd),
@@ -316,7 +358,8 @@ def _check_widths(shard, lmodel, cfg, tp: int) -> None:
         expect["experts"] = {n: (e, d, ff) for n in ("w_gate", "w_up", "w_in")}
         expect["experts"].update({n: (e, ff, d) for n in ("w_down", "w_out")})
     if cfg.family == "ssm":
-        di, ds, nh = cfg.ssm.expand * d // tp, cfg.ssm.state_dim, ssd_heads(cfg) // tp
+        n = ssd_ranks(lc)
+        di, ds, nh = cfg.ssm.expand * d // n, cfg.ssm.state_dim, ssd_heads(cfg) // n
         expect["ssm"] = {"in_proj": (d, 2 * di + 2 * ds + nh), "out_proj": (di, d),
                          "conv_w": (4, di + 2 * ds)}
     if cfg.family == "hybrid":
@@ -333,7 +376,7 @@ def _check_widths(shard, lmodel, cfg, tp: int) -> None:
         mixer = next((m for m in ("experts", "ssm", "rglru") if m in keys[:-1]), None)
         want = expect.get(mixer, {}).get(name)
         if want is not None and tuple(node.shape[-len(want):]) != want:
-            raise later(f"{cfg.name}'s {'.'.join(keys)} {tuple(node.shape[-len(want):])} "
-                        f"does not split into the local widths {want}", 6)
+            raise ValueError(f"{cfg.name}'s {'.'.join(keys)} {tuple(node.shape[-len(want):])} "
+                             f"does not split into the local widths {want}")
 
     walk(shard, ())

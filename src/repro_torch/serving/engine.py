@@ -1434,9 +1434,11 @@ class ServeEngine:
 
     def _mini_cache(self, n: int, length: int, kv_dtype: str, batch):
         """A dense prefill cache for ``batch``; an enc-dec one holds the
-        batch's sources."""
+        batch's sources. A dense engine's is laid out as its batch cache
+        (a rank's block of the sequence, ``models.layers.seq_rows``); a
+        paged engine's is whole, since its pool is."""
         cross = {"enc_len": self._src_len(batch)} if self._enc_dec else {}
-        return self.model.init_cache(n, length, kv_dtype, **cross)
+        return self.model.init_cache(n, length, kv_dtype, seq_split=not self.paged, **cross)
 
     @torch.no_grad()
     def _admit(self, request: Request) -> None:

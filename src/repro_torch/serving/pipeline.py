@@ -277,9 +277,14 @@ def deploy(arch_or_cfg, policy: Union[str, QuantSpec] = "int4", *,
                  on its clock, and broadcast at each round boundary, so
                  every rank retires and retunes alike (a retune lands at
                  most a round later than on one device; the streams do
-                 not depend on it). A width that tp does not divide and a
-                 KV-head count that neither divides tp nor is divided by
-                 it raise (NotImplementedError, a later port slice).
+                 not depend on it). Any K serves: a sublayer whose width
+                 K does not divide (query heads, a KV-head count that
+                 neither divides K nor is divided by it, FFN columns,
+                 RG-LRU channels, SSD heads, experts) is replicated, run
+                 whole on every rank with no collective, and a
+                 replicated attention's dense self-attention cache
+                 splits its sequence where K divides it
+                 (``parallel.tp``).
     device:      None = "cuda" (raises without a card).
     """
     spec = resolve_spec(policy)

@@ -386,32 +386,24 @@ def test_generator_init_has_the_reference_shapes(arch):
 
 
 def test_unported_routes_raise(models):
-    """Only the rest of scale-out (port slice 6: the clock-driven arms
-    under a mesh, the composed stack's on_token and --metrics-port, the
-    sequence split for a KV-head count tp does not divide, a shard-first
-    deploy) is left unported: MoE expert parallelism, the audio mesh, the
-    SSM and hybrid meshes and the quantization arms under a mesh
-    (act-quantizing specs, calibration, adapters, a draft arm) have
-    landed, and both recurrent archs pass ``refuse_under_mesh`` at tp2 and
-    tp4. Every LM family
+    """Nothing is left unported: scale-out serves every family at every
+    tp from 1 to 8 (a width tp does not divide replicates; the sequence
+    split of dense KV caches), so no route raises ``NotImplementedError``
+    and the port names no later slice. Every LM family
     inits from a key and recomputes its layers under ``remat``: qwen's key
     init is the reference's (3e-7 relative, two f32 ulps), and for qwen
     and the MoE, SSM and hybrid variants of its config ``remat`` gives
     the same logits and the LM loss is finite. A family the LM stack does
     not know raises ValueError."""
-    from repro_torch import unported
+    import importlib.util
+    from repro_torch.configs import REGISTRY
     from repro_torch.configs.base import MoECfg, SSMCfg
     from repro_torch.train.steps import compute_loss
     from repro_torch.tree import leaves_with_path
     from repro_torch.parallel.tp import refuse_under_mesh
-    assert sorted(unported.SLICES) == [6]
-    for left in ("sequence split", "shard-first deploy"):
-        assert left in unported.SLICES[6], left
-    for landed in ("MoE", "audio", "SSM", "hybrid", "act-quantizing", "calibrat", "adapter",
-                   "draft", "sla=", "faults=", "deadline_ms", "on_token", "--metrics-port"):
-        assert landed not in unported.SLICES[6], landed
-    for arch in ("mamba2-780m", "recurrentgemma-9b"):
-        for tp in (2, 4):
+    assert importlib.util.find_spec("repro_torch.unported") is None
+    for arch in REGISTRY:
+        for tp in range(1, 9):
             refuse_under_mesh(get_config(arch), tp=tp)
     _, cfg, raw, _, _ = models["qwen2.5-14b"]
     want = dict(leaves_with_path(jax_to_torch(raw)))

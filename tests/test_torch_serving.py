@@ -215,21 +215,20 @@ class _Mesh:
     dict(mesh=_Mesh(2), arch="mamba2-780m", faults=FaultPlan(skew_at=[(1, 5.0)])),
     dict(mesh=_Mesh(3), calib_batches=[])])
 def test_unported_routes_raise(kwargs):
-    """Routes outside the ported slices raise, naming their slice: under a
-    mesh (slice 6) a width tp does not divide (the reduced nllb600m's 4
-    heads at tp3), before any build work. What reads the clock (SLA
-    admission, fault injection; beside an act-quantizing spec, a draft
-    arm, on the SSM family too) gets past every refusal to the rank's
-    group (the clock-driven arms under a mesh: tests/test_torch_tp_clock.py;
-    tensor-parallel serving itself:
+    """Every route deploys. Under a mesh a deploy gets past every check to
+    the rank's group: a width tp does not divide (the reduced nllb600m's 4
+    heads at tp3) replicates, and what reads the clock (SLA admission,
+    fault injection; beside an act-quantizing spec, a draft arm, on the
+    SSM family too) serves (the clock-driven arms under a mesh:
+    tests/test_torch_tp_clock.py; tensor-parallel serving itself:
     tests/test_torch_tp.py, the dense and VLM LMs
     tests/test_torch_tp_lm.py, the MoE and audio families
     tests/test_torch_tp_moe.py, the SSM and hybrid families
     tests/test_torch_tp_recurrent.py, the quantization arms
-    tests/test_torch_tp_quant.py). The
-    quantization routes (slice 3) deploy: act-quantizing and fp8-KV specs
-    and drafts and ``calib_batches`` build engines whose Ctx carries the
-    spec's activation formats and whose caches the KV format
+    tests/test_torch_tp_quant.py, any tp tests/test_torch_tp_uneven.py).
+    The quantization routes (slice 3) deploy: act-quantizing and fp8-KV
+    specs and drafts and ``calib_batches`` build engines whose Ctx
+    carries the spec's activation formats and whose caches the KV format
     (tests/test_torch_quant_routes.py, tests/test_torch_fp8_kv.py); SLA
     admission, tracing, overlapped rounds, faults, max_pending and draft
     arms are ported too."""
@@ -237,8 +236,7 @@ def test_unported_routes_raise(kwargs):
     policy = kw.pop("policy", "int4")
     arch = kw.pop("arch", "nllb600m")
     if "mesh" in kw:
-        with pytest.raises(_Reached if kw["mesh"].n == 2 else NotImplementedError,
-                           match=None if kw["mesh"].n == 2 else "port slice 6"):
+        with pytest.raises(_Reached):
             deploy(arch, policy, device="cpu", **kw)
         return
     with warnings.catch_warnings():

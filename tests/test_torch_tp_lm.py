@@ -64,6 +64,7 @@ from repro_torch.core.qtensor import QTensor  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.parallel import TPGroup, param_specs, shard_tree  # noqa: E402
+from repro_torch.models.layers import seq_rows  # noqa: E402
 from repro_torch.parallel.tp import kv_replicas, local_config, refuse_under_mesh  # noqa: E402
 from repro_torch.serving import deploy  # noqa: E402
 
@@ -407,15 +408,23 @@ def test_shard_tree_replicates_kv_heads_layout_d(tp, hkv):
 
 def test_kv_heads_that_tp_splits_or_replicates():
     """Hkv % tp == 0: Hkv / tp a rank; tp % Hkv == 0: one a rank, tp / Hkv
-    copies; any other pair raises slice 6 (the sequence split)."""
+    copies; any other pair replicates the attention: every rank holds all
+    48 query heads and the Hkv KV heads (no copies to place), while the
+    FFN, which tp divides, still splits, and a dense cache of 48
+    positions splits its sequence, 48 / tp rows a rank."""
     cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_heads=48, d_ff=13824 * 3)
     for hkv, tp, local, copies in ((8, 2, 4, 1), (8, 8, 1, 1), (2, 4, 1, 2), (1, 8, 1, 8)):
         c = dataclasses.replace(cfg, num_kv_heads=hkv)
         assert local_config(c, tp).num_kv_heads == local
+        assert local_config(c, tp).replicated == ()
         assert kv_replicas(c, tp) == copies
     for hkv, tp in ((6, 4), (2, 3), (4, 6)):
-        with pytest.raises(NotImplementedError, match="port slice 6.*sequence split"):
-            refuse_under_mesh(dataclasses.replace(cfg, num_kv_heads=hkv), tp=tp)
+        c = dataclasses.replace(cfg, num_kv_heads=hkv)
+        refuse_under_mesh(c, tp=tp)
+        lc = local_config(c, tp)
+        assert (lc.num_heads, lc.num_kv_heads, lc.d_ff) == (48, hkv, 13824 * 3 // tp)
+        assert (lc.tp, lc.replicated, kv_replicas(c, tp)) == (tp, ("attn",), 1)
+        assert seq_rows(lc, 48) == 48 // tp and seq_rows(lc, 50) == 50
 
 
 class _Reached(Exception):
@@ -439,25 +448,21 @@ class _StubMesh:
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "nllb600m-moe", "mamba2-780m",
                                   "recurrentgemma-9b", "whisper-base"])
-def test_families_left_for_slice_6_raise(arch):
-    """Every family passes at tp2, as the dense and VLM LMs do: the MoE
-    families (expert parallelism), whisper-base (the audio mesh) and the
-    SSM and hybrid families (mamba2-780m's 48 SSD heads, the hybrid's 16
-    heads and d_rec 4096 split at tp2 and tp4), and so does an
-    act-quantizing spec: a w8a8 deploy of the reduced arch on a tp2 mesh
-    reaches the rank's group (the quantization arms under a mesh,
-    tests/test_torch_tp_quant.py). What stays in slice 6 still raises for
-    each: the arch's query heads (SSD heads) at tp5 (a width tp does not
-    divide: the sequence split), and gemma3-1b's 4 query heads at tp8; ``sla=`` under
-    a mesh serves (tests/test_torch_tp_clock.py)."""
-    refuse_under_mesh(get_config(arch), tp=2)
-    if arch in ("mamba2-780m", "recurrentgemma-9b"):
-        refuse_under_mesh(get_config(arch), tp=4)
+def test_families_reach_the_group_at_any_tp(arch):
+    """Every family passes at every tp from 1 to 8, as the dense and VLM
+    LMs do: the MoE families (expert parallelism), whisper-base (the audio
+    mesh) and the SSM and hybrid families, whatever tp divides or not
+    (a width tp does not divide replicates). A w8a8 deploy of the
+    reduced arch reaches the rank's group on a tp2 and a tp5 mesh, and so
+    does gemma3-1b (4 query heads) on a tp8 one; ``sla=`` under a mesh
+    serves (tests/test_torch_tp_clock.py)."""
+    for tp in range(1, 9):
+        refuse_under_mesh(get_config(arch), tp=tp)
+        for served in KV:
+            refuse_under_mesh(get_config(served), tp=tp)
+    for tp in (2, 5):
+        with pytest.raises(_Reached):
+            deploy(arch, "w8a8", smoke=True, device="cpu", mesh=_StubMesh(tp))
     with pytest.raises(_Reached):
-        deploy(arch, "w8a8", smoke=True, device="cpu", mesh=_StubMesh(2))
-    with pytest.raises(NotImplementedError, match="over tp5.*port slice 6"):
-        refuse_under_mesh(get_config(arch), tp=5)
-    with pytest.raises(NotImplementedError, match="num_heads 4 over tp8.*port slice 6"):
-        refuse_under_mesh(get_config("gemma3-1b"), tp=8)
-    for served in KV:
-        refuse_under_mesh(get_config(served), tp=2)
+        deploy("gemma3-1b", "w8a8", smoke=True, device="cpu", mesh=_StubMesh(8))
+    assert local_config(get_config("gemma3-1b"), 8).replicated == ("attn",)

@@ -1,7 +1,7 @@
 """Rank bodies for the tensor-parallel tests (tests/test_torch_tp.py,
 tests/test_torch_tp_lm.py, tests/test_torch_tp_moe.py,
 tests/test_torch_tp_recurrent.py, tests/test_torch_tp_quant.py,
-tests/test_torch_tp_clock.py).
+tests/test_torch_tp_clock.py, tests/test_torch_tp_uneven.py).
 
 They run in processes that ``repro_torch.cluster.launch_ranks`` spawns,
 so they live in a module of their own that imports torch and the port
@@ -12,9 +12,10 @@ audio grids (nllb600m-moe, whisper-base, olmoe-1b-7b,
 moonshot-v1-16b-a3b), the recurrent grids (mamba2-780m,
 recurrentgemma-9b), the quantization arms (act-quantizing, calibrated,
 adapted and draft-armed engines), a preempting engine and the arms that
-read a clock (faults, deadlines, SLA admission, clocks that disagree), or
-its share of a composed dp x tp stack (``on_token``, a metrics snapshot
-scraped over HTTP).
+read a clock (faults, deadlines, SLA admission, clocks that disagree),
+every family at a tp that does not divide its widths, or its share of a
+composed dp x tp stack (``on_token``, a metrics snapshot scraped over
+HTTP).
 """
 
 import contextlib
@@ -581,3 +582,76 @@ def stack_clock(rank, world, device, params_np, prompts, sps, zero):
             "first": [first.get(i) for i in range(len(gids))],
             "finished": [finished[g] for g in gids], "rounds": rounds[0],
             "group": router.group, "sla": sla_state(router.own.sla), "scrapes": scrapes}
+
+
+# any tp (tests/test_torch_tp_uneven.py): each case is (name, arch, spec,
+# paged, horizon, max_len, prompt set)
+UNEVEN_KW = dict(slots=2, ctx=CTX, page_size=4)
+
+
+def uneven_config(arch: str):
+    """The reduced config of ``arch``; recurrentgemma-9b's window is 6,
+    so that tp3 divides its rolling buffer."""
+    cfg = reduce_config(get_config(arch))
+    return dataclasses.replace(cfg, local_window=6) if arch == "recurrentgemma-9b" else cfg
+
+
+def kv_rows(cache):
+    """The sequence rows of a dense cache's self-attention K leaf (a
+    hybrid's rolling buffer), or None (an SSM's states, a paged pool)."""
+    if "block_tables" in cache:
+        return None
+    k = next((cache[n] for n in ("k_codes", "k", "b_k") if n in cache), None)
+    return None if k is None else k.shape[2]
+
+
+def decode_collectives(eng):
+    """Count the sums and maxes of ``eng``'s group made inside its decode
+    loops (its prefills' collectives apart). Returns the count, filled as
+    the engine runs."""
+    grp, n = eng.ctx.tp, {"collectives": 0}
+    live = [False]
+    real_sum, real_max, real_loop = grp._sum, grp._max, eng._decode_loop
+
+    def _sum(y):
+        n["collectives"] += live[0]
+        return real_sum(y)
+
+    def _max(y):
+        n["collectives"] += live[0]
+        return real_max(y)
+
+    def loop(*a, **kw):
+        live[0] = True
+        try:
+            return real_loop(*a, **kw)
+        finally:
+            live[0] = False
+
+    grp._sum, grp._max, eng._decode_loop = _sum, _max, loop
+    return n
+
+
+def uneven_grid(rank, world, device, params_np, cases, prompts):
+    """Every case deployed with ``mesh=tp_mesh(world)`` on this rank's
+    shard of ``params_np[arch]`` (``uneven_config``), its greedy and
+    sampled grids served on ``prompts[set]``; per case the rank-local
+    config's replicated kinds and widths, the cache's sequence rows, and
+    the collectives a decode step took."""
+    mesh = tp_mesh(world)
+    out = {"grids": {}, "layout": {}}
+    for name, arch, spec, paged, horizon, max_len, which in cases:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # an act spec's dynamic fallback
+            pipe = deploy(uneven_config(arch), spec, mesh=mesh, device=device,
+                          params=from_numpy_tree(params_np[arch], "cpu"), paged=paged,
+                          horizon=horizon, max_len=max_len, **UNEVEN_KW)
+        eng = pipe.engine
+        n, steps = decode_collectives(eng), eng.decode_steps
+        out["grids"][name] = lm_grids(pipe, lm_prompts(prompts[which]))
+        lc = eng.model.cfg
+        out["layout"][name] = {
+            "replicated": lc.replicated, "rows": kv_rows(eng.cache),
+            "widths": (lc.num_heads, lc.num_kv_heads, lc.d_ff, lc.d_rec),
+            "per_step": n["collectives"] / (eng.decode_steps - steps)}
+    return out
